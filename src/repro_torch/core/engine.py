@@ -1,0 +1,435 @@
+"""Execution-plan engine: resolve once, run anywhere (counterpart of
+``repro.core.engine``, distance kind).
+
+``plan(x, ...) -> PaldPlan``
+    Performs every resolution exactly once (device, impl, tiles, weight
+    functional, knob validation, input shape checks) and returns a frozen,
+    reusable plan.
+
+``PaldPlan.execute(x)``
+    The single dispatch path: moves ``x`` to the plan's device, checks it,
+    looks the resolved ``(kind, method, schedule)`` up in the EXECUTOR
+    REGISTRY and runs it.  Batched ``(B, n, n)`` input runs item by item.
+
+``register_executor(kind, method, schedule)``
+    How ``core/pairwise`` and ``kernels/ops`` contribute their callables.
+
+``PaldPlan.explain()``
+    The resolved knobs as a plain dict.
+
+Device rule: ``device`` defaults to ``"cuda"``; the CPU is used only when
+the caller passes ``device="cpu"``.  Without a GPU the default raises; it
+never carries on on the CPU.
+
+Knobs of the reference that later slices of the port bring (ROADMAP.md,
+queue 1) raise ``NotImplementedError`` naming their slice; none is
+silently dropped.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .weights import (DEFAULT_TIES, WeightFunctional, registered_weights,
+                      resolve_weight, validate_ties)
+
+__all__ = [
+    "PaldPlan",
+    "plan",
+    "register_executor",
+    "get_executor",
+    "pad_distance_matrix",
+    "run_batched",
+    "resolve_device",
+]
+
+DISTANCE_METHODS = ("dense", "pairwise", "kernel")
+SCHEDULES = ("dense", "tri")
+
+# methods whose executors take an impl= knob; the plain blocked paths have
+# exactly one implementation, so an explicit impl request there is an error
+_IMPL_METHODS = ("kernel",)
+
+# where each unported knob of the reference lands (ROADMAP.md, queue 1)
+_SLICE = {
+    "auto": "method='auto' needs the measured crossover of the tuning "
+            "cache (ROADMAP.md queue 1, item 9: tuning)",
+    "triplet": "method='triplet' is the block-symmetric slice (ROADMAP.md "
+               "queue 1, item 4)",
+    "tri": "schedule='tri' is the upper-triangular slice (ROADMAP.md queue "
+           "1, item 4)",
+    "knn": "method='knn' / k= is the sparse k-NN slice (ROADMAP.md queue 1, "
+           "item 6)",
+    "features": "kind='features' is the fused features slice (ROADMAP.md "
+                "queue 1, item 5)",
+    "block_auto": "block='auto' / block_z='auto' need the tuning cache "
+                  "(ROADMAP.md queue 1, item 9: tuning)",
+    "fallback": "on_error='fallback' is the guarded-execution slice "
+                "(ROADMAP.md queue 1, item 8: resilience)",
+    "mesh": "mesh= / strategy= are the distributed slice (ROADMAP.md queue "
+            "1, item 10)",
+    "select": "select= / select_block= / select_tile= configure the k-NN "
+              "selection stage (ROADMAP.md queue 1, item 6)",
+}
+
+
+def resolve_device(device) -> torch.device:
+    """The plan's device.  A CUDA device without a GPU raises: the port
+    never carries on on the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but no CUDA GPU is available; pass "
+            "device='cpu' to run the plain torch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (expected 'cuda' "
+                         "or 'cpu')")
+    return dev
+
+
+def pad_distance_matrix(
+    D: torch.Tensor, block: int, *, dtype=torch.float32
+) -> tuple[torch.Tensor, int]:
+    """Pad D to a multiple of ``block`` with +inf off-diagonal, 0 diagonal.
+
+    Padded points are infinitely far from everything: they never enter a
+    real pair's local focus (inf < d is false) and contribute to padded
+    rows of C only.  The input is cast to ``dtype`` (float32) *here*, the
+    pipeline's one explicit downcast point.
+    """
+    D = D.to(dtype)
+    n = D.shape[0]
+    m = -(-n // block) * block
+    if m == n:
+        return D, n
+    P = torch.full((m, m), float("inf"), dtype=D.dtype, device=D.device)
+    P[:n, :n] = D
+    P.fill_diagonal_(0.0)
+    return P, n
+
+
+# ---------------------------------------------------------------------------
+# executor registry
+# ---------------------------------------------------------------------------
+_EXECUTORS: dict[tuple[str, str, str], Callable] = {}
+
+
+def register_executor(kind: str, method: str, schedule: str = "dense"):
+    """Decorator: contribute the executor for one (kind, method, schedule)
+    cell.  The callable receives ``(x, plan)`` with ``x`` one UNBATCHED
+    item on the plan's device and owns the per-item pipeline: cast, pad,
+    compute, slice, normalize."""
+
+    def deco(fn):
+        _EXECUTORS[(kind, method, schedule)] = fn
+        return fn
+
+    return deco
+
+
+def _load_contributors() -> None:
+    """Import the modules that register the default executors (deferred so
+    importing the engine stays cheap and cycle-free)."""
+    from repro_torch.core import pairwise  # noqa: F401
+    from repro_torch.kernels import ops  # noqa: F401
+
+
+def get_executor(kind: str, method: str, schedule: str) -> Callable:
+    key = (kind, method, schedule)
+    if key not in _EXECUTORS:
+        _load_contributors()
+    if key not in _EXECUTORS:
+        raise KeyError(f"no executor registered for {key}; known cells: "
+                       f"{sorted(_EXECUTORS)}")
+    return _EXECUTORS[key]
+
+
+def run_batched(fn, x, plan: "PaldPlan"):
+    """Run executor ``fn`` over ``x``: 2-D input straight through, 3-D
+    input one item at a time (the reference vmaps chunks of ``batch``
+    items; here items run in turn, so peak memory is one item's)."""
+    if x.ndim == 2:
+        return fn(x, plan)
+    return torch.stack([fn(xi, plan) for xi in x])
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PaldPlan:
+    """Frozen result of one resolution pass: everything an executor needs.
+    Build with ``plan(...)``; a plan is reusable for any input matching its
+    item shape."""
+
+    kind: str                     # "distance"
+    method: str                   # "dense" | "pairwise" | "kernel"
+    schedule: str                 # "dense"
+    impl: str | None              # kernel impl ("cuda" | "torch"); None
+    #                               for the one-impl paths
+    block: int | None             # None for the un-blocked dense method
+    block_z: int | None           # z tile; None = executor default
+    z_chunk: int | None           # dense-method z streaming chunk
+    ties: str                     # the weight functional's name
+    normalize: bool
+    batch: int | None             # accepted for the reference's surface
+    check: bool                   # deep input validation on execute
+    n: int                        # per-item point count
+    device: torch.device
+    weight: WeightFunctional | None = None
+    method_source: str = "explicit"
+    block_source: str = "explicit"
+
+    def execute(self, x) -> torch.Tensor:
+        """Run the planned pipeline on ``x`` (numpy array or tensor), one
+        item (n, n) or a batch (B, n, n), on the plan's device."""
+        x = torch.as_tensor(x, device=self.device)
+        _check_input(x, self)
+        fn = get_executor(self.kind, self.method, self.schedule)
+        return run_batched(fn, x, self)
+
+    @property
+    def padded_n(self) -> int:
+        """Per-item extent after the engine-level pad to a block multiple."""
+        if self.block is None:
+            return self.n
+        return -(-self.n // self.block) * self.block
+
+    def explain(self) -> dict[str, Any]:
+        """The resolved plan as a plain dict (the debuggability surface)."""
+        fn = get_executor(self.kind, self.method, self.schedule)
+        return {
+            "kind": self.kind,
+            "method": self.method,
+            "schedule": self.schedule,
+            "impl": self.impl,
+            "device": str(self.device),
+            "block": self.block,
+            "block_z": self.block_z,
+            "z_chunk": self.z_chunk,
+            "ties": self.ties,
+            "weight": self.weight.name if self.weight else self.ties,
+            "weight_properties": (self.weight.properties()
+                                  if self.weight else None),
+            "normalize": self.normalize,
+            "batch": self.batch,
+            "n": self.n,
+            "padded_n": self.padded_n,
+            "padded_shape": (self.padded_n, self.padded_n),
+            "method_source": self.method_source,
+            "block_source": self.block_source,
+            "executor": f"{fn.__module__}.{fn.__qualname__}",
+        }
+
+
+# ---------------------------------------------------------------------------
+# input validation
+# ---------------------------------------------------------------------------
+def _item_shape_checks(x, p: PaldPlan) -> None:
+    if x.ndim not in (2, 3):
+        raise ValueError(
+            f"D must be (n, n) or (B, n, n), got shape {tuple(x.shape)}")
+    if x.shape[-1] != x.shape[-2]:
+        raise ValueError(
+            f"distance matrix must be square, got shape {tuple(x.shape)}")
+    if tuple(x.shape[-2:]) != (p.n, p.n):
+        raise ValueError(
+            f"input item shape {tuple(x.shape[-2:])} does not match the "
+            f"plan's {(p.n, p.n)}; build a new plan for a new problem size")
+
+
+def _check_input(x, p: PaldPlan) -> None:
+    """Cheap always-on checks plus the opt-in deep ones (``check=True``),
+    all computed on the plan's device."""
+    _item_shape_checks(x, p)
+    # always-on O(n) check: a nonzero (or nan) diagonal means the input is
+    # not a self-distance matrix; every padding and focus invariant assumes
+    # d(x, x) == 0
+    diag = torch.diagonal(x, dim1=-2, dim2=-1)
+    if not bool((diag == 0).all()):
+        raise ValueError(
+            "distance matrix diagonal must be exactly 0 "
+            f"(got max |diag| = {float(diag.abs().nan_to_num(0.0).max())!r}; "
+            "nan counts as nonzero); pass distances with d(x, x) = 0")
+    if not p.check:
+        return
+    if not bool(torch.isfinite(x).all()):
+        raise ValueError("distance matrix contains non-finite entries "
+                         "(nan/inf)")
+    if bool((x < 0).any()):
+        raise ValueError("distance matrix contains negative entries; "
+                         "PaLD consumes the order of nonnegative distances")
+    if not torch.equal(x, x.transpose(-1, -2)):
+        raise ValueError("distance matrix is not symmetric (exact equality "
+                         "is required: PaLD compares d_xz against d_zx's "
+                         "role symmetrically)")
+
+
+# ---------------------------------------------------------------------------
+# resolution
+# ---------------------------------------------------------------------------
+def _shape_of(x, n):
+    if x is not None:
+        shape = tuple(np.shape(x))
+        if len(shape) not in (2, 3):
+            raise ValueError(f"D must be (n, n) or (B, n, n), got shape "
+                             f"{shape}")
+        if shape[-2] != shape[-1]:
+            raise ValueError(
+                f"distance matrix must be square, got shape {shape}")
+        return shape[-1]
+    if n is None:
+        raise ValueError("plan() needs either an input array or n=")
+    return int(n)
+
+
+def _resolve_weight_knob(ties, weight) -> WeightFunctional:
+    """Resolve the ``ties=``/``weight=`` knob pair to ONE functional; both
+    given and naming different functionals is a contradiction."""
+    if weight is None:
+        if ties is None:
+            return resolve_weight(DEFAULT_TIES)
+        validate_ties(ties)
+        return resolve_weight(ties)
+    w = resolve_weight(weight)
+    if ties is not None:
+        validate_ties(ties)
+        tie_name = getattr(ties, "name", ties)
+        if tie_name != w.name:
+            raise ValueError(
+                f"contradictory ties={tie_name!r} and weight={w.name!r}; "
+                "ties= is sugar for the built-in modes — drop it, or pass "
+                f"the matching one (registered weight functionals: "
+                f"{registered_weights()})")
+    return w
+
+
+def plan(
+    x=None,
+    *,
+    kind: str = "distance",
+    n: int | None = None,
+    d: int | None = None,
+    method: str = "auto",
+    schedule: str = "dense",
+    block: int | str | None = None,
+    block_z: int | str | None = None,
+    z_chunk: int | None = None,
+    metric: str | None = None,
+    normalize: bool = True,
+    impl: str | None = None,
+    ties: str | None = None,
+    weight=None,
+    batch: int | None = None,
+    check: bool = False,
+    k: int | None = None,
+    on_error: str = "raise",
+    select: str | None = None,
+    select_block: int | str | None = None,
+    select_tile: int | str | None = None,
+    mesh=None,
+    strategy: str | None = None,
+    device="cuda",
+) -> PaldPlan:
+    """Resolve every knob exactly once and return a frozen ``PaldPlan``.
+
+    ``x`` (or ``n=``) fixes the per-item problem size.  The knobs mean what
+    they mean in ``repro.core.engine.plan``; ``device`` ("cuda" by default,
+    or "cpu") is where the plan runs, and ``impl`` ("cuda" or "torch", the
+    kernel method only) defaults to the device's: the CUDA kernels on a
+    GPU, the plain torch versions on the CPU.  ``impl="torch"`` on a GPU
+    runs the plain versions there; ``impl="cuda"`` on the CPU goes through
+    the kernel wrappers, which take the plain versions for CPU tensors.
+
+    Raises:
+        RuntimeError: ``device="cuda"`` without a GPU.
+        ValueError: contradictory or unknown knobs.
+        NotImplementedError: a knob of a later slice of the port (the
+            message names the ROADMAP.md slice).
+    """
+    dev = resolve_device(device)
+    weight = _resolve_weight_knob(ties, weight)
+    ties = weight.name
+    if kind == "features":
+        raise NotImplementedError(_SLICE["features"])
+    if kind != "distance":
+        raise ValueError(f"unknown kind {kind!r} "
+                         "(expected 'distance' or 'features')")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if on_error == "fallback":
+        raise NotImplementedError(_SLICE["fallback"])
+    if on_error != "raise":
+        raise ValueError(f"unknown on_error {on_error!r} (expected 'raise' "
+                         "or 'fallback')")
+    if mesh is not None or strategy is not None:
+        raise NotImplementedError(_SLICE["mesh"])
+    if select is not None or select_block is not None or select_tile is not None:
+        raise NotImplementedError(_SLICE["select"])
+    if metric is not None:
+        raise ValueError("metric= only applies to kind='features' "
+                         "(a distance matrix already fixed it)")
+    if d is not None:
+        raise ValueError("d= only applies to kind='features'")
+    n = _shape_of(x, n)
+    if batch is not None and batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+
+    if method == "auto":
+        raise NotImplementedError(_SLICE["auto"])
+    if method == "triplet":
+        raise NotImplementedError(_SLICE["triplet"])
+    if method == "knn" or k is not None:
+        raise NotImplementedError(_SLICE["knn"])
+    if method not in DISTANCE_METHODS:
+        raise ValueError(f"unknown method {method!r} for kind={kind!r} "
+                         f"(expected one of {DISTANCE_METHODS})")
+    if schedule == "tri":
+        if method != "kernel":
+            raise ValueError(
+                f"schedule='tri' is only available for method='kernel', got "
+                f"method={method!r}; pass method='kernel' or drop schedule=")
+        raise NotImplementedError(_SLICE["tri"])
+    if block == "auto" or block_z == "auto":
+        raise NotImplementedError(_SLICE["block_auto"])
+
+    # -- impl --------------------------------------------------------------
+    if method in _IMPL_METHODS:
+        from repro_torch.kernels.ops import IMPLS, default_impl
+
+        impl = impl or default_impl(dev)
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r} (expected one of "
+                             f"{IMPLS})")
+    elif impl is not None:
+        raise ValueError(
+            f"impl={impl!r} is only configurable for the kernel pipeline; "
+            f"method={method!r} has exactly one implementation")
+
+    # -- per-method knob surface -------------------------------------------
+    if z_chunk is not None and method != "dense":
+        raise ValueError(
+            f"z_chunk= only applies to method='dense', got method="
+            f"{method!r}; drop z_chunk= or pass method='dense'")
+    common = dict(kind=kind, method=method, schedule=schedule, impl=impl,
+                  ties=ties, weight=weight, normalize=normalize, batch=batch,
+                  check=check, n=n, device=dev)
+    if method == "dense":
+        if block_z is not None:
+            raise ValueError("block_z= does not apply to method='dense' "
+                             "(it has no z tile; use z_chunk=)")
+        return PaldPlan(block=None, block_z=None, z_chunk=z_chunk,
+                        block_source="n/a", **common)
+    if method == "pairwise" and block_z is not None:
+        raise ValueError("block_z= does not apply to method='pairwise' (the "
+                         "blocked plain path streams the full z axis per "
+                         "block pair)")
+    block_source = "explicit"
+    if block is None:
+        block, block_source = 128, "default"
+    return PaldPlan(block=int(block),
+                    block_z=None if block_z is None else int(block_z),
+                    z_chunk=None, block_source=block_source, **common)

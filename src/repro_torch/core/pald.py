@@ -1,0 +1,122 @@
+"""Public PaLD API of the PyTorch/CUDA port: thin facades over the
+execution-plan engine (counterpart of ``repro.core.pald``).
+
+    from repro_torch.core import pald
+    C = pald.cohesion(D, method="kernel")     # CUDA kernels (dense grid)
+    C = pald.cohesion(D, method="pairwise")   # blocked plain torch (Fig. 5)
+    C = pald.cohesion(D, method="dense")      # un-blocked plain torch
+    C = pald.cohesion(Db, method="kernel")    # batched: (B, n, n) -> (B, n, n)
+    C = pald.cohesion(D, method="kernel", device="cpu")  # plain torch on CPU
+
+    p = pald.plan(D, method="kernel")         # resolve once ...
+    C = p.execute(D)                          # ... run (and re-run)
+    p.explain()                               # what resolved
+
+Every knob is resolved once by ``pald.plan`` (``core/engine.py``);
+``cohesion`` is ``plan(...).execute(D)``.  ``device`` defaults to "cuda":
+the input (numpy array or tensor) moves there, and without a GPU the
+default raises.  The CPU runs only when the caller passes ``device="cpu"``.
+
+Inputs of any size are padded internally to a block multiple with +inf
+distances; padded points land outside every local focus and contribute
+nothing.  Every entry point casts its input to float32 once at the executor
+boundary and returns float32 on the plan's device.
+"""
+from __future__ import annotations
+
+import torch
+
+from .engine import PaldPlan, pad_distance_matrix  # noqa: F401
+from .engine import plan as _engine_plan
+from .weights import (  # noqa: F401
+    DEFAULT_TIES,
+    TIE_MODES,
+    WeightFunctional,
+    register_weight,
+    registered_weights,
+    validate_ties,
+)
+
+__all__ = ["cohesion", "plan", "local_depths", "pad_distance_matrix",
+           "PaldPlan", "WeightFunctional", "register_weight",
+           "registered_weights"]
+
+
+def plan(x=None, **kwargs) -> PaldPlan:
+    """Resolve a PaLD execution plan exactly once.
+
+    Args:
+        x: optional (n, n) / (B, n, n) distance matrix the plan is keyed
+            on; omit it and pass ``n=`` for shape-only planning.
+        **kwargs: every knob of ``cohesion`` plus ``n``; full semantics in
+            ``repro_torch.core.engine.plan``.
+
+    Returns:
+        A frozen ``PaldPlan``: ``execute(x)`` runs it, ``explain()`` reports
+        every resolved knob.
+    """
+    return _engine_plan(x, **kwargs)
+
+
+def cohesion(
+    D,
+    *,
+    method: str = "auto",
+    block: int | str | None = None,
+    block_z: int | str | None = None,
+    schedule: str = "dense",
+    normalize: bool = True,
+    z_chunk: int | None = None,
+    impl: str | None = None,
+    ties: str | None = None,
+    weight: str | WeightFunctional | None = None,
+    batch: int | None = None,
+    check: bool = False,
+    k: int | None = None,
+    on_error: str = "raise",
+    device="cuda",
+) -> torch.Tensor:
+    """Compute the PaLD cohesion matrix C from a distance matrix D.
+
+    Args:
+        D: (n, n) distance matrix with an exactly-zero diagonal, or a
+            batched (B, n, n) stack; numpy array or tensor, any float dtype.
+        method: "kernel" (the CUDA kernel pipeline), "pairwise" (blocked
+            Fig. 5), or "dense" (un-blocked).  "auto", "triplet" and "knn"
+            are later slices of the port and raise ``NotImplementedError``.
+        block: tile of the engine's +inf pad for the blocked paths
+            (default 128).  ``method="dense"`` has no tile.
+        block_z: z chunk of the kernel pipeline's plain version.
+        schedule: "dense" ("tri" is a later slice).
+        normalize: apply the 1/(n-1) factor (Eq. 3.3); on by default.
+        z_chunk: third-point streaming chunk (dense method only).
+        impl: "cuda" (hand-written kernels) or "torch" (plain versions);
+            kernel method only; default: the device's.
+        ties: 'drop' (default), 'split' or 'ignore' — what an exact
+            distance tie means; sugar for ``weight=``.
+        weight: a registered weight-functional name or a
+            ``WeightFunctional`` (``core/weights.py``).  The CUDA kernels
+            run the built-in families; a user-registered functional runs on
+            the plain paths only.
+        batch: accepted for the reference's surface (items run in turn).
+        check: add deep input validation (finite, symmetric, nonnegative).
+        k: the k-NN slice's knob; raises ``NotImplementedError``.
+        on_error: "raise" ("fallback" is a later slice).
+        device: "cuda" (default) or "cpu".
+
+    Returns:
+        C as float32 on ``device``, shaped like D.
+    """
+    p = _engine_plan(
+        D, kind="distance", method=method, schedule=schedule, block=block,
+        block_z=block_z, z_chunk=z_chunk, normalize=normalize, impl=impl,
+        ties=ties, weight=weight, batch=batch, check=check, k=k,
+        on_error=on_error, device=device,
+    )
+    return p.execute(D)
+
+
+def local_depths(C: torch.Tensor) -> torch.Tensor:
+    """Local depths from a cohesion matrix: (..., n) row sums of C.  With
+    ``normalize=True`` upstream, ``sum(l) == n/2``."""
+    return torch.sum(C, dim=-1)

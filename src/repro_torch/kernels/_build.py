@@ -1,0 +1,113 @@
+"""Build the package's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface.  All sources are
+compiled together, one ``nvcc`` process each, the first time any kernel is
+needed in a process.  The libraries go to ``build/kernels/<hash>/`` at the
+root of the checkout (git-ignored), keyed by a hash of every source and the
+flags, so an edited source rebuilds and an unchanged one is reused.
+
+No ``--use_fast_math``: it would change division and flush denormals, and
+the kernels are held to the plain torch versions.  Every C entry point
+returns ``cudaGetLastError()`` after its launch; :func:`check` raises when
+that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["load", "check", "CSRC", "BUILD_ROOT"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("pald_focus", "pald_cohesion")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+# argument types of each C entry point (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "pald_focus": ("pald_focus_f32",
+                   (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32, _P)),
+    "pald_cohesion": ("pald_cohesion_f32",
+                      (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                       _I32, _F32, _F32, _P)),
+}
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels are built at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build_all(out: Path) -> None:
+    """Compile every source that has no library yet, all nvcc at once."""
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in SOURCES:
+        lib = out / f"lib{name}.so"
+        if lib.exists():
+            continue
+        # write to a private name first: a concurrent process sees either
+        # no library or a complete one
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
+        os.close(fd)
+        cmd = [nvcc, *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for lib, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+        else:
+            os.unlink(tmp)
+            errors.append(f"{lib.name}:\n{log}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
+def load(name: str):
+    """The C entry point of ``csrc/<name>.cu``, building all sources on the
+    first call of the process."""
+    with _lock:
+        if not _loaded:
+            out = BUILD_ROOT / _digest()
+            _build_all(out)
+            for src, (sym, argtypes) in SIGNATURES.items():
+                fn = getattr(ctypes.CDLL(str(out / f"lib{src}.so")), sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _loaded[src] = fn
+        return _loaded[name]
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

@@ -1,0 +1,114 @@
+"""PaLD pass 2, cohesion accumulation: the CUDA kernel's wrapper and its
+plain torch version.
+
+    C[x, z] = sum_y support_weight(DXZ[x, z], DYZ[y, z], DXY[x, y]) * W[x, y]
+
+The kernel (``csrc/pald_cohesion.cu``) replaces the TPU kernel
+``repro/kernels/pald_cohesion.py::cohesion_general_pallas``.  It is bound
+by the FP32 pipe (n^3 triples, ~4 lane instructions each, against 5 n^2
+floats of memory traffic), so it is register-blocked: a 64 x 64 (x, z) C
+tile per thread block, 4 x 4 outputs per thread with their DXZ values in
+registers, y streamed through shared memory with DYZ, DXY and W.  The
+source note in the ``.cu`` file has the details.
+
+Functionals that declare ``needs_index_tiebreak`` (``ignore``) need the
+global "x index > y index" predicate: either an explicit (mx, my) bool
+``xwins`` (callers whose row identities are data) or static ``xw_offsets
+= (row_off, col_off)`` from which it is derived per tile (the square case
+passes (0, 0)).
+
+:func:`cohesion_general_cuda` dispatches on the tensors' device: CUDA
+tensors launch the kernel (or raise), CPU tensors take
+:func:`cohesion_general_torch`, the counterpart of the reference's
+``ops._cohesion_general_jnp``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.weights import (DEFAULT_TIES, index_xwins, kernel_spec,
+                                      resolve_weight, support_weight)
+
+from . import _build
+from .pald_focus import adaptive_chunk, check_operands
+
+__all__ = ["cohesion_general_cuda", "cohesion_general_torch"]
+
+
+def _require_tiebreak(wfun, xwins, xw_offsets):
+    if wfun.needs_index_tiebreak and xwins is None and xw_offsets is None:
+        raise ValueError(f"weight {wfun.name!r} needs xwins or xw_offsets "
+                         "(global-index tiebreak)")
+
+
+def cohesion_general_torch(DXZ, DYZ, DXY, W, xwins=None, *, chunk: int = 128,
+                           ties=DEFAULT_TIES, xw_offsets=None) -> torch.Tensor:
+    """Plain torch C (mx, mz), y in chunks (any device).  The explicit
+    ``xwins`` wins over ``xw_offsets`` when both are given."""
+    wfun = resolve_weight(ties)
+    _require_tiebreak(wfun, xwins, xw_offsets)
+    mx, mz = DXZ.shape
+    my = DYZ.shape[0]
+    c = adaptive_chunk(mx, mz, chunk)
+    C = torch.zeros((mx, mz), dtype=torch.float32, device=DXZ.device)
+    own_d = DXZ[:, None, :]
+    for s in range(0, my, c):
+        e = min(s + c, my)
+        own = None
+        if wfun.needs_index_tiebreak:
+            own = (xwins[:, s:e, None] if xwins is not None
+                   else index_xwins(xw_offsets[0], mx, xw_offsets[1] + s,
+                                    e - s, device=DXZ.device)[:, :, None])
+        g = support_weight(own_d, DYZ[None, s:e, :], DXY[:, s:e, None], wfun,
+                           own)
+        C += torch.einsum("xyz,xy->xz", g, W[:, s:e])
+    return C
+
+
+def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
+                          xw_offsets=None) -> torch.Tensor:
+    """C (mx, mz) through the CUDA kernel for CUDA tensors, through
+    :func:`cohesion_general_torch` for CPU tensors.
+
+    CUDA operands must be contiguous float32 (``xwins``: bool) on one
+    device (``ops`` prepares them); anything else raises, as does a weight
+    functional without a kernel id.  Each launch adds one to
+    ``cohesion_general_cuda.launches``.
+    """
+    dev = DXZ.device
+    if dev.type == "cpu":
+        return cohesion_general_torch(DXZ, DYZ, DXY, W, xwins, ties=ties,
+                                      xw_offsets=xw_offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"cohesion_general_cuda: unsupported device {dev}")
+    wfun = resolve_weight(ties)
+    wid, p0, p1 = kernel_spec(wfun)
+    _require_tiebreak(wfun, xwins, xw_offsets)
+    mx, mz = DXZ.shape
+    my = DYZ.shape[0]
+    f32 = torch.float32
+    named = dict(DXZ=(DXZ, (mx, mz), f32), DYZ=(DYZ, (my, mz), f32),
+                 DXY=(DXY, (mx, my), f32), W=(W, (mx, my), f32))
+    xw_ptr, row_off, col_off = None, 0, 0
+    if wfun.needs_index_tiebreak:
+        if xwins is not None:
+            named["xwins"] = (xwins, (mx, my), torch.bool)
+            xw_ptr = xwins.data_ptr()
+        else:
+            row_off, col_off = int(xw_offsets[0]), int(xw_offsets[1])
+    check_operands("cohesion_general_cuda", dev, **named)
+    C = torch.empty((mx, mz), dtype=f32, device=dev)
+    if mx == 0 or mz == 0:
+        return C
+    fn = _build.load("pald_cohesion")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),
+                    W.data_ptr(), xw_ptr, C.data_ptr(), mx, my, mz, row_off,
+                    col_off, wid, p0, p1, stream)
+    _build.check(status, "pald_cohesion_f32")
+    cohesion_general_cuda.launches += 1
+    return C
+
+
+cohesion_general_cuda.launches = 0

@@ -1,0 +1,291 @@
+"""The port's two kernel modules (focus, cohesion) against the JAX
+reference's Pallas kernels.
+
+On this CPU the port runs each kernel's plain torch version (the wrapper
+takes it for CPU tensors).  It is held to the reference's
+``focus_general_pallas`` / ``cohesion_general_pallas`` run in interpret mode
+(bit-faithful to the TPU kernel body; slow, so n <= 64), and to the
+reference's ``ops.focus_general`` / ``ops.cohesion_general`` with
+``impl="jnp"`` up to n = 130.  Square, ragged and rectangular shapes, every
+built-in functional, both index-tiebreak routes.  U is bitwise for every
+functional whose focus is an exact count (all but ``soft``); C, and the
+smooth ``soft`` U, to rtol 1e-5, atol 1e-6 (the conformance tolerance of
+tests/test_conformance.py): the two sum their terms in another order.
+
+The CUDA kernels themselves are held to the plain versions on the card by
+tests/test_torch_cuda.py and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.pald_cohesion import cohesion_general_pallas
+from repro.kernels.pald_focus import focus_general_pallas
+from repro_torch.core import weights as tw
+from repro_torch.kernels import ops, pald_cohesion, pald_focus
+from repro_torch.kernels import ref as tref
+
+RTOL, ATOL = 1e-5, 1e-6
+FUNCTIONALS = ["drop", "split", "ignore", "soft", "kernelized"]
+
+
+# (functional, tiebreak route): "ignore" through both routes, the rest none
+COHESION_CASES = [(name, route) for name in FUNCTIONALS
+                  for route in (("offsets", "xwins") if name == "ignore"
+                                else ("none",))]
+
+
+def _exact_u(name) -> bool:
+    return not name.startswith("soft")
+
+
+def _operands(mx, my, mz, seed=0, inf_frac=0.03):
+    """Asymmetric, tie-heavy DXZ, DYZ, DXY (multiples of 0.5, a few +inf),
+    a positive W and a random explicit tiebreak, as numpy float32."""
+    rng = np.random.default_rng(seed)
+
+    def d(shape):
+        a = rng.integers(0, 8, size=shape).astype(np.float32) * 0.5
+        a[rng.random(shape) < inf_frac] = np.inf
+        return a
+
+    return (d((mx, mz)), d((my, mz)), d((mx, my)),
+            rng.random((mx, my)).astype(np.float32),
+            rng.random((mx, my)) < 0.5)
+
+
+def _square(n, seed=0):
+    """A tie-heavy Euclidean distance matrix of integer points."""
+    X = np.random.default_rng(seed).integers(0, 5, size=(n, 3))
+    D = np.sqrt(((X[:, None, :] - X[None, :, :]) ** 2).sum(-1))
+    np.fill_diagonal(D, 0.0)
+    return D.astype(np.float32)
+
+
+def _t(*arrays):
+    return [torch.tensor(np.asarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _assert_u(name, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if _exact_u(name):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# (mx, my, mz) and Pallas tiles that divide them exactly
+PALLAS_SHAPES = {"square48": ((48, 48, 48), (16, 16, 16)),
+                 "rect": ((32, 48, 64), (16, 16, 32))}
+# shapes the reference's ops pads to its tiles (interpret) or chunks (jnp)
+RAGGED_SHAPES = {"ragged37": (37, 37, 37), "rect_ragged": (21, 45, 59)}
+JNP_SHAPES = {"square130": (130, 130, 130), "rect_ragged": (70, 130, 101)}
+
+
+@pytest.mark.parametrize("shape", sorted(PALLAS_SHAPES))
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_focus_vs_pallas_interpret(name, shape):
+    (mx, my, mz), (bx, by, bz) = PALLAS_SHAPES[shape]
+    DXZ, DYZ, DXY, _, _ = _operands(mx, my, mz)
+    want = focus_general_pallas(*_j(DXZ, DYZ, DXY), block_x=bx, block_y=by,
+                                block_z=bz, interpret=True, ties=name)
+    got = ops.focus_general(*_t(DXZ, DYZ, DXY), ties=name)
+    _assert_u(name, got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", sorted(PALLAS_SHAPES))
+@pytest.mark.parametrize("name,route", COHESION_CASES)
+def test_cohesion_vs_pallas_interpret(name, route, shape):
+    (mx, my, mz), (bx, by, bz) = PALLAS_SHAPES[shape]
+    DXZ, DYZ, DXY, W, XW = _operands(mx, my, mz, seed=1)
+    offs = (7, 3)
+    jkw = dict(block_x=bx, block_y=by, block_z=bz, interpret=True, ties=name)
+    tkw = dict(ties=name)
+    if route == "offsets":
+        jkw["xw_offsets"], tkw["xw_offsets"] = offs, offs
+    want = cohesion_general_pallas(
+        *_j(DXZ, DYZ, DXY, W),
+        jnp.asarray(XW, jnp.float32) if route == "xwins" else None, **jkw)
+    if route == "xwins":
+        tkw["xwins"] = torch.from_numpy(XW)
+    got = ops.cohesion_general(*_t(DXZ, DYZ, DXY, W), **tkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", sorted(RAGGED_SHAPES))
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_ragged_vs_reference_interpret(name, shape):
+    """Ragged shapes: the reference pads to its 16-wide tiles with +inf
+    (zero weights); the port's plain versions take them as they are."""
+    mx, my, mz = RAGGED_SHAPES[shape]
+    DXZ, DYZ, DXY, W, XW = _operands(mx, my, mz, seed=2, inf_frac=0.0)
+    kw = dict(block=16, block_z=16, ties=name)
+    U = ops.focus_general(*_t(DXZ, DYZ, DXY), **kw)
+    _assert_u(name, U.numpy(), jops.focus_general(
+        *_j(DXZ, DYZ, DXY), impl="interpret", **kw))
+    tb = {"xw_offsets": (2, 9)} if tw.resolve_weight(name).needs_index_tiebreak else {}
+    C = ops.cohesion_general(*_t(DXZ, DYZ, DXY, W), **kw, **tb)
+    want = jops.cohesion_general(*_j(DXZ, DYZ, DXY, W), impl="interpret",
+                                 **kw, **tb)
+    np.testing.assert_allclose(C.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", sorted(JNP_SHAPES))
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_focus_vs_reference_jnp(name, shape):
+    mx, my, mz = JNP_SHAPES[shape]
+    if mx == my == mz:
+        DXZ = DYZ = DXY = _square(mx)
+    else:
+        DXZ, DYZ, DXY, _, _ = _operands(mx, my, mz, seed=3)
+    got = ops.focus_general(*_t(DXZ, DYZ, DXY), ties=name)
+    want = jops.focus_general(*_j(DXZ, DYZ, DXY), impl="jnp", ties=name)
+    _assert_u(name, got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", sorted(JNP_SHAPES))
+@pytest.mark.parametrize("name,route", COHESION_CASES)
+def test_cohesion_vs_reference_jnp(name, route, shape):
+    mx, my, mz = JNP_SHAPES[shape]
+    DXZ, DYZ, DXY, W, XW = _operands(mx, my, mz, seed=4)
+    if mx == my == mz:
+        DXZ = DYZ = DXY = _square(mx)
+        W = np.asarray(jref.weights_ref(jnp.asarray(
+            np.asarray(jops.focus_general(*_j(DXZ, DXZ, DXZ), impl="jnp",
+                                          ties=name)))))
+    kw = {"offsets": {"xw_offsets": (0, 0)}, "xwins": {"xwins": XW},
+          "none": {}}[route]
+    got = ops.cohesion_general(*_t(DXZ, DYZ, DXY, W), ties=name,
+                               **{k: (torch.from_numpy(v) if k == "xwins"
+                                      else v) for k, v in kw.items()})
+    want = jops.cohesion_general(*_j(DXZ, DYZ, DXY, W), impl="jnp",
+                                 ties=name, **{k: (jnp.asarray(v)
+                                                   if k == "xwins" else v)
+                                               for k, v in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_square_entry_points_vs_reference(name):
+    """ops.focus / cohesion_from_weights / pald (dense schedule)."""
+    D = _square(40, seed=5)
+    U = ops.focus(torch.from_numpy(D), ties=name)
+    Uj = jops.focus(jnp.asarray(D), impl="jnp", ties=name)
+    _assert_u(name, U.numpy(), Uj)
+    W = tref.weights_ref(U)
+    Wj = jref.weights_ref(Uj)
+    np.testing.assert_allclose(W.numpy(), np.asarray(Wj), rtol=RTOL, atol=0)
+    C = ops.cohesion_from_weights(torch.from_numpy(D), W, ties=name)
+    Cj = jops.cohesion_from_weights(jnp.asarray(D), Wj, impl="jnp", ties=name)
+    np.testing.assert_allclose(C.numpy(), np.asarray(Cj), rtol=RTOL,
+                               atol=ATOL)
+    for normalize in (False, True):
+        P = ops.pald(torch.from_numpy(D), ties=name, normalize=normalize)
+        Pj = jops.pald(jnp.asarray(D), impl="jnp", ties=name,
+                       normalize=normalize)
+        np.testing.assert_allclose(P.numpy(), np.asarray(Pj), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_oracles_vs_reference(name):
+    """kernels/ref.py: focus_ref, weights_ref, cohesion_ref."""
+    D = _square(24, seed=6)
+    U = tref.focus_ref(torch.from_numpy(D), ties=name)
+    Uj = jref.focus_ref(jnp.asarray(D), ties=name)
+    _assert_u(name, U.numpy(), Uj)
+    np.testing.assert_array_equal(
+        tref.weights_ref(U, 20).numpy(),
+        np.asarray(jref.weights_ref(jnp.asarray(U.numpy()), 20)))
+    W = tref.weights_ref(U)
+    C = tref.cohesion_ref(torch.from_numpy(D), W, ties=name)
+    Cj = jref.cohesion_ref(jnp.asarray(D), jnp.asarray(W.numpy()), ties=name)
+    np.testing.assert_allclose(C.numpy(), np.asarray(Cj), rtol=RTOL,
+                               atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' device dispatch and the entry points' contracts
+# ---------------------------------------------------------------------------
+def test_wrappers_take_plain_version_on_cpu():
+    DXZ, DYZ, DXY, W, _ = _operands(20, 30, 25, seed=7)
+    t = _t(DXZ, DYZ, DXY, W)
+    f0 = pald_focus.focus_general_cuda.launches
+    c0 = pald_cohesion.cohesion_general_cuda.launches
+    U = pald_focus.focus_general_cuda(*t[:3], ties="split")
+    assert torch.equal(U, pald_focus.focus_general_torch(*t[:3],
+                                                         ties="split"))
+    C = pald_cohesion.cohesion_general_cuda(*t, ties="ignore",
+                                            xw_offsets=(4, 1))
+    assert torch.equal(C, pald_cohesion.cohesion_general_torch(
+        *t, ties="ignore", xw_offsets=(4, 1)))
+    assert pald_focus.focus_general_cuda.launches == f0
+    assert pald_cohesion.cohesion_general_cuda.launches == c0
+
+
+def test_wrappers_reject_other_devices():
+    m = torch.empty((4, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pald_focus.focus_general_cuda(m, m, m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pald_cohesion.cohesion_general_cuda(m, m, m, m)
+
+
+def test_impl_cuda_on_cpu_goes_through_wrapper():
+    D = torch.from_numpy(_square(30, seed=8))
+    for name in FUNCTIONALS:
+        assert torch.equal(ops.pald(D, impl="cuda", ties=name),
+                           ops.pald(D, impl="torch", ties=name))
+
+
+def test_check_operands_rejects_bad_operands():
+    a = torch.zeros((3, 4))
+    with pytest.raises(TypeError, match="float32"):
+        pald_focus.check_operands("k", a.device,
+                                  A=(a.double(), (3, 4), torch.float32))
+    with pytest.raises(ValueError, match="shape"):
+        pald_focus.check_operands("k", a.device, A=(a, (4, 3), torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        pald_focus.check_operands("k", a.device,
+                                  A=(a.T, (4, 3), torch.float32))
+    with pytest.raises(ValueError, match="device"):
+        pald_focus.check_operands("k", torch.device("meta"),
+                                  A=(a, (3, 4), torch.float32))
+
+
+def test_tiebreak_required():
+    DXZ, DYZ, DXY, W, _ = _operands(8, 8, 8)
+    with pytest.raises(ValueError, match="xwins or xw_offsets"):
+        ops.cohesion_general(*_t(DXZ, DYZ, DXY, W), ties="ignore")
+
+
+def test_unknown_impl_rejected():
+    D = torch.from_numpy(_square(8))
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.focus(D, impl="pallas")
+
+
+@pytest.mark.parametrize("fn", ["pald_tri", "pald_fused", "pald_knn",
+                                "knn_values", "topk_select", "select_cohere"])
+def test_unported_pipelines_raise(fn):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        getattr(ops, fn)(torch.zeros((4, 4)))
+
+
+@pytest.mark.parametrize("fn", ["focus", "cohesion_from_weights", "pald"])
+def test_tri_schedule_raises(fn):
+    D = torch.from_numpy(_square(8))
+    args = (D, D) if fn == "cohesion_from_weights" else (D,)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        getattr(ops, fn)(*args, schedule="tri")
