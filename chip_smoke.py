@@ -17,7 +17,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    64-row slab recomputed by the plain versions, community recovery;
 4. each kernel and its plain version timed at n = 8192 (CUDA events,
    median after a warm-up), beside the kernel's bound;
-5. the kernels of every built-in weight family timed at n = 8192.
+5. the kernels of every built-in weight family timed at n = 8192;
+6. the fused features kernels (``pald_fused.cu``) against their plain
+   versions on the card: four metrics x five families at a ragged n = 257
+   and d in {1, 5, 300} on quantized features with duplicated rows; their
+   distances bitwise against ``cdist_reference``, their U bitwise against
+   the dense kernels' on the same distances;
+7. the second main path at full size: ``pald.from_features(X)`` with every
+   knob at its default (euclidean, ``ties="drop"``, ``method="auto"`` ->
+   fused) on a clustered n = 8192, d = 64 point set, with the launch
+   counters as proof that the fused kernels ran once each and neither the
+   dense kernels nor any plain version did; mass, a 64-row slab, community
+   recovery, and peak device memory at least one n^2 float32 buffer below
+   the materialize-then-kernel path's;
+8. the fused kernels and their plain versions timed at n = 8192, d = 64,
+   and ``from_features`` end to end, fused against materialize-then-kernel,
+   for all four metrics (CUDA events, median after a warm-up).
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
@@ -39,6 +54,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 N_MAIN = 8192          # the dense methods' size in benchmarks/run.py
 D_MAIN = 8
+D_FUSED = 64           # the embedding width of examples/pald_text_analysis.py
+METRICS = ("sqeuclidean", "euclidean", "cosine", "manhattan")
 SLAB = 64
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -277,9 +294,9 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
     return D, launches, U_slab, r0
 
 
-def cohesion_slab_f64(rows, D, W_slab, r0, chunk=64):
-    """Un-normalized C[r0:r0+m] for ties='ignore' with the float32 support
-    terms accumulated in float64."""
+def cohesion_slab_f64(rows, D, W_slab, r0, chunk=64, ties="ignore"):
+    """Un-normalized C[r0:r0+m] with the float32 support terms accumulated
+    in float64."""
     import torch
     from repro_torch.core.weights import index_xwins, support_weight
 
@@ -289,7 +306,7 @@ def cohesion_slab_f64(rows, D, W_slab, r0, chunk=64):
         e = min(s + chunk, n)
         own = index_xwins(r0, m, s, e - s, device=rows.device)[:, :, None]
         g = support_weight(rows[:, None, :], D[None, s:e, :],
-                           rows[:, s:e, None], "ignore", own)
+                           rows[:, s:e, None], ties, own)
         C += torch.einsum("xyz,xy->xz", g.double(), W_slab[:, s:e].double())
     return C
 
@@ -384,6 +401,261 @@ def phase_families(D, reps=3):
               f"kernel {ms_c!r} ms (median of {reps})")
 
 
+def fused_features(rng, n, d, dev):
+    """Features quantized to 0.1 (rounded products and sums, exact ties),
+    every fifth row a duplicate of an earlier one; no +inf."""
+    import torch
+
+    X = np.round(rng.normal(size=(n, d)) * 10) / 10
+    dup = np.arange(5, n, 5)
+    X[dup] = X[rng.integers(0, 5, size=dup.size)]
+    return torch.as_tensor(X.astype(np.float32), device=dev)
+
+
+def phase_fused_vs_plain(dev) -> None:
+    """Phase 6: the fused kernels against their plain versions and against
+    the dense kernels on the same distances."""
+    import torch
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    rng = np.random.default_rng(SEED + 6)
+    n = 257
+    checked = 0
+    c_bitwise = c_total = 0
+    for d in (1, 5, 300):
+        X = fused_features(rng, n, d, dev)
+        for metric in METRICS:
+            D = cdist_reference(X, metric=metric)
+            compare(f"fused distances {metric} d={d}",
+                    pald_fused.dist_fused_cuda(X, metric=metric), D, True)
+            checked += 1
+            for w in functionals():
+                kw = dict(metric=metric, ties=w)
+                tag = f"{w.name} {metric} n={n} d={d}"
+                Uk = pald_fused.focus_fused_cuda(X, **kw)
+                Up = pald_fused.focus_fused_torch(X, **kw)
+                compare(f"focus_fused {tag}", Uk, Up, exact_focus(w))
+                W = weights_ref(Up)
+                Ck = pald_fused.cohesion_fused_cuda(X, W, **kw)
+                Cp = pald_fused.cohesion_fused_torch(X, W, **kw)
+                compare(f"cohesion_fused {tag}", Ck, Cp, False)
+                # the dense kernels on the same distances: the same loops
+                Ud = ops.focus(D, impl="cuda", ties=w)
+                compare(f"focus_fused vs dense {tag}", Uk, Ud,
+                        exact_focus(w))
+                Cd = ops.cohesion_from_weights(D, W, impl="cuda", ties=w)
+                compare(f"cohesion_fused vs dense {tag}", Ck, Cd, False)
+                c_bitwise += bool(torch.equal(Ck, Cd))
+                c_total += 1
+                checked += 4
+    torch.cuda.synchronize()
+    print(f"phase 6: {checked} fused checks passed (distances bitwise; U "
+          f"bitwise except soft against the plain versions and the dense "
+          f"kernels; C within rtol {RTOL}, atol {ATOL}); C bitwise equal to "
+          f"the dense kernels' in {c_bitwise} of {c_total} cases")
+
+
+def phase_fused_main_path(dev, n=N_MAIN, d=D_FUSED):
+    """Phase 7: ``pald.from_features(X)`` at full size, default knobs."""
+    import torch
+    from repro_torch.core import analysis, pald
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import (ops, pald_cohesion, pald_focus,
+                                     pald_fused)
+
+    X, labels = clustered_points(n, d, SEED)
+    Xg = torch.as_tensor(X, device=dev)
+
+    def plain_called(*a, **k):
+        fail("a plain torch version ran on the fused main path")
+
+    patched = [(ops, "focus_fused_torch"), (ops, "cohesion_fused_torch"),
+               (pald_fused, "focus_fused_torch"),
+               (pald_fused, "cohesion_fused_torch"),
+               (ops, "focus_general_torch"), (ops, "cohesion_general_torch"),
+               (pald_focus, "focus_general_torch"),
+               (pald_cohesion, "cohesion_general_torch")]
+    saved = [getattr(m, a) for m, a in patched]
+    for m, a in patched:
+        setattr(m, a, plain_called)
+    counted = {"focus_fused": pald_fused.focus_fused_cuda,
+               "cohesion_fused": pald_fused.cohesion_fused_cuda,
+               "focus_general": pald_focus.focus_general_cuda,
+               "cohesion_general": pald_cohesion.cohesion_general_cuda}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for k in counted.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        C = pald.from_features(Xg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in counted.items()}
+        peak_fused = torch.cuda.max_memory_allocated() - base
+    finally:
+        for (m, a), f in zip(patched, saved):
+            setattr(m, a, f)
+    print(f"phase 7: from_features(X) n={n} d={d} (euclidean, drop, auto -> "
+          f"fused): {secs:.3f} s wall (first call), launches {launches}")
+    if launches["focus_fused"] != 1 or launches["cohesion_fused"] != 1:
+        fail(f"the fused kernels did not run once each: {launches}")
+    if launches["focus_general"] or launches["cohesion_general"]:
+        fail(f"a dense kernel ran on the fused path: {launches}")
+    if C.shape != (n, n) or C.dtype != torch.float32 or C.device != Xg.device:
+        fail(f"C is {tuple(C.shape)} {C.dtype} on {C.device}")
+    if not bool(torch.isfinite(C).all()):
+        fail("C has non-finite values")
+    mass = float(C.double().sum())
+    if abs(mass - n / 2) > 1e-4 * n / 2:
+        fail(f"mass {mass!r} != n/2 = {n / 2}")
+    print(f"phase 7: mass sum(C) = {mass!r} (n/2 = {n / 2})")
+
+    # the same call through materialize-then-kernel: D is an extra buffer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    Cm = pald.from_features(Xg, method="kernel")
+    torch.cuda.synchronize()
+    peak_kernel = torch.cuda.max_memory_allocated() - base
+    buf = 4 * n * n
+    print(f"phase 7: peak device memory above the input: fused "
+          f"{peak_fused} B ({peak_fused / buf:.3f} n^2 float32 buffers), "
+          f"materialize-then-kernel {peak_kernel} B "
+          f"({peak_kernel / buf:.3f}); difference "
+          f"{(peak_kernel - peak_fused) / buf:.3f} buffers")
+    if peak_kernel - peak_fused < buf:
+        fail("the fused path's peak memory is not one n^2 float32 buffer "
+             "below the materialize-then-kernel path's")
+    compare("C fused vs materialize-then-kernel", C, Cm, False,
+            rtol=RTOL_MAIN)
+    print(f"phase 7: C fused bitwise equal to materialize-then-kernel: "
+          f"{bool(torch.equal(C, Cm))}")
+    del Cm
+
+    # a contiguous row slab, not tile-aligned, by the plain versions on the
+    # materialized distances (bitwise the kernels' own)
+    D = cdist_reference(Xg)
+    r0 = min(3001, n - SLAB)
+    rows = D[r0:r0 + SLAB]
+    U_slab = ops.focus_general(rows, D, rows, impl="torch", ties="drop")
+    zero = U_slab == 0
+    W_slab = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, U_slab))
+    diag = torch.arange(SLAB, device=dev)
+    W_slab[diag, r0 + diag] = 0.0
+    C_slab = ops.cohesion_general(rows, D, rows, W_slab, impl="torch",
+                                  ties="drop") / (n - 1)
+    compare(f"C rows {r0}:{r0 + SLAB}", C[r0:r0 + SLAB], C_slab, False,
+            rtol=RTOL_MAIN)
+    C64 = cohesion_slab_f64(rows, D, W_slab, r0, ties="drop") / (n - 1)
+    rel = {k: float(((v.double() - C64).abs() / C64.abs().clamp_min(1e-300))
+                    .max()) for k, v in (("kernel", C[r0:r0 + SLAB]),
+                                         ("plain", C_slab))}
+    print(f"phase 7: C rows {r0}:{r0 + SLAB} against a float64 sum of the "
+          f"same terms: max relative error kernel {rel['kernel']!r}, plain "
+          f"{rel['plain']!r}")
+    compare(f"C rows {r0}:{r0 + SLAB} vs float64", C[r0:r0 + SLAB].double(),
+            C64, False)
+
+    comms = analysis.communities(C.cpu().numpy())
+    mixed = [c for c in comms if len(set(labels[c].tolist())) > 1]
+    if mixed:
+        fail(f"{len(mixed)} communities span planted clusters")
+    sizes = np.bincount(labels)
+    largest = [max((len(c) for c in comms if labels[c[0]] == k), default=0)
+               for k in range(len(sizes))]
+    print(f"phase 7: {len(comms)} communities, each inside one planted "
+          f"cluster; largest per cluster {largest} of {sizes.tolist()}")
+    if any(2 * big < size for big, size in zip(largest, sizes)):
+        fail("a planted cluster is not recovered: its largest community "
+             "holds less than half of it")
+    return Xg, D, launches
+
+
+def fused_bound_ms(pass_, n, d, clock_mhz):
+    """Least time for a fused pass: the larger of its bytes (X and, for
+    cohesion, W read once, the output written once) over HBM bandwidth and
+    its lane instructions (the triple loop's, plus the distance work
+    n^2 (2d + 4) counted once) over the FP32 lanes at the maximum clock."""
+    nbytes = 4 * (n * d + n * n + (n * n if pass_ == "cohesion" else 0))
+    ops = OPS_PER_TRIPLE[pass_] * n ** 3 + n * n * (2 * d + 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (FP32_LANES * clock_mhz * 1e6)
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def phase_fused_timing(Xg, D, launches, clock_mhz, reps=5):
+    """Phase 8: the fused kernels and their plain versions at the main
+    path's shapes, then from_features end to end for every metric, fused
+    against materialize-then-kernel."""
+    import torch
+    from repro_torch.core import pald
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    n, d = Xg.shape
+    replaces = {"focus": "src/repro/kernels/pald_fused.py:71",
+                "cohesion": "src/repro/kernels/pald_fused.py:144"}
+    rows = []
+
+    def timed(name, kernel, plain):
+        ms_k, out_k = time_ms(kernel, reps)
+        ms_p, out_p = time_ms(plain, 1)
+        b_ms, b_by = fused_bound_ms(name, n, d, clock_mhz)
+        print(f"phase 8: {name}_fused n={n} d={d}: kernel {ms_k!r} ms, plain "
+              f"{ms_p!r} ms, bound {b_ms!r} ms ({b_by}), kernel/bound "
+              f"{ms_k / b_ms:.3f}, library: none")
+        rows.append({"name": f"{name}_fused", "route": "cuda",
+                     "source": "src/repro_torch/csrc/pald_fused.cu",
+                     "replaces": replaces[name],
+                     "launches": launches[f"{name}_fused"],
+                     "max_abs_err": None, "ms": ms_k, "plain_ms": ms_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        return out_k, out_p
+
+    # the plain versions with (512, n) slabs: fewer, larger launches
+    Uk, Up = timed("focus",
+                   lambda: pald_fused.focus_fused_cuda(Xg, ties="drop"),
+                   lambda: pald_fused.focus_fused_torch(Xg, block=512,
+                                                        ties="drop"))
+    rows[0]["max_abs_err"] = compare(f"focus_fused n={n}", Uk, Up, True)
+    compare(f"focus_fused vs dense kernel n={n}", Uk,
+            ops.focus(D, impl="cuda", ties="drop"), True)
+    W = weights_ref(Uk)
+    del Up
+    Ck, Cp = timed("cohesion",
+                   lambda: pald_fused.cohesion_fused_cuda(Xg, W, ties="drop"),
+                   lambda: pald_fused.cohesion_fused_torch(Xg, W, block=512,
+                                                           ties="drop"))
+    rows[1]["max_abs_err"] = compare(f"cohesion_fused n={n}", Ck, Cp, False,
+                                     rtol=RTOL_MAIN)
+    del Uk, Ck, Cp, W
+
+    ms_cd, _ = time_ms(lambda: cdist_reference(Xg), 3)
+    print(f"phase 8: cdist_reference (plain torch, euclidean) n={n} d={d}: "
+          f"{ms_cd!r} ms")
+    for metric in METRICS:
+        ms_f, _ = time_ms(lambda: pald_fused.focus_fused_cuda(
+            Xg, metric=metric), 3)
+        Wm = weights_ref(pald_fused.focus_fused_cuda(Xg, metric=metric))
+        ms_c, _ = time_ms(lambda: pald_fused.cohesion_fused_cuda(
+            Xg, Wm, metric=metric), 3)
+        del Wm
+        ms_e, _ = time_ms(lambda: pald.from_features(Xg, metric=metric), 3)
+        ms_m, _ = time_ms(lambda: pald.from_features(
+            Xg, metric=metric, method="kernel"), 3)
+        print(f"phase 8: {metric} n={n} d={d}: focus_fused {ms_f!r} ms, "
+              f"cohesion_fused {ms_c!r} ms; from_features end to end: fused "
+              f"{ms_e!r} ms, materialize-then-kernel {ms_m!r} ms "
+              f"(fused/materialize {ms_e / ms_m:.3f}; median of 3)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -405,8 +677,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, max SM clock {clock_mhz} MHz")
 
     t0 = time.perf_counter()
-    for name in _build.SOURCES:
-        _build.load(name)
+    for symbol in _build.SIGNATURES:
+        _build.load(symbol)
     print(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -421,6 +693,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_families(D)
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    del D, U_slab
+    t0 = time.perf_counter()
+    phase_fused_vs_plain(dev)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    Xg, D, launches = phase_fused_main_path(dev)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += phase_fused_timing(Xg, D, launches, clock_mhz)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

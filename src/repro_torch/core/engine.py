@@ -1,5 +1,5 @@
 """Execution-plan engine: resolve once, run anywhere (counterpart of
-``repro.core.engine``, distance kind).
+``repro.core.engine``).
 
 ``plan(x, ...) -> PaldPlan``
     Performs every resolution exactly once (device, impl, tiles, weight
@@ -9,13 +9,21 @@
 ``PaldPlan.execute(x)``
     The single dispatch path: moves ``x`` to the plan's device, checks it,
     looks the resolved ``(kind, method, schedule)`` up in the EXECUTOR
-    REGISTRY and runs it.  Batched ``(B, n, n)`` input runs item by item.
+    REGISTRY and runs it.  Batched ``(B, n, n)`` distances or ``(B, n, d)``
+    features run item by item.
 
 ``register_executor(kind, method, schedule)``
     How ``core/pairwise`` and ``kernels/ops`` contribute their callables.
 
 ``PaldPlan.explain()``
     The resolved knobs as a plain dict.
+
+Two kinds of input: ``"distance"`` (an (n, n) matrix, ``pald.cohesion``)
+and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On features
+``method="auto"`` resolves to ``"fused"`` (distances computed inside the
+kernels, D never materialized); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
+materialize D once with ``features.cdist_reference`` and run the distance
+executor of the same name.
 
 Device rule: ``device`` defaults to ``"cuda"``; the CPU is used only when
 the caller passes ``device="cpu"``.  Without a GPU the default raises; it
@@ -47,24 +55,24 @@ __all__ = [
 ]
 
 DISTANCE_METHODS = ("dense", "pairwise", "kernel")
+FEATURE_METHODS = ("fused",) + DISTANCE_METHODS
 SCHEDULES = ("dense", "tri")
 
 # methods whose executors take an impl= knob; the plain blocked paths have
 # exactly one implementation, so an explicit impl request there is an error
-_IMPL_METHODS = ("kernel",)
+_IMPL_METHODS = ("kernel", "fused")
 
 # where each unported knob of the reference lands (ROADMAP.md, queue 1)
 _SLICE = {
-    "auto": "method='auto' needs the measured crossover of the tuning "
-            "cache (ROADMAP.md queue 1, item 9: tuning)",
+    "auto": "method='auto' on a distance matrix needs the measured "
+            "crossover of the tuning cache (ROADMAP.md queue 1, item 9: "
+            "tuning)",
     "triplet": "method='triplet' is the block-symmetric slice (ROADMAP.md "
                "queue 1, item 4)",
     "tri": "schedule='tri' is the upper-triangular slice (ROADMAP.md queue "
            "1, item 4)",
     "knn": "method='knn' / k= is the sparse k-NN slice (ROADMAP.md queue 1, "
            "item 6)",
-    "features": "kind='features' is the fused features slice (ROADMAP.md "
-                "queue 1, item 5)",
     "block_auto": "block='auto' / block_z='auto' need the tuning cache "
                   "(ROADMAP.md queue 1, item 9: tuning)",
     "fallback": "on_error='fallback' is the guarded-execution slice "
@@ -165,12 +173,14 @@ class PaldPlan:
     Build with ``plan(...)``; a plan is reusable for any input matching its
     item shape."""
 
-    kind: str                     # "distance"
-    method: str                   # "dense" | "pairwise" | "kernel"
+    kind: str                     # "distance" | "features"
+    method: str                   # "dense" | "pairwise" | "kernel" |
+    #                               "fused" (features only)
     schedule: str                 # "dense"
-    impl: str | None              # kernel impl ("cuda" | "torch"); None
-    #                               for the one-impl paths
+    impl: str | None              # kernel / fused impl ("cuda" | "torch");
+    #                               None for the one-impl paths
     block: int | None             # None for the un-blocked dense method
+    #                               and the fused kernels' fixed tiles
     block_z: int | None           # z tile; None = executor default
     z_chunk: int | None           # dense-method z streaming chunk
     ties: str                     # the weight functional's name
@@ -182,10 +192,13 @@ class PaldPlan:
     weight: WeightFunctional | None = None
     method_source: str = "explicit"
     block_source: str = "explicit"
+    metric: str | None = None     # features kind only
+    d: int | None = None          # feature dimension (features kind)
 
     def execute(self, x) -> torch.Tensor:
         """Run the planned pipeline on ``x`` (numpy array or tensor), one
-        item (n, n) or a batch (B, n, n), on the plan's device."""
+        item ((n, n) distances or (n, d) features) or a batch of them, on
+        the plan's device."""
         x = torch.as_tensor(x, device=self.device)
         _check_input(x, self)
         fn = get_executor(self.kind, self.method, self.schedule)
@@ -193,8 +206,9 @@ class PaldPlan:
 
     @property
     def padded_n(self) -> int:
-        """Per-item extent after the engine-level pad to a block multiple."""
-        if self.block is None:
+        """Per-item extent after the engine-level pad to a block multiple
+        (the fused pipeline pads nothing)."""
+        if self.block is None or self.method == "fused":
             return self.n
         return -(-self.n // self.block) * self.block
 
@@ -214,15 +228,32 @@ class PaldPlan:
             "weight": self.weight.name if self.weight else self.ties,
             "weight_properties": (self.weight.properties()
                                   if self.weight else None),
+            "metric": self.metric,
             "normalize": self.normalize,
             "batch": self.batch,
             "n": self.n,
+            "d": self.d,
             "padded_n": self.padded_n,
-            "padded_shape": (self.padded_n, self.padded_n),
+            "padded_shape": ((self.padded_n, self.padded_n)
+                             if self.kind == "distance"
+                             else (self.padded_n, self.d)),
             "method_source": self.method_source,
             "block_source": self.block_source,
             "executor": f"{fn.__module__}.{fn.__qualname__}",
+            "est_smem_bytes_per_cta": _est_smem_per_cta(self),
         }
+
+
+def _est_smem_per_cta(p: PaldPlan) -> int | None:
+    """Static shared memory of one thread block of the fused CUDA kernels
+    (the larger of the two passes), the counterpart of the reference's
+    VMEM-per-step estimate.  The kernels stream the feature axis in
+    chunks, so it does not grow with d.  None for the other methods."""
+    if p.method != "fused":
+        return None
+    from repro_torch.kernels.pald_fused import SMEM_PER_CTA
+
+    return max(SMEM_PER_CTA.values())
 
 
 # ---------------------------------------------------------------------------
@@ -230,21 +261,28 @@ class PaldPlan:
 # ---------------------------------------------------------------------------
 def _item_shape_checks(x, p: PaldPlan) -> None:
     if x.ndim not in (2, 3):
-        raise ValueError(
-            f"D must be (n, n) or (B, n, n), got shape {tuple(x.shape)}")
-    if x.shape[-1] != x.shape[-2]:
+        what = ("D must be (n, n) or (B, n, n)" if p.kind == "distance"
+                else "X must be (n, d) or (B, n, d)")
+        raise ValueError(f"{what}, got shape {tuple(x.shape)}")
+    if p.kind == "distance" and x.shape[-1] != x.shape[-2]:
         raise ValueError(
             f"distance matrix must be square, got shape {tuple(x.shape)}")
-    if tuple(x.shape[-2:]) != (p.n, p.n):
+    expect = (p.n, p.n) if p.kind == "distance" else (p.n, p.d)
+    if tuple(x.shape[-2:]) != expect:
         raise ValueError(
             f"input item shape {tuple(x.shape[-2:])} does not match the "
-            f"plan's {(p.n, p.n)}; build a new plan for a new problem size")
+            f"plan's {expect}; build a new plan for a new problem size")
 
 
 def _check_input(x, p: PaldPlan) -> None:
     """Cheap always-on checks plus the opt-in deep ones (``check=True``),
     all computed on the plan's device."""
     _item_shape_checks(x, p)
+    if p.kind == "features":
+        if p.check and not bool(torch.isfinite(x).all()):
+            raise ValueError("features contain non-finite entries "
+                             "(nan/inf); PaLD needs finite coordinates")
+        return
     # always-on O(n) check: a nonzero (or nan) diagonal means the input is
     # not a self-distance matrix; every padding and focus invariant assumes
     # d(x, x) == 0
@@ -271,19 +309,26 @@ def _check_input(x, p: PaldPlan) -> None:
 # ---------------------------------------------------------------------------
 # resolution
 # ---------------------------------------------------------------------------
-def _shape_of(x, n):
+def _shape_of(x, n, d, kind):
+    """The per-item (n, d) of the problem (d None for distances)."""
     if x is not None:
         shape = tuple(np.shape(x))
         if len(shape) not in (2, 3):
-            raise ValueError(f"D must be (n, n) or (B, n, n), got shape "
-                             f"{shape}")
-        if shape[-2] != shape[-1]:
-            raise ValueError(
-                f"distance matrix must be square, got shape {shape}")
-        return shape[-1]
+            what = ("D must be (n, n) or (B, n, n)" if kind == "distance"
+                    else "X must be (n, d) or (B, n, d)")
+            raise ValueError(f"{what}, got shape {shape}")
+        if kind == "distance":
+            if shape[-2] != shape[-1]:
+                raise ValueError(
+                    f"distance matrix must be square, got shape {shape}")
+            return shape[-1], None
+        return shape[-2], shape[-1]
     if n is None:
         raise ValueError("plan() needs either an input array or n=")
-    return int(n)
+    if kind == "features" and d is None:
+        raise ValueError("plan(kind='features') needs d= when no array "
+                         "is given")
+    return int(n), None if kind == "distance" else int(d)
 
 
 def _resolve_weight_knob(ties, weight) -> WeightFunctional:
@@ -353,9 +398,7 @@ def plan(
     dev = resolve_device(device)
     weight = _resolve_weight_knob(ties, weight)
     ties = weight.name
-    if kind == "features":
-        raise NotImplementedError(_SLICE["features"])
-    if kind != "distance":
+    if kind not in ("distance", "features"):
         raise ValueError(f"unknown kind {kind!r} "
                          "(expected 'distance' or 'features')")
     if schedule not in SCHEDULES:
@@ -369,24 +412,40 @@ def plan(
         raise NotImplementedError(_SLICE["mesh"])
     if select is not None or select_block is not None or select_tile is not None:
         raise NotImplementedError(_SLICE["select"])
-    if metric is not None:
-        raise ValueError("metric= only applies to kind='features' "
-                         "(a distance matrix already fixed it)")
-    if d is not None:
+    if kind == "distance" and d is not None:
         raise ValueError("d= only applies to kind='features'")
-    n = _shape_of(x, n)
+    n, d = _shape_of(x, n, d, kind)
     if batch is not None and batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
+    if kind == "features":
+        from .features import METRICS
 
-    if method == "auto":
-        raise NotImplementedError(_SLICE["auto"])
-    if method == "triplet":
-        raise NotImplementedError(_SLICE["triplet"])
+        metric = metric or "euclidean"
+        if metric not in METRICS:
+            raise ValueError(
+                f"unknown metric {metric!r} (expected one of {METRICS})")
+        allowed = FEATURE_METHODS
+    else:
+        if metric is not None:
+            raise ValueError("metric= only applies to kind='features' "
+                             "(a distance matrix already fixed it)")
+        allowed = DISTANCE_METHODS
+
+    # -- method ------------------------------------------------------------
+    method_source = "explicit"
     if method == "knn" or k is not None:
         raise NotImplementedError(_SLICE["knn"])
-    if method not in DISTANCE_METHODS:
+    if method == "triplet":
+        raise NotImplementedError(_SLICE["triplet"])
+    if method == "auto":
+        if schedule == "tri":  # the reference pins the tri kernel pipeline
+            raise NotImplementedError(_SLICE["tri"])
+        if kind != "features":
+            raise NotImplementedError(_SLICE["auto"])
+        method, method_source = "fused", "default"
+    if method not in allowed:
         raise ValueError(f"unknown method {method!r} for kind={kind!r} "
-                         f"(expected one of {DISTANCE_METHODS})")
+                         f"(expected one of {('auto',) + allowed})")
     if schedule == "tri":
         if method != "kernel":
             raise ValueError(
@@ -406,8 +465,8 @@ def plan(
                              f"{IMPLS})")
     elif impl is not None:
         raise ValueError(
-            f"impl={impl!r} is only configurable for the kernel pipeline; "
-            f"method={method!r} has exactly one implementation")
+            f"impl={impl!r} is only configurable for the kernel and fused "
+            f"pipelines; method={method!r} has exactly one implementation")
 
     # -- per-method knob surface -------------------------------------------
     if z_chunk is not None and method != "dense":
@@ -416,7 +475,8 @@ def plan(
             f"{method!r}; drop z_chunk= or pass method='dense'")
     common = dict(kind=kind, method=method, schedule=schedule, impl=impl,
                   ties=ties, weight=weight, normalize=normalize, batch=batch,
-                  check=check, n=n, device=dev)
+                  check=check, n=n, device=dev, metric=metric, d=d,
+                  method_source=method_source)
     if method == "dense":
         if block_z is not None:
             raise ValueError("block_z= does not apply to method='dense' "
@@ -427,9 +487,34 @@ def plan(
         raise ValueError("block_z= does not apply to method='pairwise' (the "
                          "blocked plain path streams the full z axis per "
                          "block pair)")
+    if method == "fused":
+        # the kernels' tiles are fixed; block / block_z only set the plain
+        # versions' row block and chunk (ops.pald_fused: 128 / 512)
+        return PaldPlan(block=None if block is None else int(block),
+                        block_z=None if block_z is None else int(block_z),
+                        z_chunk=None,
+                        block_source="explicit" if block is not None
+                        else "default", **common)
     block_source = "explicit"
     if block is None:
         block, block_source = 128, "default"
     return PaldPlan(block=int(block),
                     block_z=None if block_z is None else int(block_z),
                     z_chunk=None, block_source=block_source, **common)
+
+
+# ---------------------------------------------------------------------------
+# built-in executors: the features -> materialized-D compositions.  The
+# fused path and the distance paths are contributed by their home modules;
+# these cells are pure composition, so they live with the registry.
+# ---------------------------------------------------------------------------
+def _materialize_then(X, p: PaldPlan):
+    from .features import cdist_reference
+
+    D = cdist_reference(X, metric=p.metric)
+    return get_executor("distance", p.method, "dense")(D, p)
+
+
+for _m in DISTANCE_METHODS:
+    register_executor("features", _m, "dense")(_materialize_then)
+del _m

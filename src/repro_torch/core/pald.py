@@ -7,13 +7,16 @@ execution-plan engine (counterpart of ``repro.core.pald``).
     C = pald.cohesion(D, method="dense")      # un-blocked plain torch
     C = pald.cohesion(Db, method="kernel")    # batched: (B, n, n) -> (B, n, n)
     C = pald.cohesion(D, method="kernel", device="cpu")  # plain torch on CPU
+    C = pald.from_features(X)                 # fused CUDA kernels, D never
+    #                                           materialized
 
     p = pald.plan(D, method="kernel")         # resolve once ...
     C = p.execute(D)                          # ... run (and re-run)
     p.explain()                               # what resolved
 
 Every knob is resolved once by ``pald.plan`` (``core/engine.py``);
-``cohesion`` is ``plan(...).execute(D)``.  ``device`` defaults to "cuda":
+``cohesion`` is ``plan(...).execute(D)`` and ``from_features`` is
+``plan(X, kind="features", ...).execute(X)``.  ``device`` defaults to "cuda":
 the input (numpy array or tensor) moves there, and without a GPU the
 default raises.  The CPU runs only when the caller passes ``device="cpu"``.
 
@@ -37,7 +40,7 @@ from .weights import (  # noqa: F401
     validate_ties,
 )
 
-__all__ = ["cohesion", "plan", "local_depths", "pad_distance_matrix",
+__all__ = ["cohesion", "from_features", "plan", "local_depths", "pad_distance_matrix",
            "PaldPlan", "WeightFunctional", "register_weight",
            "registered_weights"]
 
@@ -114,6 +117,79 @@ def cohesion(
         on_error=on_error, device=device,
     )
     return p.execute(D)
+
+
+def from_features(
+    X,
+    *,
+    metric: str = "euclidean",
+    method: str = "auto",
+    batch: int | None = None,
+    block: int | str | None = None,
+    block_z: int | str | None = None,
+    schedule: str = "dense",
+    normalize: bool = True,
+    impl: str | None = None,
+    ties: str | None = None,
+    weight: str | WeightFunctional | None = None,
+    check: bool = False,
+    k: int | None = None,
+    on_error: str = "raise",
+    select: str | None = None,
+    select_block: int | str | None = None,
+    select_tile: int | str | None = None,
+    mesh=None,
+    strategy: str | None = None,
+    device="cuda",
+) -> torch.Tensor:
+    """PaLD cohesion straight from feature vectors.
+
+    Args:
+        X: (n, d) feature matrix or a batched (B, n, d) stack; numpy array
+            or tensor, any float dtype (cast to float32 once).
+        metric: one of ``features.METRICS`` (sqeuclidean, euclidean,
+            cosine, manhattan).
+        method: "fused" (the "auto" default) computes the distances inside
+            the CUDA kernels from the feature rows, so the (n, n) distance
+            matrix never exists; "dense" / "pairwise" / "kernel"
+            materialize D once (``features.cdist_reference``) and run the
+            distance method of that name.  "knn" and "triplet" are later
+            slices of the port and raise ``NotImplementedError``.
+        batch: accepted for the reference's surface (items run in turn).
+        block: the plain versions' row block (default 128) and the
+            materializing paths' tile.  Unlike the reference, whose
+            default is "auto" (the tuning cache, a later slice), the
+            default is None: the kernels' fixed 64 x 64 tiles.
+        block_z: the plain versions' reduced-axis chunk (default 512).
+        schedule: "dense" ("tri" is a later slice).
+        normalize: apply the 1/(n-1) factor; on by default.
+        impl: "cuda" (the hand-written kernels) or "torch" (the plain
+            versions); fused and kernel methods only; default: the
+            device's.
+        ties: 'drop' (default), 'split' or 'ignore'; sugar for
+            ``weight=``.  Quantized or duplicated rows give exact ties.
+        weight: a registered weight-functional name or a
+            ``WeightFunctional``; the CUDA kernels run the built-in
+            families.
+        check: reject non-finite features.
+        k, select, select_block, select_tile, mesh, strategy: knobs of
+            the k-NN and distributed slices; they raise
+            ``NotImplementedError``.
+        on_error: "raise" ("fallback" is a later slice).
+        device: "cuda" (default; raises without a GPU) or "cpu" (the
+            plain versions).
+
+    Returns:
+        C as float32 on ``device``: (n, n), or (B, n, n) for batched X.
+    """
+    p = _engine_plan(
+        X, kind="features", metric=metric, method=method, schedule=schedule,
+        block=block, block_z=block_z, normalize=normalize, impl=impl,
+        ties=ties, weight=weight, batch=batch, check=check, k=k,
+        on_error=on_error, select=select, select_block=select_block,
+        select_tile=select_tile, mesh=mesh, strategy=strategy, device=device,
+    )
+    return p.execute(X)
 
 
 def local_depths(C: torch.Tensor) -> torch.Tensor:

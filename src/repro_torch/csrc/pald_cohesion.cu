@@ -20,7 +20,8 @@
 // DYZ[y][z] is staged as it lies, DXY and W transposed to [y][x], so per y a
 // thread reads its 4 DYZ, 4 DXY and 4 W values as one float4 each and does
 // 16 weight evaluations.  The weight family is a template parameter
-// (pald_weights.cuh).
+// (pald_weights.cuh); the loop is in pald_tile.cuh, shared with the fused
+// kernel (pald_fused.cu).
 //
 // The index tiebreak of families that need one (ignore): per slab, the
 // "global x index > global y index" bytes are staged in shared memory too,
@@ -40,62 +41,14 @@
 // Ragged edges are masked here: a y past my is never visited (the last slab
 // loops to its own length, so it contributes exactly 0), and x / z past the
 // edge are computed from filler values and never stored.  64-bit offsets.
-#include "pald_weights.cuh"
+#include "pald_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 64;          // C tile edge (x and z)
-constexpr int kSlab = 32;          // y values staged per step
-constexpr int kLd = kTile + 4;     // padded row of a transposed slab
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 outputs each
-
-// how the x > y tiebreak varies over one staged slab: the same for every
-// (x, y) of the slab (all win / none wins), or per entry
-enum Tie : int { kNoneWins = 0, kAllWin = 1, kPerEntry = 2 };
-
-template <class F, int T>
-__device__ __forceinline__ void cohesion_step(const float* syz,
-                                              const float* sxy,
-                                              const float* sw,
-                                              const uint8_t* sxw, int tx,
-                                              int ty, const float (&own)[4][4],
-                                              float (&acc)[4][4],
-                                              const pald::Params& p) {
-  const float4 o = *reinterpret_cast<const float4*>(syz + tx * 4);
-  const float4 d = *reinterpret_cast<const float4*>(sxy + ty * 4);
-  const float4 w = *reinterpret_cast<const float4*>(sw + ty * 4);
-  const float ov[4] = {o.x, o.y, o.z, o.w};
-  const float dv[4] = {d.x, d.y, d.z, d.w};
-  const float wv[4] = {w.x, w.y, w.z, w.w};
-  bool wins[4] = {T == kAllWin, T == kAllWin, T == kAllWin, T == kAllWin};
-  if constexpr (T == kPerEntry) {
-    const uchar4 b = *reinterpret_cast<const uchar4*>(sxw + ty * 4);
-    wins[0] = b.x; wins[1] = b.y; wins[2] = b.z; wins[3] = b.w;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j] += F::support(own[i][j], ov[j], dv[i], wins[i], p) * wv[i];
-}
-
-// one staged slab of yn <= kSlab y values into the partial sums
-template <class F, int T>
-__device__ __forceinline__ void cohesion_slab(
-    float (*syz)[kTile], float (*sxy)[kLd], float (*sw)[kLd],
-    uint8_t (*sxw)[kLd], int yn, int tx, int ty,
-    const float (&own)[4][4], float (&part)[4][4], const pald::Params& p) {
-  if (yn == kSlab) {
-#pragma unroll 8
-    for (int y = 0; y < kSlab; ++y)
-      cohesion_step<F, T>(syz[y], sxy[y], sw[y], sxw[T == kPerEntry ? y : 0],
-                          tx, ty, own, part, p);
-  } else {
-    for (int y = 0; y < yn; ++y)
-      cohesion_step<F, T>(syz[y], sxy[y], sw[y], sxw[T == kPerEntry ? y : 0],
-                          tx, ty, own, part, p);
-  }
-}
+using pald::kLd;
+using pald::kSlab;
+using pald::kThreads;
+using pald::kTile;
 
 template <class F>
 __global__ void __launch_bounds__(kThreads)
@@ -147,28 +100,17 @@ cohesion_kernel(const float* __restrict__ dxz, const float* __restrict__ dyz,
         any_win |= win;
       }
     }
-    float part[4][4] = {};
+    // a slab off the diagonal has one tiebreak value for all its (x, y)
+    // pairs (the syncs also close the staging)
+    bool all = false, any = false;
     if constexpr (F::kTiebreak) {
-      // a slab off the diagonal has one tiebreak value for all its (x, y)
-      // pairs; only the rest read the staged bytes per entry
-      const bool all = __syncthreads_and(all_win);
-      const bool any = __syncthreads_or(any_win);
-      if (all)
-        cohesion_slab<F, kAllWin>(syz, sxy, sw, sxw, yn, tx, ty, own, part, p);
-      else if (any)
-        cohesion_slab<F, kPerEntry>(syz, sxy, sw, sxw, yn, tx, ty, own, part,
-                                    p);
-      else
-        cohesion_slab<F, kNoneWins>(syz, sxy, sw, sxw, yn, tx, ty, own, part,
-                                    p);
+      all = __syncthreads_and(all_win);
+      any = __syncthreads_or(any_win);
     } else {
       __syncthreads();
-      cohesion_slab<F, kNoneWins>(syz, sxy, sw, sxw, yn, tx, ty, own, part, p);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+    pald::cohesion_slab<F>(syz, sxy, sw, sxw, yn, all, any, tx, ty, own, acc,
+                           p);
     __syncthreads();
   }
 

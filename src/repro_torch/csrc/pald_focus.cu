@@ -20,7 +20,9 @@
 // a thread reads its 4 x and 4 y values as one float4 each).  Per z a thread
 // issues 2 shared loads for 16 weight evaluations, so the loop is bound by
 // the FP32 pipe, not by shared memory.  The weight family is a template
-// parameter (pald_weights.cuh): no branch on it inside the loop.
+// parameter (pald_weights.cuh): no branch on it inside the loop.  The loop
+// itself is in pald_tile.cuh, shared with the fused kernel (pald_fused.cu),
+// which stages the same slabs computed from feature rows.
 //
 // Ragged edges are masked here, not padded by the caller: a z past mz is
 // never visited (the last slab loops to its own length, so it contributes
@@ -31,31 +33,14 @@
 // the accumulator), which keeps the smooth families' sums accurate at large
 // n, as in pald_cohesion.cu.  Global offsets are 64-bit (n^2 overflows int32
 // above n = 46340).
-#include "pald_weights.cuh"
+#include "pald_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 64;          // U tile edge (x and y)
-constexpr int kSlab = 32;          // z values staged per step
-constexpr int kLd = kTile + 4;     // padded row of a transposed slab
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 outputs each
-
-template <class F>
-__device__ __forceinline__ void focus_step(const float* sx, const float* sy,
-                                           int tx, int ty,
-                                           const float (&thr)[4][4],
-                                           float (&acc)[4][4],
-                                           const pald::Params& p) {
-  const float4 a = *reinterpret_cast<const float4*>(sx + ty * 4);
-  const float4 b = *reinterpret_cast<const float4*>(sy + tx * 4);
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j] += F::focus(av[i], bv[j], thr[i][j], p);
-}
+using pald::kLd;
+using pald::kSlab;
+using pald::kThreads;
+using pald::kTile;
 
 template <class F>
 __global__ void __launch_bounds__(kThreads)
@@ -90,19 +75,7 @@ focus_kernel(const float* __restrict__ dxz, const float* __restrict__ dyz,
       sy[c][r] = (y < my && c < zn) ? dyz[y * mz + z] : 0.f;
     }
     __syncthreads();
-    float part[4][4] = {};
-    if (zn == kSlab) {
-#pragma unroll 8
-      for (int c = 0; c < kSlab; ++c)
-        focus_step<F>(sx[c], sy[c], tx, ty, thr, part, p);
-    } else {
-      for (int c = 0; c < zn; ++c)
-        focus_step<F>(sx[c], sy[c], tx, ty, thr, part, p);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+    pald::focus_slab<F>(sx, sy, zn, tx, ty, thr, acc, p);
     __syncthreads();
   }
 

@@ -27,18 +27,28 @@ __all__ = ["load", "check", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("pald_focus", "pald_cohesion")
+SOURCES = ("pald_focus", "pald_cohesion", "pald_fused")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-# argument types of each C entry point (pointers and the stream as c_void_p)
+# each C entry point: its source and its argument types (pointers and the
+# stream as c_void_p)
 SIGNATURES = {
-    "pald_focus": ("pald_focus_f32",
-                   (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32, _P)),
-    "pald_cohesion": ("pald_cohesion_f32",
-                      (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                       _I32, _F32, _F32, _P)),
+    "pald_focus_f32": ("pald_focus",
+                       (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32,
+                        _P)),
+    "pald_cohesion_f32": ("pald_cohesion",
+                          (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                           _I64, _I32, _F32, _F32, _P)),
+    "pald_focus_fused_f32": ("pald_fused",
+                             (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _F32,
+                              _F32, _P)),
+    "pald_cohesion_fused_f32": ("pald_fused",
+                                (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
+                                 _F32, _F32, _P)),
+    "pald_dist_fused_f32": ("pald_fused",
+                            (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
 }
 
 _lock = threading.Lock()
@@ -92,19 +102,21 @@ def _build_all(out: Path) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
 
 
-def load(name: str):
-    """The C entry point of ``csrc/<name>.cu``, building all sources on the
-    first call of the process."""
+def load(symbol: str):
+    """The C entry point ``symbol``, building all sources on the first
+    call of the process."""
     with _lock:
         if not _loaded:
             out = BUILD_ROOT / _digest()
             _build_all(out)
-            for src, (sym, argtypes) in SIGNATURES.items():
-                fn = getattr(ctypes.CDLL(str(out / f"lib{src}.so")), sym)
+            libs = {src: ctypes.CDLL(str(out / f"lib{src}.so"))
+                    for src in SOURCES}
+            for sym, (src, argtypes) in SIGNATURES.items():
+                fn = getattr(libs[src], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-                _loaded[src] = fn
-        return _loaded[name]
+                _loaded[sym] = fn
+        return _loaded[symbol]
 
 
 def check(status: int, what: str) -> None:

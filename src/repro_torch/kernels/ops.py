@@ -15,11 +15,13 @@ device, ``None`` the device's default (``"cuda"`` for CUDA tensors,
 edges themselves, so unlike the TPU pipeline nothing here pads to a tile
 multiple, and ``block`` / ``block_z`` only set the plain versions' chunks.
 
+``pald_fused(X)`` is the fused features pipeline: both passes straight
+from (n, d) feature vectors (``pald_fused.py``), D never materialized.
+
 Every entry point takes ``ties`` (a mode string, a registered functional
-name, or a ``WeightFunctional``).  The upper-triangular schedule, the fused
-features pipeline and the sparse k-NN pipeline are later slices of the
-port (ROADMAP.md, queue 1): their entry points raise
-``NotImplementedError``.
+name, or a ``WeightFunctional``).  The upper-triangular schedule and the
+sparse k-NN pipeline are later slices of the port (ROADMAP.md, queue 1):
+their entry points raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from repro_torch.core.weights import DEFAULT_TIES, resolve_weight
 
 from .pald_cohesion import cohesion_general_cuda, cohesion_general_torch
 from .pald_focus import focus_general_cuda, focus_general_torch
+from .pald_fused import (cohesion_fused_cuda, cohesion_fused_torch,
+                         focus_fused_cuda, focus_fused_torch)
 from .ref import weights_ref
 
 __all__ = [
@@ -50,7 +54,6 @@ __all__ = [
 IMPLS = ("cuda", "torch")
 
 _TRI = "schedule='tri' is the upper-triangular slice (ROADMAP.md queue 1, item 4)"
-_FUSED = "the fused features pipeline is its own slice (ROADMAP.md queue 1, item 5)"
 _KNN = "the sparse k-NN pipeline is its own slice (ROADMAP.md queue 1, item 6)"
 
 
@@ -150,8 +153,40 @@ def pald_tri(*args, **kwargs):
     raise NotImplementedError(_TRI)
 
 
-def pald_fused(*args, **kwargs):
-    raise NotImplementedError(_FUSED)
+def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
+               normalize: bool = False, impl: str | None = None,
+               ties=DEFAULT_TIES) -> torch.Tensor:
+    """Fused features -> cohesion pipeline: X (n, d) -> C (n, n).
+
+    Both passes compute their distance tiles from the feature rows as they
+    go (``impl="cuda"``: inside the kernels of ``pald_fused.py``; on CPU
+    tensors, and with ``impl="torch"``, the plain versions' (block, n)
+    slabs), so the (n, n) distance matrix never exists: U, W = 1/U and C
+    are the only (n, n) buffers.  The kernels mask ragged edges
+    themselves, so no row is padded.  ``block`` / ``block_z`` set the
+    plain versions' row block and reduced-axis chunk (default 128 / 512);
+    the kernels' tiles are fixed.  Peak memory: U, W and an (n, n) bool
+    mask while W is built, then W and C.
+    """
+    ties = resolve_weight(ties)
+    impl = _check_impl(impl or default_impl(X.device))
+    X = _f32(X)  # the one boundary cast
+    n = X.shape[0]
+    if impl == "torch":
+        kw = dict(metric=metric, block=int(block or 128),
+                  block_z=int(block_z or 512), ties=ties)
+        U = focus_fused_torch(X, **kw)
+        W = weights_ref(U)
+        del U
+        C = cohesion_fused_torch(X, W, **kw)
+    else:
+        U = focus_fused_cuda(X, metric=metric, ties=ties)
+        W = weights_ref(U)
+        del U
+        C = cohesion_fused_cuda(X, W, metric=metric, ties=ties)
+    if normalize:
+        C.div_(max(n - 1, 1))  # in place: no fourth (n, n) buffer
+    return C
 
 
 def pald_knn(*args, **kwargs):
@@ -188,3 +223,10 @@ def _kernel_exec(D, plan, pipeline):
 @_engine.register_executor("distance", "kernel", "dense")
 def _exec_kernel_dense(D, plan):
     return _kernel_exec(D, plan, pald)
+
+
+@_engine.register_executor("features", "fused", "dense")
+def _exec_fused(X, plan):
+    return pald_fused(X, metric=plan.metric, block=plan.block,
+                      block_z=plan.block_z, normalize=plan.normalize,
+                      impl=plan.impl, ties=plan.weight)

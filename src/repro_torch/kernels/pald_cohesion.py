@@ -100,7 +100,7 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
     C = torch.empty((mx, mz), dtype=f32, device=dev)
     if mx == 0 or mz == 0:
         return C
-    fn = _build.load("pald_cohesion")
+    fn = _build.load("pald_cohesion_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),

@@ -94,7 +94,7 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     U = torch.empty((mx, my), dtype=f32, device=dev)
     if mx == 0 or my == 0:
         return U
-    fn = _build.load("pald_focus")
+    fn = _build.load("pald_focus_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),

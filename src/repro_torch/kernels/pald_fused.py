@@ -1,0 +1,203 @@
+"""PaLD's two passes straight from feature vectors: the CUDA kernels'
+wrappers and their plain torch versions.
+
+    U[x, y] = sum_z focus_weight(d(x, z), d(y, z), d(x, y))
+    C[x, z] = sum_y support_weight(d(x, z), d(y, z), d(x, y)) * W[x, y]
+
+with the distances d computed from the rows of X (n, d) as the passes go,
+so the (n, n) distance matrix never exists.  The kernels
+(``csrc/pald_fused.cu``) replace the TPU kernels
+``repro/kernels/pald_fused.py::focus_fused_pallas`` and
+``cohesion_fused_pallas``.  They run the dense kernels' tiles and inner
+loops (``csrc/pald_tile.cuh``) and compute each staged slab of distances
+from feature rows (``csrc/pald_dist.cuh``): bound by the FP32 pipe, with
+d/16 more lane instructions per triple than the dense kernels for the
+recomputed distances.  The source note in the ``.cu`` file has the details.
+
+The distances are bitwise those of ``core.features.cdist_reference`` (the
+same operations in the same order), so on the same X the fused U equals
+the dense kernels' U on ``cdist_reference(X)``.  Rows at index >=
+``n_valid`` are padding (+inf from everything); the kernels mask ragged
+edges themselves, so nothing is padded.
+
+:func:`focus_fused_cuda` and :func:`cohesion_fused_cuda` dispatch on the
+tensors' device: CUDA tensors launch the kernel (or raise), CPU tensors
+take :func:`focus_fused_torch` / :func:`cohesion_fused_torch`, the
+counterparts of the reference's ``ops._focus_fused_jnp`` /
+``_cohesion_fused_jnp``: (block, m) distance slabs fed to the dense plain
+versions, block pair by block pair.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.features import METRICS, masked_dist_tile
+from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
+
+from . import _build
+from .pald_cohesion import cohesion_general_torch
+from .pald_focus import check_operands, focus_general_torch
+
+__all__ = ["focus_fused_cuda", "cohesion_fused_cuda", "focus_fused_torch",
+           "cohesion_fused_torch", "dist_fused_cuda", "metric_id"]
+
+# shared memory of one thread block of the fused kernels, in bytes
+# (csrc/pald_fused.cu: a 64-row tile, 32-row slabs, 16 features staged per
+# step, rows padded by 4 floats); independent of d
+_LD, _LDS, _CHUNK, _SLAB = 68, 36, 16, 32
+_STAGE = 4 * _CHUNK * (2 * _LD + _LDS)
+SMEM_PER_CTA = {"focus": _STAGE + 4 * 2 * _SLAB * _LD,
+                "cohesion": _STAGE + 4 * 3 * _SLAB * _LD + _SLAB * _LD}
+
+
+def metric_id(metric: str) -> int:
+    """The kernels' id of ``metric`` (csrc/pald_dist.cuh)."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r} (expected one of "
+                         f"{METRICS})")
+    return METRICS.index(metric)
+
+
+def _n_valid(X, n_valid) -> int:
+    n = X.shape[0]
+    nv = n if n_valid is None else int(n_valid)
+    if not 0 <= nv <= n:
+        raise ValueError(f"n_valid={nv} out of range for {n} rows")
+    return nv
+
+
+def _slabs(X, metric, n_valid, block):
+    """The masked (block, m) distance row slabs of X, one per row block,
+    computed on demand."""
+    m = X.shape[0]
+    for s in range(0, m, block):
+        yield s, masked_dist_tile(X[s:s + block], X, metric, s, 0, n_valid)
+
+
+def focus_fused_torch(X, *, metric: str = "euclidean", n_valid=None,
+                      block: int = 128, block_z: int = 512,
+                      ties=DEFAULT_TIES) -> torch.Tensor:
+    """Plain torch U (m, m) from X (m, d) (any device): per (x, y) block
+    pair, the two (block, m) distance slabs and the dense plain version."""
+    metric_id(metric)
+    nv = _n_valid(X, n_valid)
+    X = X.to(torch.float32)
+    m = X.shape[0]
+    U = torch.empty((m, m), dtype=torch.float32, device=X.device)
+    for x0, Dx in _slabs(X, metric, nv, block):
+        for y0, Dy in _slabs(X, metric, nv, block):
+            Dxy = Dx[:, y0:y0 + Dy.shape[0]].contiguous()
+            U[x0:x0 + Dx.shape[0], y0:y0 + Dy.shape[0]] = focus_general_torch(
+                Dx, Dy, Dxy, chunk=block_z, ties=ties)
+    return U
+
+
+def cohesion_fused_torch(X, W, *, metric: str = "euclidean", n_valid=None,
+                         block: int = 128, block_z: int = 512,
+                         ties=DEFAULT_TIES) -> torch.Tensor:
+    """Plain torch C (m, m) from X (m, d) and W = 1/U (any device): per
+    (x, y) block pair, the two distance slabs and the dense plain version
+    with the global x > y tiebreak."""
+    metric_id(metric)
+    wfun = resolve_weight(ties)
+    nv = _n_valid(X, n_valid)
+    X = X.to(torch.float32)
+    m = X.shape[0]
+    C = torch.empty((m, m), dtype=torch.float32, device=X.device)
+    for x0, Dx in _slabs(X, metric, nv, block):
+        bx = Dx.shape[0]
+        acc = torch.zeros((bx, m), dtype=torch.float32, device=X.device)
+        for y0, Dy in _slabs(X, metric, nv, block):
+            by = Dy.shape[0]
+            offs = (x0, y0) if wfun.needs_index_tiebreak else None
+            acc += cohesion_general_torch(
+                Dx, Dy, Dx[:, y0:y0 + by].contiguous(),
+                W[x0:x0 + bx, y0:y0 + by].contiguous(), chunk=block_z,
+                ties=wfun, xw_offsets=offs)
+        C[x0:x0 + bx] = acc
+    return C
+
+
+def _launch(symbol, X, out, *ptrs_and_args):
+    fn = _build.load(symbol)
+    dev = X.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*ptrs_and_args, stream)
+    _build.check(status, symbol)
+    return out
+
+
+def _cuda_operands(what, X, n_valid, **more):
+    dev = X.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    n, d = X.shape
+    check_operands(what, dev, X=(X, (n, d), torch.float32), **more)
+    nv = _n_valid(X, n_valid)
+    norms = torch.empty((n,), dtype=torch.float32, device=dev)
+    return n, d, nv, norms
+
+
+def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
+                     ties=DEFAULT_TIES) -> torch.Tensor:
+    """U (n, n) from X (n, d) through the CUDA kernel for CUDA tensors,
+    through :func:`focus_fused_torch` for CPU tensors.
+
+    A CUDA X must be contiguous float32 (``ops`` prepares it); anything
+    else raises, as does a weight functional without a kernel id.  Each
+    call that launches the kernel adds one to ``focus_fused_cuda.launches``.
+    """
+    if X.device.type == "cpu":
+        return focus_fused_torch(X, metric=metric, n_valid=n_valid, ties=ties)
+    wid, p0, p1 = kernel_spec(ties)
+    mid = metric_id(metric)
+    n, d, nv, norms = _cuda_operands("focus_fused_cuda", X, n_valid)
+    U = torch.empty((n, n), dtype=torch.float32, device=X.device)
+    if n == 0:
+        return U
+    _launch("pald_focus_fused_f32", X, U, X.data_ptr(), norms.data_ptr(),
+            U.data_ptr(), n, d, nv, mid, wid, p0, p1)
+    focus_fused_cuda.launches += 1
+    return U
+
+
+def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
+                        ties=DEFAULT_TIES) -> torch.Tensor:
+    """C (n, n) from X (n, d) and W = 1/U (n, n) through the CUDA kernel
+    for CUDA tensors, through :func:`cohesion_fused_torch` for CPU tensors.
+    Same operand rules as :func:`focus_fused_cuda`; each launch adds one to
+    ``cohesion_fused_cuda.launches``."""
+    if X.device.type == "cpu":
+        return cohesion_fused_torch(X, W, metric=metric, n_valid=n_valid,
+                                    ties=ties)
+    wid, p0, p1 = kernel_spec(ties)
+    mid = metric_id(metric)
+    n = X.shape[0]
+    n, d, nv, norms = _cuda_operands(
+        "cohesion_fused_cuda", X, n_valid, W=(W, (n, n), torch.float32))
+    C = torch.empty((n, n), dtype=torch.float32, device=X.device)
+    if n == 0:
+        return C
+    _launch("pald_cohesion_fused_f32", X, C, X.data_ptr(), norms.data_ptr(),
+            W.data_ptr(), C.data_ptr(), n, d, nv, mid, wid, p0, p1)
+    cohesion_fused_cuda.launches += 1
+    return C
+
+
+def dist_fused_cuda(X, *, metric: str = "euclidean",
+                    n_valid=None) -> torch.Tensor:
+    """The fused kernels' masked distances D (n, n) of a CUDA X, written
+    out by the kernels' own distance code: the probe that holds them
+    bitwise to ``cdist_reference``.  The passes never call it."""
+    mid = metric_id(metric)
+    n, d, nv, norms = _cuda_operands("dist_fused_cuda", X, n_valid)
+    D = torch.empty((n, n), dtype=torch.float32, device=X.device)
+    if n == 0:
+        return D
+    return _launch("pald_dist_fused_f32", X, D, X.data_ptr(),
+                   norms.data_ptr(), D.data_ptr(), n, d, nv, mid)
+
+
+focus_fused_cuda.launches = 0
+cohesion_fused_cuda.launches = 0

@@ -23,15 +23,23 @@ def focus_ref(D: torch.Tensor, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
 def weights_ref(U: torch.Tensor, n_valid=None) -> torch.Tensor:
     """W = 1/U with a zero diagonal, zero where U == 0, and zero rows and
-    columns for padded points (index >= ``n_valid``)."""
-    n = U.shape[0]
-    eye = torch.eye(n, dtype=torch.bool, device=U.device)
+    columns for padded points (index >= ``n_valid``).
+
+    Built in place in the one (n, n) output, so the step holds U, W and an
+    (n, n) bool mask, no float temporaries: at n = 8192 each float buffer
+    is 256 MiB.  ``reciprocal`` is the IEEE quotient 1/U on the CPU and the
+    card, as ``1.0 / U`` is.
+    """
     zero = U == 0
-    W = torch.where(eye | zero, 0.0, 1.0 / torch.where(zero, 1.0, U))
+    W = torch.where(zero, 1.0, U.to(torch.float32))
+    W.reciprocal_()
+    W.masked_fill_(zero, 0.0)
+    del zero
+    W.fill_diagonal_(0.0)
     if n_valid is not None:
-        valid = torch.arange(n, device=U.device) < n_valid
-        W = W * valid[:, None] * valid[None, :]
-    return W.to(torch.float32)
+        W[n_valid:] = 0.0
+        W[:, n_valid:] = 0.0
+    return W
 
 
 def cohesion_ref(D: torch.Tensor, W: torch.Tensor, *,

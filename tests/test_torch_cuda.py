@@ -9,7 +9,11 @@ PyTorch is installed):
 U is bitwise for every functional whose focus is an exact count (all but
 ``soft``); C, and the smooth ``soft`` U, to rtol 1e-5, atol 1e-6 (the
 conformance tolerance): kernel and plain version sum in another order.
-``chip_smoke.py`` repeats the comparison at the main path's full size.
+The fused features kernels are held to their plain versions the same way,
+their distances bitwise to ``cdist_reference``, and their U and C bitwise
+to the dense kernels' on those distances (the same loops on the same
+numbers).  ``chip_smoke.py`` repeats the comparisons at the main paths'
+full size.
 """
 import numpy as np
 import pytest
@@ -104,5 +108,114 @@ def test_cuda_cohesion_matches_cpu(cuda_device, name):
     assert pald_focus.focus_general_cuda.launches == f0 + 1
     assert pald_cohesion.cohesion_general_cuda.launches == c0 + 1
     Cc = pald.cohesion(D, method="kernel", weight=name, device="cpu")
+    np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the fused features kernels (csrc/pald_fused.cu)
+# ---------------------------------------------------------------------------
+METRICS = ["sqeuclidean", "euclidean", "cosine", "manhattan"]
+
+
+def _features(n, d, seed=0):
+    """Features quantized to 0.1 (rounded products and sums, exact ties)
+    with every fifth row a duplicate of an earlier one; no +inf."""
+    rng = np.random.default_rng(seed)
+    X = np.round(rng.normal(size=(n, d)) * 10) / 10
+    dup = np.arange(5, n, 5)
+    X[dup] = X[rng.integers(0, 5, size=dup.size)]
+    return X.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 300])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_fused_distances_bitwise(cuda_device, metric, d):
+    """The kernels' distance code against cdist_reference, bitwise, on the
+    card and on the CPU; rows past n_valid are +inf, the diagonal 0."""
+    from repro_torch.core.features import cdist_reference, masked_dist_tile
+    from repro_torch.kernels.pald_fused import dist_fused_cuda
+
+    X = _features(257, d, seed=d)
+    Xg = torch.as_tensor(X, device=cuda_device)
+    Dk = dist_fused_cuda(Xg, metric=metric)
+    assert torch.equal(Dk, cdist_reference(Xg, metric=metric))
+    assert torch.equal(Dk.cpu(), cdist_reference(torch.as_tensor(X),
+                                                 metric=metric))
+    Dp = dist_fused_cuda(Xg, metric=metric, n_valid=200)
+    assert torch.equal(Dp, masked_dist_tile(Xg, Xg, metric, 0, 0, 200))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 300])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_fused_kernels_vs_plain(cuda_device, name, metric, d):
+    """Each fused kernel against its plain version on the card (ragged
+    n = 257): U bitwise for the exact-count families, C to rtol 1e-5."""
+    from repro_torch.kernels import pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    Xg = torch.as_tensor(_features(257, d, seed=d), device=cuda_device)
+    kw = dict(metric=metric, ties=name)
+    f0 = pald_fused.focus_fused_cuda.launches
+    c0 = pald_fused.cohesion_fused_cuda.launches
+    Uk = pald_fused.focus_fused_cuda(Xg, **kw)
+    Up = pald_fused.focus_fused_torch(Xg, **kw)
+    _assert_u(name, Uk.cpu().numpy(), Up.cpu().numpy())
+    W = weights_ref(Up)
+    Ck = pald_fused.cohesion_fused_cuda(Xg, W, **kw)
+    Cp = pald_fused.cohesion_fused_torch(Xg, W, **kw)
+    torch.cuda.synchronize()
+    assert pald_fused.focus_fused_cuda.launches == f0 + 1
+    assert pald_fused.cohesion_fused_cuda.launches == c0 + 1
+    np.testing.assert_allclose(Ck.cpu().numpy(), Cp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 300])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("name", ["drop", "split", "ignore"])
+def test_cuda_fused_vs_dense_kernels(cuda_device, name, metric, d):
+    """The fused kernels against the dense ones on cdist_reference(X): the
+    same distances through the same loops, so U and C are bitwise."""
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    Xg = torch.as_tensor(_features(257, d, seed=d), device=cuda_device)
+    D = cdist_reference(Xg, metric=metric)
+    Uf = pald_fused.focus_fused_cuda(Xg, metric=metric, ties=name)
+    Ud = ops.focus(D, impl="cuda", ties=name)
+    assert torch.equal(Uf, Ud)
+    W = weights_ref(Ud)
+    Cf = pald_fused.cohesion_fused_cuda(Xg, W, metric=metric, ties=name)
+    Cd = ops.cohesion_from_weights(D, W, impl="cuda", ties=name)
+    assert torch.equal(Cf, Cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_from_features_matches_cpu(cuda_device, metric):
+    """The facade with default knobs on the card (the fused kernels once
+    each, the dense kernels not at all) against the same call on the CPU
+    (the plain versions)."""
+    from repro_torch.core import pald
+    from repro_torch.kernels import pald_fused
+
+    X = _features(300, 7, seed=3)
+    f0 = pald_fused.focus_fused_cuda.launches
+    c0 = pald_fused.cohesion_fused_cuda.launches
+    d0 = (pald_focus.focus_general_cuda.launches,
+          pald_cohesion.cohesion_general_cuda.launches)
+    Cg = pald.from_features(X, metric=metric)
+    assert Cg.device.type == "cuda" and Cg.shape == (300, 300)
+    assert pald_fused.focus_fused_cuda.launches == f0 + 1
+    assert pald_fused.cohesion_fused_cuda.launches == c0 + 1
+    assert (pald_focus.focus_general_cuda.launches,
+            pald_cohesion.cohesion_general_cuda.launches) == d0
+    Cc = pald.from_features(X, metric=metric, device="cpu")
     np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
                                atol=ATOL)

@@ -276,8 +276,8 @@ def test_unknown_impl_rejected():
         ops.focus(D, impl="pallas")
 
 
-@pytest.mark.parametrize("fn", ["pald_tri", "pald_fused", "pald_knn",
-                                "knn_values", "topk_select", "select_cohere"])
+@pytest.mark.parametrize("fn", ["pald_tri", "pald_knn", "knn_values",
+                                "topk_select", "select_cohere"])
 def test_unported_pipelines_raise(fn):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         getattr(ops, fn)(torch.zeros((4, 4)))
@@ -289,3 +289,19 @@ def test_tri_schedule_raises(fn):
     args = (D, D) if fn == "cohesion_from_weights" else (D,)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         getattr(ops, fn)(*args, schedule="tri")
+
+
+@pytest.mark.parametrize("n_valid", [None, 17, 23])
+def test_weights_ref_matches_reference(n_valid):
+    """W = 1/U with zero diagonal, zero where U == 0 and zero padding rows
+    and columns: bitwise the reference's, on counts and on fractional U
+    (soft) with zeros among them."""
+    rng = np.random.default_rng(12)
+    counts = rng.integers(0, 9, size=(23, 23)).astype(np.float32)
+    frac = (counts * rng.random((23, 23))).astype(np.float32)
+    for U in (counts, frac):
+        got = tref.weights_ref(torch.tensor(U), n_valid).numpy()
+        want = np.asarray(jref.weights_ref(jnp.asarray(U), n_valid))
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(np.signbit(got), np.signbit(want))

@@ -277,7 +277,7 @@ def test_shape_errors():
     {"method": "knn", "k": 3},
     {"method": "kernel", "k": 3},
     {"method": "kernel", "schedule": "tri"},
-    {"method": "kernel", "kind": "features"},
+    {"kind": "features", "method": "knn", "k": 3},
     {"method": "kernel", "block": "auto"},
     {"method": "kernel", "block_z": "auto"},
     {"method": "kernel", "on_error": "fallback"},
