@@ -32,7 +32,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the materialize-then-kernel path's;
 8. the fused kernels and their plain versions timed at n = 8192, d = 64,
    and ``from_features`` end to end, fused against materialize-then-kernel,
-   for all four metrics (CUDA events, median after a warm-up).
+   for all four metrics (CUDA events, median after a warm-up);
+9. the sparse k-NN kernels (``pald_topk.cu``, ``pald_knn.cu``) against
+   their plain versions on the card: the selection bitwise (indices and
+   distances) for n in {1, 2, 33, 257, 1000}, d in {1, 5, 8, 300}, k in
+   {1, 7, 32, n-1}, four metrics, on quantized features with duplicated
+   rows; the values for five families x both gather kinds x k in {1, 4,
+   32, n-1} at n = 257 (rtol 1e-5, atol 1e-6), and at k = n-1 scattered
+   against the dense kernels' C;
+10. the third main path at full size: ``ops.select_cohere(X, k=32)`` on the
+   k-NN example's mixture (n = 50,000, d = 8, communities of 25), with the
+   launch counters as proof that the two k-NN kernels ran once each and no
+   dense, fused or plain version did; a 64-row slab against the plain
+   versions and a float64 sum, the example's purity check, peak device
+   memory; then ``pald.cohesion(D, method="knn", k=32)`` on phase 3's
+   n = 8192 D;
+11. the k-NN kernels, the gather and ``select_cohere`` timed at n = 50,000
+   (the selection also at k in {1, 256, 1024}), then ``select_cohere`` at
+   n = 1,000,000 (or the largest n the 50,000 times, scaled by n^2, put
+   under 60 s) with a 64-row slab check.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
@@ -55,6 +73,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 N_MAIN = 8192          # the dense methods' size in benchmarks/run.py
 D_MAIN = 8
 D_FUSED = 64           # the embedding width of examples/pald_text_analysis.py
+# the k-NN main path: examples/pald_knn_clusters.py's defaults
+N_KNN, K_KNN, D_KNN, COMM_KNN = 50_000, 32, 8, 25
+N_KNN_BIG = 1_000_000  # the size the reference's k-NN pipeline reached
+BIG_LIMIT_S = 60.0     # projected wall time allowed for the n = N_KNN_BIG run
 METRICS = ("sqeuclidean", "euclidean", "cosine", "manhattan")
 SLAB = 64
 SEED = 0
@@ -656,6 +678,357 @@ def phase_fused_timing(Xg, D, launches, clock_mhz, reps=5):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the sparse k-NN slice (phases 9-11)
+# ---------------------------------------------------------------------------
+def knn_features(rng, n, d, dev):
+    """Features quantized to 0.1 (exact ties at the k boundary), every
+    fifth row a duplicate of an earlier one (zero distances)."""
+    import torch
+
+    X = np.round(rng.normal(size=(n, d)) * 10) / 10
+    dup = np.arange(5, n, 5)
+    X[dup] = X[rng.integers(0, 5, size=dup.size)]
+    return torch.as_tensor(X.astype(np.float32), device=dev)
+
+
+def phase_knn_vs_plain(dev) -> None:
+    """Phase 9: the selection kernel bitwise against its plain version, the
+    values kernel against its plain version and, at k = n-1, against the
+    dense kernels."""
+    import torch
+    from repro_torch.core import knn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_knn, pald_topk
+
+    rng = np.random.default_rng(SEED + 9)
+    topk_checks = 0
+    for n in (1, 2, 33, 257, 1000):
+        for d in (1, 5, 8, 300):
+            X = knn_features(rng, n, d, dev)
+            ks = sorted({k for k in (1, 7, 32, n - 1)
+                         if 0 <= k <= min(n - 1, pald_topk.MAX_K)})
+            for metric in METRICS:
+                for k in ks:
+                    gk = pald_topk.topk_select_cuda(X, k, metric=metric)
+                    gp = pald_topk.topk_select_torch(X, k, metric=metric)
+                    tag = f"topk {metric} n={n} d={d} k={k}"
+                    compare(f"{tag} indices", gk.indices, gp.indices, True)
+                    compare(f"{tag} distances", gk.distances, gp.distances,
+                            True)
+                    topk_checks += 1
+    n = 257
+    X = knn_features(rng, n, 5, dev)
+    D = cdist_reference(X)
+    val_checks = bitwise = 0
+    for k in (1, 4, 32, n - 1):
+        graph = pald_topk.topk_select_cuda(X, k)
+        idx = graph.indices
+        tiles = {"distance": knn.gather_tile_from_distances(D, idx),
+                 "features": knn.gather_tile_from_features(X, idx,
+                                                           "euclidean")}
+        compare(f"gathered tiles k={k}", tiles["features"],
+                tiles["distance"], True)
+        for w in functionals():
+            for kind, g in tiles.items():
+                vk = pald_knn.knn_values_cuda(graph.distances, g, idx, ties=w)
+                vp = pald_knn.knn_values_torch(graph.distances, g, idx,
+                                               ties=w)
+                compare(f"knn_values {w.name} {kind} n={n} k={k}", vk, vp,
+                        False)
+                bitwise += bool(torch.equal(vk, vp))
+                val_checks += 1
+            if k == n - 1:
+                C = knn.scatter_dense(graph, pald_knn.knn_values_cuda(
+                    graph.distances, tiles["distance"], idx, ties=w))
+                compare(f"k-NN at k=n-1 vs the dense kernels {w.name}", C,
+                        ops.pald(D, impl="cuda", ties=w), False)
+                val_checks += 1
+    torch.cuda.synchronize()
+    print(f"phase 9: {topk_checks} selection checks bitwise (indices and "
+          f"distances); {val_checks} values checks within rtol {RTOL}, atol "
+          f"{ATOL} ({bitwise} of {val_checks - 5} kernel-vs-plain bitwise; "
+          f"k = n-1 against the dense kernels for 5 families)")
+
+
+def make_mixture(n, comm_size, d, seed=0):
+    """~n points in n // comm_size well-separated Gaussian communities
+    (examples/pald_knn_clusters.py::make_mixture)."""
+    rng = np.random.default_rng(seed)
+    c = max(n // comm_size, 1)
+    centers = rng.normal(size=(c, d)) * (6.0 * c ** (1.0 / d))
+    X = np.concatenate(
+        [centers[i] + rng.normal(size=(comm_size, d)) for i in range(c)])
+    labels = np.repeat(np.arange(c), comm_size)
+    return X.astype(np.float32), labels
+
+
+def knn_values_f64(dn, g, idx, r0, ties):
+    """Un-normalized (m, k+1) values with the plain version's float32 terms
+    and weights accumulated in float64."""
+    import torch
+    from repro_torch.core.weights import (focus_weight, resolve_weight,
+                                          support_weight)
+
+    w = resolve_weight(ties)
+    zero = torch.zeros_like(dn)
+    fw_self = focus_weight(zero, dn, dn, w)
+    fw = focus_weight(dn[:, None, :], g, dn[:, :, None], w)
+    U = fw_self.double() + fw.double().sum(-1)
+    W = torch.where(U > 0, 1.0 / torch.where(U > 0, U, 1.0), 0.0)
+    rows = r0 + torch.arange(dn.shape[0], device=dn.device)
+    ow = rows[:, None] > idx
+    sw_self = support_weight(zero, dn, dn, w, ow)
+    sw = support_weight(dn[:, None, :], g, dn[:, :, None], w, ow[:, :, None])
+    return torch.cat([(sw_self.double() * W).sum(1, keepdim=True),
+                      (sw.double() * W[:, :, None]).sum(1)], dim=1)
+
+
+def knn_slab_check(tag, Xg, graph, vals, r0, k, ties="drop"):
+    """Rows r0:r0+64 of a select_cohere result against the plain versions
+    (graph bitwise; values to rtol 1e-5) and a float64 sum (rtol 1e-5).
+    The values are normalized by n-1, so atol 1e-6 applies before the
+    division: it is 1e-6 / (n-1) here."""
+    from repro_torch.core import knn
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    n = Xg.shape[0]
+    sl = slice(r0, r0 + SLAB)
+    gp = pald_topk.topk_select_torch(Xg, k, rows=(r0, r0 + SLAB))
+    compare(f"{tag} graph indices rows {r0}:{r0 + SLAB}", graph.indices[sl],
+            gp.indices, True)
+    compare(f"{tag} graph distances rows {r0}:{r0 + SLAB}",
+            graph.distances[sl], gp.distances, True)
+    g = knn.gather_tile_from_features(Xg, gp.indices, "euclidean")
+    vp = pald_knn.knn_values_torch(gp.distances, g, gp.indices, ties=ties,
+                                   row_off=r0) / (n - 1)
+    atol = ATOL / (n - 1)
+    err = compare(f"{tag} values rows {r0}:{r0 + SLAB}", vals[sl], vp, False,
+                  atol=atol)
+    v64 = knn_values_f64(gp.distances, g, gp.indices, r0, ties) / (n - 1)
+    rel = {name: float(((v.double() - v64).abs() /
+                        v64.abs().clamp_min(1e-300)).max())
+           for name, v in (("kernel", vals[sl]), ("plain", vp))}
+    compare(f"{tag} values rows {r0}:{r0 + SLAB} vs float64",
+            vals[sl].double(), v64, False, atol=atol)
+    print(f"{tag}: rows {r0}:{r0 + SLAB} graph bitwise the plain version's; "
+          f"values max |err| {err!r} against it (rtol {RTOL}, atol "
+          f"{atol!r}); against a float64 sum of "
+          f"the same terms max relative error kernel {rel['kernel']!r}, "
+          f"plain {rel['plain']!r}")
+
+
+def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
+    """Phase 10: ``ops.select_cohere`` at the k-NN example's size, through
+    both k-NN kernels, then ``cohesion(D, method="knn")`` at n = 8192."""
+    import torch
+    from repro_torch.core import knn, pald
+    from repro_torch.kernels import (ops, pald_cohesion, pald_focus,
+                                     pald_fused, pald_knn, pald_topk)
+
+    X, labels = make_mixture(n, comm, d, SEED)
+    n = X.shape[0]
+    Xg = torch.as_tensor(X, device=dev)
+
+    def plain_called(*a, **kw):
+        fail("a plain torch version ran on the k-NN main path")
+
+    patched = [(ops, "topk_select_torch"), (ops, "knn_values_torch"),
+               (pald_topk, "topk_select_torch"),
+               (pald_knn, "knn_values_torch"),
+               (ops, "focus_fused_torch"), (ops, "cohesion_fused_torch"),
+               (ops, "focus_general_torch"), (ops, "cohesion_general_torch")]
+    saved = [getattr(m, a) for m, a in patched]
+    counted = {"topk_select": pald_topk.topk_select_cuda,
+               "knn_values": pald_knn.knn_values_cuda,
+               "focus_general": pald_focus.focus_general_cuda,
+               "cohesion_general": pald_cohesion.cohesion_general_cuda,
+               "focus_fused": pald_fused.focus_fused_cuda,
+               "cohesion_fused": pald_fused.cohesion_fused_cuda}
+    for m, a in patched:
+        setattr(m, a, plain_called)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for f in counted.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        graph, vals = ops.select_cohere(Xg, k=k, metric="euclidean",
+                                        normalize=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {name: f.launches for name, f in counted.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        for (m, a), f in zip(patched, saved):
+            setattr(m, a, f)
+    print(f"phase 10: select_cohere(X, k={k}) n={n} d={d} (euclidean, drop):"
+          f" {secs:.3f} s wall (first call), launches {launches}")
+    if launches["topk_select"] != 1 or launches["knn_values"] != 1:
+        fail(f"the k-NN kernels did not run once each: {launches}")
+    if any(launches[name] for name in launches
+           if name not in ("topk_select", "knn_values")):
+        fail(f"a dense or fused kernel ran on the k-NN path: {launches}")
+    if (tuple(graph.indices.shape) != (n, k) or tuple(vals.shape) != (n, k + 1)
+            or vals.device != Xg.device or vals.dtype != torch.float32):
+        fail(f"graph {tuple(graph.indices.shape)}, values "
+             f"{tuple(vals.shape)} {vals.dtype} on {vals.device}")
+    if not bool(torch.isfinite(vals).all()):
+        fail("the values have non-finite entries")
+    g_bytes = 4 * n * k * k
+    print(f"phase 10: peak device memory above the input {peak} B "
+          f"({peak / g_bytes:.3f} x the (n, k, k) gathered tiles of "
+          f"{g_bytes} B; a dense D would be {4 * n * n} B)")
+
+    knn_slab_check("phase 10", Xg, graph, vals, min(30001, n - SLAB), k)
+
+    # the example's own check: no strong component spans two communities
+    t0 = time.perf_counter()
+    comms = knn.communities(graph, vals)
+    big = [cc for cc in comms if len(cc) > 1]
+    pure = sum(1 for cc in comms if len({labels[m] for m in cc}) == 1)
+    covered = sum(len(cc) for cc in big
+                  if len(cc) >= 0.5 * comm
+                  and len({labels[m] for m in cc}) == 1)
+    print(f"phase 10: {len(big)} strong components in "
+          f"{time.perf_counter() - t0:.1f} s (host); purity "
+          f"{pure / max(len(comms), 1):.1%}, {covered / n:.1%} of points in "
+          f"a majority-recovered community")
+    if pure != len(comms):
+        fail(f"{len(comms) - pure} strong components span two planted "
+             "communities")
+
+    # the distance kind: selection by a stable sort of D's rows, then the
+    # values kernel, on phase 3's matrix
+    Xd, _ = clustered_points(N_MAIN, D_MAIN, SEED)
+    D = distances_on_device(torch.as_tensor(Xd, device=dev))
+    for f in counted.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    C = pald.cohesion(D, method="knn", k=k)
+    torch.cuda.synchronize()
+    secs_d = time.perf_counter() - t0
+    launches_d = {name: f.launches for name, f in counted.items()}
+    print(f"phase 10: cohesion(D, method='knn', k={k}) n={N_MAIN}: "
+          f"{secs_d:.3f} s wall (first call), launches {launches_d}")
+    if launches_d["knn_values"] != 1 or sum(launches_d.values()) != 1:
+        fail(f"cohesion(D, method='knn') did not run the values kernel "
+             f"alone, once: {launches_d}")
+    gp, vp = ops.pald_knn(D, k=k, impl="torch", normalize=True)
+    Cp = knn.scatter_dense(gp, vp)
+    compare(f"cohesion(D, method='knn') n={N_MAIN} vs plain", C, Cp, False)
+    nnz = int((C != 0).sum())
+    print(f"phase 10: C within rtol {RTOL}, atol {ATOL} of the plain "
+          f"versions; {nnz} nonzeros (n (k+1) = {N_MAIN * (k + 1)})")
+    if nnz > N_MAIN * (k + 1):
+        fail("C has entries outside the k-NN restriction")
+    del D, C, Cp
+    return Xg, graph, launches, secs
+
+
+def knn_bound_ms(kernel, n, k, d, clock_mhz):
+    """Least time for a k-NN kernel's work: the larger of its bytes (each
+    input read once, each output written once) over HBM bandwidth and its
+    lane instructions over the FP32 lanes at the maximum clock.  Selection:
+    X and the (n, k) distances and indices; the distance loop is symmetric
+    (d(x, y) and d(y, x) are bitwise equal), so 2d + 4 instructions for
+    each of the n (n-1) / 2 unordered pairs, plus one compare for each of
+    the n^2 (row, candidate) visits.  Values: g, dn, idx and the (n, k+1)
+    output; n k (k+1) 7 instructions."""
+    if kernel == "topk_select":
+        nbytes = 4 * (n * d + 2 * n * k)
+        ops = n * (n - 1) // 2 * (2 * d + 4) + n * n
+    else:
+        nbytes = 4 * (n * k * k + 2 * n * k + n * (k + 1))
+        ops = 7 * n * k * (k + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (FP32_LANES * clock_mhz * 1e6)
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
+    """Phase 11: each k-NN kernel and its plain version, the gather and
+    select_cohere at n = N_KNN; then select_cohere at N_KNN_BIG (or the
+    largest n its projected time allows)."""
+    import torch
+    from repro_torch.kernels import ops, pald_knn, pald_topk
+
+    n, d = Xg.shape
+    k = graph.indices.shape[1]
+    rows = []
+
+    def row(name, src, replaces, ms_k, ms_p, err):
+        b_ms, b_by = knn_bound_ms(name, n, k, d, clock_mhz)
+        print(f"phase 11: {name} n={n} k={k} d={d}: kernel {ms_k!r} ms, "
+              f"plain {ms_p!r} ms, bound {b_ms!r} ms ({b_by}), kernel/bound "
+              f"{ms_k / b_ms:.3f}, library: none (no single PyTorch call "
+              f"computes it)")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    ms_k, gk = time_ms(lambda: pald_topk.topk_select_cuda(Xg, k), reps)
+    ms_p, gp = time_ms(lambda: pald_topk.topk_select_torch(Xg, k), 1)
+    compare(f"topk n={n} indices", gk.indices, gp.indices, True)
+    err = compare(f"topk n={n} distances", gk.distances, gp.distances, True)
+    row("topk_select", "src/repro_torch/csrc/pald_topk.cu",
+        "src/repro/kernels/pald_topk.py:181", ms_k, ms_p, err)
+    del gp
+    idx = gk.indices
+    ms_g, g = time_ms(lambda: ops._gather_tiles(Xg, idx, "features",
+                                                "euclidean"), reps)
+    print(f"phase 11: gather_tile_from_features (plain torch) n={n} k={k}: "
+          f"{ms_g!r} ms for {g.numel() * 4} B")
+    ms_k, vk = time_ms(lambda: pald_knn.knn_values_cuda(gk.distances, g, idx),
+                       reps)
+    ms_p, vp = time_ms(lambda: pald_knn.knn_values_torch(
+        gk.distances, g, idx, block=4096), 1)
+    err = compare(f"knn_values n={n}", vk, vp, False)
+    row("knn_values", "src/repro_torch/csrc/pald_knn.cu",
+        "src/repro/kernels/pald_knn.py:74", ms_k, ms_p, err)
+    del g, vk, vp
+    ms_e, _ = time_ms(lambda: ops.select_cohere(Xg, k=k, normalize=True),
+                      reps)
+    print(f"phase 11: select_cohere n={n} k={k} end to end: {ms_e!r} ms "
+          f"(median of {reps})")
+    # the selection's two list layouts: registers up to k = 32, shared
+    # memory past it
+    for kk in (1, 256, pald_topk.MAX_K):
+        ms_kk, _ = time_ms(lambda: pald_topk.topk_select_cuda(Xg, kk), 3)
+        print(f"phase 11: topk_select n={n} k={kk}: kernel {ms_kk!r} ms "
+              f"(median of 3)")
+
+    # the reference's largest run, if the times scaled by n^2 allow it
+    big = N_KNN_BIG
+    if ms_e * 1e-3 * (big / n) ** 2 > BIG_LIMIT_S:
+        big = int(n * (BIG_LIMIT_S / (ms_e * 1e-3)) ** 0.5) // 1000 * 1000
+        print(f"phase 11: n = {N_KNN_BIG} would take ~"
+              f"{ms_e * 1e-3 * (N_KNN_BIG / n) ** 2:.0f} s; cut to n = {big}")
+    Xb, _ = make_mixture(big, COMM_KNN, d, SEED)
+    Xb = torch.as_tensor(Xb, device=Xg.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gb, vb = ops.select_cohere(Xb, k=k, normalize=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    ms_t, _ = time_ms(lambda: pald_topk.topk_select_cuda(Xb, k), 1)
+    ms_v, _ = time_ms(lambda: pald_knn.knn_values_cuda(
+        gb.distances, ops._gather_tiles(Xb, gb.indices, "features",
+                                        "euclidean"), gb.indices), 1)
+    print(f"phase 11: select_cohere n={big} k={k} d={d}: {secs:.3f} s wall "
+          f"(first call); topk_select kernel {ms_t!r} ms, gather + "
+          f"knn_values {ms_v!r} ms (one timed call each after a warm-up); "
+          f"peak device memory above the input {peak} B")
+    knn_slab_check("phase 11", Xb, gb, vb, min(654321, big - SLAB), k)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -703,6 +1076,16 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_fused_timing(Xg, D, launches, clock_mhz)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    del Xg, D
+    t0 = time.perf_counter()
+    phase_knn_vs_plain(dev)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    Xk, graph, launches, _ = phase_knn_main_path(dev)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += phase_knn_timing(Xk, graph, launches, clock_mhz)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

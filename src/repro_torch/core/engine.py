@@ -23,7 +23,9 @@ and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On features
 ``method="auto"`` resolves to ``"fused"`` (distances computed inside the
 kernels, D never materialized); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
 materialize D once with ``features.cdist_reference`` and run the distance
-executor of the same name.
+executor of the same name.  ``k=`` pins ``method="knn"`` on either kind:
+the sparse k-NN restriction, selection then (n, k+1) values, scattered to
+the dense C (``kernels/ops.py``).
 
 Device rule: ``device`` defaults to ``"cuda"``; the CPU is used only when
 the caller passes ``device="cpu"``.  Without a GPU the default raises; it
@@ -54,13 +56,15 @@ __all__ = [
     "resolve_device",
 ]
 
-DISTANCE_METHODS = ("dense", "pairwise", "kernel")
+DISTANCE_METHODS = ("dense", "pairwise", "kernel", "knn")
 FEATURE_METHODS = ("fused",) + DISTANCE_METHODS
+# the methods whose features cell materializes D and runs the distance cell
+_MATERIALIZING = ("dense", "pairwise", "kernel")
 SCHEDULES = ("dense", "tri")
 
 # methods whose executors take an impl= knob; the plain blocked paths have
 # exactly one implementation, so an explicit impl request there is an error
-_IMPL_METHODS = ("kernel", "fused")
+_IMPL_METHODS = ("kernel", "fused", "knn")
 
 # where each unported knob of the reference lands (ROADMAP.md, queue 1)
 _SLICE = {
@@ -71,16 +75,16 @@ _SLICE = {
                "queue 1, item 4)",
     "tri": "schedule='tri' is the upper-triangular slice (ROADMAP.md queue "
            "1, item 4)",
-    "knn": "method='knn' / k= is the sparse k-NN slice (ROADMAP.md queue 1, "
-           "item 6)",
-    "block_auto": "block='auto' / block_z='auto' need the tuning cache "
-                  "(ROADMAP.md queue 1, item 9: tuning)",
+    "block_auto": "block= / block_z= / select_block='auto' need the tuning "
+                  "cache (ROADMAP.md queue 1, item 9: tuning)",
     "fallback": "on_error='fallback' is the guarded-execution slice "
                 "(ROADMAP.md queue 1, item 8: resilience)",
     "mesh": "mesh= / strategy= are the distributed slice (ROADMAP.md queue "
             "1, item 10)",
-    "select": "select= / select_block= / select_tile= configure the k-NN "
-              "selection stage (ROADMAP.md queue 1, item 6)",
+    "chunked": "select='chunked' is the terminal selection rung of guarded "
+               "execution (ROADMAP.md queue 1, item 8: resilience)",
+    "select_tile": "select_tile= is the tuned tile-min prefilter of the "
+                   "selection (ROADMAP.md queue 1, item 9: tuning)",
 }
 
 
@@ -194,6 +198,10 @@ class PaldPlan:
     block_source: str = "explicit"
     metric: str | None = None     # features kind only
     d: int | None = None          # feature dimension (features kind)
+    k: int | None = None          # neighborhood size (knn only)
+    select: str | None = None     # knn selection impl; None follows impl
+    select_block: int | None = None  # selection rows per slab (features
+    #                                  knn; the plain version's)
 
     def execute(self, x) -> torch.Tensor:
         """Run the planned pipeline on ``x`` (numpy array or tensor), one
@@ -208,7 +216,7 @@ class PaldPlan:
     def padded_n(self) -> int:
         """Per-item extent after the engine-level pad to a block multiple
         (the fused pipeline pads nothing)."""
-        if self.block is None or self.method == "fused":
+        if self.block is None or self.method in ("fused", "knn"):
             return self.n
         return -(-self.n // self.block) * self.block
 
@@ -237,6 +245,9 @@ class PaldPlan:
             "padded_shape": ((self.padded_n, self.padded_n)
                              if self.kind == "distance"
                              else (self.padded_n, self.d)),
+            "k": self.k,
+            "select": self.select,
+            "select_block": self.select_block,
             "method_source": self.method_source,
             "block_source": self.block_source,
             "executor": f"{fn.__module__}.{fn.__qualname__}",
@@ -245,15 +256,24 @@ class PaldPlan:
 
 
 def _est_smem_per_cta(p: PaldPlan) -> int | None:
-    """Static shared memory of one thread block of the fused CUDA kernels
-    (the larger of the two passes), the counterpart of the reference's
-    VMEM-per-step estimate.  The kernels stream the feature axis in
-    chunks, so it does not grow with d.  None for the other methods."""
-    if p.method != "fused":
-        return None
-    from repro_torch.kernels.pald_fused import SMEM_PER_CTA
+    """Shared memory of one thread block of the method's CUDA kernels (the
+    largest of them), the counterpart of the reference's VMEM-per-step
+    estimate.  The fused kernels stream the feature axis in chunks, so it
+    does not grow with d; the k-NN kernels' grows with k (per-row
+    best-lists of k entries, and each row's dn, W and idx).  None for the
+    methods without kernels."""
+    if p.method == "fused":
+        from repro_torch.kernels.pald_fused import SMEM_PER_CTA
 
-    return max(SMEM_PER_CTA.values())
+        return max(SMEM_PER_CTA.values())
+    if p.method == "knn":
+        from repro_torch.kernels import pald_knn, pald_topk
+
+        est = pald_knn.smem_per_cta(p.k)
+        if p.kind == "features":  # the streaming selection kernel too
+            est = max(est, pald_topk.smem_per_cta(p.k))
+        return est
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -410,8 +430,6 @@ def plan(
                          "or 'fallback')")
     if mesh is not None or strategy is not None:
         raise NotImplementedError(_SLICE["mesh"])
-    if select is not None or select_block is not None or select_tile is not None:
-        raise NotImplementedError(_SLICE["select"])
     if kind == "distance" and d is not None:
         raise ValueError("d= only applies to kind='features'")
     n, d = _shape_of(x, n, d, kind)
@@ -433,16 +451,23 @@ def plan(
 
     # -- method ------------------------------------------------------------
     method_source = "explicit"
-    if method == "knn" or k is not None:
-        raise NotImplementedError(_SLICE["knn"])
     if method == "triplet":
         raise NotImplementedError(_SLICE["triplet"])
     if method == "auto":
         if schedule == "tri":  # the reference pins the tri kernel pipeline
             raise NotImplementedError(_SLICE["tri"])
-        if kind != "features":
+        if k is not None:
+            # a neighborhood size is a knn request on either kind: the
+            # sparse approximation is opted into, never auto-selected
+            if z_chunk is not None:
+                raise ValueError(
+                    "k= pins method='knn' but z_chunk= pins method='dense'; "
+                    "pass an explicit method")
+            method, method_source = "knn", "k"
+        elif kind != "features":
             raise NotImplementedError(_SLICE["auto"])
-        method, method_source = "fused", "default"
+        else:
+            method, method_source = "fused", "default"
     if method not in allowed:
         raise ValueError(f"unknown method {method!r} for kind={kind!r} "
                          f"(expected one of {('auto',) + allowed})")
@@ -452,8 +477,45 @@ def plan(
                 f"schedule='tri' is only available for method='kernel', got "
                 f"method={method!r}; pass method='kernel' or drop schedule=")
         raise NotImplementedError(_SLICE["tri"])
-    if block == "auto" or block_z == "auto":
+    if block == "auto" or block_z == "auto" or select_block == "auto":
         raise NotImplementedError(_SLICE["block_auto"])
+
+    # -- neighborhood size and selection stage (knn only) -----------------
+    if method == "knn":
+        if k is None:
+            raise ValueError(
+                "method='knn' needs k= (neighborhood size, 1 <= k <= n-1); "
+                "at k = n-1 the result equals the dense methods exactly")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        k = min(int(k), max(n - 1, 0))
+    elif k is not None:
+        raise ValueError(
+            f"k= is only valid with method='knn' (got method={method!r}); "
+            "the other methods rank every point against every other; drop "
+            "k=, or pass method='knn'")
+    if method != "knn" and (select is not None or select_block is not None
+                            or select_tile is not None):
+        raise ValueError(
+            "select=/select_block=/select_tile= configure the knn neighbor "
+            f"selection stage (got method={method!r}); drop them, or pass "
+            "method='knn'")
+    if select == "chunked":
+        raise NotImplementedError(_SLICE["chunked"])
+    if select_tile is not None:
+        raise NotImplementedError(_SLICE["select_tile"])
+    if select is not None:
+        from repro_torch.kernels.ops import IMPLS
+
+        if select not in IMPLS:
+            raise ValueError(f"unknown select {select!r} (expected one of "
+                             f"{IMPLS})")
+    if kind == "distance" and (select is not None
+                               or select_block is not None):
+        raise ValueError(
+            "select=/select_block= configure the streaming selection from "
+            "features (kind='features'); a distance matrix is selected from "
+            "by a stable sort of its rows")
 
     # -- impl --------------------------------------------------------------
     if method in _IMPL_METHODS:
@@ -477,6 +539,19 @@ def plan(
                   ties=ties, weight=weight, normalize=normalize, batch=batch,
                   check=check, n=n, device=dev, metric=metric, d=d,
                   method_source=method_source)
+    if method == "knn":
+        if block_z is not None:
+            raise ValueError(
+                "block_z= does not apply to method='knn' (the third axis "
+                "is the k neighbors themselves); block= sets the plain "
+                "version's rows per chunk")
+        if kind == "features":
+            select_block = 1024 if select_block is None else int(select_block)
+        return PaldPlan(block=128 if block is None else int(block),
+                        block_z=None, z_chunk=None,
+                        block_source="explicit" if block is not None
+                        else "default", k=k, select=select,
+                        select_block=select_block, **common)
     if method == "dense":
         if block_z is not None:
             raise ValueError("block_z= does not apply to method='dense' "
@@ -515,6 +590,6 @@ def _materialize_then(X, p: PaldPlan):
     return get_executor("distance", p.method, "dense")(D, p)
 
 
-for _m in DISTANCE_METHODS:
+for _m in _MATERIALIZING:
     register_executor("features", _m, "dense")(_materialize_then)
 del _m

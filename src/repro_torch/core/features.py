@@ -31,8 +31,8 @@ METRICS = ("sqeuclidean", "euclidean", "cosine", "manhattan")
 
 _NORM_EPS = 1e-30  # cosine guard: zero vectors get distance 1, not nan
 
-__all__ = ["METRICS", "cdist_reference", "dist_tile", "masked_dist_tile",
-           "pad_features", "row_norms"]
+__all__ = ["METRICS", "cdist_reference", "dist_tile", "finish_dist",
+           "masked_dist_tile", "pad_features", "row_norms"]
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -78,8 +78,14 @@ def dist_tile(XA: torch.Tensor, XB: torch.Tensor, metric: str) -> torch.Tensor:
         acc = acc + (torch.abs(a - b) if metric == "manhattan" else a * b)
     if metric == "manhattan":
         return acc
-    na = row_norms(XA, metric)[:, None]
-    nb = row_norms(XB, metric)[None, :]
+    return finish_dist(acc, row_norms(XA, metric)[:, None],
+                       row_norms(XB, metric)[None, :], metric)
+
+
+def finish_dist(acc: torch.Tensor, na: torch.Tensor, nb: torch.Tensor,
+                metric: str) -> torch.Tensor:
+    """The distance from the pair sums ``acc`` and the two rows' norm terms
+    (broadcast against it), for the metrics with norms."""
     if metric == "cosine":
         return 1.0 - acc / (na * nb)
     d2 = (na + nb) - 2.0 * acc

@@ -9,6 +9,9 @@ execution-plan engine (counterpart of ``repro.core.pald``).
     C = pald.cohesion(D, method="kernel", device="cpu")  # plain torch on CPU
     C = pald.from_features(X)                 # fused CUDA kernels, D never
     #                                           materialized
+    C = pald.from_features(X, k=32)           # sparse k-NN: streaming top-k
+    #                                           and k-NN cohesion kernels
+    C = pald.cohesion(D, method="knn", k=32)  # k-NN on a distance matrix
 
     p = pald.plan(D, method="kernel")         # resolve once ...
     C = p.execute(D)                          # ... run (and re-run)
@@ -85,10 +88,14 @@ def cohesion(
         D: (n, n) distance matrix with an exactly-zero diagonal, or a
             batched (B, n, n) stack; numpy array or tensor, any float dtype.
         method: "kernel" (the CUDA kernel pipeline), "pairwise" (blocked
-            Fig. 5), or "dense" (un-blocked).  "auto", "triplet" and "knn"
-            are later slices of the port and raise ``NotImplementedError``.
+            Fig. 5), "dense" (un-blocked), or "knn" (the sparse k-NN
+            restriction: a stable sort of D's rows, then the k-NN cohesion
+            kernel; needs ``k``).  "auto" with ``k`` is "knn"; otherwise
+            "auto" and "triplet" are later slices of the port and raise
+            ``NotImplementedError``.
         block: tile of the engine's +inf pad for the blocked paths
-            (default 128).  ``method="dense"`` has no tile.
+            (default 128), the k-NN plain version's rows per chunk.
+            ``method="dense"`` has no tile.
         block_z: z chunk of the kernel pipeline's plain version.
         schedule: "dense" ("tri" is a later slice).
         normalize: apply the 1/(n-1) factor (Eq. 3.3); on by default.
@@ -103,7 +110,8 @@ def cohesion(
             the plain paths only.
         batch: accepted for the reference's surface (items run in turn).
         check: add deep input validation (finite, symmetric, nonnegative).
-        k: the k-NN slice's knob; raises ``NotImplementedError``.
+        k: neighborhood size of ``method="knn"`` (pins it), clamped to
+            n-1; at k >= n-1 the result is ``method="dense"``'s, bitwise.
         on_error: "raise" ("fallback" is a later slice).
         device: "cuda" (default) or "cpu".
 
@@ -153,8 +161,11 @@ def from_features(
             the CUDA kernels from the feature rows, so the (n, n) distance
             matrix never exists; "dense" / "pairwise" / "kernel"
             materialize D once (``features.cdist_reference``) and run the
-            distance method of that name.  "knn" and "triplet" are later
-            slices of the port and raise ``NotImplementedError``.
+            distance method of that name; "knn" (pinned by ``k``) selects
+            each point's k nearest neighbors straight from the features
+            (the streaming top-k kernel) and runs the k-NN cohesion kernel
+            (``ops.select_cohere``).  "triplet" is a later slice of the port
+            and raises ``NotImplementedError``.
         batch: accepted for the reference's surface (items run in turn).
         block: the plain versions' row block (default 128) and the
             materializing paths' tile.  Unlike the reference, whose
@@ -172,9 +183,16 @@ def from_features(
             ``WeightFunctional``; the CUDA kernels run the built-in
             families.
         check: reject non-finite features.
-        k, select, select_block, select_tile, mesh, strategy: knobs of
-            the k-NN and distributed slices; they raise
-            ``NotImplementedError``.
+        k: neighborhood size of ``method="knn"`` (pins it), clamped to
+            n-1; at k >= n-1 the result is the dense method's on
+            ``cdist_reference(X)``.
+        select: the k-NN selection's impl ("cuda" or "torch"; None
+            follows ``impl``); ``select="chunked"`` is a later slice and
+            raises ``NotImplementedError``.
+        select_block: the selection plain version's rows per slab
+            (default 1024).
+        select_tile, mesh, strategy: knobs of the tuning and distributed
+            slices; they raise ``NotImplementedError``.
         on_error: "raise" ("fallback" is a later slice).
         device: "cuda" (default; raises without a GPU) or "cpu" (the
             plain versions).

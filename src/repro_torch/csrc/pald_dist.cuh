@@ -75,6 +75,33 @@ __device__ __forceinline__ float masked(float dist, int64_t a, int64_t b,
   return a == b ? 0.f : dist;
 }
 
+// the rows' norm terms, one thread per row, features in order
+template <int M>
+__global__ void row_norms_kernel(const float* __restrict__ x,
+                                 float* __restrict__ norms, int64_t n,
+                                 int64_t d) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (r >= n) return;
+  const float* row = x + r * d;
+  float s = 0.f;
+  for (int64_t k = 0; k < d; ++k)
+    s = Dist<kSqEuclidean>::step(s, row[k], row[k]);
+  norms[r] = Dist<M>::norm(s);
+}
+
+// Launch the norms pre-pass into the (n,) scratch `norms` (nothing for a
+// metric without norms); returns cudaGetLastError().
+template <int M>
+int launch_row_norms(const float* x, float* norms, int64_t n, int64_t d,
+                     cudaStream_t stream) {
+  if constexpr (Dist<M>::kNorms) {
+    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+    row_norms_kernel<M><<<blocks, 256, 0, stream>>>(x, norms, n, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Call f.template operator()<M>() for the metric id; cudaErrorInvalidValue
 // for an unknown id.
 template <class Launch>

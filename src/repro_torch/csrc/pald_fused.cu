@@ -228,21 +228,6 @@ __device__ __forceinline__ void slab_dists(
   }
 }
 
-// the rows' norm terms, one thread per row, features in order
-template <int M>
-__global__ void row_norms_kernel(const float* __restrict__ x,
-                                 float* __restrict__ norms, int64_t n,
-                                 int64_t d) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (r >= n) return;
-  const float* row = x + r * d;
-  float s = 0.f;
-  for (int64_t k = 0; k < d; ++k)
-    s = Dist<pald::kSqEuclidean>::step(s, row[k], row[k]);
-  norms[r] = Dist<M>::norm(s);
-}
-
 template <int M, class F>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 focus_fused_kernel(const float* __restrict__ x,
@@ -370,12 +355,7 @@ struct Args {
 
 template <int M>
 int launch_norms(const Args& a) {
-  if constexpr (Dist<M>::kNorms) {
-    const unsigned blocks = static_cast<unsigned>((a.n + 255) / 256);
-    row_norms_kernel<M><<<blocks, 256, 0, a.stream>>>(a.x, a.norms, a.n,
-                                                       a.d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pald::launch_row_norms<M>(a.x, a.norms, a.n, a.d, a.stream);
 }
 
 template <int M>

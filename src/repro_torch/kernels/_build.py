@@ -27,7 +27,8 @@ __all__ = ["load", "check", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("pald_focus", "pald_cohesion", "pald_fused")
+SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_topk",
+           "pald_knn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -49,6 +50,11 @@ SIGNATURES = {
                                  _F32, _F32, _P)),
     "pald_dist_fused_f32": ("pald_fused",
                             (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
+    "pald_topk_f32": ("pald_topk",
+                      (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)),
+    "pald_knn_values_f32": ("pald_knn",
+                            (_P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
+                             _P)),
 }
 
 _lock = threading.Lock()

@@ -18,22 +18,35 @@ multiple, and ``block`` / ``block_z`` only set the plain versions' chunks.
 ``pald_fused(X)`` is the fused features pipeline: both passes straight
 from (n, d) feature vectors (``pald_fused.py``), D never materialized.
 
+The sparse k-NN pipeline (``core/knn.py`` has the semantics):
+
+    topk_select(X, k)                   -> NeighborGraph (n, k), streamed
+                                           from features (pald_topk.py)
+    knn_values(x, graph, kind=...)      -> (n, k+1) values (pald_knn.py)
+    pald_knn(x, k=..., kind=...)        -> (graph, values): selection, then
+                                           values
+    select_cohere(X, k=...)             -> (graph, values): the two kernels
+                                           back to back on device tensors
+
 Every entry point takes ``ties`` (a mode string, a registered functional
-name, or a ``WeightFunctional``).  The upper-triangular schedule and the
-sparse k-NN pipeline are later slices of the port (ROADMAP.md, queue 1):
-their entry points raise ``NotImplementedError``.
+name, or a ``WeightFunctional``).  The upper-triangular schedule is a
+later slice of the port (ROADMAP.md, queue 1): its entry points raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import engine as _engine
+from repro_torch.core import knn as _knn
 from repro_torch.core.weights import DEFAULT_TIES, resolve_weight
 
 from .pald_cohesion import cohesion_general_cuda, cohesion_general_torch
 from .pald_focus import focus_general_cuda, focus_general_torch
 from .pald_fused import (cohesion_fused_cuda, cohesion_fused_torch,
                          focus_fused_cuda, focus_fused_torch)
+from .pald_knn import knn_values_cuda, knn_values_torch
+from .pald_topk import topk_select_cuda, topk_select_torch
 from .ref import weights_ref
 
 __all__ = [
@@ -54,7 +67,6 @@ __all__ = [
 IMPLS = ("cuda", "torch")
 
 _TRI = "schedule='tri' is the upper-triangular slice (ROADMAP.md queue 1, item 4)"
-_KNN = "the sparse k-NN pipeline is its own slice (ROADMAP.md queue 1, item 6)"
 
 
 def default_impl(device) -> str:
@@ -189,20 +201,157 @@ def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
     return C
 
 
-def pald_knn(*args, **kwargs):
-    raise NotImplementedError(_KNN)
+# --------------------------------------------------------------------------
+# sparse k-NN pipeline: selection (pald_topk.py), the gathered (n, k, k)
+# neighbor-to-neighbor tiles staged in device memory (plain torch, as the
+# reference stages them in HBM), then the values (pald_knn.py)
+# --------------------------------------------------------------------------
+_GATHER_ROWS = 8192  # rows per gather chunk: bounds its temporaries
 
 
-def knn_values(*args, **kwargs):
-    raise NotImplementedError(_KNN)
+def _gather_tiles(x, idx, kind: str, metric: str) -> torch.Tensor:
+    """The (n, k, k) neighbor-to-neighbor distances of the graph, gathered
+    from D or recomputed from features, chunk by chunk."""
+    n, k = idx.shape
+    g = torch.empty((n, k, k), dtype=torch.float32, device=x.device)
+    for s in range(0, n, _GATHER_ROWS):
+        ic = idx[s:s + _GATHER_ROWS]
+        g[s:s + _GATHER_ROWS] = (
+            _knn.gather_tile_from_distances(x, ic) if kind == "distance"
+            else _knn.gather_tile_from_features(x, ic, metric))
+    return g
 
 
-def topk_select(*args, **kwargs):
-    raise NotImplementedError(_KNN)
+def _check_kind(kind: str) -> None:
+    if kind not in ("distance", "features"):
+        raise ValueError(f"unknown kind {kind!r} "
+                         "(expected 'distance' or 'features')")
 
 
-def select_cohere(*args, **kwargs):
-    raise NotImplementedError(_KNN)
+def knn_values(x, graph: "_knn.NeighborGraph", *, kind: str = "distance",
+               metric: str = "euclidean", block: int = 128,
+               impl: str | None = None, ties=DEFAULT_TIES) -> torch.Tensor:
+    """Sparse (n, k+1) cohesion values of a prebuilt neighbor graph.
+
+    Args:
+        x: what the graph was built from: the (n, n) distance matrix
+            (``kind="distance"``) or the (n, d) features
+            (``kind="features"``; the neighbor-to-neighbor distances are
+            recomputed from them, D never materialized).
+        graph: ``core.knn.NeighborGraph`` over the same ``x``.
+        block: rows per chunk of the plain version.
+        impl: "cuda" (the kernel), "torch" (the plain version), or None
+            for the device's default.
+
+    Returns:
+        (n, k+1) float32 values, column 0 the self support, un-normalized.
+    """
+    ties = resolve_weight(ties)
+    _check_kind(kind)
+    impl = _check_impl(impl or default_impl(x.device))
+    x = _f32(x)
+    n, k = graph.indices.shape
+    if k == 0:  # n == 1, or an explicit empty graph: no pairs, no support
+        return torch.zeros((n, 1), dtype=torch.float32, device=x.device)
+    dn = _f32(graph.distances)
+    idx = graph.indices.to(torch.int32).contiguous()
+    g = _gather_tiles(x, idx, kind, metric)
+    if impl == "torch":
+        return knn_values_torch(dn, g, idx, ties=ties, block=int(block))
+    return knn_values_cuda(dn, g, idx, ties=ties)
+
+
+def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
+             block: int = 128, impl: str | None = None, ties=DEFAULT_TIES,
+             normalize: bool = False, row_chunk: int = 1024,
+             graph: "_knn.NeighborGraph | None" = None):
+    """Sparse k-NN PaLD: neighbor selection, then the (n, k+1) values.
+
+    ``k`` is clamped to n-1.  Unlike the ``method="knn"`` executors, this
+    entry point runs the sparse pipeline even at k = n-1.  ``graph`` skips
+    the selection; ``row_chunk`` is the selection's rows per slab (the
+    plain versions').  Selection: a stable sort per row slab of D
+    (``kind="distance"``) or ``topk_select`` (``kind="features"``).
+
+    Returns:
+        (graph, values); ``core.knn.scatter_dense`` expands the values to
+        the dense (n, n) C, ``core.knn.communities`` reads them directly.
+    """
+    ties = resolve_weight(ties)
+    _check_kind(kind)
+    x = _f32(x)
+    n = x.shape[0]
+    k = min(int(k), max(n - 1, 0))
+    if graph is None:
+        if kind == "distance":
+            graph = _knn.knn_from_distances(x, k, row_chunk=row_chunk)
+        else:
+            graph = topk_select(x, k, metric=metric, impl=impl,
+                                block=row_chunk)
+    vals = knn_values(x, graph, kind=kind, metric=metric, block=block,
+                      impl=impl, ties=ties)
+    if normalize:
+        vals = vals / max(n - 1, 1)
+    return graph, vals
+
+
+def topk_select(X, k: int, *, metric: str = "euclidean",
+                impl: str | None = None,
+                block: int = 1024) -> "_knn.NeighborGraph":
+    """Streaming neighbor selection: (n, d) features -> NeighborGraph,
+    rows ascending by (distance, index), the lower index first on ties,
+    self excluded; D never materialized.
+
+    impl: "cuda" (the kernel, k <= ``pald_topk.MAX_K``), "torch" (the
+    plain version, ``block`` rows per slab), or None for the device's
+    default.
+
+    Raises:
+        ValueError: unknown metric or impl, or ``k > n-1``.
+    """
+    impl = _check_impl(impl or default_impl(X.device))
+    X = _f32(X)
+    _knn.check_k(k, X.shape[0])
+    if impl == "torch":
+        return topk_select_torch(X, k, metric=metric, block=int(block))
+    return topk_select_cuda(X, k, metric=metric)
+
+
+def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
+                  cohere_block: int = 128, impl: str | None = None,
+                  select: str | None = None, ties=DEFAULT_TIES,
+                  normalize: bool = False):
+    """Streaming selection, then sparse cohesion, from features: the two
+    kernels back to back, the selection's device tensors handed straight
+    to the gather and the values kernel.  Bitwise ``topk_select`` then
+    ``pald_knn(..., graph=...)``.
+
+    Args:
+        X: (n, d) features.
+        k: neighborhood size, clamped to n-1.
+        block: the selection's rows per slab (plain version).
+        cohere_block: the values' rows per chunk (plain version).
+        impl: the values' impl; ``select``: the selection's (None follows
+            ``impl``).
+        normalize: divide the values by n-1.
+
+    Returns:
+        (graph, values), values (n, k+1) with column 0 the self support.
+    """
+    ties = resolve_weight(ties)
+    X = _f32(X)
+    n = X.shape[0]
+    k = min(int(k), max(n - 1, 0))
+    if k <= 0:
+        return (_knn.empty_graph(n, X.device),
+                torch.zeros((n, 1), dtype=torch.float32, device=X.device))
+    graph = topk_select(X, k, metric=metric, impl=select or impl,
+                        block=block)
+    vals = knn_values(X, graph, kind="features", metric=metric,
+                      block=cohere_block, impl=impl, ties=ties)
+    if normalize:
+        vals = vals / max(n - 1, 1)
+    return graph, vals
 
 
 # --------------------------------------------------------------------------
@@ -230,3 +379,44 @@ def _exec_fused(X, plan):
     return pald_fused(X, metric=plan.metric, block=plan.block,
                       block_z=plan.block_z, normalize=plan.normalize,
                       impl=plan.impl, ties=plan.weight)
+
+
+# -- sparse k-NN cells -------------------------------------------------------
+# At k >= n-1 the restriction is the identity, and gathering the (n, n-1,
+# n-1) neighbor cube would be more work than the dense computation it
+# reproduces: the executors run the exact dense path there, so
+# ``cohesion(D, method="knn", k=n-1)`` is bitwise ``method="dense"``.
+# ``pald_knn`` itself never short-circuits.
+def _knn_dense_fallback(D, plan):
+    return _engine.get_executor("distance", "dense", "dense")(D, plan)
+
+
+@_engine.register_executor("distance", "knn", "dense")
+def _exec_knn_distance(D, plan):
+    D = _f32(D)
+    n = D.shape[0]
+    if plan.k >= n - 1:
+        return _knn_dense_fallback(D, plan)
+    graph, vals = pald_knn(D, k=plan.k, kind="distance", block=plan.block,
+                           impl=plan.impl, ties=plan.weight)
+    C = _knn.scatter_dense(graph, vals)
+    return C / max(n - 1, 1) if plan.normalize else C
+
+
+@_engine.register_executor("features", "knn", "dense")
+def _exec_knn_features(X, plan):
+    """Selection streamed from features straight into the values kernel
+    (``select_cohere``); no (n, n) intermediate before the final scatter."""
+    X = _f32(X)
+    n = X.shape[0]
+    if plan.k >= n - 1:
+        from repro_torch.core.features import cdist_reference
+
+        return _knn_dense_fallback(cdist_reference(X, metric=plan.metric),
+                                   plan)
+    graph, vals = select_cohere(
+        X, k=plan.k, metric=plan.metric, block=plan.select_block,
+        cohere_block=plan.block, impl=plan.impl, select=plan.select,
+        ties=plan.weight)
+    C = _knn.scatter_dense(graph, vals)
+    return C / max(n - 1, 1) if plan.normalize else C

@@ -1,0 +1,108 @@
+"""Streaming k-nearest-neighbor selection from feature vectors: the CUDA
+kernel's wrapper and its plain torch version.
+
+For every row x of X (n, d): its k nearest OTHER rows, as (n, k) float32
+distances and (n, k) int32 indices, each row ascending by (distance,
+index), the lower index first on ties.  The kernel (``csrc/pald_topk.cu``)
+replaces the TPU kernel ``repro/kernels/pald_topk.py::topk_pallas``: it
+computes each block's distance tiles from the feature rows
+(``csrc/pald_dist.cuh``, bitwise ``cdist_reference``'s), queues the pairs
+that beat their row's current k-th best and folds them into per-row
+best-lists in shared memory on the composite (value, index) key, so D
+never exists and the result does not depend on the order in which
+candidates are visited.  Bound by operations (n^2 distances and compares);
+the source note in the ``.cu`` file has the details.
+
+:func:`topk_select_cuda` dispatches on the tensor's device: a CUDA X
+launches the kernel (or raises), a CPU X takes :func:`topk_select_torch`:
+(block, n) slabs of ``cdist_reference``, self excluded, a stable sort, the
+first k.  Self is excluded as the kernel excludes it: it sorts after every
+real candidate, even one at +inf distance.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.features import masked_dist_tile
+from repro_torch.core.knn import NeighborGraph, check_k, empty_graph
+
+from . import _build
+from .pald_focus import check_operands
+from .pald_fused import metric_id
+
+__all__ = ["topk_select_cuda", "topk_select_torch", "MAX_K", "smem_per_cta"]
+
+MAX_K = 1024  # the largest k the kernel takes (csrc/pald_topk.cu: kMaxK)
+
+
+def smem_per_cta(k: int) -> int:
+    """Shared memory of one thread block of the kernel at ``k``, in bytes
+    (csrc/pald_topk.cu ``Layout``: the staged features, R queues of 64
+    candidates, R thresholds and, past k = 32, R best-lists of k (float,
+    int) entries)."""
+    r = 64 if k <= 128 else 32 if k <= 512 else 16
+    lists = 0 if k <= 32 else 8 * r * k
+    return 4 * 16 * (r + 1 + 68) + 8 * 64 * r + 16 * r + lists
+
+
+def topk_select_torch(X: torch.Tensor, k: int, *, metric: str = "euclidean",
+                      block: int = 1024, rows: tuple[int, int] | None = None
+                      ) -> NeighborGraph:
+    """Plain torch selection (any device), ``block`` rows per slab; with
+    ``rows=(start, stop)`` only those rows' neighbors (against all n)."""
+    metric_id(metric)
+    X = X.to(torch.float32)
+    n = X.shape[0]
+    check_k(k, n)
+    start, stop = (0, n) if rows is None else rows
+    if k <= 0:
+        return empty_graph(stop - start, X.device)
+    dist, idx = [], []
+    for s in range(start, stop, block):
+        slab = masked_dist_tile(X[s:min(s + block, stop)], X, metric, s, 0, n)
+        r = torch.arange(slab.shape[0], device=X.device)
+        # nan sorts after +inf: self loses to every real candidate
+        slab[r, s + r] = float("nan")
+        dv, di = torch.sort(slab, dim=1, stable=True)
+        dist.append(dv[:, :k])
+        idx.append(di[:, :k].to(torch.int32))
+    return NeighborGraph(torch.cat(idx), torch.cat(dist))
+
+
+def topk_select_cuda(X: torch.Tensor, k: int, *,
+                     metric: str = "euclidean") -> NeighborGraph:
+    """The k nearest other rows of each row of X through the CUDA kernel
+    for a CUDA X, through :func:`topk_select_torch` for a CPU X.
+
+    A CUDA X must be contiguous float32 (``ops`` prepares it), and k at
+    most :data:`MAX_K`; anything else raises.  Each call that launches the
+    kernel adds one to ``topk_select_cuda.launches``.
+    """
+    if X.device.type == "cpu":
+        return topk_select_torch(X, k, metric=metric)
+    mid = metric_id(metric)
+    dev = X.device
+    if dev.type != "cuda":
+        raise ValueError(f"topk_select_cuda: unsupported device {dev}")
+    n, d = X.shape
+    check_operands("topk_select_cuda", dev, X=(X, (n, d), torch.float32))
+    check_k(k, n)
+    if k > MAX_K:
+        raise ValueError(f"topk_select_cuda: k={k} exceeds the kernel's "
+                         f"limit of {MAX_K} neighbors (ROADMAP.md queue 3)")
+    if k <= 0:
+        return empty_graph(n, dev)
+    norms = torch.empty((n,), dtype=torch.float32, device=dev)
+    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    fn = _build.load("pald_topk_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(X.data_ptr(), norms.data_ptr(), dist.data_ptr(),
+                    idx.data_ptr(), n, d, k, mid, stream)
+    _build.check(status, "pald_topk_f32")
+    topk_select_cuda.launches += 1
+    return NeighborGraph(idx, dist)
+
+
+topk_select_cuda.launches = 0

@@ -12,8 +12,9 @@ conformance tolerance): kernel and plain version sum in another order.
 The fused features kernels are held to their plain versions the same way,
 their distances bitwise to ``cdist_reference``, and their U and C bitwise
 to the dense kernels' on those distances (the same loops on the same
-numbers).  ``chip_smoke.py`` repeats the comparisons at the main paths'
-full size.
+numbers).  The k-NN selection kernel is held bitwise to its plain version
+(indices and distances), the k-NN values kernel to rtol 1e-5.
+``chip_smoke.py`` repeats the comparisons at the main paths' full size.
 """
 import numpy as np
 import pytest
@@ -217,5 +218,100 @@ def test_cuda_from_features_matches_cpu(cuda_device, metric):
     assert (pald_focus.focus_general_cuda.launches,
             pald_cohesion.cohesion_general_cuda.launches) == d0
     Cc = pald.from_features(X, metric=metric, device="cpu")
+    np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the sparse k-NN kernels (csrc/pald_topk.cu, csrc/pald_knn.cu)
+# ---------------------------------------------------------------------------
+def _knn_features(n, d, seed=0, quantum=0.1):
+    """Quantized features with every fifth row a duplicate: exact distance
+    ties at the k boundary, and zero distances."""
+    rng = np.random.default_rng(seed)
+    X = np.round(rng.normal(size=(n, d)) / quantum) * quantum
+    dup = np.arange(5, n, 5)
+    X[dup] = X[rng.integers(0, 5, size=dup.size)]
+    return X.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2, 1), (33, 7), (33, 32), (257, 1),
+                                 (257, 32), (257, 256), (1100, 1024)])
+@pytest.mark.parametrize("d", [1, 5, 300])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_topk_vs_plain(cuda_device, metric, d, n, k):
+    """The selection kernel against its plain version on the card, indices
+    and distances bitwise, on tie-heavy quantized rows."""
+    from repro_torch.kernels import pald_topk
+
+    Xg = torch.as_tensor(_knn_features(n, d, seed=n + d), device=cuda_device)
+    t0 = pald_topk.topk_select_cuda.launches
+    gk = pald_topk.topk_select_cuda(Xg, k, metric=metric)
+    gp = pald_topk.topk_select_torch(Xg, k, metric=metric)
+    torch.cuda.synchronize()
+    assert pald_topk.topk_select_cuda.launches == t0 + 1
+    assert torch.equal(gk.indices, gp.indices)
+    assert torch.equal(gk.distances, gp.distances)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_limits(cuda_device):
+    from repro_torch.kernels import pald_topk
+
+    X = torch.zeros((1100, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="limit of 1024"):
+        pald_topk.topk_select_cuda(X, 1025)
+    with pytest.raises(ValueError, match="exceeds the n-1"):
+        pald_topk.topk_select_cuda(X[:5], 5)
+    g = pald_topk.topk_select_cuda(X[:1], 0)
+    assert g.indices.shape == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 32, 256])
+@pytest.mark.parametrize("kind", ["distance", "features"])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_knn_values_vs_plain(cuda_device, name, kind, k):
+    """The values kernel against its plain version on the same gathered
+    tiles, to rtol 1e-5 (the sums run in another order)."""
+    from repro_torch.core import knn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn
+
+    Xg = torch.as_tensor(_knn_features(300, 5, seed=k), device=cuda_device)
+    D = cdist_reference(Xg)
+    graph = knn.knn_from_distances(D, k)
+    idx = graph.indices
+    g = (knn.gather_tile_from_distances(D, idx) if kind == "distance"
+         else knn.gather_tile_from_features(Xg, idx, "euclidean"))
+    v0 = pald_knn.knn_values_cuda.launches
+    vk = pald_knn.knn_values_cuda(graph.distances, g, idx, ties=name)
+    vp = pald_knn.knn_values_torch(graph.distances, g, idx, ties=name)
+    torch.cuda.synchronize()
+    assert pald_knn.knn_values_cuda.launches == v0 + 1
+    np.testing.assert_allclose(vk.cpu().numpy(), vp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_knn_facade_matches_cpu(cuda_device, metric):
+    """from_features(X, k=...) on the card (the two k-NN kernels once
+    each, no dense or fused kernel) against the same call on the CPU."""
+    from repro_torch.core import pald
+    from repro_torch.kernels import pald_fused, pald_knn, pald_topk
+
+    X = _knn_features(300, 7, seed=5)
+    before = [f.launches for f in (
+        pald_topk.topk_select_cuda, pald_knn.knn_values_cuda,
+        pald_fused.focus_fused_cuda, pald_focus.focus_general_cuda)]
+    Cg = pald.from_features(X, metric=metric, k=16, ties="ignore")
+    after = [f.launches for f in (
+        pald_topk.topk_select_cuda, pald_knn.knn_values_cuda,
+        pald_fused.focus_fused_cuda, pald_focus.focus_general_cuda)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
+    Cc = pald.from_features(X, metric=metric, k=16, ties="ignore",
+                            device="cpu")
     np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
                                atol=ATOL)

@@ -240,10 +240,9 @@ def test_from_features_knob_errors():
     p = pald.plan(X, kind="features", device="cpu")
     with pytest.raises(ValueError, match="does not match"):
         p.execute(_X(10, d=3))
-    for knobs in ({"method": "knn", "k": 3}, {"k": 3},
-                  {"method": "triplet"}, {"schedule": "tri"},
+    for knobs in ({"method": "triplet"}, {"schedule": "tri"},
                   {"block": "auto"}, {"on_error": "fallback"},
-                  {"select": "jnp"}, {"strategy": "ring"}):
+                  {"strategy": "ring"}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
             pald.from_features(X, device="cpu", **knobs)
 

@@ -274,22 +274,41 @@ def test_shape_errors():
 @pytest.mark.parametrize("knobs", [
     {"method": "auto"},
     {"method": "triplet"},
-    {"method": "knn", "k": 3},
-    {"method": "kernel", "k": 3},
     {"method": "kernel", "schedule": "tri"},
-    {"kind": "features", "method": "knn", "k": 3},
     {"method": "kernel", "block": "auto"},
     {"method": "kernel", "block_z": "auto"},
     {"method": "kernel", "on_error": "fallback"},
     {"method": "kernel", "mesh": object()},
     {"method": "kernel", "strategy": "ring"},
-    {"method": "kernel", "select": "chunked"},
 ])
 def test_unported_knobs_raise(knobs):
     """Every knob of a later slice raises and names its ROADMAP.md slice;
     none is dropped silently."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
         engine.plan(_points_D(8), device="cpu", **knobs)
+
+
+@pytest.mark.parametrize("knobs", [
+    {"method": "kernel", "k": 3},
+    {"method": "kernel", "select": "chunked"},
+])
+def test_knn_knobs_off_knn_raise(knobs):
+    """k= and select= configure the k-NN method only: elsewhere they are
+    a contradiction (ValueError), as in the reference."""
+    with pytest.raises(ValueError, match="knn"):
+        engine.plan(_points_D(8), device="cpu", **knobs)
+
+
+@pytest.mark.parametrize("knobs", [
+    {"method": "knn", "k": 3},
+    {"kind": "features", "method": "knn", "k": 3},
+])
+def test_knn_knobs_run(knobs):
+    """The k-NN slice's knobs plan and run on the CPU."""
+    D = _points_D(8)
+    x = D[:, :4] if knobs.get("kind") == "features" else D
+    C = engine.plan(x, device="cpu", **knobs).execute(x)
+    assert C.shape == (8, 8) and bool(torch.isfinite(C).all())
 
 
 # ---------------------------------------------------------------------------
