@@ -50,9 +50,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11. the k-NN kernels, the gather and ``select_cohere`` timed at n = 50,000
    (the selection also at k in {1, 256, 1024}), then ``select_cohere`` at
    n = 1,000,000 (or the largest n the 50,000 times, scaled by n^2, put
-   under 60 s) with a 64-row slab check.
+   under 60 s) with a 64-row slab check;
+12. the tri kernels (``pald_focus_tri.cu``, ``pald_cohesion_tri.cu``)
+   against their plain versions on the card, for every built-in weight
+   functional at ragged n in {1, 2, 63, 64, 65, 257} on symmetric,
+   tie-heavy distances holding +inf pairs (``ignore`` through its index
+   tiebreak): U bitwise (except soft) against the plain version and
+   against the dense kernel's U, C within rtol 1e-5, atol 1e-6 of the
+   plain version and of the dense kernel, and bitwise across two calls;
+13. the tri main path at full size: ``pald.cohesion(D, method="kernel",
+   schedule="tri", ties="ignore")`` on phase 3's D (rebuilt), with the
+   launch counters as proof that both tri kernels ran and no dense kernel
+   or plain version did; mass, U bitwise the dense kernel's, C within rtol
+   1e-4 of the dense kernel pipeline's and bitwise across two calls, a
+   64-row slab against the plain versions and a float64 sum, community
+   recovery; the peak device memory of the tri and the dense call;
+14. the tri kernels and their plain versions timed at n = 8192 beside the
+   dense kernels and their bounds, the tri and dense pipelines end to end,
+   and each family's tri kernels.
 
-The line before the last is one JSON object with the kernels' numbers; the
+The line before the last is one JSON object with the kernels' numbers
+(``launches``: wrapper calls on the main path; ``grid_launches``: the grids
+those calls issued; ``bound_ms``: the function's least work, shared by the
+dense, tri and fused kernels of one pass, see :func:`pass_ops`); the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
 fails before printing any result.
 """
@@ -82,9 +102,10 @@ SLAB = 64
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_LANES = 128 * 132      # FP32 lanes per SM x SMs of an H100 SXM
-# lane instructions per (x, y, z) triple that each pass needs at least:
-# focus = min + compare + add; cohesion = two compares + tie term + add
-OPS_PER_TRIPLE = {"focus": 3, "cohesion": 4}
+# grid launches per kernel on its main path, from the wrappers'
+# ``.grid_launches`` (a call may issue more than one grid: the row-norm
+# pre-pass, the tri cohesion's diagonal waves); filled by phases 3, 7, 10, 13
+GRIDS = {}
 RTOL, ATOL = 1e-5, 1e-6            # the conformance tolerance
 # at n = 8192 a C entry is a sum of up to n positive float32 terms taken in
 # another order than the plain version's, so the full-size check is looser
@@ -229,7 +250,7 @@ def distances_on_device(X):
 def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
     """Phase 3: the user's entry point at full size, through both kernels."""
     import torch
-    from repro_torch.core import analysis, pald
+    from repro_torch.core import pald
     from repro_torch.kernels import ops, pald_cohesion, pald_focus
 
     X, labels = clustered_points(n, d, SEED)
@@ -250,13 +271,15 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
                pald_cohesion.cohesion_general_cuda)
     try:
         for k in kernels:
-            k.launches = 0
+            k.launches = k.grid_launches = 0
         t0 = time.perf_counter()
         C = pald.cohesion(D, method="kernel", ties="ignore")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {"focus": kernels[0].launches,
                     "cohesion": kernels[1].launches}
+        GRIDS.update(focus_general=kernels[0].grid_launches,
+                     cohesion_general=kernels[1].grid_launches)
     finally:
         for (m, a), f in zip(patched, saved):
             setattr(m, a, f)
@@ -273,33 +296,48 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
         fail(f"mass {mass!r} != n/2 = {n / 2}")
     print(f"phase 3: mass sum(C) = {mass!r} (n/2 = {n / 2})")
 
-    # a contiguous row slab, not tile-aligned, recomputed by the plain
-    # versions through the rectangular forms with global offsets
+    U_slab, r0 = slab_check(3, C, D, "ignore")
+    communities_check(3, C, labels)
+    return D, launches, U_slab, r0
+
+
+def slab_check(phase, C, D, ties):
+    """A contiguous 64-row slab of C (normalized), not tile-aligned,
+    recomputed by the plain versions through the rectangular forms with
+    global offsets (rtol 1e-4), and held to the conformance tolerance
+    against the same float32 terms summed in float64 (how far each
+    float32 sum order drifts).  Returns the slab's U and first row."""
+    import torch
+    from repro_torch.kernels import ops
+
+    n = D.shape[0]
     r0 = min(3001, n - SLAB)
     rows = D[r0:r0 + SLAB]
-    U_slab = ops.focus_general(rows, D, D[r0:r0 + SLAB], impl="torch",
-                               ties="ignore")
+    U_slab = ops.focus_general(rows, D, rows, impl="torch", ties=ties)
     zero = U_slab == 0
     W_slab = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, U_slab))
-    diag = torch.arange(SLAB, device=dev)
+    diag = torch.arange(SLAB, device=D.device)
     W_slab[diag, r0 + diag] = 0.0
-    C_slab = ops.cohesion_general(rows, D, D[r0:r0 + SLAB], W_slab,
-                                  impl="torch", ties="ignore",
-                                  xw_offsets=(r0, 0)) / (n - 1)
+    C_slab = ops.cohesion_general(rows, D, rows, W_slab, impl="torch",
+                                  ties=ties, xw_offsets=(r0, 0)) / (n - 1)
     compare(f"C rows {r0}:{r0 + SLAB}", C[r0:r0 + SLAB], C_slab, False,
             rtol=RTOL_MAIN)
-    # the same float32 terms summed in float64: how far each float32 sum
-    # order drifts; the kernel's two-level sum is held to the conformance
-    # tolerance against it
-    C64 = cohesion_slab_f64(rows, D, W_slab, r0) / (n - 1)
+    C64 = cohesion_slab_f64(rows, D, W_slab, r0, ties=ties) / (n - 1)
     rel = {k: float(((v.double() - C64).abs() / C64.abs().clamp_min(1e-300))
                     .max()) for k, v in (("kernel", C[r0:r0 + SLAB]),
                                          ("plain", C_slab))}
-    print(f"phase 3: C rows {r0}:{r0 + SLAB} against a float64 sum of the "
-          f"same terms: max relative error kernel {rel['kernel']!r}, plain "
-          f"{rel['plain']!r}")
+    print(f"phase {phase}: C rows {r0}:{r0 + SLAB} against a float64 sum of "
+          f"the same terms: max relative error kernel {rel['kernel']!r}, "
+          f"plain {rel['plain']!r}")
     compare(f"C rows {r0}:{r0 + SLAB} vs float64", C[r0:r0 + SLAB].double(),
             C64, False)
+    return U_slab, r0
+
+
+def communities_check(phase, C, labels):
+    """Every community of C inside one planted cluster, and each cluster's
+    largest community at least half of it."""
+    from repro_torch.core import analysis
 
     comms = analysis.communities(C.cpu().numpy())
     mixed = [c for c in comms if len(set(labels[c].tolist())) > 1]
@@ -308,12 +346,11 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
     sizes = np.bincount(labels)
     largest = [max((len(c) for c in comms if labels[c[0]] == k), default=0)
                for k in range(len(sizes))]
-    print(f"phase 3: {len(comms)} communities, each inside one planted "
+    print(f"phase {phase}: {len(comms)} communities, each inside one planted "
           f"cluster; largest per cluster {largest} of {sizes.tolist()}")
     if any(2 * big < size for big, size in zip(largest, sizes)):
         fail("a planted cluster is not recovered: its largest community "
              "holds less than half of it")
-    return D, launches, U_slab, r0
 
 
 def cohesion_slab_f64(rows, D, W_slab, r0, chunk=64, ties="ignore"):
@@ -350,15 +387,27 @@ def time_ms(fn, reps):
     return statistics.median(times), out
 
 
-def bound_ms(pass_, mx, my, mz, clock_mhz):
-    """Least time for the pass's work: the larger of its bytes (each input
-    read once, the output written once) over HBM bandwidth and its lane
-    instructions over the FP32 lanes at the card's maximum SM clock."""
+def pass_ops(pass_, n):
+    """Lane instructions that a pass over a square symmetric D needs at
+    least.  U[x, y] and the support between x and y are functions of the
+    unordered pair {x, y}, so the work is counted once per (unordered pair,
+    z): focus = min + compare + add over the n (n + 1) / 2 pairs (U's
+    diagonal is an output); cohesion = min, compare with d_xy, d_xz < d_yz,
+    d_yz < d_xz and one predicated add per role (6) over the n (n - 1) / 2
+    pairs with x != y (W[x, x] = 0: the diagonal adds nothing).  The dense,
+    tri and fused kernels compute the same U and C, so they share it."""
     if pass_ == "focus":
-        nbytes = 4 * (mx * mz + my * mz + mx * my + mx * my)
-    else:
-        nbytes = 4 * (mx * mz + my * mz + 2 * mx * my + mx * mz)
-    ops = OPS_PER_TRIPLE[pass_] * mx * my * mz
+        return 3 * (n * (n + 1) // 2) * n
+    return 6 * (n * (n - 1) // 2) * n
+
+
+def bound_ms(pass_, n, clock_mhz):
+    """Least time for a pass on a square symmetric D (dense or tri): the
+    larger of its bytes (D, and W for cohesion, read once, the output
+    written once) over HBM bandwidth and :func:`pass_ops` over the FP32
+    lanes at the card's maximum SM clock."""
+    nbytes = 4 * n * n * (2 if pass_ == "focus" else 3)
+    ops = pass_ops(pass_, n)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / (FP32_LANES * clock_mhz * 1e6)
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
@@ -380,16 +429,17 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
     def timed(name, kernel, plain):
         ms_k, out_k = time_ms(kernel, reps)
         ms_p, out_p = time_ms(plain, reps)
-        b_ms, b_by = bound_ms(name, n, n, n, clock_mhz)
+        b_ms, b_by = bound_ms(name, n, clock_mhz)
         print(f"phase 4: {name} n={n}: kernel {ms_k!r} ms, plain {ms_p!r} "
-              f"ms, bound {b_ms!r} ms ({b_by}; {OPS_PER_TRIPLE[name]} lane "
-              f"instr/triple at {clock_mhz} MHz), kernel/bound "
+              f"ms, bound {b_ms!r} ms ({b_by}; {pass_ops(name, n)} lane "
+              f"instructions at {clock_mhz} MHz), kernel/bound "
               f"{ms_k / b_ms:.3f}, library: none")
         row = {"name": f"{name}_general", "route": "cuda",
                "source": src[name][0], "replaces": src[name][1],
-               "launches": launches[name], "max_abs_err": None,
-               "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": None}
+               "launches": launches[name],
+               "grid_launches": GRIDS[f"{name}_general"],
+               "max_abs_err": None, "ms": ms_k, "plain_ms": ms_p,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         return row, out_k, out_p
 
     focus_row, Uk, Up = timed(
@@ -482,7 +532,7 @@ def phase_fused_vs_plain(dev) -> None:
 def phase_fused_main_path(dev, n=N_MAIN, d=D_FUSED):
     """Phase 7: ``pald.from_features(X)`` at full size, default knobs."""
     import torch
-    from repro_torch.core import analysis, pald
+    from repro_torch.core import pald
     from repro_torch.core.features import cdist_reference
     from repro_torch.kernels import (ops, pald_cohesion, pald_focus,
                                      pald_fused)
@@ -511,12 +561,14 @@ def phase_fused_main_path(dev, n=N_MAIN, d=D_FUSED):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         for k in counted.values():
-            k.launches = 0
+            k.launches = k.grid_launches = 0
         t0 = time.perf_counter()
         C = pald.from_features(Xg)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {name: k.launches for name, k in counted.items()}
+        GRIDS.update((name, counted[name].grid_launches)
+                     for name in ("focus_fused", "cohesion_fused"))
         peak_fused = torch.cuda.max_memory_allocated() - base
     finally:
         for (m, a), f in zip(patched, saved):
@@ -558,52 +610,22 @@ def phase_fused_main_path(dev, n=N_MAIN, d=D_FUSED):
           f"{bool(torch.equal(C, Cm))}")
     del Cm
 
-    # a contiguous row slab, not tile-aligned, by the plain versions on the
-    # materialized distances (bitwise the kernels' own)
+    # the slab by the plain versions on the materialized distances
+    # (bitwise the kernels' own)
     D = cdist_reference(Xg)
-    r0 = min(3001, n - SLAB)
-    rows = D[r0:r0 + SLAB]
-    U_slab = ops.focus_general(rows, D, rows, impl="torch", ties="drop")
-    zero = U_slab == 0
-    W_slab = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, U_slab))
-    diag = torch.arange(SLAB, device=dev)
-    W_slab[diag, r0 + diag] = 0.0
-    C_slab = ops.cohesion_general(rows, D, rows, W_slab, impl="torch",
-                                  ties="drop") / (n - 1)
-    compare(f"C rows {r0}:{r0 + SLAB}", C[r0:r0 + SLAB], C_slab, False,
-            rtol=RTOL_MAIN)
-    C64 = cohesion_slab_f64(rows, D, W_slab, r0, ties="drop") / (n - 1)
-    rel = {k: float(((v.double() - C64).abs() / C64.abs().clamp_min(1e-300))
-                    .max()) for k, v in (("kernel", C[r0:r0 + SLAB]),
-                                         ("plain", C_slab))}
-    print(f"phase 7: C rows {r0}:{r0 + SLAB} against a float64 sum of the "
-          f"same terms: max relative error kernel {rel['kernel']!r}, plain "
-          f"{rel['plain']!r}")
-    compare(f"C rows {r0}:{r0 + SLAB} vs float64", C[r0:r0 + SLAB].double(),
-            C64, False)
-
-    comms = analysis.communities(C.cpu().numpy())
-    mixed = [c for c in comms if len(set(labels[c].tolist())) > 1]
-    if mixed:
-        fail(f"{len(mixed)} communities span planted clusters")
-    sizes = np.bincount(labels)
-    largest = [max((len(c) for c in comms if labels[c[0]] == k), default=0)
-               for k in range(len(sizes))]
-    print(f"phase 7: {len(comms)} communities, each inside one planted "
-          f"cluster; largest per cluster {largest} of {sizes.tolist()}")
-    if any(2 * big < size for big, size in zip(largest, sizes)):
-        fail("a planted cluster is not recovered: its largest community "
-             "holds less than half of it")
+    slab_check(7, C, D, "drop")
+    communities_check(7, C, labels)
     return Xg, D, launches
 
 
 def fused_bound_ms(pass_, n, d, clock_mhz):
     """Least time for a fused pass: the larger of its bytes (X and, for
     cohesion, W read once, the output written once) over HBM bandwidth and
-    its lane instructions (the triple loop's, plus the distance work
-    n^2 (2d + 4) counted once) over the FP32 lanes at the maximum clock."""
+    its lane instructions (:func:`pass_ops`, plus the symmetric distance
+    work, 2d + 4 for each of the n (n - 1) / 2 unordered pairs) over the
+    FP32 lanes at the maximum clock."""
     nbytes = 4 * (n * d + n * n + (n * n if pass_ == "cohesion" else 0))
-    ops = OPS_PER_TRIPLE[pass_] * n ** 3 + n * n * (2 * d + 4)
+    ops = pass_ops(pass_, n) + n * (n - 1) // 2 * (2 * d + 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / (FP32_LANES * clock_mhz * 1e6)
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
@@ -636,6 +658,7 @@ def phase_fused_timing(Xg, D, launches, clock_mhz, reps=5):
                      "source": "src/repro_torch/csrc/pald_fused.cu",
                      "replaces": replaces[name],
                      "launches": launches[f"{name}_fused"],
+                     "grid_launches": GRIDS[f"{name}_fused"],
                      "max_abs_err": None, "ms": ms_k, "plain_ms": ms_p,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         return out_k, out_p
@@ -852,13 +875,15 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         for f in counted.values():
-            f.launches = 0
+            f.launches = f.grid_launches = 0
         t0 = time.perf_counter()
         graph, vals = ops.select_cohere(Xg, k=k, metric="euclidean",
                                         normalize=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {name: f.launches for name, f in counted.items()}
+        GRIDS.update((name, counted[name].grid_launches)
+                     for name in ("topk_select", "knn_values"))
         peak = torch.cuda.max_memory_allocated() - base
     finally:
         for (m, a), f in zip(patched, saved):
@@ -967,8 +992,9 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
               f"computes it)")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                     "grid_launches": GRIDS[name], "max_abs_err": err,
+                     "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
 
     ms_k, gk = time_ms(lambda: pald_topk.topk_select_cuda(Xg, k), reps)
     ms_p, gp = time_ms(lambda: pald_topk.topk_select_torch(Xg, k), 1)
@@ -1029,6 +1055,237 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the tri schedule (phases 12-14)
+# ---------------------------------------------------------------------------
+def symmetric_tie_distances(rng, n, dev):
+    """Symmetric float32 distances: multiples of 0.5 (exact ties), about
+    3 % +inf pairs, an exactly-zero diagonal."""
+    import torch
+
+    A = rng.integers(1, 8, size=(n, n)).astype(np.float32) * 0.5
+    A[rng.random((n, n)) < 0.03] = np.inf
+    D = np.triu(A, 1)
+    D = D + D.T
+    np.fill_diagonal(D, 0.0)
+    return torch.as_tensor(D, device=dev)
+
+
+def phase_tri_vs_plain(dev) -> None:
+    """Phase 12: the tri kernels against their plain versions, the dense
+    kernels, and themselves across two calls."""
+    import torch
+    from repro_torch.kernels import ops, pald_cohesion_tri, pald_focus_tri
+    from repro_torch.kernels.ref import weights_ref
+
+    rng = np.random.default_rng(SEED + 12)
+    checked = soft_u_bitwise = c_bitwise = 0
+    for n in (1, 2, 63, 64, 65, 257):
+        D = symmetric_tie_distances(rng, n, dev)
+        for w in functionals():
+            tag = f"{w.name} n={n}"
+            Uk = pald_focus_tri.focus_tri_cuda(D, ties=w)
+            Up = pald_focus_tri.focus_tri_torch(D, ties=w)
+            compare(f"focus_tri {tag}", Uk, Up, exact_focus(w))
+            Ud = ops.focus(D, impl="cuda", ties=w)
+            compare(f"focus_tri vs dense kernel {tag}", Uk, Ud,
+                    exact_focus(w))
+            soft_u_bitwise += (not exact_focus(w)) and torch.equal(Uk, Ud)
+            W = weights_ref(Up)
+            Ck = pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=w)
+            Cp = pald_cohesion_tri.cohesion_tri_torch(D, W, ties=w)
+            compare(f"cohesion_tri {tag}", Ck, Cp, False)
+            compare(f"cohesion_tri twice {tag}",
+                    pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=w), Ck,
+                    True)
+            Cd = ops.cohesion_from_weights(D, W, impl="cuda", ties=w)
+            compare(f"cohesion_tri vs dense kernel {tag}", Ck, Cd, False)
+            c_bitwise += bool(torch.equal(Ck, Cd))
+            checked += 5
+    torch.cuda.synchronize()
+    print(f"phase 12: {checked} tri checks passed (U bitwise except soft "
+          f"against the plain version and the dense kernel, soft U bitwise "
+          f"the dense kernel's in {soft_u_bitwise} of 6; C within rtol "
+          f"{RTOL}, atol {ATOL} of the plain version and of the dense "
+          f"kernel, bitwise across two calls); C bitwise the dense kernel's "
+          f"in {c_bitwise} of 30")
+
+
+def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
+    """Phase 13: ``cohesion(D, method="kernel", schedule="tri")`` at full
+    size on phase 3's D, through both tri kernels."""
+    import torch
+    from repro_torch.core import pald
+    from repro_torch.kernels import (ops, pald_cohesion, pald_cohesion_tri,
+                                     pald_focus, pald_focus_tri, pald_fused,
+                                     pald_knn, pald_topk)
+
+    X, labels = clustered_points(n, d, SEED)
+    D = distances_on_device(torch.as_tensor(X, device=dev))
+
+    def plain_called(*a, **k):
+        fail("a plain torch version ran on the tri main path")
+
+    patched = [(ops, "focus_tri_torch"), (ops, "cohesion_tri_torch"),
+               (pald_focus_tri, "focus_tri_torch"),
+               (pald_cohesion_tri, "cohesion_tri_torch"),
+               (ops, "focus_general_torch"), (ops, "cohesion_general_torch"),
+               (pald_focus, "focus_general_torch"),
+               (pald_cohesion, "cohesion_general_torch")]
+    saved = [getattr(m, a) for m, a in patched]
+    counted = {"focus_tri": pald_focus_tri.focus_tri_cuda,
+               "cohesion_tri": pald_cohesion_tri.cohesion_tri_cuda,
+               "focus_general": pald_focus.focus_general_cuda,
+               "cohesion_general": pald_cohesion.cohesion_general_cuda,
+               "focus_fused": pald_fused.focus_fused_cuda,
+               "cohesion_fused": pald_fused.cohesion_fused_cuda,
+               "topk_select": pald_topk.topk_select_cuda,
+               "knn_values": pald_knn.knn_values_cuda}
+    for m, a in patched:
+        setattr(m, a, plain_called)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for f in counted.values():
+            f.launches = f.grid_launches = 0
+        t0 = time.perf_counter()
+        C = pald.cohesion(D, method="kernel", schedule="tri", ties="ignore")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {name: f.launches for name, f in counted.items()}
+        GRIDS.update((name, counted[name].grid_launches)
+                     for name in ("focus_tri", "cohesion_tri"))
+        peak_tri = torch.cuda.max_memory_allocated() - base
+    finally:
+        for (m, a), f in zip(patched, saved):
+            setattr(m, a, f)
+    print(f"phase 13: cohesion(D, method='kernel', schedule='tri', "
+          f"ties='ignore') n={n} d={d}: {secs:.3f} s wall (first call), "
+          f"launches {launches}, grid launches "
+          f"{ {k: GRIDS[k] for k in ('focus_tri', 'cohesion_tri')} }")
+    if GRIDS["cohesion_tri"] != -(-n // 64):
+        fail(f"cohesion_tri issued {GRIDS['cohesion_tri']} grids, not one "
+             f"per diagonal wave ({-(-n // 64)})")
+    if launches["focus_tri"] != 1 or launches["cohesion_tri"] != 1:
+        fail(f"the tri kernels did not run once each: {launches}")
+    if any(v for name, v in launches.items()
+           if name not in ("focus_tri", "cohesion_tri")):
+        fail(f"another kernel ran on the tri path: {launches}")
+    if C.shape != (n, n) or C.dtype != torch.float32 or C.device != D.device:
+        fail(f"C is {tuple(C.shape)} {C.dtype} on {C.device}")
+    if not bool(torch.isfinite(C).all()):
+        fail("C has non-finite values")
+    mass = float(C.double().sum())
+    if abs(mass - n / 2) > 1e-4 * n / 2:
+        fail(f"mass {mass!r} != n/2 = {n / 2}")
+    print(f"phase 13: mass sum(C) = {mass!r} (n/2 = {n / 2})")
+
+    compare("C tri twice", pald.cohesion(D, method="kernel", schedule="tri",
+                                         ties="ignore"), C, True)
+    Ut = ops.focus(D, impl="cuda", schedule="tri", ties="ignore")
+    compare(f"U tri vs dense kernel n={n}", Ut,
+            ops.focus(D, impl="cuda", ties="ignore"), True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    Cd = pald.cohesion(D, method="kernel", ties="ignore")
+    torch.cuda.synchronize()
+    peak_dense = torch.cuda.max_memory_allocated() - base
+    buf = 4 * n * n
+    print(f"phase 13: peak device memory above the input: tri {peak_tri} B "
+          f"({peak_tri / buf:.3f} n^2 float32 buffers), dense {peak_dense} B "
+          f"({peak_dense / buf:.3f}); the tri cohesion's Cy holds one more")
+    err = compare(f"C tri vs dense n={n}", C, Cd, False, rtol=RTOL_MAIN)
+    rel = float(((C.double() - Cd.double()).abs() /
+                 Cd.double().abs().clamp_min(1e-300)).max())
+    print(f"phase 13: C bitwise across two calls; U bitwise the dense "
+          f"kernel's; C against the dense pipeline's: max |err| {err!r}, "
+          f"max relative {rel!r}, bitwise {bool(torch.equal(C, Cd))}")
+    del Cd
+
+    U_slab, r0 = slab_check(13, C, D, "ignore")
+    compare(f"U tri rows {r0}:{r0 + SLAB}", Ut[r0:r0 + SLAB], U_slab, True)
+    communities_check(13, C, labels)
+    return D, launches
+
+
+def phase_tri_timing(D, launches, clock_mhz, reps=5):
+    """Phase 14: the tri kernels and their plain versions at the main
+    path's shapes, beside the dense kernels; both pipelines end to end;
+    each family's tri kernels."""
+    from repro_torch.core import pald
+    from repro_torch.kernels import ops, pald_cohesion_tri, pald_focus_tri
+    from repro_torch.kernels.ref import weights_ref
+
+    n = D.shape[0]
+    replaces = {"focus": "src/repro/kernels/pald_focus_tri.py:60",
+                "cohesion": "src/repro/kernels/pald_cohesion_tri.py:121"}
+    rows = []
+
+    def timed(name, kernel, plain, dense):
+        ms_k, out_k = time_ms(kernel, reps)
+        ms_d, _ = time_ms(dense, reps)
+        ms_p, out_p = time_ms(plain, 1)
+        b_ms, b_by = bound_ms(name, n, clock_mhz)
+        print(f"phase 14: {name}_tri n={n}: kernel {ms_k!r} ms, dense kernel "
+              f"{ms_d!r} ms (tri/dense {ms_k / ms_d:.3f}), plain {ms_p!r} ms, "
+              f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms_k / b_ms:.3f}, "
+              f"library: none")
+        rows.append({"name": f"{name}_tri", "route": "cuda",
+                     "source": f"src/repro_torch/csrc/pald_{name}_tri.cu",
+                     "replaces": replaces[name],
+                     "launches": launches[f"{name}_tri"],
+                     "grid_launches": GRIDS[f"{name}_tri"],
+                     "max_abs_err": None,
+                     "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+        return out_k, out_p
+
+    # the plain versions with 512-row blocks: fewer, larger launches
+    Uk, Up = timed(
+        "focus",
+        lambda: pald_focus_tri.focus_tri_cuda(D, ties="ignore"),
+        lambda: pald_focus_tri.focus_tri_torch(D, block=512, block_z=n,
+                                               ties="ignore"),
+        lambda: ops.focus(D, impl="cuda", ties="ignore"))
+    rows[0]["max_abs_err"] = compare(f"focus_tri n={n}", Uk, Up, True)
+    W = weights_ref(Uk)
+    del Uk, Up
+    Ck, Cp = timed(
+        "cohesion",
+        lambda: pald_cohesion_tri.cohesion_tri_cuda(D, W, ties="ignore"),
+        lambda: pald_cohesion_tri.cohesion_tri_torch(D, W, block=512,
+                                                     block_z=n,
+                                                     ties="ignore"),
+        lambda: ops.cohesion_from_weights(D, W, impl="cuda", ties="ignore"))
+    rows[1]["max_abs_err"] = compare(f"cohesion_tri n={n}", Ck, Cp, False,
+                                     rtol=RTOL_MAIN)
+    del Ck, Cp, W
+
+    # the two pipelines in turns: dense, tri, tri, dense
+    ends = {"dense": [], "tri": []}
+    for sched in ("dense", "tri", "tri", "dense"):
+        ms, _ = time_ms(lambda: pald.cohesion(D, method="kernel",
+                                              schedule=sched,
+                                              ties="ignore"), 3)
+        ends[sched].append(ms)
+    print(f"phase 14: cohesion(D, method='kernel', ties='ignore') n={n} end "
+          f"to end (median of 3, in turns dense, tri, tri, dense): dense "
+          f"{ends['dense']} ms, tri {ends['tri']} ms")
+
+    for w in functionals():
+        ms_f, U = time_ms(lambda: pald_focus_tri.focus_tri_cuda(D, ties=w),
+                          3)
+        W = weights_ref(U)
+        ms_c, _ = time_ms(lambda: pald_cohesion_tri.cohesion_tri_cuda(
+            D, W, ties=w), 3)
+        print(f"phase 14: {w.name} n={n}: focus_tri kernel {ms_f!r} ms, "
+              f"cohesion_tri kernel {ms_c!r} ms (median of 3)")
+        del U, W
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1086,6 +1343,16 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_knn_timing(Xk, graph, launches, clock_mhz)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    del Xk, graph
+    t0 = time.perf_counter()
+    phase_tri_vs_plain(dev)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    D, launches = phase_tri_main_path(dev)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += phase_tri_timing(D, launches, clock_mhz)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

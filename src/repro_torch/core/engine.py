@@ -13,7 +13,8 @@
     features run item by item.
 
 ``register_executor(kind, method, schedule)``
-    How ``core/pairwise`` and ``kernels/ops`` contribute their callables.
+    How ``core/pairwise``, ``core/triplet`` and ``kernels/ops`` contribute
+    their callables.
 
 ``PaldPlan.explain()``
     The resolved knobs as a plain dict.
@@ -23,9 +24,11 @@ and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On features
 ``method="auto"`` resolves to ``"fused"`` (distances computed inside the
 kernels, D never materialized); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
 materialize D once with ``features.cdist_reference`` and run the distance
-executor of the same name.  ``k=`` pins ``method="knn"`` on either kind:
-the sparse k-NN restriction, selection then (n, k+1) values, scattered to
-the dense C (``kernels/ops.py``).
+executor of the same name (``"triplet"`` too, and ``"kernel"`` on either
+schedule).  ``schedule="tri"`` pins ``method="kernel"``, the only method
+with that schedule.  ``k=`` pins ``method="knn"`` on either kind: the
+sparse k-NN restriction, selection then (n, k+1) values, scattered to the
+dense C (``kernels/ops.py``).
 
 Device rule: ``device`` defaults to ``"cuda"``; the CPU is used only when
 the caller passes ``device="cpu"``.  Without a GPU the default raises; it
@@ -56,10 +59,10 @@ __all__ = [
     "resolve_device",
 ]
 
-DISTANCE_METHODS = ("dense", "pairwise", "kernel", "knn")
+DISTANCE_METHODS = ("dense", "pairwise", "triplet", "kernel", "knn")
 FEATURE_METHODS = ("fused",) + DISTANCE_METHODS
 # the methods whose features cell materializes D and runs the distance cell
-_MATERIALIZING = ("dense", "pairwise", "kernel")
+_MATERIALIZING = ("dense", "pairwise", "triplet", "kernel")
 SCHEDULES = ("dense", "tri")
 
 # methods whose executors take an impl= knob; the plain blocked paths have
@@ -71,10 +74,6 @@ _SLICE = {
     "auto": "method='auto' on a distance matrix needs the measured "
             "crossover of the tuning cache (ROADMAP.md queue 1, item 9: "
             "tuning)",
-    "triplet": "method='triplet' is the block-symmetric slice (ROADMAP.md "
-               "queue 1, item 4)",
-    "tri": "schedule='tri' is the upper-triangular slice (ROADMAP.md queue "
-           "1, item 4)",
     "block_auto": "block= / block_z= / select_block='auto' need the tuning "
                   "cache (ROADMAP.md queue 1, item 9: tuning)",
     "fallback": "on_error='fallback' is the guarded-execution slice "
@@ -145,7 +144,7 @@ def register_executor(kind: str, method: str, schedule: str = "dense"):
 def _load_contributors() -> None:
     """Import the modules that register the default executors (deferred so
     importing the engine stays cheap and cycle-free)."""
-    from repro_torch.core import pairwise  # noqa: F401
+    from repro_torch.core import pairwise, triplet  # noqa: F401
     from repro_torch.kernels import ops  # noqa: F401
 
 
@@ -178,9 +177,9 @@ class PaldPlan:
     item shape."""
 
     kind: str                     # "distance" | "features"
-    method: str                   # "dense" | "pairwise" | "kernel" |
-    #                               "fused" (features only)
-    schedule: str                 # "dense"
+    method: str                   # "dense" | "pairwise" | "triplet" |
+    #                               "kernel" | "knn" | "fused" (features)
+    schedule: str                 # "dense" | "tri" (kernel only)
     impl: str | None              # kernel / fused impl ("cuda" | "torch");
     #                               None for the one-impl paths
     block: int | None             # None for the un-blocked dense method
@@ -258,10 +257,20 @@ class PaldPlan:
 def _est_smem_per_cta(p: PaldPlan) -> int | None:
     """Shared memory of one thread block of the method's CUDA kernels (the
     largest of them), the counterpart of the reference's VMEM-per-step
-    estimate.  The fused kernels stream the feature axis in chunks, so it
-    does not grow with d; the k-NN kernels' grows with k (per-row
-    best-lists of k entries, and each row's dn, W and idx).  None for the
-    methods without kernels."""
+    estimate.  The kernel method reports the kernels of its schedule; the
+    tri kernels' does not grow with n (the TPU's tri kernel holds an
+    (n, block_z) slab).  The fused kernels stream the feature axis in
+    chunks, so theirs does not grow with d; the k-NN kernels' grows with k
+    (per-row best-lists of k entries, and each row's dn, W and idx).  None
+    for the methods without kernels."""
+    if p.method == "kernel":
+        if p.schedule == "tri":
+            from repro_torch.kernels import pald_cohesion_tri as coh
+            from repro_torch.kernels import pald_focus_tri as foc
+        else:
+            from repro_torch.kernels import pald_cohesion as coh
+            from repro_torch.kernels import pald_focus as foc
+        return max(foc.SMEM_PER_CTA, coh.SMEM_PER_CTA)
     if p.method == "fused":
         from repro_torch.kernels.pald_fused import SMEM_PER_CTA
 
@@ -451,12 +460,12 @@ def plan(
 
     # -- method ------------------------------------------------------------
     method_source = "explicit"
-    if method == "triplet":
-        raise NotImplementedError(_SLICE["triplet"])
     if method == "auto":
-        if schedule == "tri":  # the reference pins the tri kernel pipeline
-            raise NotImplementedError(_SLICE["tri"])
-        if k is not None:
+        if schedule == "tri":
+            # an explicit tri request pins the kernel pipeline (the only
+            # method with a tri schedule)
+            method, method_source = "kernel", "schedule=tri"
+        elif k is not None:
             # a neighborhood size is a knn request on either kind: the
             # sparse approximation is opted into, never auto-selected
             if z_chunk is not None:
@@ -471,12 +480,10 @@ def plan(
     if method not in allowed:
         raise ValueError(f"unknown method {method!r} for kind={kind!r} "
                          f"(expected one of {('auto',) + allowed})")
-    if schedule == "tri":
-        if method != "kernel":
-            raise ValueError(
-                f"schedule='tri' is only available for method='kernel', got "
-                f"method={method!r}; pass method='kernel' or drop schedule=")
-        raise NotImplementedError(_SLICE["tri"])
+    if schedule == "tri" and method != "kernel":
+        raise ValueError(
+            f"schedule='tri' is only available for method='kernel', got "
+            f"method={method!r}; pass method='kernel' or drop schedule=")
     if block == "auto" or block_z == "auto" or select_block == "auto":
         raise NotImplementedError(_SLICE["block_auto"])
 
@@ -558,9 +565,9 @@ def plan(
                              "(it has no z tile; use z_chunk=)")
         return PaldPlan(block=None, block_z=None, z_chunk=z_chunk,
                         block_source="n/a", **common)
-    if method == "pairwise" and block_z is not None:
-        raise ValueError("block_z= does not apply to method='pairwise' (the "
-                         "blocked plain path streams the full z axis per "
+    if method in ("pairwise", "triplet") and block_z is not None:
+        raise ValueError(f"block_z= does not apply to method={method!r} (the "
+                         "blocked plain paths stream the full z axis per "
                          "block pair)")
     if method == "fused":
         # the kernels' tiles are fixed; block / block_z only set the plain
@@ -587,9 +594,10 @@ def _materialize_then(X, p: PaldPlan):
     from .features import cdist_reference
 
     D = cdist_reference(X, metric=p.metric)
-    return get_executor("distance", p.method, "dense")(D, p)
+    return get_executor("distance", p.method, p.schedule)(D, p)
 
 
 for _m in _MATERIALIZING:
     register_executor("features", _m, "dense")(_materialize_then)
+register_executor("features", "kernel", "tri")(_materialize_then)
 del _m

@@ -3,6 +3,9 @@ execution-plan engine (counterpart of ``repro.core.pald``).
 
     from repro_torch.core import pald
     C = pald.cohesion(D, method="kernel")     # CUDA kernels (dense grid)
+    C = pald.cohesion(D, schedule="tri")      # CUDA kernels, upper block
+    #                                           pairs (pins method="kernel")
+    C = pald.cohesion(D, method="triplet")    # block-symmetric plain torch
     C = pald.cohesion(D, method="pairwise")   # blocked plain torch (Fig. 5)
     C = pald.cohesion(D, method="dense")      # un-blocked plain torch
     C = pald.cohesion(Db, method="kernel")    # batched: (B, n, n) -> (B, n, n)
@@ -88,16 +91,20 @@ def cohesion(
         D: (n, n) distance matrix with an exactly-zero diagonal, or a
             batched (B, n, n) stack; numpy array or tensor, any float dtype.
         method: "kernel" (the CUDA kernel pipeline), "pairwise" (blocked
-            Fig. 5), "dense" (un-blocked), or "knn" (the sparse k-NN
-            restriction: a stable sort of D's rows, then the k-NN cohesion
-            kernel; needs ``k``).  "auto" with ``k`` is "knn"; otherwise
-            "auto" and "triplet" are later slices of the port and raise
-            ``NotImplementedError``.
+            Fig. 5), "triplet" (block-symmetric: the upper block pairs,
+            both roles per pair, plain torch), "dense" (un-blocked), or
+            "knn" (the sparse k-NN restriction: a stable sort of D's rows,
+            then the k-NN cohesion kernel; needs ``k``).  "auto" with
+            ``k`` is "knn", with ``schedule="tri"`` "kernel"; otherwise
+            "auto" needs the tuning cache, a later slice of the port, and
+            raises ``NotImplementedError``.
         block: tile of the engine's +inf pad for the blocked paths
             (default 128), the k-NN plain version's rows per chunk.
             ``method="dense"`` has no tile.
         block_z: z chunk of the kernel pipeline's plain version.
-        schedule: "dense" ("tri" is a later slice).
+        schedule: "dense", or "tri" (kernel method only): both passes on
+            the upper-triangular block pairs, through the tri CUDA
+            kernels (``ops.pald_tri``); D must be symmetric.
         normalize: apply the 1/(n-1) factor (Eq. 3.3); on by default.
         z_chunk: third-point streaming chunk (dense method only).
         impl: "cuda" (hand-written kernels) or "torch" (plain versions);
@@ -159,20 +166,20 @@ def from_features(
             cosine, manhattan).
         method: "fused" (the "auto" default) computes the distances inside
             the CUDA kernels from the feature rows, so the (n, n) distance
-            matrix never exists; "dense" / "pairwise" / "kernel"
-            materialize D once (``features.cdist_reference``) and run the
-            distance method of that name; "knn" (pinned by ``k``) selects
-            each point's k nearest neighbors straight from the features
-            (the streaming top-k kernel) and runs the k-NN cohesion kernel
-            (``ops.select_cohere``).  "triplet" is a later slice of the port
-            and raises ``NotImplementedError``.
+            matrix never exists; "dense" / "pairwise" / "triplet" /
+            "kernel" materialize D once (``features.cdist_reference``) and
+            run the distance method of that name; "knn" (pinned by ``k``)
+            selects each point's k nearest neighbors straight from the
+            features (the streaming top-k kernel) and runs the k-NN
+            cohesion kernel (``ops.select_cohere``).
         batch: accepted for the reference's surface (items run in turn).
         block: the plain versions' row block (default 128) and the
             materializing paths' tile.  Unlike the reference, whose
             default is "auto" (the tuning cache, a later slice), the
             default is None: the kernels' fixed 64 x 64 tiles.
         block_z: the plain versions' reduced-axis chunk (default 512).
-        schedule: "dense" ("tri" is a later slice).
+        schedule: "dense", or "tri": pins ``method="kernel"`` and runs the
+            tri kernel pipeline on the materialized D.
         normalize: apply the 1/(n-1) factor; on by default.
         impl: "cuda" (the hand-written kernels) or "torch" (the plain
             versions); fused and kernel methods only; default: the

@@ -28,7 +28,7 @@ __all__ = ["load", "check", "CSRC", "BUILD_ROOT"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_topk",
-           "pald_knn")
+           "pald_knn", "pald_focus_tri", "pald_cohesion_tri")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -55,6 +55,10 @@ SIGNATURES = {
     "pald_knn_values_f32": ("pald_knn",
                             (_P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
                              _P)),
+    "pald_focus_tri_f32": ("pald_focus_tri",
+                           (_P, _P, _I64, _I32, _F32, _F32, _P)),
+    "pald_cohesion_tri_f32": ("pald_cohesion_tri",
+                              (_P, _P, _P, _P, _I64, _I32, _F32, _F32, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
 """Entry points of the PaLD kernel pipeline (counterpart of
-``repro.kernels.ops``, dense schedule).
+``repro.kernels.ops``).
 
 The *general* (rectangular) forms are the primitives the square pipeline
 calls, and that distributed bodies will call per device:
@@ -15,6 +15,13 @@ device, ``None`` the device's default (``"cuda"`` for CUDA tensors,
 edges themselves, so unlike the TPU pipeline nothing here pads to a tile
 multiple, and ``block`` / ``block_z`` only set the plain versions' chunks.
 
+``schedule="tri"`` (``focus``, ``cohesion_from_weights``, ``pald``, and
+``pald_tri`` itself) runs the upper-triangular block schedule on a square,
+symmetric D: pass 1 over the nb(nb+1)/2 block pairs X <= Y, each tile
+mirrored (``pald_focus_tri.py``); pass 2 over the same pairs, both role
+updates per off-diagonal pair (``pald_cohesion_tri.py``).  Its plain
+versions take a ragged last block, so nothing is padded there either.
+
 ``pald_fused(X)`` is the fused features pipeline: both passes straight
 from (n, d) feature vectors (``pald_fused.py``), D never materialized.
 
@@ -29,9 +36,7 @@ The sparse k-NN pipeline (``core/knn.py`` has the semantics):
                                            back to back on device tensors
 
 Every entry point takes ``ties`` (a mode string, a registered functional
-name, or a ``WeightFunctional``).  The upper-triangular schedule is a
-later slice of the port (ROADMAP.md, queue 1): its entry points raise
-``NotImplementedError``.
+name, or a ``WeightFunctional``).
 """
 from __future__ import annotations
 
@@ -42,7 +47,9 @@ from repro_torch.core import knn as _knn
 from repro_torch.core.weights import DEFAULT_TIES, resolve_weight
 
 from .pald_cohesion import cohesion_general_cuda, cohesion_general_torch
+from .pald_cohesion_tri import cohesion_tri_cuda, cohesion_tri_torch
 from .pald_focus import focus_general_cuda, focus_general_torch
+from .pald_focus_tri import focus_tri_cuda, focus_tri_torch
 from .pald_fused import (cohesion_fused_cuda, cohesion_fused_torch,
                          focus_fused_cuda, focus_fused_torch)
 from .pald_knn import knn_values_cuda, knn_values_torch
@@ -66,8 +73,6 @@ __all__ = [
 
 IMPLS = ("cuda", "torch")
 
-_TRI = "schedule='tri' is the upper-triangular slice (ROADMAP.md queue 1, item 4)"
-
 
 def default_impl(device) -> str:
     """``"cuda"`` on a CUDA device, ``"torch"`` elsewhere."""
@@ -82,6 +87,17 @@ def _check_impl(impl: str) -> str:
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
+
+
+def _check_schedule(schedule: str, D) -> bool:
+    """True for the tri schedule, which takes a square D only."""
+    if schedule not in _engine.SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r} (expected one of "
+                         f"{_engine.SCHEDULES})")
+    if schedule == "tri" and (D.ndim != 2 or D.shape[0] != D.shape[1]):
+        raise ValueError("schedule='tri' takes a square (n, n) D, got shape "
+                         f"{tuple(D.shape)}")
+    return schedule == "tri"
 
 
 def focus_general(DXZ, DYZ, DXY, *, block=128, block_z=512,
@@ -120,9 +136,17 @@ def cohesion_general(DXZ, DYZ, DXY, W, *, block=128, block_z=512,
 
 def focus(D, *, block=128, block_z=512, impl: str | None = None,
           schedule: str = "dense", ties=DEFAULT_TIES) -> torch.Tensor:
-    """Square local-focus sizes U (n, n)."""
-    if schedule != "dense":
-        raise NotImplementedError(_TRI)
+    """Square local-focus sizes U (n, n).  ``schedule="tri"`` computes the
+    upper block pairs and mirrors them (D must be symmetric); ``block`` /
+    ``block_z`` set its plain version's tiles."""
+    if _check_schedule(schedule, D):
+        ties = resolve_weight(ties)
+        impl = _check_impl(impl or default_impl(D.device))
+        D = _f32(D)
+        if impl == "torch":
+            return focus_tri_torch(D, block=int(block),
+                                   block_z=int(block_z), ties=ties)
+        return focus_tri_cuda(D, ties=ties)
     return focus_general(D, D, D, block=block, block_z=block_z, impl=impl,
                          ties=ties)
 
@@ -131,10 +155,18 @@ def cohesion_from_weights(D, W, *, block=128, block_z=512,
                           impl: str | None = None, schedule: str = "dense",
                           ties=DEFAULT_TIES) -> torch.Tensor:
     """Pass 2 from precomputed reciprocal weights W = 1/U.  The square
-    case derives the index tiebreak per tile (``xw_offsets=(0, 0)``)."""
+    case derives the index tiebreak per tile (``xw_offsets=(0, 0)``).
+    ``schedule="tri"`` visits the upper block pairs, both roles per
+    off-diagonal pair, and reads only the upper tiles of D and W (both
+    must be symmetric)."""
     ties = resolve_weight(ties)
-    if schedule != "dense":
-        raise NotImplementedError(_TRI)
+    if _check_schedule(schedule, D):
+        impl = _check_impl(impl or default_impl(D.device))
+        D, W = _f32(D), _f32(W)
+        if impl == "torch":
+            return cohesion_tri_torch(D, W, block=int(block),
+                                      block_z=int(block_z), ties=ties)
+        return cohesion_tri_cuda(D, W, ties=ties)
     offs = (0, 0) if ties.needs_index_tiebreak else None
     return cohesion_general(D, D, D, W, block=block, block_z=block_z,
                             impl=impl, ties=ties, xw_offsets=offs)
@@ -147,11 +179,13 @@ def pald(D, *, block=128, block_z=512, normalize: bool = False, n_valid=None,
 
     impl: 'cuda' (the hand-written kernels), 'torch' (plain versions), or
     None for the device's default.  ``n_valid`` zeroes the weights of
-    padded points (index >= n_valid).  ties: weight functional shared by
-    both passes.
+    padded points (index >= n_valid).  schedule: 'dense' runs the full
+    grids; 'tri' is ``pald_tri``.  ties: weight functional shared by both
+    passes.
     """
-    if schedule != "dense":
-        raise NotImplementedError(_TRI)
+    if _check_schedule(schedule, D):
+        return pald_tri(D, block=block, block_z=block_z, normalize=normalize,
+                        n_valid=n_valid, impl=impl, ties=ties)
     U = focus(D, block=block, block_z=block_z, impl=impl, ties=ties)
     W = weights_ref(U, n_valid)
     C = cohesion_from_weights(D, W, block=block, block_z=block_z, impl=impl,
@@ -161,8 +195,25 @@ def pald(D, *, block=128, block_z=512, normalize: bool = False, n_valid=None,
     return C
 
 
-def pald_tri(*args, **kwargs):
-    raise NotImplementedError(_TRI)
+def pald_tri(D, *, block=128, block_z=512, normalize: bool = False,
+             n_valid=None, impl: str | None = None,
+             ties=DEFAULT_TIES) -> torch.Tensor:
+    """The tri-schedule pipeline: tri focus -> W = 1/U -> tri cohesion.
+    Both passes visit only the nb(nb+1)/2 upper block pairs (the paper's
+    Algorithm 2 at block granularity, DESIGN.md section 4.3).  D must be
+    square and symmetric; ``block`` / ``block_z`` set the plain versions'
+    tiles (the kernels' are fixed), ``n_valid`` zeroes the weights of
+    padded points.
+    """
+    U = focus(D, block=block, block_z=block_z, impl=impl, schedule="tri",
+              ties=ties)
+    W = weights_ref(U, n_valid)
+    del U
+    C = cohesion_from_weights(D, W, block=block, block_z=block_z, impl=impl,
+                              schedule="tri", ties=ties)
+    if normalize:
+        C = C / (D.shape[0] - 1)
+    return C
 
 
 def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
@@ -372,6 +423,11 @@ def _kernel_exec(D, plan, pipeline):
 @_engine.register_executor("distance", "kernel", "dense")
 def _exec_kernel_dense(D, plan):
     return _kernel_exec(D, plan, pald)
+
+
+@_engine.register_executor("distance", "kernel", "tri")
+def _exec_kernel_tri(D, plan):
+    return _kernel_exec(D, plan, pald_tri)
 
 
 @_engine.register_executor("features", "fused", "dense")

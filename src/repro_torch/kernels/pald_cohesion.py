@@ -32,7 +32,11 @@ from repro_torch.core.weights import (DEFAULT_TIES, index_xwins, kernel_spec,
 from . import _build
 from .pald_focus import adaptive_chunk, check_operands
 
-__all__ = ["cohesion_general_cuda", "cohesion_general_torch"]
+__all__ = ["cohesion_general_cuda", "cohesion_general_torch", "SMEM_PER_CTA"]
+
+# the kernel stages a (32, 64) DYZ slab, (32, 68) DXY and W slabs and a
+# (32, 68) byte tiebreak slab (csrc/pald_cohesion.cu)
+SMEM_PER_CTA = 4 * 32 * 64 + 4 * 2 * 32 * 68 + 32 * 68
 
 
 def _require_tiebreak(wfun, xwins, xw_offsets):
@@ -73,7 +77,8 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
     CUDA operands must be contiguous float32 (``xwins``: bool) on one
     device (``ops`` prepares them); anything else raises, as does a weight
     functional without a kernel id.  Each launch adds one to
-    ``cohesion_general_cuda.launches``.
+    ``cohesion_general_cuda.launches`` (and to ``.grid_launches``: one
+    grid).
     """
     dev = DXZ.device
     if dev.type == "cpu":
@@ -108,7 +113,9 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
                     col_off, wid, p0, p1, stream)
     _build.check(status, "pald_cohesion_f32")
     cohesion_general_cuda.launches += 1
+    cohesion_general_cuda.grid_launches += 1
     return C
 
 
 cohesion_general_cuda.launches = 0
+cohesion_general_cuda.grid_launches = 0

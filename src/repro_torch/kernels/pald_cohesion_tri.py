@@ -1,0 +1,119 @@
+"""PaLD pass 2 on the upper-triangular block schedule: the CUDA kernel's
+wrapper and its plain torch version.
+
+Cohesion support is a property of the unordered pair, so only the block
+pairs X <= Y are visited, and each off-diagonal visit applies both role
+updates from the upper tiles D[X, Y] and W[X, Y]:
+
+    x-role:  C[x, z] += support_weight(D[x, z], D[y, z], D[x, y]) * W[x, y]
+    y-role:  C[y, z] += support_weight(D[y, z], D[x, z], D[x, y]) * W[x, y]
+
+A diagonal block applies the x-role alone, over both orders of every pair
+inside it.  ``ignore``'s index tiebreak is "x > y" for the x-role and its
+converse for the y-role.  D and W are taken as symmetric (the tri pipeline's
+U, hence W, is symmetric by construction): their lower tiles are never read.
+
+The kernel (``csrc/pald_cohesion_tri.cu``) replaces the TPU kernel
+``repro/kernels/pald_cohesion_tri.py::cohesion_tri_pallas``.  It visits the
+pairs in diagonal waves, one grid launch each, so that no two thread blocks
+of a launch write the same rows: C is the same bits on every call.  The
+source note in the ``.cu`` file has the details.
+
+:func:`cohesion_tri_cuda` dispatches on the tensors' device: CUDA tensors
+launch the kernel (or raise), CPU tensors take :func:`cohesion_tri_torch`,
+the counterpart of the reference's ``ops._cohesion_tri_jnp``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.weights import (DEFAULT_TIES, index_xwins, kernel_spec,
+                                      resolve_weight, support_weight)
+
+from . import _build
+from .pald_focus import adaptive_chunk, check_operands
+from .pald_focus_tri import tri_pairs
+
+__all__ = ["cohesion_tri_cuda", "cohesion_tri_torch", "wave_count",
+           "SMEM_PER_CTA"]
+
+# the kernel stages a (32, 64) DYZ slab, (32, 68) DXY and W slabs and a
+# (32, 68) byte tiebreak slab (csrc/pald_cohesion_tri.cu)
+SMEM_PER_CTA = 4 * 32 * 64 + 4 * 2 * 32 * 68 + 32 * 68
+
+
+def wave_count(n: int) -> int:
+    """Grid launches of one kernel call: one per diagonal wave of 64-row
+    blocks, ceil(n / 64) (the C entry point's loop)."""
+    return -(-n // 64)
+
+
+def cohesion_tri_torch(D, W, *, block: int = 128, block_z: int = 512,
+                       ties=DEFAULT_TIES) -> torch.Tensor:
+    """Plain torch C (n, n) over the upper block pairs, both roles per
+    off-diagonal pair (any device); z in chunks of at most ``block_z``."""
+    wfun = resolve_weight(ties)
+    n = D.shape[0]
+    dev = D.device
+    C = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    for (x0, x1), (y0, y1) in tri_pairs(n, block):
+        bx, by = x1 - x0, y1 - y0
+        Dx, Dy = D[x0:x1], D[y0:y1]
+        Dxy, Wxy = D[x0:x1, y0:y1], W[x0:x1, y0:y1]
+        diag = x0 == y0
+        xw = yw = None
+        if wfun.needs_index_tiebreak:
+            xw = index_xwins(x0, bx, y0, by, device=dev)[:, :, None]
+            yw = index_xwins(y0, by, x0, bx, device=dev)[:, :, None]
+        c = adaptive_chunk(bx, by, block_z)
+        for s in range(0, n, c):
+            e = min(s + c, n)
+            gx = support_weight(Dx[:, None, s:e], Dy[None, :, s:e],
+                                Dxy[:, :, None], wfun, xw)
+            C[x0:x1, s:e] += torch.einsum("xyz,xy->xz", gx, Wxy)
+            if not diag:
+                gy = support_weight(Dy[:, None, s:e], Dx[None, :, s:e],
+                                    Dxy.T[:, :, None], wfun, yw)
+                C[y0:y1, s:e] += torch.einsum("yxz,yx->yz", gy, Wxy.T)
+    return C
+
+
+def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
+    """C (n, n) through the CUDA kernel for CUDA tensors, through
+    :func:`cohesion_tri_torch` for CPU tensors.
+
+    D and W must be contiguous float32 (n, n) tensors on one device
+    (``ops`` prepares them); anything else raises, as does a weight
+    functional without a kernel id.  The x-role and y-role sums go to two
+    (n, n) buffers, added once at the end: one n^2 buffer more at peak than
+    the dense cohesion kernel's call.  Each call adds one to
+    ``cohesion_tri_cuda.launches`` and :func:`wave_count` (one grid launch
+    per diagonal wave) to ``.grid_launches``.
+    """
+    dev = D.device
+    if dev.type == "cpu":
+        return cohesion_tri_torch(D, W, ties=ties)
+    if dev.type != "cuda":
+        raise ValueError(f"cohesion_tri_cuda: unsupported device {dev}")
+    wid, p0, p1 = kernel_spec(ties)
+    n = D.shape[0]
+    f32 = torch.float32
+    check_operands("cohesion_tri_cuda", dev, D=(D, (n, n), f32),
+                   W=(W, (n, n), f32))
+    C = torch.empty((n, n), dtype=f32, device=dev)
+    if n == 0:
+        return C
+    Cy = torch.zeros((n, n), dtype=f32, device=dev)
+    fn = _build.load("pald_cohesion_tri_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(D.data_ptr(), W.data_ptr(), C.data_ptr(), Cy.data_ptr(),
+                    n, wid, p0, p1, stream)
+    _build.check(status, "pald_cohesion_tri_f32")
+    cohesion_tri_cuda.launches += 1
+    cohesion_tri_cuda.grid_launches += wave_count(n)
+    return C.add_(Cy)
+
+
+cohesion_tri_cuda.launches = 0
+cohesion_tri_cuda.grid_launches = 0

@@ -24,7 +24,10 @@ from repro_torch.core.weights import DEFAULT_TIES, focus_weight, kernel_spec
 from . import _build
 
 __all__ = ["focus_general_cuda", "focus_general_torch", "adaptive_chunk",
-           "check_operands"]
+           "check_operands", "SMEM_PER_CTA"]
+
+# the kernel stages two (32, 68) float32 z slabs (csrc/pald_focus.cu)
+SMEM_PER_CTA = 4 * 2 * 32 * 68
 
 # The plain versions materialize an (mx, my, chunk) comparison cube per
 # step; cap the cube at 512 MiB of bools (2 GiB once cast to float32) so the
@@ -78,7 +81,7 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     CUDA operands must be contiguous float32 on one device (``ops``
     prepares them); anything else raises, as does a weight functional
     without a kernel id.  Each launch adds one to
-    ``focus_general_cuda.launches``.
+    ``focus_general_cuda.launches`` (and to ``.grid_launches``: one grid).
     """
     dev = DXZ.device
     if dev.type == "cpu":
@@ -101,7 +104,9 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
                     U.data_ptr(), mx, my, mz, wid, p0, p1, stream)
     _build.check(status, "pald_focus_f32")
     focus_general_cuda.launches += 1
+    focus_general_cuda.grid_launches += 1
     return U
 
 
 focus_general_cuda.launches = 0
+focus_general_cuda.grid_launches = 0

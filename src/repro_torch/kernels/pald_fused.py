@@ -39,7 +39,8 @@ from .pald_cohesion import cohesion_general_torch
 from .pald_focus import check_operands, focus_general_torch
 
 __all__ = ["focus_fused_cuda", "cohesion_fused_cuda", "focus_fused_torch",
-           "cohesion_fused_torch", "dist_fused_cuda", "metric_id"]
+           "cohesion_fused_torch", "dist_fused_cuda", "metric_id",
+           "norm_grids"]
 
 # shared memory of one thread block of the fused kernels, in bytes
 # (csrc/pald_fused.cu: a 64-row tile, 32-row slabs, 16 features staged per
@@ -56,6 +57,13 @@ def metric_id(metric: str) -> int:
         raise ValueError(f"unknown metric {metric!r} (expected one of "
                          f"{METRICS})")
     return METRICS.index(metric)
+
+
+def norm_grids(metric: str) -> int:
+    """Grids of the row-norm pre-pass that a kernel call on ``metric``
+    issues before its own: one for every metric but manhattan
+    (``Dist<M>::kNorms`` in csrc/pald_dist.cuh)."""
+    return int(metric != "manhattan")
 
 
 def _n_valid(X, n_valid) -> int:
@@ -146,7 +154,9 @@ def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
 
     A CUDA X must be contiguous float32 (``ops`` prepares it); anything
     else raises, as does a weight functional without a kernel id.  Each
-    call that launches the kernel adds one to ``focus_fused_cuda.launches``.
+    call that launches the kernel adds one to ``focus_fused_cuda.launches``,
+    and the grids it issues (the row-norm pre-pass's too) to
+    ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return focus_fused_torch(X, metric=metric, n_valid=n_valid, ties=ties)
@@ -159,6 +169,7 @@ def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
     _launch("pald_focus_fused_f32", X, U, X.data_ptr(), norms.data_ptr(),
             U.data_ptr(), n, d, nv, mid, wid, p0, p1)
     focus_fused_cuda.launches += 1
+    focus_fused_cuda.grid_launches += norm_grids(metric) + 1
     return U
 
 
@@ -166,8 +177,8 @@ def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
                         ties=DEFAULT_TIES) -> torch.Tensor:
     """C (n, n) from X (n, d) and W = 1/U (n, n) through the CUDA kernel
     for CUDA tensors, through :func:`cohesion_fused_torch` for CPU tensors.
-    Same operand rules as :func:`focus_fused_cuda`; each launch adds one to
-    ``cohesion_fused_cuda.launches``."""
+    Same operand rules and counters as :func:`focus_fused_cuda`
+    (``cohesion_fused_cuda.launches``, ``.grid_launches``)."""
     if X.device.type == "cpu":
         return cohesion_fused_torch(X, W, metric=metric, n_valid=n_valid,
                                     ties=ties)
@@ -182,6 +193,7 @@ def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
     _launch("pald_cohesion_fused_f32", X, C, X.data_ptr(), norms.data_ptr(),
             W.data_ptr(), C.data_ptr(), n, d, nv, mid, wid, p0, p1)
     cohesion_fused_cuda.launches += 1
+    cohesion_fused_cuda.grid_launches += norm_grids(metric) + 1
     return C
 
 
@@ -201,3 +213,5 @@ def dist_fused_cuda(X, *, metric: str = "euclidean",
 
 focus_fused_cuda.launches = 0
 cohesion_fused_cuda.launches = 0
+focus_fused_cuda.grid_launches = 0
+cohesion_fused_cuda.grid_launches = 0

@@ -66,7 +66,7 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     CUDA operands must be contiguous (dn, g float32; idx int32) on one
     device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
     weight functional without a kernel id.  Each launch adds one to
-    ``knn_values_cuda.launches``.
+    ``knn_values_cuda.launches`` (and to ``.grid_launches``: one grid).
     """
     if dn.device.type == "cpu":
         return knn_values_torch(dn, g, idx, ties=ties)
@@ -92,7 +92,9 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
                     out.data_ptr(), n, k, wid, p0, p1, stream)
     _build.check(status, "pald_knn_values_f32")
     knn_values_cuda.launches += 1
+    knn_values_cuda.grid_launches += 1
     return out
 
 
 knn_values_cuda.launches = 0
+knn_values_cuda.grid_launches = 0

@@ -28,7 +28,7 @@ from repro_torch.core.knn import NeighborGraph, check_k, empty_graph
 
 from . import _build
 from .pald_focus import check_operands
-from .pald_fused import metric_id
+from .pald_fused import metric_id, norm_grids
 
 __all__ = ["topk_select_cuda", "topk_select_torch", "MAX_K", "smem_per_cta"]
 
@@ -76,7 +76,8 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
 
     A CUDA X must be contiguous float32 (``ops`` prepares it), and k at
     most :data:`MAX_K`; anything else raises.  Each call that launches the
-    kernel adds one to ``topk_select_cuda.launches``.
+    kernel adds one to ``topk_select_cuda.launches``, and the grids it
+    issues (the row-norm pre-pass's too) to ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return topk_select_torch(X, k, metric=metric)
@@ -102,7 +103,9 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
                     idx.data_ptr(), n, d, k, mid, stream)
     _build.check(status, "pald_topk_f32")
     topk_select_cuda.launches += 1
+    topk_select_cuda.grid_launches += norm_grids(metric) + 1
     return NeighborGraph(idx, dist)
 
 
 topk_select_cuda.launches = 0
+topk_select_cuda.grid_launches = 0

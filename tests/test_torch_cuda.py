@@ -13,7 +13,9 @@ The fused features kernels are held to their plain versions the same way,
 their distances bitwise to ``cdist_reference``, and their U and C bitwise
 to the dense kernels' on those distances (the same loops on the same
 numbers).  The k-NN selection kernel is held bitwise to its plain version
-(indices and distances), the k-NN values kernel to rtol 1e-5.
+(indices and distances), the k-NN values kernel to rtol 1e-5.  The tri
+kernels are held to their plain versions the same way, their U bitwise to
+the dense kernel's, and their C to itself across two calls, bitwise.
 ``chip_smoke.py`` repeats the comparisons at the main paths' full size.
 """
 import numpy as np
@@ -21,7 +23,8 @@ import pytest
 import torch
 
 from repro_torch.core import weights as tw
-from repro_torch.kernels import ops, pald_cohesion, pald_focus
+from repro_torch.kernels import (ops, pald_cohesion, pald_cohesion_tri,
+                                 pald_focus, pald_focus_tri)
 
 RTOL, ATOL = 1e-5, 1e-6
 FUNCTIONALS = ["drop", "split", "ignore", "soft", "kernelized"]
@@ -313,5 +316,92 @@ def test_cuda_knn_facade_matches_cpu(cuda_device, metric):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
     Cc = pald.from_features(X, metric=metric, k=16, ties="ignore",
                             device="cpu")
+    np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the tri kernels (csrc/pald_focus_tri.cu, csrc/pald_cohesion_tri.cu)
+# ---------------------------------------------------------------------------
+def _tri_D(n, seed=0):
+    """Symmetric float32 distances: multiples of 0.5 (exact ties), a few
+    +inf pairs, an exactly-zero diagonal."""
+    rng = np.random.default_rng(seed)
+    A = rng.integers(1, 8, size=(n, n)).astype(np.float32) * 0.5
+    A[rng.random((n, n)) < 0.03] = np.inf
+    D = np.triu(A, 1)
+    D = D + D.T
+    np.fill_diagonal(D, 0.0)
+    return D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 257])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_tri_kernels_vs_plain(cuda_device, name, n):
+    from repro_torch.kernels.ref import weights_ref
+
+    D = torch.as_tensor(_tri_D(n, seed=13), device=cuda_device)
+    f0 = pald_focus_tri.focus_tri_cuda.launches
+    c0 = pald_cohesion_tri.cohesion_tri_cuda.launches
+    g0 = pald_cohesion_tri.cohesion_tri_cuda.grid_launches
+    Uk = pald_focus_tri.focus_tri_cuda(D, ties=name)
+    Up = pald_focus_tri.focus_tri_torch(D, ties=name)
+    _assert_u(name, Uk.cpu().numpy(), Up.cpu().numpy())
+    if not name.startswith("soft"):  # exact counts: the dense kernel's U
+        assert torch.equal(Uk, ops.focus(D, impl="cuda", ties=name))
+    W = weights_ref(Up)
+    Ck = pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=name)
+    Ck2 = pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=name)
+    Cp = pald_cohesion_tri.cohesion_tri_torch(D, W, ties=name)
+    Cd = ops.cohesion_from_weights(D, W, impl="cuda", ties=name)
+    torch.cuda.synchronize()
+    assert pald_focus_tri.focus_tri_cuda.launches == f0 + 1
+    assert pald_cohesion_tri.cohesion_tri_cuda.launches == c0 + 2
+    # one grid per diagonal wave of 64-row blocks
+    assert (pald_cohesion_tri.cohesion_tri_cuda.grid_launches
+            == g0 + 2 * -(-n // 64))
+    assert torch.equal(Ck, Ck2)
+    for want in (Cp, Cd):
+        np.testing.assert_allclose(Ck.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_tri_wrappers_reject_bad_operands(cuda_device):
+    a = torch.zeros((8, 8), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        pald_focus_tri.focus_tri_cuda(a.double())
+    with pytest.raises(ValueError, match="shape"):
+        pald_cohesion_tri.cohesion_tri_cuda(a, a[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        pald_focus_tri.focus_tri_cuda(a.T[:4, :4])
+    user = tw.WeightFunctional("_user_cuda_tri", tw.DROP.focus,
+                               tw.DROP.support)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        pald_focus_tri.focus_tri_cuda(a, ties=user)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        pald_cohesion_tri.cohesion_tri_cuda(a, a, ties=user)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_tri_cohesion_matches_cpu(cuda_device, name):
+    """The facade with schedule='tri' on its default device (the GPU,
+    through both tri kernels and no dense one) against the same call on
+    the CPU (the plain versions)."""
+    from repro_torch.core import pald
+
+    D = _tri_D(200, seed=17)
+    counters = (pald_focus_tri.focus_tri_cuda,
+                pald_cohesion_tri.cohesion_tri_cuda,
+                pald_focus.focus_general_cuda,
+                pald_cohesion.cohesion_general_cuda)
+    before = [f.launches for f in counters]
+    Cg = pald.cohesion(D, method="kernel", schedule="tri", weight=name)
+    assert Cg.device.type == "cuda" and Cg.dtype == torch.float32
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
+    Cc = pald.cohesion(D, method="kernel", schedule="tri", weight=name,
+                       device="cpu")
     np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
                                atol=ATOL)

@@ -240,7 +240,8 @@ def test_from_features_knob_errors():
     p = pald.plan(X, kind="features", device="cpu")
     with pytest.raises(ValueError, match="does not match"):
         p.execute(_X(10, d=3))
-    for knobs in ({"method": "triplet"}, {"schedule": "tri"},
+    for knobs in ({"method": "triplet", "block": "auto"},
+                  {"schedule": "tri", "block_z": "auto"},
                   {"block": "auto"}, {"on_error": "fallback"},
                   {"strategy": "ring"}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):

@@ -278,16 +278,25 @@ def test_unknown_impl_rejected():
 
 @pytest.mark.parametrize("fn", ["pald_tri"])
 def test_unported_pipelines_raise(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(ops, fn)(torch.zeros((4, 4)))
+    """The tri pipeline (tests/test_torch_tri.py holds it to the
+    reference) takes a square D only: anything else raises."""
+    with pytest.raises(ValueError, match="square"):
+        getattr(ops, fn)(torch.zeros((4, 5)))
 
 
 @pytest.mark.parametrize("fn", ["focus", "cohesion_from_weights", "pald"])
 def test_tri_schedule_raises(fn):
+    """schedule='tri' takes a square D only, and an unknown schedule is an
+    error; on a square D it runs (tests/test_torch_tri.py)."""
+    R = torch.zeros((8, 6))
+    args = (R, R) if fn == "cohesion_from_weights" else (R,)
+    with pytest.raises(ValueError, match="square"):
+        getattr(ops, fn)(*args, schedule="tri")
     D = torch.from_numpy(_square(8))
     args = (D, D) if fn == "cohesion_from_weights" else (D,)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(ops, fn)(*args, schedule="tri")
+    with pytest.raises(ValueError, match="unknown schedule"):
+        getattr(ops, fn)(*args, schedule="upper")
+    assert getattr(ops, fn)(*args, schedule="tri").shape == (8, 8)
 
 
 @pytest.mark.parametrize("n_valid", [None, 17, 23])

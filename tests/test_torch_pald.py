@@ -1,7 +1,7 @@
 """The port's PaLD pipeline end to end (repro_torch.core.pald) against the
 JAX reference (repro.core.pald), plus the port's package rules.
 
-Every method the port carries (dense, pairwise, kernel) runs on
+Every method the port carries (dense, pairwise, triplet, kernel) runs on
 ``device="cpu"`` and is held to the reference's same method, to the
 committed goldens, and to the O(n^3) numpy oracle: C within rtol 1e-5,
 atol 1e-6 (tests/test_conformance.py), since the two packages sum the same
@@ -30,7 +30,7 @@ from repro_torch.core.weights import soft_threshold
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
 RTOL, ATOL = 1e-5, 1e-6
-METHODS = ["dense", "pairwise", "kernel"]
+METHODS = ["dense", "pairwise", "triplet", "kernel"]
 GOLDEN = os.path.join(REPO, "tests", "golden", "pald_golden.npz")
 GOLDEN_12PT = os.path.join(REPO, "tests", "golden", "weights_builtins_12pt.npz")
 
@@ -273,8 +273,8 @@ def test_shape_errors():
 
 @pytest.mark.parametrize("knobs", [
     {"method": "auto"},
-    {"method": "triplet"},
-    {"method": "kernel", "schedule": "tri"},
+    {"method": "triplet", "block": "auto"},
+    {"method": "kernel", "schedule": "tri", "block_z": "auto"},
     {"method": "kernel", "block": "auto"},
     {"method": "kernel", "block_z": "auto"},
     {"method": "kernel", "on_error": "fallback"},
@@ -286,6 +286,21 @@ def test_unported_knobs_raise(knobs):
     none is dropped silently."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
         engine.plan(_points_D(8), device="cpu", **knobs)
+
+
+@pytest.mark.parametrize("knobs", [
+    {"method": "triplet"},
+    {"method": "kernel", "schedule": "tri"},
+    {"schedule": "tri"},
+])
+def test_tri_and_triplet_knobs_run(knobs):
+    """The block-symmetric method and the tri schedule plan and run on the
+    CPU, against the reference's same call."""
+    D = _points_D(20)
+    C = _port(D, ties="ignore", block=8, **knobs)
+    Cj = np.asarray(jpald.cohesion(jnp.asarray(D), ties="ignore", block=8,
+                                   **knobs))
+    np.testing.assert_allclose(C, Cj, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("knobs", [
