@@ -20,19 +20,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. the kernels of every built-in weight family timed at n = 8192;
 6. the fused features kernels (``pald_fused.cu``) against their plain
    versions on the card: four metrics x five families at a ragged n = 257
-   and d in {1, 5, 300} on quantized features with duplicated rows; their
-   distances bitwise against ``cdist_reference``, their U bitwise against
-   the dense kernels' on the same distances;
+   and d in {1, 5, 300} on quantized features with duplicated rows, each
+   at three distance-panel sizes (the default, 64 and 192 rows: one, five
+   and two panels); their distances bitwise against ``cdist_reference``,
+   U and C bitwise across the panel sizes, U bitwise against the dense
+   kernels' on the same distances; how many C are bitwise the dense
+   kernels';
 7. the second main path at full size: ``pald.from_features(X)`` with every
    knob at its default (euclidean, ``ties="drop"``, ``method="auto"`` ->
    fused) on a clustered n = 8192, d = 64 point set, with the launch
    counters as proof that the fused kernels ran once each and neither the
-   dense kernels nor any plain version did; mass, a 64-row slab, community
-   recovery, and peak device memory at least one n^2 float32 buffer below
-   the materialize-then-kernel path's;
+   dense kernels nor any plain version did, and 1 + 2 ceil(n/P) grids
+   each; mass, a 64-row slab, community recovery, the panel within its
+   budget, peak device memory at least one n^2 float32 buffer below the
+   materialize-then-kernel path's, and C bitwise that path's;
 8. the fused kernels and their plain versions timed at n = 8192, d = 64,
-   and ``from_features`` end to end, fused against materialize-then-kernel,
-   for all four metrics (CUDA events, median after a warm-up);
+   a sweep of the panel rows (256 to 4096), each family's fused kernels
+   beside phase 5's dense ones, and ``from_features`` end to end, fused
+   against materialize-then-kernel, for all four metrics (CUDA events,
+   median after a warm-up);
 9. the sparse k-NN kernels (``pald_topk.cu``, ``pald_knn.cu``) against
    their plain versions on the card: the selection bitwise (indices and
    distances) for n in {1, 2, 33, 257, 1000}, d in {1, 5, 8, 300}, k in
@@ -459,11 +465,13 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
 
 def phase_families(D, reps=3):
     """Phase 5: every built-in family's kernels at the main path's size
-    (kernel times only; the main path runs ``ignore``)."""
+    (kernel times only; the main path runs ``ignore``).  Returns
+    {family: (focus ms, cohesion ms)}."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import weights_ref
 
     n = D.shape[0]
+    times = {}
     for w in functionals():
         ms_f, U = time_ms(lambda: ops.focus(D, impl="cuda", ties=w), reps)
         W = weights_ref(U)
@@ -471,6 +479,8 @@ def phase_families(D, reps=3):
             D, W, impl="cuda", ties=w), reps)
         print(f"phase 5: {w.name} n={n}: focus kernel {ms_f!r} ms, cohesion "
               f"kernel {ms_c!r} ms (median of {reps})")
+        times[w.name] = (ms_f, ms_c)
+    return times
 
 
 def fused_features(rng, n, d, dev):
@@ -484,9 +494,14 @@ def fused_features(rng, n, d, dev):
     return torch.as_tensor(X.astype(np.float32), device=dev)
 
 
+# the fused passes' panel rows in phase 6 (n = 257): the default (one
+# 320-row panel), then five panels and two, the last one ragged
+PANEL_SIZES = (None, 64, 192)
+
+
 def phase_fused_vs_plain(dev) -> None:
     """Phase 6: the fused kernels against their plain versions and against
-    the dense kernels on the same distances."""
+    the dense kernels on the same distances, each at three panel sizes."""
     import torch
     from repro_torch.core.features import cdist_reference
     from repro_torch.kernels import ops, pald_fused
@@ -506,13 +521,24 @@ def phase_fused_vs_plain(dev) -> None:
             for w in functionals():
                 kw = dict(metric=metric, ties=w)
                 tag = f"{w.name} {metric} n={n} d={d}"
-                Uk = pald_fused.focus_fused_cuda(X, **kw)
+                Ks = {P: pald_fused.focus_fused_cuda(X, _panel_rows=P, **kw)
+                      for P in PANEL_SIZES}
+                Uk = Ks[None]
                 Up = pald_fused.focus_fused_torch(X, **kw)
                 compare(f"focus_fused {tag}", Uk, Up, exact_focus(w))
                 W = weights_ref(Up)
-                Ck = pald_fused.cohesion_fused_cuda(X, W, **kw)
+                Cs = {P: pald_fused.cohesion_fused_cuda(X, W, _panel_rows=P,
+                                                        **kw)
+                      for P in PANEL_SIZES}
+                Ck = Cs[None]
                 Cp = pald_fused.cohesion_fused_torch(X, W, **kw)
                 compare(f"cohesion_fused {tag}", Ck, Cp, False)
+                for P in PANEL_SIZES[1:]:
+                    compare(f"focus_fused P={P} vs default P {tag}", Ks[P],
+                            Uk, True)
+                    compare(f"cohesion_fused P={P} vs default P {tag}",
+                            Cs[P], Ck, True)
+                    checked += 2
                 # the dense kernels on the same distances: the same loops
                 Ud = ops.focus(D, impl="cuda", ties=w)
                 compare(f"focus_fused vs dense {tag}", Uk, Ud,
@@ -525,8 +551,11 @@ def phase_fused_vs_plain(dev) -> None:
     torch.cuda.synchronize()
     print(f"phase 6: {checked} fused checks passed (distances bitwise; U "
           f"bitwise except soft against the plain versions and the dense "
-          f"kernels; C within rtol {RTOL}, atol {ATOL}); C bitwise equal to "
-          f"the dense kernels' in {c_bitwise} of {c_total} cases")
+          f"kernels; C within rtol {RTOL}, atol {ATOL}; U and C bitwise "
+          f"across panel sizes {PANEL_SIZES[1:]} and the default "
+          f"{pald_fused.panel_rows(n)})")
+    print(f"phase 6: C bitwise the dense kernels' in {c_bitwise} of "
+          f"{c_total}")
 
 
 def phase_fused_main_path(dev, n=N_MAIN, d=D_FUSED):
@@ -604,10 +633,26 @@ def phase_fused_main_path(dev, n=N_MAIN, d=D_FUSED):
     if peak_kernel - peak_fused < buf:
         fail("the fused path's peak memory is not one n^2 float32 buffer "
              "below the materialize-then-kernel path's")
+    rows, stride = pald_fused.panel_rows(n), pald_fused.panel_stride(n)
+    panel = 4 * rows * stride
+    want = pald_fused.fused_grids(n, "euclidean")
+    print(f"phase 7: distance panel {rows} x {stride} float32 = {panel} B "
+          f"({panel / buf:.3f} n^2 buffers; budget "
+          f"{pald_fused.PANEL_BUDGET} B), {-(-n // rows)} panels a pass; "
+          f"grid launches focus_fused {GRIDS['focus_fused']}, "
+          f"cohesion_fused {GRIDS['cohesion_fused']} (1 + 2 ceil(n/P) = "
+          f"{want})")
+    if panel > pald_fused.PANEL_BUDGET:
+        fail(f"the panel ({rows} rows, {panel} B) is over its budget")
+    if GRIDS["focus_fused"] != want or GRIDS["cohesion_fused"] != want:
+        fail(f"the fused passes did not issue {want} grids each")
     compare("C fused vs materialize-then-kernel", C, Cm, False,
             rtol=RTOL_MAIN)
+    same = bool(torch.equal(C, Cm))
     print(f"phase 7: C fused bitwise equal to materialize-then-kernel: "
-          f"{bool(torch.equal(C, Cm))}")
+          f"{same}")
+    if not same:
+        fail("C fused is not bitwise the materialize-then-kernel C")
     del Cm
 
     # the slab by the plain versions on the materialized distances
@@ -632,10 +677,15 @@ def fused_bound_ms(pass_, n, d, clock_mhz):
                                         else "bytes")
 
 
-def phase_fused_timing(Xg, D, launches, clock_mhz, reps=5):
+# panel rows timed in phase 8 (n = 8192: 32 to 2 panels)
+PANEL_SWEEP = (256, 512, 1024, 2048, 4096)
+
+
+def phase_fused_timing(Xg, D, launches, clock_mhz, dense_families, reps=5):
     """Phase 8: the fused kernels and their plain versions at the main
-    path's shapes, then from_features end to end for every metric, fused
-    against materialize-then-kernel."""
+    path's shapes, a sweep of the panel rows, each family's fused kernels
+    beside phase 5's dense ones, then from_features end to end for every
+    metric, fused against materialize-then-kernel."""
     import torch
     from repro_torch.core import pald
     from repro_torch.core.features import cdist_reference
@@ -679,7 +729,34 @@ def phase_fused_timing(Xg, D, launches, clock_mhz, reps=5):
                                                            ties="drop"))
     rows[1]["max_abs_err"] = compare(f"cohesion_fused n={n}", Ck, Cp, False,
                                      rtol=RTOL_MAIN)
-    del Uk, Ck, Cp, W
+    del Cp
+
+    for P in PANEL_SWEEP:
+        ms_f, U_P = time_ms(lambda: pald_fused.focus_fused_cuda(
+            Xg, ties="drop", _panel_rows=P), 3)
+        compare(f"focus_fused P={P}", U_P, Uk, True)
+        del U_P
+        ms_c, C_P = time_ms(lambda: pald_fused.cohesion_fused_cuda(
+            Xg, W, ties="drop", _panel_rows=P), 3)
+        compare(f"cohesion_fused P={P}", C_P, Ck, True)
+        del C_P
+        print(f"phase 8: panel P={P} ({4 * P * pald_fused.panel_stride(n)} "
+              f"B, {-(-n // P)} panels) n={n} d={d}: focus_fused {ms_f!r} "
+              f"ms, cohesion_fused {ms_c!r} ms (drop; median of 3; default "
+              f"P={pald_fused.panel_rows(n)})")
+    del Uk, Ck, W
+
+    for w in functionals():
+        ms_f, Uw = time_ms(lambda: pald_fused.focus_fused_cuda(Xg, ties=w), 3)
+        Ww = weights_ref(Uw)
+        del Uw
+        ms_c, _ = time_ms(lambda: pald_fused.cohesion_fused_cuda(
+            Xg, Ww, ties=w), 3)
+        del Ww
+        f_d, c_d = dense_families[w.name]
+        print(f"phase 8: {w.name} n={n} d={d}: focus_fused {ms_f!r} ms "
+              f"(dense focus, phase 5: {f_d!r}), cohesion_fused {ms_c!r} ms "
+              f"(dense cohesion, phase 5: {c_d!r}; median of 3)")
 
     ms_cd, _ = time_ms(lambda: cdist_reference(Xg), 3)
     print(f"phase 8: cdist_reference (plain torch, euclidean) n={n} d={d}: "
@@ -1321,7 +1398,7 @@ def main() -> int:
     kernels = phase_timing(D, launches, U_slab, r0, clock_mhz)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_families(D)
+    dense_families = phase_families(D)
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
     del D, U_slab
     t0 = time.perf_counter()
@@ -1331,7 +1408,7 @@ def main() -> int:
     Xg, D, launches = phase_fused_main_path(dev)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels += phase_fused_timing(Xg, D, launches, clock_mhz)
+    kernels += phase_fused_timing(Xg, D, launches, clock_mhz, dense_families)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s")
     del Xg, D
     t0 = time.perf_counter()

@@ -21,8 +21,8 @@
 
 Two kinds of input: ``"distance"`` (an (n, n) matrix, ``pald.cohesion``)
 and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On features
-``method="auto"`` resolves to ``"fused"`` (distances computed inside the
-kernels, D never materialized); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
+``method="auto"`` resolves to ``"fused"`` (distances computed by the
+kernels one panel of rows at a time, D never whole); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
 materialize D once with ``features.cdist_reference`` and run the distance
 executor of the same name (``"triplet"`` too, and ``"kernel"`` on either
 schedule).  ``schedule="tri"`` pins ``method="kernel"``, the only method

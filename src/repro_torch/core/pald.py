@@ -11,7 +11,7 @@ execution-plan engine (counterpart of ``repro.core.pald``).
     C = pald.cohesion(Db, method="kernel")    # batched: (B, n, n) -> (B, n, n)
     C = pald.cohesion(D, method="kernel", device="cpu")  # plain torch on CPU
     C = pald.from_features(X)                 # fused CUDA kernels, D never
-    #                                           materialized
+    #                                           whole (one panel of rows)
     C = pald.from_features(X, k=32)           # sparse k-NN: streaming top-k
     #                                           and k-NN cohesion kernels
     C = pald.cohesion(D, method="knn", k=32)  # k-NN on a distance matrix
@@ -164,9 +164,10 @@ def from_features(
             or tensor, any float dtype (cast to float32 once).
         metric: one of ``features.METRICS`` (sqeuclidean, euclidean,
             cosine, manhattan).
-        method: "fused" (the "auto" default) computes the distances inside
-            the CUDA kernels from the feature rows, so the (n, n) distance
-            matrix never exists; "dense" / "pairwise" / "triplet" /
+        method: "fused" (the "auto" default) computes the distances on
+            the card from the feature rows, one panel of rows at a time,
+            so the (n, n) distance matrix is never whole past n = 4096;
+            "dense" / "pairwise" / "triplet" /
             "kernel" materialize D once (``features.cdist_reference``) and
             run the distance method of that name; "knn" (pinned by ``k``)
             selects each point's k nearest neighbors straight from the

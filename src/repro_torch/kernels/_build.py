@@ -43,11 +43,11 @@ SIGNATURES = {
                           (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _I64, _I32, _F32, _F32, _P)),
     "pald_focus_fused_f32": ("pald_fused",
-                             (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _F32,
-                              _F32, _P)),
+                             (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                              _I32, _F32, _F32, _P)),
     "pald_cohesion_fused_f32": ("pald_fused",
-                                (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
-                                 _F32, _F32, _P)),
+                                (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                 _I32, _I32, _F32, _F32, _P)),
     "pald_dist_fused_f32": ("pald_fused",
                             (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
     "pald_topk_f32": ("pald_topk",

@@ -11,19 +11,28 @@ calls, and that distributed bodies will call per device:
 (``pald_focus.py`` / ``pald_cohesion.py``; on CPU tensors their wrappers
 take the plain version), ``"torch"`` the plain torch versions on any
 device, ``None`` the device's default (``"cuda"`` for CUDA tensors,
-``"torch"`` otherwise).  The kernels take any shape: they mask ragged
-edges themselves, so unlike the TPU pipeline nothing here pads to a tile
-multiple, and ``block`` / ``block_z`` only set the plain versions' chunks.
+``"torch"`` otherwise).  The kernels take any shape and mask ragged edges
+themselves, so nothing here is padded; but the focus entry points give
+the U of the reference's Pallas route, which pads a ragged extent with
++inf (``_padded_extent``: only where ``block`` / ``block_z`` have no
+reasonable divisor of it): under ``split`` each padded z ties an +inf
+pair's +inf threshold and adds 0.5 to its U, and ``_add_pad_excess``
+adds exactly that, on both impls.  Padded x and y change no entry that
+is kept, and padded z no C (their weights are zero), so the cohesion
+entry points need nothing.  ``block`` / ``block_z`` also set the plain
+versions' chunks.
 
 ``schedule="tri"`` (``focus``, ``cohesion_from_weights``, ``pald``, and
 ``pald_tri`` itself) runs the upper-triangular block schedule on a square,
 symmetric D: pass 1 over the nb(nb+1)/2 block pairs X <= Y, each tile
 mirrored (``pald_focus_tri.py``); pass 2 over the same pairs, both role
-updates per off-diagonal pair (``pald_cohesion_tri.py``).  Its plain
-versions take a ragged last block, so nothing is padded there either.
+updates per off-diagonal pair (``pald_cohesion_tri.py``).  Its U counts
+the padded z of the reference's Pallas route, which pads D to a multiple
+of max(block, block_z).
 
 ``pald_fused(X)`` is the fused features pipeline: both passes straight
-from (n, d) feature vectors (``pald_fused.py``), D never materialized.
+from (n, d) feature vectors (``pald_fused.py``), D never whole past the
+kernels' panel budget.
 
 The sparse k-NN pipeline (``core/knn.py`` has the semantics):
 
@@ -100,15 +109,66 @@ def _check_schedule(schedule: str, D) -> bool:
     return schedule == "tri"
 
 
+# --------------------------------------------------------------------------
+# what the reference's Pallas route pads (repro/kernels/ops.py: _pick_block,
+# _block_and_pad, _pad_square_tri), for the U it gives
+# --------------------------------------------------------------------------
+_INF = float("inf")
+
+
+def _pick_block(m: int, want: int) -> int:
+    """Largest divisor of m that is <= want."""
+    b = min(want, m)
+    while m % b:
+        b -= 1
+    return b
+
+
+def _padded_extent(m: int, want: int) -> int:
+    """m as ``_block_and_pad`` pads it: unpadded when it has a reasonable
+    divisor (>= max(want // 2, 8)) for a tile, else up to the next
+    multiple of ``want``."""
+    if m <= 0:
+        return m
+    want = max(min(want, m), 1)
+    b = _pick_block(m, want)
+    if b == m or b >= max(want // 2, 8):
+        return m
+    return -(-m // want) * want
+
+
+def _tri_padded(n: int, block, block_z) -> int:
+    """n padded to a multiple of max(block, block_z), each cut to n."""
+    q = max(min(int(block), n), min(int(block_z), n), 1)
+    return -(-n // q) * q
+
+
+def _add_pad_excess(U: torch.Tensor, DXY: torch.Tensor, pad_z: int,
+                    ties) -> torch.Tensor:
+    """U as it is with ``pad_z`` padded z columns, +inf from both points.
+    On a finite pair such a z is outside the focus; on an +inf pair it
+    ties the threshold and adds ``ties.focus(inf, inf, inf)`` (0.5 under
+    ``split``, 0 for the other built-in families).  In place: U is a sum
+    of halves there, so the order of the additions does not matter."""
+    inf = torch.tensor(_INF)
+    w = float(ties.focus(inf, inf, inf)) if pad_z else 0.0
+    if w:
+        U[DXY == _INF] += pad_z * w
+    return U
+
+
 def focus_general(DXZ, DYZ, DXY, *, block=128, block_z=512,
                   impl: str | None = None, ties=DEFAULT_TIES) -> torch.Tensor:
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(DXZ.device))
     DXZ, DYZ, DXY = _f32(DXZ), _f32(DYZ), _f32(DXY)
     if impl == "torch":
-        return focus_general_torch(DXZ, DYZ, DXY, chunk=int(block_z),
-                                   ties=ties)
-    return focus_general_cuda(DXZ, DYZ, DXY, ties=ties)
+        U = focus_general_torch(DXZ, DYZ, DXY, chunk=int(block_z), ties=ties)
+    else:
+        U = focus_general_cuda(DXZ, DYZ, DXY, ties=ties)
+    mz = DXZ.shape[1]
+    return _add_pad_excess(U, DXY, _padded_extent(mz, int(block_z)) - mz,
+                           ties)
 
 
 def cohesion_general(DXZ, DYZ, DXY, W, *, block=128, block_z=512,
@@ -144,9 +204,12 @@ def focus(D, *, block=128, block_z=512, impl: str | None = None,
         impl = _check_impl(impl or default_impl(D.device))
         D = _f32(D)
         if impl == "torch":
-            return focus_tri_torch(D, block=int(block),
-                                   block_z=int(block_z), ties=ties)
-        return focus_tri_cuda(D, ties=ties)
+            U = focus_tri_torch(D, block=int(block), block_z=int(block_z),
+                                ties=ties)
+        else:
+            U = focus_tri_cuda(D, ties=ties)
+        n = D.shape[0]
+        return _add_pad_excess(U, D, _tri_padded(n, block, block_z) - n, ties)
     return focus_general(D, D, D, block=block, block_z=block_z, impl=impl,
                          ties=ties)
 
@@ -221,15 +284,18 @@ def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
                ties=DEFAULT_TIES) -> torch.Tensor:
     """Fused features -> cohesion pipeline: X (n, d) -> C (n, n).
 
-    Both passes compute their distance tiles from the feature rows as they
-    go (``impl="cuda"``: inside the kernels of ``pald_fused.py``; on CPU
+    Both passes compute their distances from the feature rows as they go
+    (``impl="cuda"``: one (P, n) panel of rows at a time, at most
+    ``pald_fused.PANEL_BUDGET`` bytes, read by every output tile; on CPU
     tensors, and with ``impl="torch"``, the plain versions' (block, n)
-    slabs), so the (n, n) distance matrix never exists: U, W = 1/U and C
-    are the only (n, n) buffers.  The kernels mask ragged edges
-    themselves, so no row is padded.  ``block`` / ``block_z`` set the
-    plain versions' row block and reduced-axis chunk (default 128 / 512);
-    the kernels' tiles are fixed.  Peak memory: U, W and an (n, n) bool
-    mask while W is built, then W and C.
+    slabs), so the (n, n) distance matrix is never whole past n = 4096:
+    U, W = 1/U and C are the only (n, n) buffers.  The kernels mask
+    ragged edges themselves, so no row is padded.  ``block`` /
+    ``block_z`` set the plain versions' row block and reduced-axis chunk
+    (default 128 / 512); the kernels' tiles are fixed.  Peak memory: U,
+    W and an (n, n) bool mask while W is built, then W, C and a panel of
+    min(``PANEL_BUDGET``, about n^2 * 4) bytes: 2.25 n^2 float32 buffers
+    from n = 8192 up, about 3 n^2 up to n = 4096.
     """
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(X.device))

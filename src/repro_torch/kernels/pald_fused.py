@@ -4,21 +4,23 @@ wrappers and their plain torch versions.
     U[x, y] = sum_z focus_weight(d(x, z), d(y, z), d(x, y))
     C[x, z] = sum_y support_weight(d(x, z), d(y, z), d(x, y)) * W[x, y]
 
-with the distances d computed from the rows of X (n, d) as the passes go,
-so the (n, n) distance matrix never exists.  The kernels
-(``csrc/pald_fused.cu``) replace the TPU kernels
+with the distances d computed from the rows of X (n, d) as the passes go.
+The kernels (``csrc/pald_fused.cu``) replace the TPU kernels
 ``repro/kernels/pald_fused.py::focus_fused_pallas`` and
-``cohesion_fused_pallas``.  They run the dense kernels' tiles and inner
-loops (``csrc/pald_tile.cuh``) and compute each staged slab of distances
-from feature rows (``csrc/pald_dist.cuh``): bound by the FP32 pipe, with
-d/16 more lane instructions per triple than the dense kernels for the
-recomputed distances.  The source note in the ``.cu`` file has the details.
+``cohesion_fused_pallas``.  Each pass walks the reduced axis in panels of
+:func:`panel_rows` rows: a panel writer computes the panel's distances
+once (``csrc/pald_dist.cuh``) into a (P, ldp) scratch buffer of at most
+``PANEL_BUDGET`` bytes, then every output tile runs the dense kernels'
+loops (``csrc/pald_tile.cuh``) over the panel's slabs.  So D is never
+whole in device memory past n = 4096; up to there one panel holds all of
+it, and the pipeline's peak is W, C and that panel, about 3 n^2 float32
+buffers (2.25 n^2 from n = 8192 up).  The source note in the ``.cu`` file has the details.
 
 The distances are bitwise those of ``core.features.cdist_reference`` (the
 same operations in the same order), so on the same X the fused U equals
-the dense kernels' U on ``cdist_reference(X)``.  Rows at index >=
-``n_valid`` are padding (+inf from everything); the kernels mask ragged
-edges themselves, so nothing is padded.
+the dense kernels' U on ``cdist_reference(X)``, for every panel size.
+Rows at index >= ``n_valid`` are padding (+inf from everything); the
+kernels mask ragged edges themselves, so nothing is padded.
 
 :func:`focus_fused_cuda` and :func:`cohesion_fused_cuda` dispatch on the
 tensors' device: CUDA tensors launch the kernel (or raise), CPU tensors
@@ -40,15 +42,62 @@ from .pald_focus import check_operands, focus_general_torch
 
 __all__ = ["focus_fused_cuda", "cohesion_fused_cuda", "focus_fused_torch",
            "cohesion_fused_torch", "dist_fused_cuda", "metric_id",
-           "norm_grids"]
+           "norm_grids", "panel_rows", "panel_stride", "fused_grids"]
 
-# shared memory of one thread block of the fused kernels, in bytes
-# (csrc/pald_fused.cu: a 64-row tile, 32-row slabs, 16 features staged per
-# step, rows padded by 4 floats); independent of d
-_LD, _LDS, _CHUNK, _SLAB = 68, 36, 16, 32
-_STAGE = 4 * _CHUNK * (2 * _LD + _LDS)
-SMEM_PER_CTA = {"focus": _STAGE + 4 * 2 * _SLAB * _LD,
+# shared memory of one thread block of the fused passes, in bytes
+# (csrc/pald_fused.cu: a 64-row tile, 32-row slabs, focus's in two buffers,
+# 16 features staged per step, rows padded by 4 floats); independent of d
+_LD, _CHUNK, _SLAB = 68, 16, 32
+_STAGE = 4 * _CHUNK * 2 * _LD
+SMEM_PER_CTA = {"focus": _STAGE + 2 * 4 * 2 * _SLAB * _LD,
                 "cohesion": _STAGE + 4 * 3 * _SLAB * _LD + _SLAB * _LD}
+
+_TILE = 64
+# bytes of one distance panel.  A pass reads the panel from L2 a band of
+# slabs at a time (the slabs its resident blocks are at), so the panel need
+# not fit the H100's 50 MB L2 whole; each panel costs one recomputation of
+# the tiles' fixed operand and one read-modify-write of the output.  At
+# n = 8192 the sweep of chip_smoke.py phase 8 (PERF.md) gained less each
+# doubling of P; 64 MiB is P = 2048 there, a quarter of an n^2 buffer,
+# which the pipeline's peak (U, W and W's mask) does not reach.  Below
+# that n the panel is a larger share: min(64 MiB, about n^2 * 4 B), the
+# whole of D up to n = 4096, so the cohesion pass's W, C and panel reach
+# about 3 n^2 buffers there (2.25 n^2 from n = 8192 up).
+PANEL_BUDGET = 64 << 20
+
+
+def panel_stride(n: int) -> int:
+    """Floats per panel row: n rounded up to a multiple of 64, so every
+    16-byte copy of a slab row is aligned."""
+    return -(-int(n) // _TILE) * _TILE
+
+
+def panel_rows(n: int) -> int:
+    """Rows P of the distance panel the fused passes hold at a time: the
+    most that fit ``PANEL_BUDGET`` at the panel's row stride, a multiple of
+    64 (slab boundaries, and so every sum's order, do not depend on P), at
+    least 64 and at most n rounded up to 64.  Not a knob of the facades:
+    the reference has none."""
+    ld = max(panel_stride(n), _TILE)
+    p = PANEL_BUDGET // (4 * ld) // _TILE * _TILE
+    return max(_TILE, min(p, ld))
+
+
+def fused_grids(n: int, metric: str, rows: int | None = None) -> int:
+    """Grids one fused pass issues: the row-norm pre-pass (all metrics but
+    manhattan), then a panel writer and a pass per panel."""
+    rows = panel_rows(n) if rows is None else rows
+    return norm_grids(metric) + 2 * -(-int(n) // rows)
+
+
+def _panel(n: int, rows) -> int:
+    if rows is None:
+        return panel_rows(n)
+    rows = int(rows)
+    if rows < _TILE or rows % _TILE:
+        raise ValueError(f"panel rows must be a positive multiple of "
+                         f"{_TILE}, got {rows}")
+    return min(rows, max(panel_stride(n), _TILE))
 
 
 def metric_id(metric: str) -> int:
@@ -147,16 +196,24 @@ def _cuda_operands(what, X, n_valid, **more):
     return n, d, nv, norms
 
 
+def _panel_buffer(n: int, rows: int, dev) -> torch.Tensor:
+    return torch.empty((rows, panel_stride(n)), dtype=torch.float32,
+                       device=dev)
+
+
 def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
-                     ties=DEFAULT_TIES) -> torch.Tensor:
+                     ties=DEFAULT_TIES, _panel_rows=None) -> torch.Tensor:
     """U (n, n) from X (n, d) through the CUDA kernel for CUDA tensors,
     through :func:`focus_fused_torch` for CPU tensors.
 
     A CUDA X must be contiguous float32 (``ops`` prepares it); anything
-    else raises, as does a weight functional without a kernel id.  Each
-    call that launches the kernel adds one to ``focus_fused_cuda.launches``,
-    and the grids it issues (the row-norm pre-pass's too) to
-    ``.grid_launches``.
+    else raises, as does a weight functional without a kernel id.  The
+    call holds one (P, ldp) float32 distance panel (:func:`panel_rows`,
+    :func:`panel_stride`) besides U, freed when it returns; ``_panel_rows``
+    overrides P (a positive multiple of 64) for the card tests: U is
+    bitwise the same for every P.  Each call that launches the kernel adds
+    one to ``focus_fused_cuda.launches``, and the grids it issues
+    (:func:`fused_grids`) to ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return focus_fused_torch(X, metric=metric, n_valid=n_valid, ties=ties)
@@ -166,18 +223,20 @@ def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
     U = torch.empty((n, n), dtype=torch.float32, device=X.device)
     if n == 0:
         return U
+    rows = _panel(n, _panel_rows)
+    panel = _panel_buffer(n, rows, X.device)
     _launch("pald_focus_fused_f32", X, U, X.data_ptr(), norms.data_ptr(),
-            U.data_ptr(), n, d, nv, mid, wid, p0, p1)
+            panel.data_ptr(), U.data_ptr(), n, d, nv, rows, mid, wid, p0, p1)
     focus_fused_cuda.launches += 1
-    focus_fused_cuda.grid_launches += norm_grids(metric) + 1
+    focus_fused_cuda.grid_launches += fused_grids(n, metric, rows)
     return U
 
 
 def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
-                        ties=DEFAULT_TIES) -> torch.Tensor:
+                        ties=DEFAULT_TIES, _panel_rows=None) -> torch.Tensor:
     """C (n, n) from X (n, d) and W = 1/U (n, n) through the CUDA kernel
     for CUDA tensors, through :func:`cohesion_fused_torch` for CPU tensors.
-    Same operand rules and counters as :func:`focus_fused_cuda`
+    Same operand rules, panel and counters as :func:`focus_fused_cuda`
     (``cohesion_fused_cuda.launches``, ``.grid_launches``)."""
     if X.device.type == "cpu":
         return cohesion_fused_torch(X, W, metric=metric, n_valid=n_valid,
@@ -190,18 +249,21 @@ def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
     C = torch.empty((n, n), dtype=torch.float32, device=X.device)
     if n == 0:
         return C
+    rows = _panel(n, _panel_rows)
+    panel = _panel_buffer(n, rows, X.device)
     _launch("pald_cohesion_fused_f32", X, C, X.data_ptr(), norms.data_ptr(),
-            W.data_ptr(), C.data_ptr(), n, d, nv, mid, wid, p0, p1)
+            panel.data_ptr(), W.data_ptr(), C.data_ptr(), n, d, nv, rows,
+            mid, wid, p0, p1)
     cohesion_fused_cuda.launches += 1
-    cohesion_fused_cuda.grid_launches += norm_grids(metric) + 1
+    cohesion_fused_cuda.grid_launches += fused_grids(n, metric, rows)
     return C
 
 
 def dist_fused_cuda(X, *, metric: str = "euclidean",
                     n_valid=None) -> torch.Tensor:
     """The fused kernels' masked distances D (n, n) of a CUDA X, written
-    out by the kernels' own distance code: the probe that holds them
-    bitwise to ``cdist_reference``.  The passes never call it."""
+    out by the passes' panel writer: the probe that holds them bitwise to
+    ``cdist_reference``."""
     mid = metric_id(metric)
     n, d, nv, norms = _cuda_operands("dist_fused_cuda", X, n_valid)
     D = torch.empty((n, n), dtype=torch.float32, device=X.device)

@@ -225,6 +225,67 @@ def test_cuda_from_features_matches_cpu(cuda_device, metric):
                                atol=ATOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_fused_panel_size_invariance(cuda_device, name, metric):
+    """U and C bitwise the same at every panel size, at a ragged n = 257:
+    the default P (one 320-row panel), 64 (five panels, the last one row)
+    and 192 (two, the last 65 rows); U bitwise the dense kernel's for the
+    exact-count families.  Each call counts the grids the rule gives."""
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    Xg = torch.as_tensor(_features(257, 5, seed=11), device=cuda_device)
+    kw = dict(metric=metric, ties=name)
+    sizes = (None, 64, 192)
+    U, C = {}, {}
+    for rows in sizes:
+        g0 = pald_fused.focus_fused_cuda.grid_launches
+        U[rows] = pald_fused.focus_fused_cuda(Xg, _panel_rows=rows, **kw)
+        assert (pald_fused.focus_fused_cuda.grid_launches - g0
+                == pald_fused.fused_grids(257, metric, rows))
+    W = weights_ref(U[None])
+    for rows in sizes:
+        C[rows] = pald_fused.cohesion_fused_cuda(Xg, W, _panel_rows=rows,
+                                                 **kw)
+    for rows in sizes[1:]:
+        assert torch.equal(U[rows], U[None]), rows
+        assert torch.equal(C[rows], C[None]), rows
+    if not name.startswith("soft"):
+        D = cdist_reference(Xg, metric=metric)
+        assert torch.equal(U[None], ops.focus(D, impl="cuda", ties=name))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_panel_freed_after_the_call(cuda_device):
+    """A fused call holds its (P, ldp) panel and the (n,) norms besides its
+    output, and frees both when it returns."""
+    from repro_torch.kernels import pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    n = 300
+    Xg = torch.as_tensor(_features(n, 7, seed=12), device=cuda_device)
+    panel = 4 * 192 * pald_fused.panel_stride(n)
+    slack = 3 * 512   # the caching allocator rounds each block up to 512 B
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    U = pald_fused.focus_fused_cuda(Xg, _panel_rows=192)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert panel <= peak <= 4 * n * n + panel + 4 * n + slack
+    W = weights_ref(U)
+    del U
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    C = pald_fused.cohesion_fused_cuda(Xg, W, _panel_rows=192)
+    del C
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
 # ---------------------------------------------------------------------------
 # the sparse k-NN kernels (csrc/pald_topk.cu, csrc/pald_knn.cu)
 # ---------------------------------------------------------------------------
@@ -365,6 +426,29 @@ def test_cuda_tri_kernels_vs_plain(cuda_device, name, n):
     for want in (Cp, Cd):
         np.testing.assert_allclose(Ck.cpu().numpy(), want.cpu().numpy(),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["dense", "tri"])
+def test_cuda_ragged_split_counts_padded_z(cuda_device, schedule):
+    """At n = 521 (prime: the reference's Pallas route pads it to 1024 on
+    both schedules) the ops-level U under ``split`` on the card is bitwise
+    the plain versions', and exceeds the kernel's own U by exactly 0.5 per
+    padded z on the +inf pairs."""
+    n = 521
+    D = _tri_D(n, seed=19)
+    Dg = torch.as_tensor(D, device=cuda_device)
+    kw = dict(schedule=schedule, ties="split")
+    Ug = ops.focus(Dg, impl="cuda", **kw).cpu()
+    assert torch.equal(Ug, ops.focus(torch.from_numpy(D), impl="torch",
+                                     **kw))
+    if schedule == "tri":
+        raw = pald_focus_tri.focus_tri_cuda(Dg, ties="split")
+    else:
+        raw = pald_focus.focus_general_cuda(Dg, Dg, Dg, ties="split")
+    np.testing.assert_array_equal(Ug.numpy() - raw.cpu().numpy(),
+                                  0.5 * (1024 - n) * np.isinf(D))
+    assert np.isinf(D).any()
 
 
 @pytest.mark.cuda

@@ -306,3 +306,50 @@ def test_fused_matches_materialized_on_padding():
     want = ops.pald_fused(X, ties="ignore")
     np.testing.assert_allclose(C[:n0, :n0].numpy(), want.numpy(), rtol=RTOL,
                                atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' distance panel (the rule lives in the wrapper module; the
+# kernels run on the card: tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 257, 4096, 4097, 8192, 50_000,
+                               10**6])
+def test_panel_rows_rule(n):
+    """P is a multiple of 64, at least 64, at most n rounded up to 64, and
+    the (P, ldp) float32 panel stays within the budget whenever more than
+    the 64-row minimum fits it."""
+    P, ld = pald_fused.panel_rows(n), pald_fused.panel_stride(n)
+    assert P % 64 == 0 and P >= 64
+    assert ld % 64 == 0 and n <= ld < n + 64
+    assert P <= max(ld, 64)
+    assert P == 64 or 4 * P * ld <= pald_fused.PANEL_BUDGET
+    # the largest such P: one more 64-row step would pass the budget or n
+    assert P + 64 > ld or 4 * (P + 64) * ld > pald_fused.PANEL_BUDGET
+
+
+def test_panel_rows_at_the_main_path():
+    """At n = 8192 the panel holds 2048 rows, 64 MiB: D whole needs 4 of
+    them.  D fits one panel up to n = 4096 and never past it."""
+    assert pald_fused.panel_rows(8192) == 2048
+    assert 4 * 2048 * pald_fused.panel_stride(8192) == 64 << 20
+    assert pald_fused.panel_rows(4096) == 4096
+    assert all(pald_fused.panel_rows(n) < n for n in (4097, 4160, 6000,
+                                                      8192, 10**6))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("n,rows,want", [(8192, None, 4), (257, None, 1),
+                                         (257, 64, 5), (257, 192, 2),
+                                         (64, None, 1), (1, None, 1)])
+def test_fused_grid_launches(metric, n, rows, want):
+    """The grids a fused wrapper counts for one call: the row-norm
+    pre-pass (all metrics but manhattan), then a panel writer and a pass
+    per panel: 9 at the main path's n = 8192."""
+    norms = 0 if metric == "manhattan" else 1
+    assert pald_fused.fused_grids(n, metric, rows) == norms + 2 * want
+
+
+@pytest.mark.parametrize("rows", [0, 32, 100, -64])
+def test_panel_override_must_be_a_multiple_of_64(rows):
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pald_fused._panel(257, rows)

@@ -140,6 +140,48 @@ def test_ragged_vs_reference_interpret(name, shape):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", sorted(RAGGED_SHAPES))
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_ragged_inf_pairs_vs_reference_interpret(name, shape):
+    """Ragged shapes with +inf pairs: the reference pads to its tile
+    extents with +inf and the port counts those padded z, so under
+    ``split`` a padded z adds 0.5 to an +inf pair's U in both, and U and C
+    agree as on finite inputs."""
+    mx, my, mz = RAGGED_SHAPES[shape]
+    DXZ, DYZ, DXY, W, XW = _operands(mx, my, mz, seed=7, inf_frac=0.1)
+    kw = dict(block=16, block_z=16, ties=name)
+    U = ops.focus_general(*_t(DXZ, DYZ, DXY), **kw)
+    _assert_u(name, U.numpy(), jops.focus_general(
+        *_j(DXZ, DYZ, DXY), impl="interpret", **kw))
+    tb = {}
+    if tw.resolve_weight(name).needs_index_tiebreak:
+        tb = {"xwins": XW}
+    C = ops.cohesion_general(*_t(DXZ, DYZ, DXY, W), **kw,
+                             **{k: torch.from_numpy(v) for k, v in tb.items()})
+    want = jops.cohesion_general(*_j(DXZ, DYZ, DXY, W), impl="interpret",
+                                 **kw, **{k: jnp.asarray(v)
+                                          for k, v in tb.items()})
+    np.testing.assert_allclose(C.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_ragged_split_jnp_route_pads_otherwise(impl):
+    """The one case where the reference's two routes differ: its jnp
+    ``focus_general`` takes a ragged z as it is, its Pallas route pads z
+    to the tile with +inf.  The port counts the Pallas route's padded z
+    (on both impls), so under ``split`` it exceeds the jnp route by
+    exactly 0.5 per padded z on the +inf pairs, and equals it elsewhere."""
+    mx, my, mz = RAGGED_SHAPES["ragged37"]
+    DXZ, DYZ, DXY, _, _ = _operands(mx, my, mz, seed=8, inf_frac=0.1)
+    kw = dict(block=16, block_z=16, ties="split")
+    U = ops.focus_general(*_t(DXZ, DYZ, DXY), impl=impl, **kw).numpy()
+    Uj = np.asarray(jops.focus_general(*_j(DXZ, DYZ, DXY), impl="jnp", **kw))
+    pad_z = 48 - mz   # 37 has no divisor >= 8 below 16: padded to 48
+    np.testing.assert_array_equal(U - Uj, 0.5 * pad_z * np.isinf(DXY))
+    assert np.isinf(DXY).any()
+
+
 @pytest.mark.parametrize("shape", sorted(JNP_SHAPES))
 @pytest.mark.parametrize("name", FUNCTIONALS)
 def test_focus_vs_reference_jnp(name, shape):

@@ -59,19 +59,6 @@ def _assert_u(name, got, want):
         np.testing.assert_array_equal(got, want)
 
 
-def _reference_pad_excess(D, name):
-    """What the reference's padding adds to U.  Its ``ops`` pad a ragged n
-    to the tile with +inf; under ``split`` a padded z, +inf from both
-    points, ties an +inf pair's +inf threshold and adds 0.5 to that pair's
-    U.  The port's plain versions and kernels take a ragged n as it is, so
-    they differ from the reference's ``ops`` by exactly this (and agree
-    at the facades, which pad alike: ``engine.pad_distance_matrix``)."""
-    n = D.shape[0]
-    if name != "split":
-        return 0.0
-    return 0.5 * (-(-n // BLOCK) * BLOCK - n) * np.isinf(D)
-
-
 def _port_U(D, name):
     return ops.focus(torch.from_numpy(D), block=BLOCK, block_z=BLOCK,
                      impl="torch", schedule="tri", ties=name).numpy()
@@ -96,7 +83,7 @@ def _jax_tri(fn, *args, impl, name):
 @pytest.mark.parametrize("name", FUNCTIONALS)
 def test_focus_tri_matches_reference(name, n):
     D = _tri_D(n)
-    U = _port_U(D, name) + _reference_pad_excess(D, name)
+    U = _port_U(D, name)
     _assert_u(name, U, _jax_tri(jops.focus, D, impl="jnp", name=name))
     if n <= 64:
         _assert_u(name, U, _jax_tri(jops.focus, D, impl="interpret",
@@ -139,16 +126,28 @@ def test_tri_plain_versions_match_pallas_kernels(name, n):
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("name", FUNCTIONALS)
 def test_tri_matches_dense_schedule(name, n):
-    """The port's tri against its own dense schedule: U bitwise for the
-    exact families, C to the conformance tolerance."""
-    Dt = torch.from_numpy(_tri_D(n))
+    """The port's tri against its own dense schedule at a ragged n: U
+    bitwise for the exact families, C to the conformance tolerance.  The
+    two schedules' entry points count the padded z of other extents, as
+    the reference's do (the tri one pads to max(block, block_z), the dense
+    one only where the tile has no reasonable divisor), so under ``split``
+    the U of an +inf pair differs by 0.5 per z of the difference; the
+    cohesion schedules are compared on the same weights."""
+    D = _tri_D(n)
+    Dt = torch.from_numpy(D)
     kw = dict(block=BLOCK, block_z=BLOCK, impl="torch", ties=name)
     Ut = ops.focus(Dt, schedule="tri", **kw).numpy()
     Ud = ops.focus(Dt, **kw).numpy()
+    if name == "split":
+        tri_pad = -(-n // BLOCK) * BLOCK
+        dense_pad = jops._block_and_pad(n, BLOCK)[1]
+        Ud = Ud + 0.5 * (tri_pad - dense_pad) * np.isinf(D)
     _assert_u(name, Ut, Ud)
-    np.testing.assert_allclose(ops.pald(Dt, schedule="tri", **kw).numpy(),
-                               ops.pald(Dt, **kw).numpy(), rtol=RTOL,
-                               atol=ATOL)
+    W = weights_ref(torch.from_numpy(Ut))
+    np.testing.assert_allclose(
+        ops.pald(Dt, schedule="tri", **kw).numpy(),
+        ops.cohesion_from_weights(Dt, W, **kw).numpy(), rtol=RTOL,
+        atol=ATOL)
 
 
 def test_tri_wrappers_take_plain_versions_on_cpu():
