@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/csrc`` (timed);
+   ``src/repro_torch/csrc`` (timed), and print ptxas's registers, spills
+   and shared memory of the two cohesion kernels;
 2. each kernel against its plain torch version on the card, for every
    built-in weight functional, at a ragged square n = 257 and a
    rectangular (mx, my, mz) = (96, 160, 224) with asymmetric, tie-heavy
@@ -63,17 +64,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tie-heavy distances holding +inf pairs (``ignore`` through its index
    tiebreak): U bitwise (except soft) against the plain version and
    against the dense kernel's U, C within rtol 1e-5, atol 1e-6 of the
-   plain version and of the dense kernel, and bitwise across two calls;
+   plain version, bitwise the dense kernel's, and bitwise across two
+   calls;
 13. the tri main path at full size: ``pald.cohesion(D, method="kernel",
    schedule="tri", ties="ignore")`` on phase 3's D (rebuilt), with the
-   launch counters as proof that both tri kernels ran and no dense kernel
-   or plain version did; mass, U bitwise the dense kernel's, C within rtol
-   1e-4 of the dense kernel pipeline's and bitwise across two calls, a
-   64-row slab against the plain versions and a float64 sum, community
-   recovery; the peak device memory of the tri and the dense call;
+   launch counters as proof that both tri kernels ran (the cohesion in
+   one grid) and no dense kernel or plain version did; mass, U bitwise the
+   dense kernel's, C bitwise the dense kernel pipeline's and across two
+   calls, a 64-row slab against the plain versions and a float64 sum,
+   community recovery; the peak device memory of the tri and the dense
+   call; ``pald.cohesion(D, ties="ignore")`` with default knobs resolves
+   to ``method="triplet"``, runs the two tri kernels once each and gives
+   the same C bitwise;
 14. the tri kernels and their plain versions timed at n = 8192 beside the
    dense kernels and their bounds, the tri and dense pipelines end to end,
-   and each family's tri kernels.
+   and each family's tri kernels;
+15. a ``torch.profiler`` window over one dense and one tri call at
+   n = 8192: the device's busy share and the kernel time by name; then
+   both pipelines at a ragged n = 8000 (the engine pads it to 8064), timed
+   in turns, with their peak device memory.
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches``: wrapper calls on the main path; ``grid_launches``: the grids
@@ -110,7 +119,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_LANES = 128 * 132      # FP32 lanes per SM x SMs of an H100 SXM
 # grid launches per kernel on its main path, from the wrappers'
 # ``.grid_launches`` (a call may issue more than one grid: the row-norm
-# pre-pass, the tri cohesion's diagonal waves); filled by phases 3, 7, 10, 13
+# pre-pass, a panel writer per panel); filled by phases 3, 7, 10, 13
 GRIDS = {}
 RTOL, ATOL = 1e-5, 1e-6            # the conformance tolerance
 # at n = 8192 a C entry is a sum of up to n positive float32 terms taken in
@@ -420,6 +429,21 @@ def bound_ms(pass_, n, clock_mhz):
                                         else "bytes")
 
 
+ALU_LANES = 64 * 132        # the ALU pipe (FSETP, FSEL, FMNMX): 16 lanes a
+#                             sub-partition, half the FP32 pipe's width
+
+
+def compare_bound_ms(n, clock_mhz):
+    """The strict cohesion's least time at the compare rate, which the ALU
+    pipe issues at half the FP32 rate on an H100 (a micro-probe, PERF.md
+    section 6): 3 ALU-pipe instructions per unordered pair {x, y} and z
+    (the min of the two distances, the focus compare and the ordering
+    compare, each serving both roles), against :func:`bound_ms`'s count of
+    3 per ordered triple at the FP32 rate.  The two counts give the same
+    time."""
+    return 1e3 * 3 * (n * (n - 1) // 2) * n / (ALU_LANES * clock_mhz * 1e6)
+
+
 def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
     """Phase 4: kernel and plain version at the main path's shapes."""
     import torch
@@ -436,10 +460,13 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
         ms_k, out_k = time_ms(kernel, reps)
         ms_p, out_p = time_ms(plain, reps)
         b_ms, b_by = bound_ms(name, n, clock_mhz)
+        cmp = (f", bound at the compare rate "
+               f"{compare_bound_ms(n, clock_mhz)!r} ms"
+               if name == "cohesion" else "")
         print(f"phase 4: {name} n={n}: kernel {ms_k!r} ms, plain {ms_p!r} "
               f"ms, bound {b_ms!r} ms ({b_by}; {pass_ops(name, n)} lane "
               f"instructions at {clock_mhz} MHz), kernel/bound "
-              f"{ms_k / b_ms:.3f}, library: none")
+              f"{ms_k / b_ms:.3f}{cmp}, library: none")
         row = {"name": f"{name}_general", "route": "cuda",
                "source": src[name][0], "replaces": src[name][1],
                "launches": launches[name],
@@ -1156,7 +1183,7 @@ def phase_tri_vs_plain(dev) -> None:
     from repro_torch.kernels.ref import weights_ref
 
     rng = np.random.default_rng(SEED + 12)
-    checked = soft_u_bitwise = c_bitwise = 0
+    checked = soft_u_bitwise = 0
     for n in (1, 2, 63, 64, 65, 257):
         D = symmetric_tie_distances(rng, n, dev)
         for w in functionals():
@@ -1176,16 +1203,14 @@ def phase_tri_vs_plain(dev) -> None:
                     pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=w), Ck,
                     True)
             Cd = ops.cohesion_from_weights(D, W, impl="cuda", ties=w)
-            compare(f"cohesion_tri vs dense kernel {tag}", Ck, Cd, False)
-            c_bitwise += bool(torch.equal(Ck, Cd))
+            compare(f"cohesion_tri vs dense kernel {tag}", Ck, Cd, True)
             checked += 5
     torch.cuda.synchronize()
     print(f"phase 12: {checked} tri checks passed (U bitwise except soft "
           f"against the plain version and the dense kernel, soft U bitwise "
           f"the dense kernel's in {soft_u_bitwise} of 6; C within rtol "
-          f"{RTOL}, atol {ATOL} of the plain version and of the dense "
-          f"kernel, bitwise across two calls); C bitwise the dense kernel's "
-          f"in {c_bitwise} of 30")
+          f"{RTOL}, atol {ATOL} of the plain version, bitwise the dense "
+          f"kernel's and across two calls)")
 
 
 def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
@@ -1241,9 +1266,8 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
           f"ties='ignore') n={n} d={d}: {secs:.3f} s wall (first call), "
           f"launches {launches}, grid launches "
           f"{ {k: GRIDS[k] for k in ('focus_tri', 'cohesion_tri')} }")
-    if GRIDS["cohesion_tri"] != -(-n // 64):
-        fail(f"cohesion_tri issued {GRIDS['cohesion_tri']} grids, not one "
-             f"per diagonal wave ({-(-n // 64)})")
+    if GRIDS["cohesion_tri"] != 1:
+        fail(f"cohesion_tri issued {GRIDS['cohesion_tri']} grids, not 1")
     if launches["focus_tri"] != 1 or launches["cohesion_tri"] != 1:
         fail(f"the tri kernels did not run once each: {launches}")
     if any(v for name, v in launches.items()
@@ -1260,6 +1284,20 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
 
     compare("C tri twice", pald.cohesion(D, method="kernel", schedule="tri",
                                          ties="ignore"), C, True)
+    # default knobs: method="auto" resolves to "triplet" past n = 256, the
+    # same schedule, which on the card runs the same two kernels
+    info = pald.plan(D, ties="ignore").explain()
+    for f in counted.values():
+        f.launches = 0
+    Ca = pald.cohesion(D, ties="ignore")
+    auto = {name: f.launches for name, f in counted.items() if f.launches}
+    print(f"phase 13: cohesion(D, ties='ignore') with default knobs: method "
+          f"{info['method']!r} ({info['method_source']}), launches {auto}")
+    if info["method"] != "triplet" or auto != {"focus_tri": 1,
+                                               "cohesion_tri": 1}:
+        fail("the default call did not run the tri kernels once each")
+    compare("C default (triplet) vs tri", Ca, C, True)
+    del Ca
     Ut = ops.focus(D, impl="cuda", schedule="tri", ties="ignore")
     compare(f"U tri vs dense kernel n={n}", Ut,
             ops.focus(D, impl="cuda", ties="ignore"), True)
@@ -1272,13 +1310,11 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
     buf = 4 * n * n
     print(f"phase 13: peak device memory above the input: tri {peak_tri} B "
           f"({peak_tri / buf:.3f} n^2 float32 buffers), dense {peak_dense} B "
-          f"({peak_dense / buf:.3f}); the tri cohesion's Cy holds one more")
-    err = compare(f"C tri vs dense n={n}", C, Cd, False, rtol=RTOL_MAIN)
-    rel = float(((C.double() - Cd.double()).abs() /
-                 Cd.double().abs().clamp_min(1e-300)).max())
-    print(f"phase 13: C bitwise across two calls; U bitwise the dense "
-          f"kernel's; C against the dense pipeline's: max |err| {err!r}, "
-          f"max relative {rel!r}, bitwise {bool(torch.equal(C, Cd))}")
+          f"({peak_dense / buf:.3f}); both hold U, W and W's bool mask while "
+          f"W is built")
+    compare(f"C tri vs dense n={n}", C, Cd, True)
+    print("phase 13: C bitwise across two calls and bitwise the dense "
+          "pipeline's; U bitwise the dense kernel's")
     del Cd
 
     U_slab, r0 = slab_check(13, C, D, "ignore")
@@ -1305,10 +1341,13 @@ def phase_tri_timing(D, launches, clock_mhz, reps=5):
         ms_d, _ = time_ms(dense, reps)
         ms_p, out_p = time_ms(plain, 1)
         b_ms, b_by = bound_ms(name, n, clock_mhz)
+        cmp = (f", bound at the compare rate "
+               f"{compare_bound_ms(n, clock_mhz)!r} ms"
+               if name == "cohesion" else "")
         print(f"phase 14: {name}_tri n={n}: kernel {ms_k!r} ms, dense kernel "
               f"{ms_d!r} ms (tri/dense {ms_k / ms_d:.3f}), plain {ms_p!r} ms, "
-              f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms_k / b_ms:.3f}, "
-              f"library: none")
+              f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms_k / b_ms:.3f}"
+              f"{cmp}, library: none")
         rows.append({"name": f"{name}_tri", "route": "cuda",
                      "source": f"src/repro_torch/csrc/pald_{name}_tri.cu",
                      "replaces": replaces[name],
@@ -1363,6 +1402,100 @@ def phase_tri_timing(D, launches, clock_mhz, reps=5):
     return rows
 
 
+def profile_window(fn):
+    """One call of ``fn`` under ``torch.profiler``, after a warm-up call
+    that the profiler also sees but does not record (its schedule's warm-up
+    step: without it the trace can miss the window's first kernels):
+    (device busy share of the host's window, {kernel name: device ms},
+    window ms), or None when the trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    spans, by_name = [], {}
+    for e in traced:
+        # device events: kernels, copies, fills; not the step's own range,
+        # which the trace also puts on the device's timeline
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ProfilerStep")):
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
+    if not spans:
+        return None
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    return busy / window_us, by_name, window_us / 1e3
+
+
+def phase_profile_and_ragged(D, n_ragged=8000, reps=3):
+    """Phase 15: a profiler window over each kernel pipeline on phase 13's
+    D, then both pipelines at a ragged n (timed in turns dense, tri, tri,
+    dense; peak device memory of one call each)."""
+    import torch
+    from repro_torch.core import pald
+
+    n = D.shape[0]
+    for sched in ("dense", "tri"):
+        got = profile_window(lambda: pald.cohesion(
+            D, method="kernel", schedule=sched, ties="ignore"))
+        if got is None:
+            print(f"phase 15: {sched} n={n}: the profiler recorded no device "
+                  f"event; the CUDA-event times of phase 14 stand")
+            continue
+        share, by_name, window_ms = got
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"phase 15: {sched} n={n}: profiler window {window_ms:.3f} ms, "
+              f"device busy {share:.4f} (idle {1 - share:.4f}); kernel ms "
+              f"by name: " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    X, _ = clustered_points(n_ragged, D_MAIN, SEED)
+    Dr = distances_on_device(torch.as_tensor(X, device=D.device))
+    ends = {"dense": [], "tri": []}
+    for sched in ("dense", "tri", "tri", "dense"):
+        ms, _ = time_ms(lambda: pald.cohesion(Dr, method="kernel",
+                                              schedule=sched,
+                                              ties="ignore"), reps)
+        ends[sched].append(ms)
+    peaks = {}
+    buf = 4 * n_ragged * n_ragged
+    for sched in ("dense", "tri"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        C = pald.cohesion(Dr, method="kernel", schedule=sched, ties="ignore")
+        torch.cuda.synchronize()
+        peaks[sched] = torch.cuda.max_memory_allocated() - base
+        if not bool(torch.isfinite(C).all()):
+            fail(f"n={n_ragged} {sched}: C has non-finite values")
+        del C
+    print(f"phase 15: cohesion(D, method='kernel', ties='ignore') "
+          f"n={n_ragged} (padded to a multiple of 128) end to end (median "
+          f"of {reps}, in turns dense, tri, tri, dense): dense "
+          f"{ends['dense']} ms, tri {ends['tri']} ms; peak device memory "
+          f"above the input: dense {peaks['dense']} B "
+          f"({peaks['dense'] / buf:.3f} n^2), tri {peaks['tri']} B "
+          f"({peaks['tri'] / buf:.3f} n^2)")
+
+
 def main() -> int:
     import torch
 
@@ -1387,6 +1520,9 @@ def main() -> int:
     for symbol in _build.SIGNATURES:
         _build.load(symbol)
     print(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.1f} s")
+    for source in ("pald_cohesion", "pald_cohesion_tri"):
+        for kernel, resources in _build.ptxas_report(source):
+            print(f"phase 1: ptxas {source}: {kernel}: {resources}")
 
     t0 = time.perf_counter()
     phase_kernels_vs_plain(dev)
@@ -1430,6 +1566,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_tri_timing(D, launches, clock_mhz)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_profile_and_ragged(D)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    del D
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,12 @@
     The resolved knobs as a plain dict.
 
 Two kinds of input: ``"distance"`` (an (n, n) matrix, ``pald.cohesion``)
-and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On features
+and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On a
+distance matrix ``method="auto"`` resolves as the reference does without a
+tuning cache: ``z_chunk=`` pins ``"dense"``, ``impl=`` or an explicit
+``block_z`` pins ``"kernel"``, and otherwise ``"dense"`` for n <= 256 and
+``"triplet"`` above (``method_source="heuristic"``; the reference's cache
+lookup comes with ROADMAP.md queue 1, item 9).  On features
 ``method="auto"`` resolves to ``"fused"`` (distances computed by the
 kernels one panel of rows at a time, D never whole); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
 materialize D once with ``features.cdist_reference`` and run the distance
@@ -54,6 +59,7 @@ __all__ = [
     "plan",
     "register_executor",
     "get_executor",
+    "available_executors",
     "pad_distance_matrix",
     "run_batched",
     "resolve_device",
@@ -71,9 +77,6 @@ _IMPL_METHODS = ("kernel", "fused", "knn")
 
 # where each unported knob of the reference lands (ROADMAP.md, queue 1)
 _SLICE = {
-    "auto": "method='auto' on a distance matrix needs the measured "
-            "crossover of the tuning cache (ROADMAP.md queue 1, item 9: "
-            "tuning)",
     "block_auto": "block= / block_z= / select_block='auto' need the tuning "
                   "cache (ROADMAP.md queue 1, item 9: tuning)",
     "fallback": "on_error='fallback' is the guarded-execution slice "
@@ -156,6 +159,12 @@ def get_executor(kind: str, method: str, schedule: str) -> Callable:
         raise KeyError(f"no executor registered for {key}; known cells: "
                        f"{sorted(_EXECUTORS)}")
     return _EXECUTORS[key]
+
+
+def available_executors() -> list[tuple[str, str, str]]:
+    """All registered (kind, method, schedule) cells (contributors loaded)."""
+    _load_contributors()
+    return sorted(_EXECUTORS)
 
 
 def run_batched(fn, x, plan: "PaldPlan"):
@@ -473,10 +482,22 @@ def plan(
                     "k= pins method='knn' but z_chunk= pins method='dense'; "
                     "pass an explicit method")
             method, method_source = "knn", "k"
-        elif kind != "features":
-            raise NotImplementedError(_SLICE["auto"])
-        else:
+        elif kind == "features":
             method, method_source = "fused", "default"
+        elif z_chunk is not None:
+            if impl is not None or block_z not in (None, "auto"):
+                raise ValueError(
+                    "z_chunk= pins method='dense' but impl=/block_z= pin "
+                    "the kernel pipeline; pass an explicit method")
+            method, method_source = "dense", "z_chunk"
+        elif impl is not None or block_z not in (None, "auto"):
+            # an explicit z tile (or impl) is a kernel-pipeline request;
+            # block_z="auto" is not
+            method, method_source = "kernel", "impl/block_z"
+        else:
+            # the reference's heuristic when its tuning cache has no entry
+            method = "dense" if n <= 256 else "triplet"
+            method_source = "heuristic"
     if method not in allowed:
         raise ValueError(f"unknown method {method!r} for kind={kind!r} "
                          f"(expected one of {('auto',) + allowed})")

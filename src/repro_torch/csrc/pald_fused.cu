@@ -10,10 +10,11 @@
 // and cohesion_fused_pallas.
 //
 // What bounds it on the H100: operations.  The triple loops are those of
-// the dense kernels (3 and 4 FP32 lane instructions per (x, y, z) triple;
-// pald_tile.cuh).  The function needs each distance once: 2d + 4 lane
-// instructions per unordered pair, 4.4e9 at n = 8192, d = 64, against the
-// loops' ~1.2e12.  The data are X (n d floats), W and the output.
+// the dense kernels (3 lane instructions per (x, y, z) triple for the
+// strict families on a finite W; pald_tile.cuh).  The function needs each
+// distance once: 2d + 4 lane instructions per unordered pair, 4.4e9 at
+// n = 8192, d = 64, against the loops' ~1.2e12.  The data are X (n d
+// floats), W and the output.
 //
 // Design: a panel of D, written once, read by every output tile.
 // The reduced axis (z for focus, y for cohesion) is cut into panels of P
@@ -34,8 +35,9 @@
 //      stored back after the panel's last slab.  The slab layouts are the
 //      panel's own: focus sx[z][x] = Dp[z - p0][x], sy[z][y] likewise;
 //      cohesion syz[y][z], sxy[y][x] (d(y, x) = d(x, y) bitwise).  Staging
-//      is a straight 2-D copy of 16-byte cp.async pieces; the W slab is the
-//      transposed read it was, in 4-byte cp.async pieces.  Focus stages
+//      is a straight 2-D copy of 16-byte cp.async pieces; the W slab is a
+//      transposed read in 4-byte cp.async pieces.  Cohesion's sxy and W
+//      rows are swizzled as the dense kernel's (pald_tile.cuh).  Focus stages
 //      into two slab buffers, so slab s + 1 arrives while slab s runs;
 //      cohesion into one (copy, wait, run): on an H100 a second buffer
 //      made focus faster and cohesion, whose shared memory it takes to
@@ -68,6 +70,10 @@
 
 namespace {
 
+using pald::cp_async16;
+using pald::cp_async4;
+using pald::cp_async_commit;
+using pald::cp_async_wait;
 using pald::Dist;
 using pald::kLd;
 using pald::kSlab;
@@ -185,42 +191,21 @@ __device__ __forceinline__ void tile_dists(
     }
 }
 
-// ---- asynchronous copies into shared memory (sm_80+) ----------------------
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // panel rows [r0, r0 + rn) (rn <= kSlab), columns [c0, c0 + 64), into
-// s[r][0:64]: 16 consecutive 16-byte pieces a row (ldp and c0 are
-// multiples of 64 floats, so every piece is aligned)
-__device__ __forceinline__ void stage_rows(float (*s)[kLd],
+// s[r][0:64] (kSwz: into swizzled rows, pald_tile.cuh swz): 16 consecutive
+// 16-byte pieces a row (ldp and c0 are multiples of 64 floats, so every
+// piece is aligned)
+template <bool kSwz, int Ld>
+__device__ __forceinline__ void stage_rows(float (*s)[Ld],
                                            const float* __restrict__ panel,
                                            int64_t ldp, int64_t r0, int rn,
                                            int64_t c0, int tid) {
   constexpr int kPieces = kTile / 4;
   for (int e = tid; e < kSlab * kPieces; e += kThreads) {
     const int r = e / kPieces, q = e % kPieces;
-    if (r < rn) cp_async16(&s[r][q * 4], panel + (r0 + r) * ldp + c0 + q * 4);
+    if (r < rn)
+      cp_async16(&s[r][(kSwz ? q ^ pald::swz(r) : q) * 4],
+                 panel + (r0 + r) * ldp + c0 + q * 4);
   }
 }
 
@@ -261,8 +246,8 @@ struct FocusSmem {
 struct CohesionSmem {
   Stage st;
   float syz[kCohesionStages][kSlab][kLd];
-  float sxy[kCohesionStages][kSlab][kLd];
-  float sw[kCohesionStages][kSlab][kLd];
+  float sxy[kCohesionStages][kSlab][kTile];  // swizzled rows
+  float sw[kCohesionStages][kSlab][kTile];
   uint8_t sxw[kSlab][kLd];
 };
 
@@ -309,8 +294,8 @@ focus_fused_kernel(const float* __restrict__ x,
 
   auto stage = [&](int64_t z0, int buf) {
     const int zn = static_cast<int>(p_end - z0 < kSlab ? p_end - z0 : kSlab);
-    stage_rows(sm.sx[buf], panel, ldp, z0 - p0, zn, x0, tid);
-    stage_rows(sm.sy[buf], panel, ldp, z0 - p0, zn, y0, tid);
+    stage_rows<false>(sm.sx[buf], panel, ldp, z0 - p0, zn, x0, tid);
+    stage_rows<false>(sm.sy[buf], panel, ldp, z0 - p0, zn, y0, tid);
   };
   stage(p0, 0);  // the first slab, in flight under tile_dists
   cp_async_commit();
@@ -324,7 +309,7 @@ focus_fused_kernel(const float* __restrict__ x,
   store_acc(u, n, x0, y0, tx, ty, acc);
 }
 
-template <int M, class F>
+template <int M, class F, bool kAdd>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 cohesion_fused_kernel(const float* __restrict__ x,
                       const float* __restrict__ norms,
@@ -344,8 +329,8 @@ cohesion_fused_kernel(const float* __restrict__ x,
   auto stage = [&](int64_t y0, int buf) {
     const int yn = static_cast<int>(p_end - y0 < kSlab ? p_end - y0 : kSlab);
     // d(y, z) into syz[y][z], d(y, x) = d(x, y) into sxy[y][x]
-    stage_rows(sm.syz[buf], panel, ldp, y0 - p0, yn, z0, tid);
-    stage_rows(sm.sxy[buf], panel, ldp, y0 - p0, yn, x0, tid);
+    stage_rows<false>(sm.syz[buf], panel, ldp, y0 - p0, yn, z0, tid);
+    stage_rows<true>(sm.sxy[buf], panel, ldp, y0 - p0, yn, x0, tid);
     // W[x0:x0+64, y0:y0+yn] transposed to [y][x] (a warp reads 32
     // consecutive y of one row); rows past n are 0
     for (int e = tid; e < kTile * kSlab; e += kThreads) {
@@ -353,9 +338,10 @@ cohesion_fused_kernel(const float* __restrict__ x,
       const int64_t xi = x0 + r;
       if (col >= yn) continue;
       if (xi < n)
-        cp_async4(&sm.sw[buf][col][r], w + xi * n + y0 + col);
+        cp_async4(&sm.sw[buf][col][pald::swizzled(col, r)],
+                  w + xi * n + y0 + col);
       else
-        sm.sw[buf][col][r] = 0.f;
+        sm.sw[buf][col][pald::swizzled(col, r)] = 0.f;
     }
   };
   float own[4][4], acc[4][4];
@@ -376,8 +362,8 @@ cohesion_fused_kernel(const float* __restrict__ x,
       }
     }
     __syncthreads();
-    pald::cohesion_slab<F>(sm.syz[buf], sm.sxy[buf], sm.sw[buf], sm.sxw, yn,
-                           all, any, tx, ty, own, acc, p);
+    pald::cohesion_slab<F, kAdd>(sm.syz[buf], sm.sxy[buf], sm.sw[buf],
+                                 sm.sxw, yn, all, any, tx, ty, own, acc, p);
   });
   store_acc(c, n, x0, z0, tx, ty, acc);
 }
@@ -419,6 +405,7 @@ struct Args {
   int64_t n, d, n_valid, panel_rows;
   pald::Params p;
   cudaStream_t stream;
+  bool add = false;  // cohesion: every W finite, the predicated form
 
   int64_t ldp() const { return round_up(n, kTile); }
 
@@ -478,15 +465,22 @@ struct FocusLaunch {
 template <int M>
 struct CohesionLaunch {
   const Args& a;
-  template <class F>
-  int operator()() const {
-    const auto kernel = cohesion_fused_kernel<M, F>;
+  template <class F, bool kAdd>
+  int launch() const {
+    const auto kernel = cohesion_fused_kernel<M, F, kAdd>;
     constexpr int smem = sizeof(CohesionSmem);
     return run_panels<M>(a, kernel, smem, [&](int64_t p0, int64_t pn) {
       kernel<<<a.grid(), kThreads, smem, a.stream>>>(
           a.x, a.norms, a.panel, a.w, a.out, a.n, a.d, a.n_valid, a.ldp(),
           p0, pn, a.p);
     });
+  }
+  template <class F>
+  int operator()() const {
+    if constexpr (F::kPredicated) {
+      if (a.add) return this->template launch<F, true>();
+    }
+    return this->template launch<F, false>();
   }
 };
 
@@ -546,18 +540,19 @@ extern "C" int pald_focus_fused_f32(const float* x, float* norms,
   return pald::dispatch_metric(metric, PerMetric<FocusLaunch>{a, wid});
 }
 
-// C (n, n) from X (n, d) and the weights W = 1/U (n, n); as above.  The
-// index tiebreak of `ignore` is the global x > y.
+// C (n, n) from X (n, d) and the weights W = 1/U (n, n); as above, and
+// `add` != 0 says every W is finite (the predicated form).  The index
+// tiebreak of `ignore` is the global x > y.
 extern "C" int pald_cohesion_fused_f32(const float* x, float* norms,
                                        float* panel, const float* w, float* c,
                                        int64_t n, int64_t d, int64_t n_valid,
                                        int64_t panel_rows, int metric,
-                                       int wid, float p0, float p1,
+                                       int wid, float p0, float p1, int add,
                                        void* stream) {
   if (bad_shape(n, d, n_valid) || bad_panel(panel_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, norms, panel, w, c, n, d, n_valid, panel_rows, {p0, p1},
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), add != 0};
   return pald::dispatch_metric(metric, PerMetric<CohesionLaunch>{a, wid});
 }
 

@@ -12,6 +12,16 @@
 // and packed the 16 booleans of a thread's outputs into bit masks (seen in
 // the SASS of the `ignore` cohesion loop).
 //
+// Predicated forms.  Drop, ignore and kernelized also give `add`, which
+// adds the family's term under a predicate instead of multiplying W by a
+// {0, 1} (or {0, share}) select: two compares and a predicated FADD per
+// triple for the strict families, one compare and a predicated FFMA for
+// kernelized.  On a finite w it is bitwise the multiply form (1 * w = w,
+// fma(0, w, acc) = acc), so it sums the same terms in the same order; on an
+// infinite or nan w the multiply form gives the reference's nan (0 * inf)
+// and the predicate does not, so the kernels take `add` only when every W
+// is finite (the wrappers check, kernels/pald_cohesion.py::add_form).
+//
 // Exactness.  The strict and split families are comparisons and selects,
 // bitwise equal to the torch bodies.  The smooth families (soft,
 // kernelized) spell every multiply and add with the _rn intrinsics, so nvcc
@@ -53,6 +63,38 @@ __device__ __forceinline__ float safe_unit(float diff, float inv, float tie) {
   return diff != diff ? tie : s;
 }
 
+// acc += w where own < other (kLe: own <= other, own wins the tie) and
+// own < pair
+template <bool kLe>
+__device__ __forceinline__ void add_if_below(float& acc, float own,
+                                             float other, float pair,
+                                             float w) {
+  if constexpr (kLe)
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.le.f32 p, %1, %2;\n\t"
+        "setp.lt.and.f32 p, %1, %3, p;\n\t"
+        "@p add.rn.f32 %0, %0, %4;\n\t}"
+        : "+f"(acc)
+        : "f"(own), "f"(other), "f"(pair), "f"(w));
+  else
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.lt.f32 p, %1, %2;\n\t"
+        "setp.lt.and.f32 p, %1, %3, p;\n\t"
+        "@p add.rn.f32 %0, %0, %4;\n\t}"
+        : "+f"(acc)
+        : "f"(own), "f"(other), "f"(pair), "f"(w));
+}
+
+// acc = fma(s, w, acc) where own < pair
+__device__ __forceinline__ void fma_if_below(float& acc, float own,
+                                             float pair, float s, float w) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.lt.f32 p, %1, %2;\n\t"
+      "@p fma.rn.f32 %0, %3, %4, %0;\n\t}"
+      : "+f"(acc)
+      : "f"(own), "f"(pair), "f"(s), "f"(w));
+}
+
 // (d_xz < d_xy) | (d_yz < d_xy); fminf returns the non-nan operand, which
 // gives the same answer as the or of the two comparisons on any input
 __device__ __forceinline__ float focus_strict(float dxz, float dyz, float dxy) {
@@ -61,6 +103,7 @@ __device__ __forceinline__ float focus_strict(float dxz, float dyz, float dxy) {
 
 struct Drop {
   static constexpr bool kTiebreak = false;
+  static constexpr bool kPredicated = true;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params&) {
     return focus_strict(a, b, t);
@@ -70,10 +113,17 @@ struct Drop {
                                                   const Params&) {
     return ((own < other) & (own < pair)) ? 1.f : 0.f;
   }
+  template <bool>
+  __device__ __forceinline__ static void add(float& acc, float own,
+                                             float other, float pair,
+                                             float w, const Params&) {
+    add_if_below<false>(acc, own, other, pair, w);
+  }
 };
 
 struct Split {
   static constexpr bool kTiebreak = false;
+  static constexpr bool kPredicated = false;
   // strict ? 1 : (eq ? 0.5 : 0); when neither operand is below t, one of
   // them equals t exactly when their minimum does
   __device__ __forceinline__ static float focus(float a, float b, float t,
@@ -92,6 +142,7 @@ struct Split {
 
 struct Ignore {
   static constexpr bool kTiebreak = true;
+  static constexpr bool kPredicated = true;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params&) {
     return focus_strict(a, b, t);
@@ -102,10 +153,18 @@ struct Ignore {
     const bool wins = (own < other) | ((own == other) & own_wins);
     return (wins & (own < pair)) ? 1.f : 0.f;
   }
+  // kLe: own wins every tie of the slab (one `<=` compare, not `<` or `==`)
+  template <bool kLe>
+  __device__ __forceinline__ static void add(float& acc, float own,
+                                             float other, float pair,
+                                             float w, const Params&) {
+    add_if_below<kLe>(acc, own, other, pair, w);
+  }
 };
 
 struct Soft {
   static constexpr bool kTiebreak = false;
+  static constexpr bool kPredicated = false;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params& p) {
     return safe_unit(__fsub_rn(t, nan_min(a, b)), p.p0, 0.f);
@@ -124,6 +183,7 @@ struct Soft {
 
 struct Kernelized {
   static constexpr bool kTiebreak = false;
+  static constexpr bool kPredicated = true;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params&) {
     return focus_strict(a, b, t);
@@ -134,6 +194,14 @@ struct Kernelized {
     const float share = safe_unit(
         __fsub_rn(__fmul_rn(other, other), __fmul_rn(own, own)), p.p0, 0.5f);
     return own < pair ? share : 0.f;
+  }
+  template <bool>
+  __device__ __forceinline__ static void add(float& acc, float own,
+                                             float other, float pair,
+                                             float w, const Params& p) {
+    const float share = safe_unit(
+        __fsub_rn(__fmul_rn(other, other), __fmul_rn(own, own)), p.p0, 0.5f);
+    fma_if_below(acc, own, pair, share, w);
   }
 };
 

@@ -8,7 +8,9 @@ root of the checkout (git-ignored), keyed by a hash of every source and the
 flags, so an edited source rebuilds and an unchanged one is reused.
 
 No ``--use_fast_math``: it would change division and flush denormals, and
-the kernels are held to the plain torch versions.  Every C entry point
+the kernels are held to the plain torch versions.  ``-Xptxas -v``: each
+library's build log (``lib<name>.log`` beside it, :func:`ptxas_report`)
+keeps every kernel's registers, spills and shared memory.  Every C entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises when
 that is not 0.
 """
@@ -23,14 +25,14 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load", "check", "CSRC", "BUILD_ROOT"]
+__all__ = ["load", "check", "ptxas_report", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_topk",
            "pald_knn", "pald_focus_tri", "pald_cohesion_tri")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # each C entry point: its source and its argument types (pointers and the
@@ -41,13 +43,13 @@ SIGNATURES = {
                         _P)),
     "pald_cohesion_f32": ("pald_cohesion",
                           (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                           _I64, _I32, _F32, _F32, _P)),
+                           _I64, _I32, _F32, _F32, _I32, _P)),
     "pald_focus_fused_f32": ("pald_fused",
                              (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                               _I32, _F32, _F32, _P)),
     "pald_cohesion_fused_f32": ("pald_fused",
                                 (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                 _I32, _I32, _F32, _F32, _P)),
+                                 _I32, _I32, _F32, _F32, _I32, _P)),
     "pald_dist_fused_f32": ("pald_fused",
                             (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
     "pald_topk_f32": ("pald_topk",
@@ -58,7 +60,7 @@ SIGNATURES = {
     "pald_focus_tri_f32": ("pald_focus_tri",
                            (_P, _P, _I64, _I32, _F32, _F32, _P)),
     "pald_cohesion_tri_f32": ("pald_cohesion_tri",
-                              (_P, _P, _P, _P, _I64, _I32, _F32, _F32, _P)),
+                              (_P, _P, _P, _I64, _I32, _F32, _F32, _I32, _P)),
 }
 
 _lock = threading.Lock()
@@ -104,6 +106,7 @@ def _build_all(out: Path) -> None:
     for lib, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
         else:
             os.unlink(tmp)
@@ -127,6 +130,20 @@ def load(symbol: str):
                 fn.restype = ctypes.c_int
                 _loaded[sym] = fn
         return _loaded[symbol]
+
+
+def ptxas_report(source: str) -> list[tuple[str, str]]:
+    """(kernel, resources) for each kernel of ``csrc/<source>.cu``, from
+    the build log of the loaded libraries: ptxas's registers, spill stores
+    and loads, and shared memory of each entry function."""
+    log = (BUILD_ROOT / _digest() / f"lib{source}.log").read_text()
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "Used" in line):
+            out.append((name, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def check(status: int, what: str) -> None:

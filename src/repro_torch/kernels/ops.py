@@ -25,10 +25,10 @@ versions' chunks.
 ``schedule="tri"`` (``focus``, ``cohesion_from_weights``, ``pald``, and
 ``pald_tri`` itself) runs the upper-triangular block schedule on a square,
 symmetric D: pass 1 over the nb(nb+1)/2 block pairs X <= Y, each tile
-mirrored (``pald_focus_tri.py``); pass 2 over the same pairs, both role
-updates per off-diagonal pair (``pald_cohesion_tri.py``).  Its U counts
-the padded z of the reference's Pallas route, which pads D to a multiple
-of max(block, block_z).
+mirrored (``pald_focus_tri.py``); pass 2 reads only the upper pair tiles,
+both roles of every off-diagonal pair (``pald_cohesion_tri.py``).  Its U
+counts the padded z of the reference's Pallas route, which pads D to a
+multiple of max(block, block_z).
 
 ``pald_fused(X)`` is the fused features pipeline: both passes straight
 from (n, d) feature vectors (``pald_fused.py``), D never whole past the
@@ -244,13 +244,15 @@ def pald(D, *, block=128, block_z=512, normalize: bool = False, n_valid=None,
     None for the device's default.  ``n_valid`` zeroes the weights of
     padded points (index >= n_valid).  schedule: 'dense' runs the full
     grids; 'tri' is ``pald_tri``.  ties: weight functional shared by both
-    passes.
+    passes.  Peak memory: U, W and W's (n, n) bool mask while W is built
+    (2.25 n^2 float32 buffers), then W and C.
     """
     if _check_schedule(schedule, D):
         return pald_tri(D, block=block, block_z=block_z, normalize=normalize,
                         n_valid=n_valid, impl=impl, ties=ties)
     U = focus(D, block=block, block_z=block_z, impl=impl, ties=ties)
     W = weights_ref(U, n_valid)
+    del U
     C = cohesion_from_weights(D, W, block=block, block_z=block_z, impl=impl,
                               ties=ties)
     if normalize:
@@ -266,7 +268,7 @@ def pald_tri(D, *, block=128, block_z=512, normalize: bool = False,
     Algorithm 2 at block granularity, DESIGN.md section 4.3).  D must be
     square and symmetric; ``block`` / ``block_z`` set the plain versions'
     tiles (the kernels' are fixed), ``n_valid`` zeroes the weights of
-    padded points.
+    padded points.  Peak memory as ``pald``'s: 2.25 n^2 float32 buffers.
     """
     U = focus(D, block=block, block_z=block_z, impl=impl, schedule="tri",
               ties=ties)

@@ -3,13 +3,18 @@ plain torch version.
 
     C[x, z] = sum_y support_weight(DXZ[x, z], DYZ[y, z], DXY[x, y]) * W[x, y]
 
-The kernel (``csrc/pald_cohesion.cu``) replaces the TPU kernel
+The kernel (``csrc/pald_cohesion.cu``, its body in
+``csrc/pald_cohesion.cuh``) replaces the TPU kernel
 ``repro/kernels/pald_cohesion.py::cohesion_general_pallas``.  It is bound
-by the FP32 pipe (n^3 triples, ~4 lane instructions each, against 5 n^2
-floats of memory traffic), so it is register-blocked: a 64 x 64 (x, z) C
-tile per thread block, 4 x 4 outputs per thread with their DXZ values in
-registers, y streamed through shared memory with DYZ, DXY and W.  The
-source note in the ``.cu`` file has the details.
+by operations (n^3 triples, 3 lane instructions each for the strict
+families, against 5 n^2 floats of memory traffic), so it is
+register-blocked: a 64 x 64 (x, z) C tile per thread block, 4 x 4 outputs
+per thread with their DXZ values in registers, y streamed through shared
+memory with DYZ, DXY and W, the next slab copied while the current one
+runs.  ``drop``, ``ignore`` and ``kernelized`` add W under a predicate
+instead of multiplying it by a {0, 1} select when every W is finite
+(:func:`add_form`), bitwise the same sum.  The source note in the ``.cuh``
+file has the details.
 
 Functionals that declare ``needs_index_tiebreak`` (``ignore``) need the
 global "x index > y index" predicate: either an explicit (mx, my) bool
@@ -26,17 +31,42 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.weights import (DEFAULT_TIES, index_xwins, kernel_spec,
+from repro_torch.core.weights import (DEFAULT_TIES, KERNEL_DROP,
+                                      KERNEL_IGNORE, KERNEL_KERNELIZED,
+                                      index_xwins, kernel_spec,
                                       resolve_weight, support_weight)
 
 from . import _build
 from .pald_focus import adaptive_chunk, check_operands
 
-__all__ = ["cohesion_general_cuda", "cohesion_general_torch", "SMEM_PER_CTA"]
+__all__ = ["cohesion_general_cuda", "cohesion_general_torch", "add_form",
+           "SMEM_PER_CTA"]
 
-# the kernel stages a (32, 64) DYZ slab, (32, 68) DXY and W slabs and a
-# (32, 68) byte tiebreak slab (csrc/pald_cohesion.cu)
-SMEM_PER_CTA = 4 * 32 * 64 + 4 * 2 * 32 * 68 + 32 * 68
+# two buffers of (32, 64) DYZ, DXY and W slabs and a (32, 68) byte
+# tiebreak slab, and one (64, 32) landing tile of DXY and of W
+# (csrc/pald_cohesion.cuh: CohesionSmem)
+SMEM_PER_CTA = 2 * (4 * 3 * 32 * 64 + 32 * 68) + 4 * 2 * 64 * 32
+
+# the families with a predicated form (csrc/pald_weights.cuh kPredicated)
+_PREDICATED = (KERNEL_DROP, KERNEL_IGNORE, KERNEL_KERNELIZED)
+
+
+def add_form(wid: int, W: torch.Tensor) -> int:
+    """1 when the cohesion kernels may add W under a predicate: the family
+    has that form and every W is finite.  The predicated sum is bitwise the
+    multiply form's on a finite W; a W with an infinite or nan entry takes
+    the multiply form, which gives the reference's nan (0 * inf).
+
+    One read of W through ``aminmax`` (nan propagates to both ends), no
+    temporary: ``torch.isfinite(W)`` would hold an (n, n) float ``abs(W)``
+    and three bool masks, 1.75 n^2 float32 buffers at the pipeline's peak.
+    """
+    if wid not in _PREDICATED:
+        return 0
+    if W.numel() == 0:
+        return 1
+    lo, hi = torch.aminmax(W)
+    return int(bool(torch.isfinite(lo) & torch.isfinite(hi)))
 
 
 def _require_tiebreak(wfun, xwins, xw_offsets):
@@ -76,7 +106,8 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
 
     CUDA operands must be contiguous float32 (``xwins``: bool) on one
     device (``ops`` prepares them); anything else raises, as does a weight
-    functional without a kernel id.  Each launch adds one to
+    functional without a kernel id.  W is checked for non-finite entries
+    (:func:`add_form`).  Each launch adds one to
     ``cohesion_general_cuda.launches`` (and to ``.grid_launches``: one
     grid).
     """
@@ -110,7 +141,7 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),
                     W.data_ptr(), xw_ptr, C.data_ptr(), mx, my, mz, row_off,
-                    col_off, wid, p0, p1, stream)
+                    col_off, wid, p0, p1, add_form(wid, W), stream)
     _build.check(status, "pald_cohesion_f32")
     cohesion_general_cuda.launches += 1
     cohesion_general_cuda.grid_launches += 1

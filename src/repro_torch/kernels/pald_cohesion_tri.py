@@ -1,23 +1,28 @@
 """PaLD pass 2 on the upper-triangular block schedule: the CUDA kernel's
 wrapper and its plain torch version.
 
-Cohesion support is a property of the unordered pair, so only the block
-pairs X <= Y are visited, and each off-diagonal visit applies both role
-updates from the upper tiles D[X, Y] and W[X, Y]:
+Cohesion support is a property of the unordered pair, so the reference
+visits only the block pairs X <= Y, and each off-diagonal visit applies
+both role updates from the upper tiles D[X, Y] and W[X, Y]:
 
     x-role:  C[x, z] += support_weight(D[x, z], D[y, z], D[x, y]) * W[x, y]
     y-role:  C[y, z] += support_weight(D[y, z], D[x, z], D[x, y]) * W[x, y]
 
 A diagonal block applies the x-role alone, over both orders of every pair
 inside it.  ``ignore``'s index tiebreak is "x > y" for the x-role and its
-converse for the y-role.  D and W are taken as symmetric (the tri pipeline's
-U, hence W, is symmetric by construction): their lower tiles are never read.
+converse for the y-role.  D and W are taken as symmetric (the tri
+pipeline's U, hence W, is symmetric by construction): their lower tiles
+are never read.
 
 The kernel (``csrc/pald_cohesion_tri.cu``) replaces the TPU kernel
-``repro/kernels/pald_cohesion_tri.py::cohesion_tri_pallas``.  It visits the
-pairs in diagonal waves, one grid launch each, so that no two thread blocks
-of a launch write the same rows: C is the same bits on every call.  The
-source note in the ``.cu`` file has the details.
+``repro/kernels/pald_cohesion_tri.py::cohesion_tri_pallas``.  It is the
+dense cohesion kernel (``csrc/pald_cohesion.cuh``) reading each pair tile
+from the upper triangle: a thread block owns C[R, Z] for a row block R
+and walks the partner rows in ascending order, those below R as y-roles
+(the upper tile D[Q, R] as it lies), the others as x-roles.  One grid, C
+written once, no atomics: C is the same bits on every call, and on a
+symmetric D and W bitwise the dense kernel's C.  The source notes have
+the details.
 
 :func:`cohesion_tri_cuda` dispatches on the tensors' device: CUDA tensors
 launch the kernel (or raise), CPU tensors take :func:`cohesion_tri_torch`,
@@ -31,21 +36,11 @@ from repro_torch.core.weights import (DEFAULT_TIES, index_xwins, kernel_spec,
                                       resolve_weight, support_weight)
 
 from . import _build
+from .pald_cohesion import SMEM_PER_CTA, add_form
 from .pald_focus import adaptive_chunk, check_operands
 from .pald_focus_tri import tri_pairs
 
-__all__ = ["cohesion_tri_cuda", "cohesion_tri_torch", "wave_count",
-           "SMEM_PER_CTA"]
-
-# the kernel stages a (32, 64) DYZ slab, (32, 68) DXY and W slabs and a
-# (32, 68) byte tiebreak slab (csrc/pald_cohesion_tri.cu)
-SMEM_PER_CTA = 4 * 32 * 64 + 4 * 2 * 32 * 68 + 32 * 68
-
-
-def wave_count(n: int) -> int:
-    """Grid launches of one kernel call: one per diagonal wave of 64-row
-    blocks, ceil(n / 64) (the C entry point's loop)."""
-    return -(-n // 64)
+__all__ = ["cohesion_tri_cuda", "cohesion_tri_torch", "SMEM_PER_CTA"]
 
 
 def cohesion_tri_torch(D, W, *, block: int = 128, block_z: int = 512,
@@ -84,11 +79,10 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
     D and W must be contiguous float32 (n, n) tensors on one device
     (``ops`` prepares them); anything else raises, as does a weight
-    functional without a kernel id.  The x-role and y-role sums go to two
-    (n, n) buffers, added once at the end: one n^2 buffer more at peak than
-    the dense cohesion kernel's call.  Each call adds one to
-    ``cohesion_tri_cuda.launches`` and :func:`wave_count` (one grid launch
-    per diagonal wave) to ``.grid_launches``.
+    functional without a kernel id.  W is checked for non-finite entries
+    (``pald_cohesion.add_form``).  Besides C the call allocates nothing.
+    Each call adds one to ``cohesion_tri_cuda.launches`` and to
+    ``.grid_launches`` (one grid).
     """
     dev = D.device
     if dev.type == "cpu":
@@ -103,16 +97,15 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
     C = torch.empty((n, n), dtype=f32, device=dev)
     if n == 0:
         return C
-    Cy = torch.zeros((n, n), dtype=f32, device=dev)
     fn = _build.load("pald_cohesion_tri_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(D.data_ptr(), W.data_ptr(), C.data_ptr(), Cy.data_ptr(),
-                    n, wid, p0, p1, stream)
+        status = fn(D.data_ptr(), W.data_ptr(), C.data_ptr(), n, wid, p0, p1,
+                    add_form(wid, W), stream)
     _build.check(status, "pald_cohesion_tri_f32")
     cohesion_tri_cuda.launches += 1
-    cohesion_tri_cuda.grid_launches += wave_count(n)
-    return C.add_(Cy)
+    cohesion_tri_cuda.grid_launches += 1
+    return C
 
 
 cohesion_tri_cuda.launches = 0

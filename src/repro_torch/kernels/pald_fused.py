@@ -37,7 +37,7 @@ from repro_torch.core.features import METRICS, masked_dist_tile
 from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
 
 from . import _build
-from .pald_cohesion import cohesion_general_torch
+from .pald_cohesion import add_form, cohesion_general_torch
 from .pald_focus import check_operands, focus_general_torch
 
 __all__ = ["focus_fused_cuda", "cohesion_fused_cuda", "focus_fused_torch",
@@ -50,7 +50,8 @@ __all__ = ["focus_fused_cuda", "cohesion_fused_cuda", "focus_fused_torch",
 _LD, _CHUNK, _SLAB = 68, 16, 32
 _STAGE = 4 * _CHUNK * 2 * _LD
 SMEM_PER_CTA = {"focus": _STAGE + 2 * 4 * 2 * _SLAB * _LD,
-                "cohesion": _STAGE + 4 * 3 * _SLAB * _LD + _SLAB * _LD}
+                "cohesion": _STAGE + 4 * _SLAB * _LD + 4 * 2 * _SLAB * 64
+                + _SLAB * _LD}
 
 _TILE = 64
 # bytes of one distance panel.  A pass reads the panel from L2 a band of
@@ -253,7 +254,7 @@ def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
     panel = _panel_buffer(n, rows, X.device)
     _launch("pald_cohesion_fused_f32", X, C, X.data_ptr(), norms.data_ptr(),
             panel.data_ptr(), W.data_ptr(), C.data_ptr(), n, d, nv, rows,
-            mid, wid, p0, p1)
+            mid, wid, p0, p1, add_form(wid, W))
     cohesion_fused_cuda.launches += 1
     cohesion_fused_cuda.grid_launches += fused_grids(n, metric, rows)
     return C

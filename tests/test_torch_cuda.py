@@ -15,7 +15,10 @@ to the dense kernels' on those distances (the same loops on the same
 numbers).  The k-NN selection kernel is held bitwise to its plain version
 (indices and distances), the k-NN values kernel to rtol 1e-5.  The tri
 kernels are held to their plain versions the same way, their U bitwise to
-the dense kernel's, and their C to itself across two calls, bitwise.
+the dense kernel's, and their C bitwise to itself across two calls and to
+the dense kernel's C on a symmetric D and W.  A W with a non-finite entry
+takes the cohesion kernels' multiply form and gives the plain versions'
+nan and inf.
 ``chip_smoke.py`` repeats the comparisons at the main paths' full size.
 """
 import numpy as np
@@ -50,6 +53,20 @@ def _assert_u(name, got, want):
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+def _assert_bitwise(what, got, want):
+    """torch.equal, naming on failure how many entries differ and the
+    first few (index, got, want)."""
+    if torch.equal(got, want):
+        return
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bad = (got != want).nonzero()
+    first = [(i, float(got[tuple(i)]), float(want[tuple(i)]))
+             for i in bad[:8].tolist()]
+    pytest.fail(f"{what}: {bad.shape[0]} of {got.numel()} entries differ; "
+                f"first (index, got, want): {first}")
 
 
 @pytest.fixture
@@ -144,11 +161,13 @@ def test_cuda_fused_distances_bitwise(cuda_device, metric, d):
     X = _features(257, d, seed=d)
     Xg = torch.as_tensor(X, device=cuda_device)
     Dk = dist_fused_cuda(Xg, metric=metric)
-    assert torch.equal(Dk, cdist_reference(Xg, metric=metric))
-    assert torch.equal(Dk.cpu(), cdist_reference(torch.as_tensor(X),
-                                                 metric=metric))
+    _assert_bitwise("kernel vs cdist_reference on the card", Dk,
+                    cdist_reference(Xg, metric=metric))
+    _assert_bitwise("kernel vs cdist_reference on the CPU", Dk.cpu(),
+                    cdist_reference(torch.as_tensor(X), metric=metric))
     Dp = dist_fused_cuda(Xg, metric=metric, n_valid=200)
-    assert torch.equal(Dp, masked_dist_tile(Xg, Xg, metric, 0, 0, 200))
+    _assert_bitwise("kernel vs masked_dist_tile, n_valid=200", Dp,
+                    masked_dist_tile(Xg, Xg, metric, 0, 0, 200))
 
 
 @pytest.mark.cuda
@@ -419,13 +438,66 @@ def test_cuda_tri_kernels_vs_plain(cuda_device, name, n):
     torch.cuda.synchronize()
     assert pald_focus_tri.focus_tri_cuda.launches == f0 + 1
     assert pald_cohesion_tri.cohesion_tri_cuda.launches == c0 + 2
-    # one grid per diagonal wave of 64-row blocks
-    assert (pald_cohesion_tri.cohesion_tri_cuda.grid_launches
-            == g0 + 2 * -(-n // 64))
+    # one grid a call
+    assert pald_cohesion_tri.cohesion_tri_cuda.grid_launches == g0 + 2
     assert torch.equal(Ck, Ck2)
-    for want in (Cp, Cd):
-        np.testing.assert_allclose(Ck.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=RTOL, atol=ATOL)
+    assert torch.equal(Ck, Cd)
+    np.testing.assert_allclose(Ck.cpu().numpy(), Cp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 130, 257])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_cohesion_kernels_ragged(cuda_device, name, n):
+    """The dense and the tri cohesion kernels at ragged n on a symmetric,
+    tie-heavy D with +inf pairs: each within tolerance of its plain
+    version, tri bitwise across two calls and bitwise the dense kernel."""
+    from repro_torch.kernels.ref import weights_ref
+
+    D = torch.as_tensor(_tri_D(n, seed=23), device=cuda_device)
+    W = weights_ref(pald_focus_tri.focus_tri_torch(D, ties=name))
+    Cd = ops.cohesion_from_weights(D, W, impl="cuda", ties=name)
+    Cdp = ops.cohesion_from_weights(D, W, impl="torch", ties=name)
+    Ct = pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=name)
+    Ctp = pald_cohesion_tri.cohesion_tri_torch(D, W, ties=name)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(Cd.cpu().numpy(), Cdp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(Ct.cpu().numpy(), Ctp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(Ct, pald_cohesion_tri.cohesion_tri_cuda(D, W,
+                                                               ties=name))
+    assert torch.equal(Ct, Cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_cohesion_nonfinite_w(cuda_device, name):
+    """An ops-level W with an inf and a nan: the kernels take the multiply
+    form and give the plain versions' nan and inf (0 * inf is nan), on
+    the asymmetric rectangular operands and on the tri schedule."""
+    DXZ, DYZ, DXY, W, _ = [torch.as_tensor(a, device=cuda_device)
+                           for a in _operands(63, 65, 130, seed=29)]
+    W[3, 7] = np.inf
+    W[40, 2] = np.nan
+    kw = dict(ties=name, xw_offsets=(3, 8))
+    Ck = ops.cohesion_general(DXZ, DYZ, DXY, W, impl="cuda", **kw)
+    Cp = pald_cohesion.cohesion_general_torch(DXZ, DYZ, DXY, W, **kw)
+    D = torch.as_tensor(_tri_D(130, seed=31), device=cuda_device)
+    Ws = torch.as_tensor(np.random.default_rng(31).random((130, 130)),
+                         dtype=torch.float32, device=cuda_device)
+    Ws = (Ws + Ws.T).contiguous()
+    Ws[5, 70] = Ws[70, 5] = np.inf
+    Ws[9, 9] = np.nan
+    Ct = pald_cohesion_tri.cohesion_tri_cuda(D, Ws, ties=name)
+    Ctp = pald_cohesion_tri.cohesion_tri_torch(D, Ws, ties=name)
+    torch.cuda.synchronize()
+    for got, want in ((Ck, Cp), (Ct, Ctp)):
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert not np.isfinite(want).all()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
@@ -487,5 +559,28 @@ def test_cuda_tri_cohesion_matches_cpu(cuda_device, name):
     assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
     Cc = pald.cohesion(D, method="kernel", schedule="tri", weight=name,
                        device="cpu")
+    np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_default_cohesion_runs_tri_kernels(cuda_device, name):
+    """``pald.cohesion(D)`` past n = 256 resolves to ``method="triplet"``,
+    which on the card runs the tri kernels (and no dense one), against
+    the same call on the CPU (the plain versions)."""
+    from repro_torch.core import pald
+
+    D = _tri_D(300, seed=19)
+    assert pald.plan(D, weight=name).explain()["method"] == "triplet"
+    counters = (pald_focus_tri.focus_tri_cuda,
+                pald_cohesion_tri.cohesion_tri_cuda,
+                pald_focus.focus_general_cuda,
+                pald_cohesion.cohesion_general_cuda)
+    before = [f.launches for f in counters]
+    Cg = pald.cohesion(D, weight=name)
+    assert Cg.device.type == "cuda" and Cg.dtype == torch.float32
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
+    Cc = pald.cohesion(D, weight=name, device="cpu")
     np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
                                atol=ATOL)

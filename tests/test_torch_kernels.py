@@ -355,3 +355,17 @@ def test_weights_ref_matches_reference(n_valid):
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+
+
+@pytest.mark.parametrize("entry", ["finite", "inf", "nan"])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_add_form_needs_a_predicated_family_and_a_finite_w(name, entry):
+    """The cohesion kernels add W under a predicate only for drop, ignore
+    and kernelized, and only when every W is finite: a non-finite entry
+    takes the multiply form, which keeps the reference's 0 * inf = nan."""
+    wid = tw.kernel_spec(name)[0]
+    W = torch.rand(5, 7)
+    if entry != "finite":
+        W[2, 3] = float(entry)
+    want = name in ("drop", "ignore", "kernelized") and entry == "finite"
+    assert pald_cohesion.add_form(wid, W) == int(want)

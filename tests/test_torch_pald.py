@@ -272,7 +272,7 @@ def test_shape_errors():
 
 
 @pytest.mark.parametrize("knobs", [
-    {"method": "auto"},
+    {"method": "knn", "k": 3, "select_tile": 8},
     {"method": "triplet", "block": "auto"},
     {"method": "kernel", "schedule": "tri", "block_z": "auto"},
     {"method": "kernel", "block": "auto"},
@@ -286,6 +286,80 @@ def test_unported_knobs_raise(knobs):
     none is dropped silently."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
         engine.plan(_points_D(8), device="cpu", **knobs)
+
+
+@pytest.mark.parametrize("n", [40, 256, 257])
+def test_auto_method_resolves_as_reference(n, tmp_path, monkeypatch):
+    """method="auto" on a distance matrix, no tuning cache: the reference's
+    heuristic ("dense" up to n = 256, "triplet" above), the same
+    method_source, and the reference's C."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    D = _points_D(n)
+    info = pald.plan(D, device="cpu").explain()
+    ref = jpald.plan(jnp.asarray(D)).explain()
+    assert (info["method"], info["method_source"]) == (
+        ref["method"], ref["method_source"])
+    assert info["method"] == ("dense" if n <= 256 else "triplet")
+    assert info["method_source"] == "heuristic"
+    np.testing.assert_allclose(_port(D), np.asarray(jpald.cohesion(
+        jnp.asarray(D))), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("port_knobs,ref_knobs,method,source", [
+    ({"z_chunk": 8}, {"z_chunk": 8}, "dense", "z_chunk"),
+    ({"impl": "torch"}, {"impl": "jnp"}, "kernel", "impl/block_z"),
+    ({"block_z": 16}, {"block_z": 16}, "kernel", "impl/block_z"),
+])
+def test_auto_method_pins_as_reference(port_knobs, ref_knobs, method, source,
+                                       tmp_path, monkeypatch):
+    """z_chunk= pins "dense", impl= or an explicit block_z pins "kernel",
+    as in the reference; C is the reference's."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    D = _points_D(40)
+    info = pald.plan(D, device="cpu", **port_knobs).explain()
+    ref = jpald.plan(jnp.asarray(D), **ref_knobs).explain()
+    assert (info["method"], info["method_source"]) == (method, source)
+    assert (ref["method"], ref["method_source"]) == (method, source)
+    np.testing.assert_allclose(
+        _port(D, **port_knobs),
+        np.asarray(jpald.cohesion(jnp.asarray(D), **ref_knobs)), rtol=RTOL,
+        atol=ATOL)
+
+
+@pytest.mark.parametrize("port_knobs,ref_knobs", [
+    ({"z_chunk": 8, "impl": "torch"}, {"z_chunk": 8, "impl": "jnp"}),
+    ({"z_chunk": 8, "block_z": 16}, {"z_chunk": 8, "block_z": 16}),
+])
+def test_auto_method_conflicting_pins_raise(port_knobs, ref_knobs):
+    D = _points_D(12)
+    with pytest.raises(ValueError, match="pins method='dense'"):
+        pald.plan(D, device="cpu", **port_knobs)
+    with pytest.raises(ValueError, match="pins method='dense'"):
+        jpald.plan(jnp.asarray(D), **ref_knobs)
+
+
+def test_available_executors_match_reference():
+    from repro.core import engine as jengine
+
+    assert engine.available_executors() == jengine.available_executors()
+
+
+def test_core_reexports_match_reference():
+    """``repro_torch.core`` re-exports what ``repro.core`` does."""
+    import repro.core as jcore
+    import repro_torch.core as core
+
+    names = [n for n in vars(jcore) if not n.startswith("_")]
+    for name in ("analysis", "engine", "features", "knn", "pairwise", "pald",
+                 "reference", "triplet", "cdist_reference", "cohesion",
+                 "from_features", "local_depths", "plan"):
+        assert name in names, name
+        assert hasattr(core, name), name
+    D = _points_D(10)
+    np.testing.assert_allclose(
+        core.cohesion(D, method="dense", device="cpu").numpy(),
+        np.asarray(jcore.cohesion(jnp.asarray(D), method="dense")),
+        rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("knobs", [

@@ -198,6 +198,24 @@ def test_pald_tri_matches_reference(name, n):
         ops.pald(Dp, impl="torch", schedule="tri", **kw).numpy(), C)
 
 
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_pald_block_symmetric_matches_reference(name, n):
+    """``core.triplet.pald_block_symmetric`` against the reference's, with
+    its signature and its block-multiple assertion."""
+    from repro.core.triplet import pald_block_symmetric as jblock_symmetric
+    from repro_torch.core.triplet import pald_block_symmetric
+
+    D = _tri_D(n, seed=4)
+    C = pald_block_symmetric(torch.from_numpy(D), block=32, ties=name)
+    Cj = jblock_symmetric(jnp.asarray(D), block=32, ties=name)
+    assert C.dtype == torch.float32
+    np.testing.assert_allclose(C.numpy(), np.asarray(Cj), rtol=RTOL,
+                               atol=ATOL)
+    with pytest.raises(AssertionError, match="block multiple"):
+        pald_block_symmetric(torch.from_numpy(D[:-1, :-1].copy()), block=32)
+
+
 @pytest.mark.parametrize("n", [7, 40])
 @pytest.mark.parametrize("name", FUNCTIONALS)
 def test_cohesion_tri_facade_matches_reference(name, n):
