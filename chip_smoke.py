@@ -7,17 +7,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/csrc`` (timed), and print ptxas's registers, spills
-   and shared memory of the two cohesion kernels;
+   and shared memory of the focus and cohesion kernels, dense and tri;
 2. each kernel against its plain torch version on the card, for every
-   built-in weight functional, at a ragged square n = 257 and a
-   rectangular (mx, my, mz) = (96, 160, 224) with asymmetric, tie-heavy
-   inputs holding +inf entries; ``ignore`` through both tiebreak routes;
+   built-in weight functional, at a ragged square n = 257 (the focus
+   kernel's square entry, also on an asymmetric D) and a rectangular
+   (mx, my, mz) = (96, 160, 224) with asymmetric, tie-heavy inputs
+   holding +inf entries; ``ignore`` through both tiebreak routes;
 3. the main path at full size: ``pald.cohesion(D, method="kernel")`` on a
    clustered n = 8192, d = 8 point set, with the launch counters as proof
-   that both kernels ran and no plain version did; mass conservation, a
-   64-row slab recomputed by the plain versions, community recovery;
+   that both kernels ran and no plain version did, and the focus kernel's
+   block counters as proof that it ran the nb(nb+1)/2 upper tile pairs of
+   the symmetric D, none of them twice; mass conservation, a 64-row slab
+   recomputed by the plain versions, community recovery;
 4. each kernel and its plain version timed at n = 8192 (CUDA events,
-   median after a warm-up), beside the kernel's bound;
+   median after a warm-up), beside the kernel's bound and its floor at
+   the compare rate; then ``ops.focus`` on phase 3's D with one 64 x 64
+   tile perturbed (asymmetric): timed, one tile pair run twice, and U
+   bitwise the plain version's;
 5. the kernels of every built-in weight family timed at n = 8192;
 6. the fused features kernels (``pald_fused.cu``) against their plain
    versions on the card: four metrics x five families at a ragged n = 257
@@ -58,22 +64,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (the selection also at k in {1, 256, 1024}), then ``select_cohere`` at
    n = 1,000,000 (or the largest n the 50,000 times, scaled by n^2, put
    under 60 s) with a 64-row slab check;
-12. the tri kernels (``pald_focus_tri.cu``, ``pald_cohesion_tri.cu``)
-   against their plain versions on the card, for every built-in weight
-   functional at ragged n in {1, 2, 63, 64, 65, 257} on symmetric,
+12. the tri kernels (the square entry of ``pald_focus.cu``,
+   ``pald_cohesion_tri.cu``) against their plain versions on the card, for
+   every built-in weight functional at ragged n in {1, 2, 63, 64, 65, 257}
+   on symmetric,
    tie-heavy distances holding +inf pairs (``ignore`` through its index
    tiebreak): U bitwise (except soft) against the plain version and
-   against the dense kernel's U, C within rtol 1e-5, atol 1e-6 of the
-   plain version, bitwise the dense kernel's, and bitwise across two
-   calls;
+   bitwise the dense kernel's U (soft too: one kernel), C within rtol
+   1e-5, atol 1e-6 of the plain version, bitwise the dense kernel's, and
+   bitwise across two calls;
 13. the tri main path at full size: ``pald.cohesion(D, method="kernel",
    schedule="tri", ties="ignore")`` on phase 3's D (rebuilt), with the
    launch counters as proof that both tri kernels ran (the cohesion in
-   one grid) and no dense kernel or plain version did; mass, U bitwise the
+   one grid, the focus over nb(nb+1)/2 blocks) and no dense kernel or
+   plain version did; mass, U bitwise the
    dense kernel's, C bitwise the dense kernel pipeline's and across two
    calls, a 64-row slab against the plain versions and a float64 sum,
    community recovery; the peak device memory of the tri and the dense
-   call; ``pald.cohesion(D, ties="ignore")`` with default knobs resolves
+   call (the dense focus again over the upper tile pairs only);
+   ``pald.cohesion(D, ties="ignore")`` with default knobs resolves
    to ``method="triplet"``, runs the two tri kernels once each and gives
    the same C bitwise;
 14. the tri kernels and their plain versions timed at n = 8192 beside the
@@ -86,7 +95,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches``: wrapper calls on the main path; ``grid_launches``: the grids
-those calls issued; ``bound_ms``: the function's least work, shared by the
+those calls issued; ``blocks``, for the focus kernels: the thread blocks
+of those grids, counted by the kernel on the card; ``bound_ms``: the function's least work, shared by the
 dense, tri and fused kernels of one pass, see :func:`pass_ops`); the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
 fails before printing any result.
@@ -121,6 +131,9 @@ FP32_LANES = 128 * 132      # FP32 lanes per SM x SMs of an H100 SXM
 # ``.grid_launches`` (a call may issue more than one grid: the row-norm
 # pre-pass, a panel writer per panel); filled by phases 3, 7, 10, 13
 GRIDS = {}
+# thread blocks of the focus kernels' main-path grids, counted on the card
+# (``pald_focus.tile_counts``); filled by phases 3 and 13
+BLOCKS = {}
 RTOL, ATOL = 1e-5, 1e-6            # the conformance tolerance
 # at n = 8192 a C entry is a sum of up to n positive float32 terms taken in
 # another order than the plain version's, so the full-size check is looser
@@ -195,6 +208,7 @@ def phase_kernels_vs_plain(dev) -> None:
         return torch.as_tensor(a, device=dev)
 
     DXZ, DYZ, DXY = rect((mx, mz)), rect((my, mz)), rect((mx, my))
+    Da = rect((n, n))  # square, asymmetric: the square entry's second loop
     Wr = torch.as_tensor(rng.random((mx, my)).astype(np.float32), device=dev)
     XWr = torch.as_tensor(rng.random((mx, my)) < 0.5, device=dev)
     offs = (37, 5)
@@ -213,6 +227,9 @@ def phase_kernels_vs_plain(dev) -> None:
             Cp = ops.cohesion_general(D, D, D, W, impl="torch", **kw, **r)
             compare(f"cohesion {w.name} n={n} {sorted(r)}", Ck, Cp, False)
             checked += 1
+        Uk = ops.focus(Da, impl="cuda", **kw)
+        Up = ops.focus(Da, impl="torch", **kw)
+        compare(f"focus {w.name} n={n} asymmetric", Uk, Up, exact_focus(w))
         Uk = ops.focus_general(DXZ, DYZ, DXY, impl="cuda", **kw)
         Up = ops.focus_general(DXZ, DYZ, DXY, impl="torch", **kw)
         compare(f"focus {w.name} {(mx, my, mz)}", Uk, Up, exact_focus(w))
@@ -225,7 +242,7 @@ def phase_kernels_vs_plain(dev) -> None:
             compare(f"cohesion {w.name} {(mx, my, mz)} {sorted(r)}", Ck, Cp,
                     False)
             checked += 1
-        checked += 2
+        checked += 3
     torch.cuda.synchronize()
     print(f"phase 2: {checked} kernel-vs-plain checks passed (U bitwise "
           f"except soft; soft U and every C within rtol {RTOL}, atol {ATOL})")
@@ -287,6 +304,7 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
     try:
         for k in kernels:
             k.launches = k.grid_launches = 0
+        pald_focus.reset_tile_counts()
         t0 = time.perf_counter()
         C = pald.cohesion(D, method="kernel", ties="ignore")
         torch.cuda.synchronize()
@@ -295,6 +313,7 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
                     "cohesion": kernels[1].launches}
         GRIDS.update(focus_general=kernels[0].grid_launches,
                      cohesion_general=kernels[1].grid_launches)
+        tiles = pald_focus.tile_counts(D.device)
     finally:
         for (m, a), f in zip(patched, saved):
             setattr(m, a, f)
@@ -302,6 +321,8 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
           f"d={d}: {secs:.3f} s wall (first call), launches {launches}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path was not launched: {launches}")
+    focus_blocks_check(3, "focus_general", tiles, n)
+    BLOCKS["focus_general"] = tiles[0]
     if C.shape != (n, n) or C.dtype != torch.float32 or C.device != D.device:
         fail(f"C is {tuple(C.shape)} {C.dtype} on {C.device}")
     if not bool(torch.isfinite(C).all()):
@@ -314,6 +335,24 @@ def phase_main_path(dev, n=N_MAIN, d=D_MAIN):
     U_slab, r0 = slab_check(3, C, D, "ignore")
     communities_check(3, C, labels)
     return D, launches, U_slab, r0
+
+
+def focus_blocks_check(phase, name, tiles, n):
+    """The focus kernel ran the nb (nb + 1) / 2 upper tile pairs of the
+    symmetric D and no tile pair twice, as the kernel counted them
+    (``tiles``: ``pald_focus.tile_counts`` over the one call); fails
+    otherwise."""
+    from repro_torch.kernels import pald_focus
+
+    blocks, again = tiles
+    upper = pald_focus.focus_blocks(n, n, True)
+    full = pald_focus.focus_blocks(n, n, False)
+    print(f"phase {phase}: {name} ran {blocks} thread blocks (upper tile "
+          f"pairs {upper}, the full grid {full}); tile pairs run twice "
+          f"(asymmetric thresholds): {again}")
+    if blocks != upper or again:
+        fail(f"{name} did not run each upper tile pair of the symmetric D "
+             f"once")
 
 
 def slab_check(phase, C, D, ties):
@@ -433,15 +472,21 @@ ALU_LANES = 64 * 132        # the ALU pipe (FSETP, FSEL, FMNMX): 16 lanes a
 #                             sub-partition, half the FP32 pipe's width
 
 
-def compare_bound_ms(n, clock_mhz):
-    """The strict cohesion's least time at the compare rate, which the ALU
-    pipe issues at half the FP32 rate on an H100 (a micro-probe, PERF.md
-    section 6): 3 ALU-pipe instructions per unordered pair {x, y} and z
-    (the min of the two distances, the focus compare and the ordering
-    compare, each serving both roles), against :func:`bound_ms`'s count of
-    3 per ordered triple at the FP32 rate.  The two counts give the same
-    time."""
-    return 1e3 * 3 * (n * (n - 1) // 2) * n / (ALU_LANES * clock_mhz * 1e6)
+def compare_bound_ms(pass_, n, clock_mhz):
+    """A strict pass's least time at the compare rate, which the ALU pipe
+    issues at half the FP32 rate on an H100 (a micro-probe, PERF.md
+    section 6).  Cohesion: 3 ALU-pipe instructions per unordered pair
+    {x, y} with x != y and z (the min of the two distances, the focus
+    compare and the ordering compare, each serving both roles), the same
+    time as :func:`bound_ms`'s 3 per ordered triple at the FP32 rate.
+    Focus: 2 per unordered pair (U's diagonal included) and z, the min and
+    the compare (the add is on the FP32 pipe), above :func:`bound_ms`,
+    which counts all three at the FP32 rate."""
+    if pass_ == "focus":
+        work = 2 * (n * (n + 1) // 2) * n
+    else:
+        work = 3 * (n * (n - 1) // 2) * n
+    return 1e3 * work / (ALU_LANES * clock_mhz * 1e6)
 
 
 def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
@@ -460,9 +505,8 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
         ms_k, out_k = time_ms(kernel, reps)
         ms_p, out_p = time_ms(plain, reps)
         b_ms, b_by = bound_ms(name, n, clock_mhz)
-        cmp = (f", bound at the compare rate "
-               f"{compare_bound_ms(n, clock_mhz)!r} ms"
-               if name == "cohesion" else "")
+        cmp = (f", floor at the compare rate "
+               f"{compare_bound_ms(name, n, clock_mhz)!r} ms")
         print(f"phase 4: {name} n={n}: kernel {ms_k!r} ms, plain {ms_p!r} "
               f"ms, bound {b_ms!r} ms ({b_by}; {pass_ops(name, n)} lane "
               f"instructions at {clock_mhz} MHz), kernel/bound "
@@ -473,6 +517,8 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
                "grid_launches": GRIDS[f"{name}_general"],
                "max_abs_err": None, "ms": ms_k, "plain_ms": ms_p,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if name == "focus":
+            row["blocks"] = BLOCKS["focus_general"]
         return row, out_k, out_p
 
     focus_row, Uk, Up = timed(
@@ -480,6 +526,8 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
         lambda: ops.focus(D, impl="torch", ties="ignore"))
     focus_row["max_abs_err"] = compare(f"focus n={n}", Uk, Up, True)
     compare(f"U rows {r0}:{r0 + SLAB}", Uk[r0:r0 + SLAB], U_slab, True)
+    del Up
+    focus_asymmetric(D, ms_sym=focus_row["ms"], reps=reps)
     W = weights_ref(Uk)
     coh_row, Ck, Cp = timed(
         "cohesion",
@@ -488,6 +536,42 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
     coh_row["max_abs_err"] = compare(f"cohesion n={n}", Ck, Cp, False,
                                      rtol=RTOL_MAIN)
     return [focus_row, coh_row]
+
+
+# the tile pair (X, Y) that phase 4 makes asymmetric
+ASYM_TILE = (10, 40)
+
+
+def focus_asymmetric(D, ms_sym, reps):
+    """Phase 4's last step: ``ops.focus`` on D with one upper tile
+    D[X, Y] perturbed.  The square entry runs the same nb (nb + 1) / 2
+    blocks, that one tile pair twice (its mirror from the thresholds
+    D[y, x]); U bitwise the plain version's, which computes both orders of
+    every pair."""
+    from repro_torch.kernels import ops, pald_focus
+
+    n = D.shape[0]
+    t = pald_focus.TILE
+    (bx, by) = ASYM_TILE
+    Da = D.clone()
+    xs, ys = slice(bx * t, (bx + 1) * t), slice(by * t, (by + 1) * t)
+    Da[xs, ys] = Da[xs, ys] * 1.25 + 0.5
+    pald_focus.reset_tile_counts()
+    Ua = ops.focus(Da, impl="cuda", ties="ignore")
+    blocks, again = pald_focus.tile_counts(D.device)
+    ms_a, Ua2 = time_ms(lambda: ops.focus(Da, impl="cuda", ties="ignore"),
+                        reps)
+    compare("U asymmetric twice", Ua2, Ua, True)
+    del Ua2
+    compare("U asymmetric", Ua, ops.focus(Da, impl="torch", ties="ignore"),
+            True)
+    print(f"phase 4: focus n={n} on D with tile {ASYM_TILE} perturbed "
+          f"(asymmetric): {ms_a!r} ms (symmetric D {ms_sym!r} ms, "
+          f"{ms_a / ms_sym:.3f}x), {blocks} thread blocks, tile pairs run "
+          f"twice {again}; U bitwise the plain version's")
+    if blocks != pald_focus.focus_blocks(n, n, True) or again != 1:
+        fail("the asymmetric D did not run the upper tile pairs with one "
+             "of them twice")
 
 
 def phase_families(D, reps=3):
@@ -730,7 +814,8 @@ def phase_fused_timing(Xg, D, launches, clock_mhz, dense_families, reps=5):
         b_ms, b_by = fused_bound_ms(name, n, d, clock_mhz)
         print(f"phase 8: {name}_fused n={n} d={d}: kernel {ms_k!r} ms, plain "
               f"{ms_p!r} ms, bound {b_ms!r} ms ({b_by}), kernel/bound "
-              f"{ms_k / b_ms:.3f}, library: none")
+              f"{ms_k / b_ms:.3f}, loops' floor at the compare rate "
+              f"{compare_bound_ms(name, n, clock_mhz)!r} ms, library: none")
         rows.append({"name": f"{name}_fused", "route": "cuda",
                      "source": "src/repro_torch/csrc/pald_fused.cu",
                      "replaces": replaces[name],
@@ -1183,7 +1268,7 @@ def phase_tri_vs_plain(dev) -> None:
     from repro_torch.kernels.ref import weights_ref
 
     rng = np.random.default_rng(SEED + 12)
-    checked = soft_u_bitwise = 0
+    checked = 0
     for n in (1, 2, 63, 64, 65, 257):
         D = symmetric_tie_distances(rng, n, dev)
         for w in functionals():
@@ -1191,10 +1276,9 @@ def phase_tri_vs_plain(dev) -> None:
             Uk = pald_focus_tri.focus_tri_cuda(D, ties=w)
             Up = pald_focus_tri.focus_tri_torch(D, ties=w)
             compare(f"focus_tri {tag}", Uk, Up, exact_focus(w))
+            # one kernel: bitwise for every family, soft included
             Ud = ops.focus(D, impl="cuda", ties=w)
-            compare(f"focus_tri vs dense kernel {tag}", Uk, Ud,
-                    exact_focus(w))
-            soft_u_bitwise += (not exact_focus(w)) and torch.equal(Uk, Ud)
+            compare(f"focus_tri vs dense kernel {tag}", Uk, Ud, True)
             W = weights_ref(Up)
             Ck = pald_cohesion_tri.cohesion_tri_cuda(D, W, ties=w)
             Cp = pald_cohesion_tri.cohesion_tri_torch(D, W, ties=w)
@@ -1207,8 +1291,8 @@ def phase_tri_vs_plain(dev) -> None:
             checked += 5
     torch.cuda.synchronize()
     print(f"phase 12: {checked} tri checks passed (U bitwise except soft "
-          f"against the plain version and the dense kernel, soft U bitwise "
-          f"the dense kernel's in {soft_u_bitwise} of 6; C within rtol "
+          f"against the plain version, bitwise the dense kernel's for "
+          f"every family; C within rtol "
           f"{RTOL}, atol {ATOL} of the plain version, bitwise the dense "
           f"kernel's and across two calls)")
 
@@ -1251,6 +1335,7 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
         base = torch.cuda.memory_allocated()
         for f in counted.values():
             f.launches = f.grid_launches = 0
+        pald_focus.reset_tile_counts()
         t0 = time.perf_counter()
         C = pald.cohesion(D, method="kernel", schedule="tri", ties="ignore")
         torch.cuda.synchronize()
@@ -1258,6 +1343,8 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
         launches = {name: f.launches for name, f in counted.items()}
         GRIDS.update((name, counted[name].grid_launches)
                      for name in ("focus_tri", "cohesion_tri"))
+        tiles = pald_focus.tile_counts(D.device)
+        BLOCKS["focus_tri"] = tiles[0]
         peak_tri = torch.cuda.max_memory_allocated() - base
     finally:
         for (m, a), f in zip(patched, saved):
@@ -1268,6 +1355,7 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
           f"{ {k: GRIDS[k] for k in ('focus_tri', 'cohesion_tri')} }")
     if GRIDS["cohesion_tri"] != 1:
         fail(f"cohesion_tri issued {GRIDS['cohesion_tri']} grids, not 1")
+    focus_blocks_check(13, "focus_tri", tiles, n)
     if launches["focus_tri"] != 1 or launches["cohesion_tri"] != 1:
         fail(f"the tri kernels did not run once each: {launches}")
     if any(v for name, v in launches.items()
@@ -1304,9 +1392,12 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    pald_focus.reset_tile_counts()
     Cd = pald.cohesion(D, method="kernel", ties="ignore")
     torch.cuda.synchronize()
     peak_dense = torch.cuda.max_memory_allocated() - base
+    focus_blocks_check(13, "focus_general", pald_focus.tile_counts(D.device),
+                       n)
     buf = 4 * n * n
     print(f"phase 13: peak device memory above the input: tri {peak_tri} B "
           f"({peak_tri / buf:.3f} n^2 float32 buffers), dense {peak_dense} B "
@@ -1341,18 +1432,21 @@ def phase_tri_timing(D, launches, clock_mhz, reps=5):
         ms_d, _ = time_ms(dense, reps)
         ms_p, out_p = time_ms(plain, 1)
         b_ms, b_by = bound_ms(name, n, clock_mhz)
-        cmp = (f", bound at the compare rate "
-               f"{compare_bound_ms(n, clock_mhz)!r} ms"
-               if name == "cohesion" else "")
+        cmp = (f", floor at the compare rate "
+               f"{compare_bound_ms(name, n, clock_mhz)!r} ms")
         print(f"phase 14: {name}_tri n={n}: kernel {ms_k!r} ms, dense kernel "
               f"{ms_d!r} ms (tri/dense {ms_k / ms_d:.3f}), plain {ms_p!r} ms, "
               f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms_k / b_ms:.3f}"
               f"{cmp}, library: none")
         rows.append({"name": f"{name}_tri", "route": "cuda",
-                     "source": f"src/repro_torch/csrc/pald_{name}_tri.cu",
+                     "source": ("src/repro_torch/csrc/pald_focus.cu"
+                                if name == "focus" else
+                                "src/repro_torch/csrc/pald_cohesion_tri.cu"),
                      "replaces": replaces[name],
                      "launches": launches[f"{name}_tri"],
                      "grid_launches": GRIDS[f"{name}_tri"],
+                     **({"blocks": BLOCKS["focus_tri"]}
+                        if name == "focus" else {}),
                      "max_abs_err": None,
                      "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
@@ -1503,6 +1597,7 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available; this script runs only on "
               "the card", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1520,7 +1615,7 @@ def main() -> int:
     for symbol in _build.SIGNATURES:
         _build.load(symbol)
     print(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.1f} s")
-    for source in ("pald_cohesion", "pald_cohesion_tri"):
+    for source in ("pald_focus", "pald_cohesion", "pald_cohesion_tri"):
         for kernel, resources in _build.ptxas_report(source):
             print(f"phase 1: ptxas {source}: {kernel}: {resources}")
 
@@ -1570,6 +1665,8 @@ def main() -> int:
     phase_profile_and_ragged(D)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     del D
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
+          f"build included")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -64,10 +64,6 @@ struct CohesionSmem {
   uint8_t sxw[2][kSlab][kLd];
 };
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // rows [r0, r0 + rn) x columns [c0, c0 + 64) of a row-major matrix with row
 // stride ld into s[r][0:64] as they lie (kSwz: into swizzled rows), columns
 // past nc as zeros; vec: 16-byte pieces (ld and nc multiples of 4, src

@@ -57,6 +57,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // wait until at most N of this thread's copy groups are still in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

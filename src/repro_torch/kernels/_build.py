@@ -30,7 +30,7 @@ __all__ = ["load", "check", "ptxas_report", "CSRC", "BUILD_ROOT"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_topk",
-           "pald_knn", "pald_focus_tri", "pald_cohesion_tri")
+           "pald_knn", "pald_cohesion_tri")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +39,10 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 # stream as c_void_p)
 SIGNATURES = {
     "pald_focus_f32": ("pald_focus",
-                       (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32,
-                        _P)),
+                       (_P, _P, _P, _P, _I64, _I64, _I64, _P, _I32, _F32,
+                        _F32, _P)),
+    "pald_focus_square_f32": ("pald_focus",
+                              (_P, _P, _I64, _P, _I32, _F32, _F32, _P)),
     "pald_cohesion_f32": ("pald_cohesion",
                           (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _I64, _I32, _F32, _F32, _I32, _P)),
@@ -57,8 +59,6 @@ SIGNATURES = {
     "pald_knn_values_f32": ("pald_knn",
                             (_P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
                              _P)),
-    "pald_focus_tri_f32": ("pald_focus_tri",
-                           (_P, _P, _I64, _I32, _F32, _F32, _P)),
     "pald_cohesion_tri_f32": ("pald_cohesion_tri",
                               (_P, _P, _P, _I64, _I32, _F32, _F32, _I32, _P)),
 }
@@ -133,14 +133,17 @@ def load(symbol: str):
 
 
 def ptxas_report(source: str) -> list[tuple[str, str]]:
-    """(kernel, resources) for each kernel of ``csrc/<source>.cu``, from
-    the build log of the loaded libraries: ptxas's registers, spill stores
-    and loads, and shared memory of each entry function."""
+    """(function, resources) for each kernel of ``csrc/<source>.cu`` and
+    each device function compiled out of line, from the build log of the
+    loaded libraries: ptxas's registers, spill stores and loads, and shared
+    memory of each."""
     log = (BUILD_ROOT / _digest() / f"lib{source}.log").read_text()
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+        elif "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
         elif name and ("spill" in line or "Used" in line):
             out.append((name, line.split(":", 1)[-1].strip()))
     return out

@@ -210,6 +210,7 @@ def focus(D, *, block=128, block_z=512, impl: str | None = None,
             U = focus_tri_cuda(D, ties=ties)
         n = D.shape[0]
         return _add_pad_excess(U, D, _tri_padded(n, block, block_z) - n, ties)
+    D = _f32(D)  # once: the kernel's square entry takes one matrix
     return focus_general(D, D, D, block=block, block_z=block_z, impl=impl,
                          ties=ties)
 

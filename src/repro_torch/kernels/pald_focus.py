@@ -3,13 +3,18 @@ torch version.
 
     U[x, y] = sum_z focus_weight(DXZ[x, z], DYZ[y, z], DXY[x, y])
 
-The kernel (``csrc/pald_focus.cu``) replaces the TPU kernel
-``repro/kernels/pald_focus.py::focus_general_pallas``.  It is bound by the
-FP32 pipe (n^3 triples, ~3 lane instructions each, against 4 n^2 floats of
-memory traffic), so it is register-blocked like an SGEMM: a 64 x 64 U tile
-per thread block, 4 x 4 outputs per thread with their thresholds in
-registers, z streamed through shared memory.  The source note in the
-``.cu`` file has the details.
+The kernel (``csrc/pald_focus.cu``, kernel in ``csrc/pald_focus.cuh``)
+replaces the TPU kernel ``repro/kernels/pald_focus.py::focus_general_pallas``.
+It is bound by the compare pipe (a min and a compare per triple at half the
+FP32 rate), so it is register-blocked like an SGEMM: a 64 x 64 U tile per
+thread block, 4 x 4 outputs per thread with their thresholds in registers,
+z streamed through shared memory in double-buffered 16-byte copies.  When
+the three operands are one square D (what ``ops.focus`` passes) the grid
+holds only the upper tile pairs: a tile whose thresholds are symmetric is
+stored with its transpose, any other one computes its mirror in a second z
+loop.  The kernel counts the thread blocks that ran and those second loops
+in a device counter (:func:`tile_counts`).  The source notes have the
+details.
 
 :func:`focus_general_cuda` dispatches on the tensors' device: CUDA tensors
 launch the kernel (or raise), CPU tensors take :func:`focus_general_torch`,
@@ -24,10 +29,13 @@ from repro_torch.core.weights import DEFAULT_TIES, focus_weight, kernel_spec
 from . import _build
 
 __all__ = ["focus_general_cuda", "focus_general_torch", "adaptive_chunk",
-           "check_operands", "SMEM_PER_CTA"]
+           "check_operands", "focus_blocks", "tile_counts",
+           "reset_tile_counts", "launch_square", "TILE", "SMEM_PER_CTA"]
 
-# the kernel stages two (32, 68) float32 z slabs (csrc/pald_focus.cu)
-SMEM_PER_CTA = 4 * 2 * 32 * 68
+TILE = 64  # the kernel's U tile edge
+# the kernel's two (32, 68) float32 z slabs and two (64, 36) landing
+# buffers (csrc/pald_focus.cuh: FocusSmem)
+SMEM_PER_CTA = 4 * (2 * 32 * 68 + 2 * 64 * 36)
 
 # The plain versions materialize an (mx, my, chunk) comparison cube per
 # step; cap the cube at 512 MiB of bools (2 GiB once cast to float32) so the
@@ -74,14 +82,67 @@ def check_operands(what: str, device, **named) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def focus_blocks(mx: int, my: int, square: bool) -> int:
+    """Thread blocks that one focus grid should run: every 64 x 64 tile of
+    an (mx, my) U, or on a square D the nb (nb + 1) / 2 upper tile pairs
+    (what :func:`tile_counts` is held to)."""
+    bx, by = -(-mx // TILE), -(-my // TILE)
+    return bx * (bx + 1) // 2 if square else bx * by
+
+
+# two int64 counters a device, added to by the kernel of every focus grid
+# (this module's and pald_focus_tri's): [0] thread blocks that ran, [1]
+# off-diagonal tile pairs of a square D whose thresholds were not symmetric
+_COUNTS: dict = {}
+
+
+def _counts(dev) -> torch.Tensor:
+    if dev not in _COUNTS:
+        _COUNTS[dev] = torch.zeros((2,), dtype=torch.int64, device=dev)
+    return _COUNTS[dev]
+
+
+def tile_counts(device) -> tuple[int, int]:
+    """(thread blocks run, tile pairs run twice) by the focus kernels on
+    ``device``, summed over the calls since the last
+    :func:`reset_tile_counts`; the kernel counts both (a tile pair runs
+    twice when its thresholds are not symmetric: its mirror takes a second
+    z loop).  Synchronizes."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    c = _COUNTS.get(dev)
+    return (0, 0) if c is None else tuple(int(v) for v in c.tolist())
+
+
+def reset_tile_counts() -> None:
+    for c in _COUNTS.values():
+        c.zero_()
+
+
+def launch_square(D, U, wid: int, p0: float, p1: float) -> None:
+    """U (n, n) from one square CUDA D through the kernel's square entry
+    (the upper tile pairs; the dense and the tri wrappers), weight family
+    ``kernel_spec(ties)``.  Raises on a CUDA error."""
+    dev = D.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _build.load("pald_focus_square_f32")(
+            D.data_ptr(), U.data_ptr(), D.shape[0],
+            _counts(dev).data_ptr(), wid, p0, p1, stream)
+    _build.check(status, "pald_focus_square_f32")
+
+
 def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     """U (mx, my) through the CUDA kernel for CUDA tensors, through
     :func:`focus_general_torch` for CPU tensors.
 
     CUDA operands must be contiguous float32 on one device (``ops``
     prepares them); anything else raises, as does a weight functional
-    without a kernel id.  Each launch adds one to
-    ``focus_general_cuda.launches`` (and to ``.grid_launches``: one grid).
+    without a kernel id.  Three operands that are one square (n, n)
+    tensor take the kernel's square entry (upper tile pairs).  Each launch
+    adds one to ``focus_general_cuda.launches`` (and to ``.grid_launches``:
+    one grid); the kernel counts its thread blocks (:func:`tile_counts`).
     """
     dev = DXZ.device
     if dev.type == "cpu":
@@ -97,12 +158,18 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     U = torch.empty((mx, my), dtype=f32, device=dev)
     if mx == 0 or my == 0:
         return U
-    fn = _build.load("pald_focus_f32")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),
-                    U.data_ptr(), mx, my, mz, wid, p0, p1, stream)
-    _build.check(status, "pald_focus_f32")
+    # contiguous, one shape, one address: one matrix
+    square = (mx == my == mz
+              and DXZ.data_ptr() == DYZ.data_ptr() == DXY.data_ptr())
+    if square:
+        launch_square(DXZ, U, wid, p0, p1)
+    else:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = _build.load("pald_focus_f32")(
+                DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(), U.data_ptr(),
+                mx, my, mz, _counts(dev).data_ptr(), wid, p0, p1, stream)
+        _build.check(status, "pald_focus_f32")
     focus_general_cuda.launches += 1
     focus_general_cuda.grid_launches += 1
     return U

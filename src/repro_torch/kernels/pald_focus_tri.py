@@ -5,11 +5,18 @@ wrapper and its plain torch version.
 
 U is symmetric, so only the nb(nb+1)/2 block pairs X <= Y are computed and
 each off-diagonal tile is mirrored into U[Y, X]: about half the triples of
-the dense grid.  The kernel (``csrc/pald_focus_tri.cu``) replaces the TPU
-kernel ``repro/kernels/pald_focus_tri.py::focus_tri_pallas``: one thread
-block per upper pair runs the dense focus kernel's z loop and stores the
+the dense grid.  The kernel that replaces the TPU kernel
+``repro/kernels/pald_focus_tri.py::focus_tri_pallas`` is the dense focus
+kernel's square entry (``csrc/pald_focus.cu``, launched by
+``pald_focus.launch_square``), one thread block per upper pair storing the
 tile and its transpose (the TPU kernel's packed buffer and scatter are
-gone).  The source note in the ``.cu`` file has the details.
+gone), so its U is bitwise the dense kernel's.  The source notes have the
+details.
+
+D must be symmetric; on an asymmetric D the result is unspecified and
+differs between the two routes: the kernel gives the dense U of that D
+(its per-tile test sends an asymmetric tile's mirror to a second z loop),
+the plain version mirrors the upper 128-row blocks.
 
 :func:`focus_tri_cuda` dispatches on the tensor's device: CUDA tensors
 launch the kernel (or raise), CPU tensors take :func:`focus_tri_torch`,
@@ -21,13 +28,10 @@ import torch
 
 from repro_torch.core.weights import DEFAULT_TIES, focus_weight, kernel_spec
 
-from . import _build
-from .pald_focus import adaptive_chunk, check_operands
+from .pald_focus import (SMEM_PER_CTA, adaptive_chunk, check_operands,
+                         launch_square)
 
 __all__ = ["focus_tri_cuda", "focus_tri_torch", "tri_pairs", "SMEM_PER_CTA"]
-
-# the kernel stages two (32, 68) float32 z slabs (csrc/pald_focus_tri.cu)
-SMEM_PER_CTA = 4 * 2 * 32 * 68
 
 
 def tri_pairs(n: int, block: int):
@@ -68,8 +72,10 @@ def focus_tri_cuda(D, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
     D must be a contiguous float32 (n, n) tensor (``ops`` prepares it);
     anything else raises, as does a weight functional without a kernel id.
-    Each launch adds one to ``focus_tri_cuda.launches`` (and to
-    ``.grid_launches``: one grid).
+    D must be symmetric (see the module notes).  Each launch adds one to
+    ``focus_tri_cuda.launches`` (and to ``.grid_launches``: one grid); the
+    kernel counts its nb (nb + 1) / 2 thread blocks
+    (:func:`pald_focus.tile_counts`).
     """
     dev = D.device
     if dev.type == "cpu":
@@ -82,11 +88,7 @@ def focus_tri_cuda(D, *, ties=DEFAULT_TIES) -> torch.Tensor:
     U = torch.empty((n, n), dtype=torch.float32, device=dev)
     if n == 0:
         return U
-    fn = _build.load("pald_focus_tri_f32")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(D.data_ptr(), U.data_ptr(), n, wid, p0, p1, stream)
-    _build.check(status, "pald_focus_tri_f32")
+    launch_square(D, U, wid, p0, p1)
     focus_tri_cuda.launches += 1
     focus_tri_cuda.grid_launches += 1
     return U

@@ -401,7 +401,8 @@ def test_cuda_knn_facade_matches_cpu(cuda_device, metric):
 
 
 # ---------------------------------------------------------------------------
-# the tri kernels (csrc/pald_focus_tri.cu, csrc/pald_cohesion_tri.cu)
+# the tri kernels (the focus kernel's square entry in csrc/pald_focus.cu, and
+# csrc/pald_cohesion_tri.cu)
 # ---------------------------------------------------------------------------
 def _tri_D(n, seed=0):
     """Symmetric float32 distances: multiples of 0.5 (exact ties), a few
@@ -584,3 +585,178 @@ def test_cuda_default_cohesion_runs_tri_kernels(cuda_device, name):
     Cc = pald.cohesion(D, weight=name, device="cpu")
     np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,
                                atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the focus kernel's square entry (csrc/pald_focus.cu), the dense and tri
+# schedules' pass 1: upper tile pairs, a tile mirrored when its thresholds
+# are symmetric
+# ---------------------------------------------------------------------------
+def _upper_pairs(n):
+    nb = -(-n // pald_focus.TILE)
+    return nb * (nb + 1) // 2
+
+
+def _asymmetric(D, tiles, seed=0):
+    """D with the thresholds of the given 64 x 64 tiles (X, Y) perturbed
+    (by +-0.5, kept >= 0), so that D[x, y] != D[y, x] there."""
+    rng = np.random.default_rng(seed)
+    D = D.copy()
+    t = pald_focus.TILE
+    for bx, by in tiles:
+        blk = D[bx * t:(bx + 1) * t, by * t:(by + 1) * t]
+        step = rng.choice([-0.5, 0.5], size=blk.shape).astype(np.float32)
+        blk[...] = np.abs(blk + step)
+    return D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 63, 64, 65, 130, 257])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_focus_square_and_tri_vs_plain(cuda_device, name, n):
+    """``ops.focus(D)`` on a symmetric D runs the square entry over the
+    nb (nb + 1) / 2 upper tile pairs with no second z loop: U against the
+    plain version (bitwise except soft), the tri entry's U bitwise the
+    dense one's for every family (the same code), and the rectangular
+    entry's U (every tile, both orders) bitwise too.  n not a multiple of
+    4 takes the 4-byte copies."""
+    D = torch.as_tensor(_tri_D(n, seed=37), device=cuda_device)
+    f0 = pald_focus.focus_general_cuda.launches
+    t0 = pald_focus_tri.focus_tri_cuda.launches
+    pald_focus.reset_tile_counts()
+    Uk = ops.focus(D, impl="cuda", ties=name)
+    Up = ops.focus(D, impl="torch", ties=name)
+    _assert_u(name, Uk.cpu().numpy(), Up.cpu().numpy())
+    Ut = ops.focus(D, impl="cuda", schedule="tri", ties=name)
+    _assert_bitwise("tri vs dense", Ut, Uk)
+    Ur = pald_focus.focus_general_cuda(D, D.clone(), D.clone(), ties=name)
+    assert pald_focus.focus_general_cuda.launches - f0 == 2
+    assert pald_focus_tri.focus_tri_cuda.launches - t0 == 1
+    # blocks run on the card: the upper pairs twice (dense, tri) and every
+    # tile once (rectangular); no tile pair ran its mirror apart
+    assert pald_focus.tile_counts(cuda_device) == (
+        2 * _upper_pairs(n) + (-(-n // 64)) ** 2, 0)
+    _assert_bitwise("rectangular entry vs square", Ur, Uk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,tiles,reverse", [
+    ("one off-diagonal tile", 257, [(1, 3)], 1),
+    ("one off-diagonal tile, n % 4 == 0", 200, [(0, 2)], 1),
+    ("the mirror tile", 200, [(2, 0)], 1),
+    ("one diagonal tile", 130, [(1, 1)], 0),
+    ("every tile", 130, "all", 3),
+])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_focus_square_asymmetric(cuda_device, name, case, n, tiles,
+                                      reverse):
+    """A square asymmetric D through ``ops.focus(D)``: U equals
+    ``focus_general_torch(D, D, D)`` (bitwise except soft) and is bitwise
+    the rectangular entry's; only the upper pairs whose thresholds are
+    not symmetric ran the second z loop."""
+    D = _tri_D(n, seed=41)
+    if tiles == "all":
+        D = _asymmetric(D, [(x, y) for x in range(-(-n // 64))
+                            for y in range(-(-n // 64))], seed=43)
+    else:
+        D = _asymmetric(D, tiles, seed=43)
+    assert not np.array_equal(D, D.T)
+    Dg = torch.as_tensor(D, device=cuda_device)
+    pald_focus.reset_tile_counts()
+    Uk = ops.focus(Dg, impl="cuda", ties=name)
+    assert pald_focus.tile_counts(cuda_device) == (_upper_pairs(n),
+                                                   reverse), case
+    Up = pald_focus.focus_general_torch(Dg, Dg, Dg, ties=name)
+    _assert_u(name, Uk.cpu().numpy(), Up.cpu().numpy())
+    Ur = pald_focus.focus_general_cuda(Dg, Dg.clone(), Dg.clone(),
+                                       ties=name)
+    _assert_bitwise(f"rectangular entry vs square, {case}", Ur, Uk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [521, 130])
+def test_cuda_focus_square_asymmetric_split_pads(cuda_device, n):
+    """An asymmetric D with +inf entries at a ragged n under ``split``:
+    the ops-level U on the card is bitwise the plain versions', padded z
+    counted once (0.5 each on the +inf thresholds, in either order)."""
+    D = _asymmetric(_tri_D(n, seed=47), [(0, 1), (1, 1)], seed=53)
+    D[5, 70] = np.inf  # an +inf threshold whose mirror is finite
+    D[70, 5] = 1.5
+    Ug = ops.focus(torch.as_tensor(D, device=cuda_device), impl="cuda",
+                   ties="split").cpu()
+    Up = ops.focus(torch.from_numpy(D), impl="torch", ties="split")
+    _assert_bitwise("split U on the card vs plain", Ug, Up)
+    raw = pald_focus.focus_general_torch(torch.from_numpy(D),
+                                         torch.from_numpy(D),
+                                         torch.from_numpy(D), ties="split")
+    pad = ops._padded_extent(n, 512) - n
+    np.testing.assert_array_equal(Ug.numpy() - raw.numpy(),
+                                  0.5 * pad * np.isinf(D))
+
+
+@pytest.mark.cuda
+def test_cuda_focus_block_counters(cuda_device):
+    """The kernel counts the thread blocks a grid ran
+    (``pald_focus.tile_counts``): every tile of a rectangular U, the upper
+    pairs of a square D, dense or tri; ``.grid_launches`` one grid a
+    call."""
+    DXZ, DYZ, DXY, _, _ = [torch.as_tensor(a, device=cuda_device)
+                           for a in _operands(130, 70, 257, seed=59)]
+    D = torch.as_tensor(_tri_D(257, seed=61), device=cuda_device)
+    f, t = pald_focus.focus_general_cuda, pald_focus_tri.focus_tri_cuda
+    before = (f.launches, f.grid_launches, t.launches, t.grid_launches)
+    pald_focus.reset_tile_counts()
+    ops.focus_general(DXZ, DYZ, DXY, impl="cuda")
+    assert pald_focus.tile_counts(cuda_device) == (3 * 2, 0)
+    ops.focus(D, impl="cuda")
+    assert pald_focus.tile_counts(cuda_device) == (3 * 2 + 15, 0)
+    ops.focus(D, impl="cuda", schedule="tri")
+    assert pald_focus.tile_counts(cuda_device) == (3 * 2 + 30, 0)
+    after = (f.launches, f.grid_launches, t.launches, t.grid_launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 1, 1]
+    pald_focus.reset_tile_counts()
+    assert pald_focus.tile_counts(cuda_device) == (0, 0)
+    assert pald_focus.focus_blocks(8192, 8192, True) == 8256
+    assert pald_focus.focus_blocks(8192, 8192, False) == 16384
+
+
+@pytest.mark.cuda
+def test_cuda_property_laws_through_focus_kernels(cuda_device):
+    """The reference's laws (tests/test_pald_properties.py) through the
+    CUDA kernels, at n across the 64-row tiles so that the square and tri
+    focus entries mirror off-diagonal tiles: mass n/2 on tie-free input
+    (dense and tri pipelines), permutation equivariance (U bitwise, C to
+    rtol 1e-4 as the reference), and no tile of a distance matrix ran the
+    second z loop."""
+    from hypothesis import given, settings, strategies as st
+    from repro_torch.core import pald
+
+    @settings(max_examples=10, deadline=None)
+    @given(st.integers(60, 200), st.integers(0, 2**32 - 1))
+    def laws(n, seed):
+        rng = np.random.default_rng(seed)
+        X = rng.normal(size=(n, 3)) * rng.uniform(0.1, 10.0)
+        D = np.sqrt(((X[:, None, :] - X[None, :, :]) ** 2).sum(-1))
+        np.fill_diagonal(D, 0.0)
+        D = D.astype(np.float32)
+        iu = np.triu_indices(n, 1)
+        tie_free = len(np.unique(D[iu])) == len(iu[0])
+        perm = rng.permutation(n)
+        Dg = torch.as_tensor(D, device=cuda_device)
+        Dp = torch.as_tensor(D[np.ix_(perm, perm)], device=cuda_device)
+        pald_focus.reset_tile_counts()
+        U = ops.focus(Dg, impl="cuda")
+        Up = ops.focus(Dp, impl="cuda")
+        assert pald_focus.tile_counts(cuda_device)[1] == 0
+        pt = torch.as_tensor(perm, device=cuda_device)
+        assert torch.equal(Up, U[pt][:, pt])
+        for sched in ("dense", "tri"):
+            C = pald.cohesion(Dg, method="kernel", schedule=sched)
+            Cp = pald.cohesion(Dp, method="kernel", schedule=sched)
+            C, Cp = C.cpu().numpy(), Cp.cpu().numpy()
+            if tie_free:
+                assert abs(C.sum() - n / 2) < 1e-3 * n, sched
+            np.testing.assert_allclose(Cp, C[np.ix_(perm, perm)],
+                                       rtol=1e-4, atol=1e-5)
+
+    laws()

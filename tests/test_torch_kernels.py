@@ -276,6 +276,55 @@ def test_wrappers_take_plain_version_on_cpu():
     assert pald_cohesion.cohesion_general_cuda.launches == c0
 
 
+@pytest.mark.parametrize("mx,my,square,blocks", [
+    (1, 1, True, 1), (64, 64, True, 1), (65, 65, True, 3),
+    (257, 257, True, 15), (8192, 8192, True, 8256),
+    (8192, 8192, False, 16384), (130, 70, False, 6), (1, 200, False, 4)])
+def test_focus_blocks(mx, my, square, blocks):
+    """Thread blocks of one focus grid: nb (nb + 1) / 2 upper tile pairs
+    on a square D, every 64 x 64 tile otherwise."""
+    assert pald_focus.focus_blocks(mx, my, square) == blocks
+
+
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_ops_focus_hands_one_matrix_to_the_square_entry(name, monkeypatch):
+    """``ops.focus`` casts D once and passes that one tensor as all three
+    operands (what sends the CUDA wrapper to its square entry), also from
+    a float64 D; U is the JAX package's."""
+    seen = []
+
+    def record(DXZ, DYZ, DXY, **kw):
+        seen.append((DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),
+                     DXZ.dtype))
+        return pald_focus.focus_general_torch(DXZ, DYZ, DXY, **kw)
+
+    monkeypatch.setattr(ops, "focus_general_cuda", record)
+    D = _square(70, seed=17)
+    U = ops.focus(torch.from_numpy(D.astype(np.float64)), impl="cuda",
+                  ties=name)
+    (a, b, c, dtype), = seen
+    assert a == b == c and dtype == torch.float32
+    _assert_u(name, U, jops.focus(jnp.asarray(D), impl="jnp", ties=name))
+
+
+def test_focus_wrappers_count_no_blocks_on_cpu():
+    """On CPU tensors the wrappers take the plain versions: no launch, and
+    no device counter of blocks or tiles made or added to."""
+    from repro_torch.kernels import pald_focus_tri
+
+    D = torch.from_numpy(_square(70, seed=19))
+    before = (pald_focus.focus_general_cuda.launches,
+              pald_focus_tri.focus_tri_cuda.launches)
+    pald_focus.reset_tile_counts()
+    pald_focus.focus_general_cuda(D, D, D)
+    pald_focus_tri.focus_tri_cuda(D)
+    assert (pald_focus.focus_general_cuda.launches,
+            pald_focus_tri.focus_tri_cuda.launches) == before
+    assert pald_focus.tile_counts("cpu") == (0, 0)
+    assert torch.device("cpu") not in pald_focus._COUNTS
+    assert pald_focus.SMEM_PER_CTA == pald_focus_tri.SMEM_PER_CTA == 35840
+
+
 def test_wrappers_reject_other_devices():
     m = torch.empty((4, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
