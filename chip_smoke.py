@@ -46,24 +46,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    beside phase 5's dense ones, and ``from_features`` end to end, fused
    against materialize-then-kernel, for all four metrics (CUDA events,
    median after a warm-up);
-9. the sparse k-NN kernels (``pald_topk.cu``, ``pald_knn.cu``) against
-   their plain versions on the card: the selection bitwise (indices and
+9. the plain distance steps on the host CPU bitwise numpy float32's; the
+   sparse k-NN kernels (``pald_topk.cu``, ``pald_knn.cu``) against their
+   plain versions on the card: the selection bitwise (indices and
    distances) for n in {1, 2, 33, 257, 1000}, d in {1, 5, 8, 300}, k in
    {1, 7, 32, n-1}, four metrics, on quantized features with duplicated
-   rows; the values for five families x both gather kinds x k in {1, 4,
-   32, n-1} at n = 257 (rtol 1e-5, atol 1e-6), and at k = n-1 scattered
-   against the dense kernels' C;
+   rows; both kernels' shared memory as their C entries report it against
+   the Python copies (``smem_per_cta``) at every k and width; the values
+   kernel's cube source for five families x both gather kinds x k in {1,
+   4, 32, 33, 100, n-1} at n = 257 (rtol 1e-5, atol 1e-6), its features
+   and D sources bitwise the cube source (and the features source at
+   every metric, d = 5 and 300, k = 32 and 100), and at k = n-1 the
+   values scattered against the dense kernels' C;
 10. the third main path at full size: ``ops.select_cohere(X, k=32)`` on the
    k-NN example's mixture (n = 50,000, d = 8, communities of 25), with the
-   launch counters as proof that the two k-NN kernels ran once each and no
-   dense, fused or plain version did; a 64-row slab against the plain
-   versions and a float64 sum, the example's purity check, peak device
-   memory; then ``pald.cohesion(D, method="knn", k=32)`` on phase 3's
-   n = 8192 D;
-11. the k-NN kernels, the gather and ``select_cohere`` timed at n = 50,000
-   (the selection also at k in {1, 256, 1024}), then ``select_cohere`` at
-   n = 1,000,000 (or the largest n the 50,000 times, scaled by n^2, put
-   under 60 s) with a 64-row slab check;
+   launch counters as proof that the selection and the values kernel's
+   features source ran once each and no other kernel, tile source, gather
+   or plain version did; a 64-row slab against the plain versions and a
+   float64 sum, the example's purity check, peak device memory within
+   the graph, values and norms (+ 1 MiB); then
+   ``pald.cohesion(D, method="knn", k=32)`` on phase 3's n = 8192 D
+   (the values kernel's D source alone);
+11. the k-NN kernels timed at n = 50,000: the selection at k in {1, 32,
+   256, 1024}, and on the rows in a
+   random order at k in {1, 32}; the plain gather and the
+   cube source (row 7's kernel); the stage "gather + values" (the
+   features source) beside the earlier gather + cube; ``select_cohere`` end
+   to end; then ``select_cohere`` at n = 1,000,000 (or the largest n the
+   50,000 times, scaled by n^2, put under 60 s) with its peak memory and
+   a 64-row slab check; ptxas's registers and spills of both sources;
 12. the tri kernels (the square entry of ``pald_focus.cu``,
    ``pald_cohesion_tri.cu``) against their plain versions on the card, for
    every built-in weight functional at ragged n in {1, 2, 63, 64, 65, 257}
@@ -904,15 +915,83 @@ def knn_features(rng, n, d, dev):
     return torch.as_tensor(X.astype(np.float32), device=dev)
 
 
+def host_dist_steps(n=257, d=1, seed=1):
+    """The plain distance code on the host CPU against numpy float32, which
+    rounds every IEEE operation exactly, on the input on which
+    ``cdist_reference`` once differed from the kernels (ragged n = 257,
+    d = 1, features quantized to 0.1).  First each float32 torch operation
+    of the euclidean distance alone, fed numpy's operands (a report: it
+    names the operation a CPU rounds otherwise, at 1 to 8 threads), then
+    ``row_norms``, ``finish_dist`` and ``cdist_reference`` themselves,
+    which must be bitwise numpy's steps."""
+    import torch
+    from repro_torch.core.features import (cdist_reference, finish_dist,
+                                           row_norms)
+
+    rng = np.random.default_rng(seed)
+    X = np.round(rng.normal(size=(n, d)) * 10) / 10
+    X[5::5] = X[rng.integers(0, 5, size=X[5::5].shape[0])]
+    X = X.astype(np.float32)
+    f32 = np.float32
+    na = np.zeros(n, f32)
+    acc = np.zeros((n, n), f32)
+    for k in range(d):
+        na = na + X[:, k] * X[:, k]
+        acc = acc + X[:, None, k] * X[None, :, k]
+    s = na[:, None] + na[None, :]
+    t = f32(2) * acc
+    d2 = np.maximum(s - t, f32(0))
+    D = np.sqrt(d2)
+    np.fill_diagonal(D, 0)
+    T = torch.from_numpy
+    steps = {
+        "a*b": (lambda: T(X[:, None, 0]) * T(X[None, :, 0]),
+                X[:, None, 0] * X[None, :, 0]),
+        "na+nb": (lambda: T(na)[:, None] + T(na)[None, :], s),
+        "2*acc": (lambda: 2.0 * T(acc), t),
+        "s-t": (lambda: T(s) - T(t), s - t),
+        "sqrt": (lambda: torch.sqrt(T(d2).double()).float(), np.sqrt(d2)),
+    }
+    report = {name: [] for name in steps}
+    for threads in (1, 8):
+        before = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            for name, (op, want) in steps.items():
+                report[name].append(str(int((op().numpy() != want).sum())))
+            got_n = row_norms(T(X), "euclidean").numpy()
+            got_f = finish_dist(T(acc), T(na)[:, None], T(na)[None, :],
+                                "euclidean").numpy()
+            got_c = cdist_reference(T(X)).numpy()
+        finally:
+            torch.set_num_threads(before)
+        for what, got, want in (("row_norms", got_n, na),
+                                ("finish_dist", got_f, np.sqrt(d2)),
+                                ("cdist_reference", got_c, D)):
+            if not np.array_equal(got, want):
+                fail(f"{what} on the host at {threads} threads: "
+                     f"{int((got != want).sum())} entries differ from numpy "
+                     "float32's steps")
+    print(f"phase 9: host CPU ({torch.backends.cpu.get_cpu_capability()}), "
+          f"float32 torch ops against numpy's, entries that differ of "
+          f"{n * n} at 1/8 threads: "
+          f"{', '.join(k + ' ' + '/'.join(v) for k, v in report.items())}; "
+          f"row_norms, finish_dist and "
+          f"cdist_reference bitwise numpy float32's steps at 1 and 8 threads")
+
+
 def phase_knn_vs_plain(dev) -> None:
-    """Phase 9: the selection kernel bitwise against its plain version, the
-    values kernel against its plain version and, at k = n-1, against the
-    dense kernels."""
+    """Phase 9: the plain distance steps on the host; the selection kernel
+    bitwise against its plain version; both kernels' shared memory
+    against the Python copies of their layouts; the values kernel's cube
+    source against its plain version, its features and D sources bitwise
+    against the cube source, and at k = n-1 against the dense kernels."""
     import torch
     from repro_torch.core import knn
     from repro_torch.core.features import cdist_reference
-    from repro_torch.kernels import ops, pald_knn, pald_topk
+    from repro_torch.kernels import _build, ops, pald_knn, pald_topk
 
+    host_dist_steps()
     rng = np.random.default_rng(SEED + 9)
     topk_checks = 0
     for n in (1, 2, 33, 257, 1000):
@@ -929,13 +1008,28 @@ def phase_knn_vs_plain(dev) -> None:
                     compare(f"{tag} distances", gk.distances, gp.distances,
                             True)
                     topk_checks += 1
+    smem_checks = 0
+    topk_c = _build.load("pald_topk_smem_bytes")
+    knn_c = _build.load("pald_knn_smem_bytes")
+    for k in (1, 31, 32, 33, 128, 129, 256, 257, pald_topk.MAX_K):
+        if knn_c(k, -1) != pald_knn.smem_per_cta(k):
+            fail(f"pald_knn shared memory at k={k}: the kernel's "
+                 f"{knn_c(k, -1)} B, smem_per_cta {pald_knn.smem_per_cta(k)}")
+        for d in (0, 1, 5, 8, 64, 65, 300):
+            got = (topk_c(k, d), knn_c(k, d))
+            want = (pald_topk.smem_per_cta(k, d),
+                    pald_knn.smem_per_cta(k, d))
+            if got != want:
+                fail(f"shared memory at k={k}, d={d}: the kernels' {got} B, "
+                     f"smem_per_cta {want}")
+            smem_checks += 1
     n = 257
     X = knn_features(rng, n, 5, dev)
     D = cdist_reference(X)
-    val_checks = bitwise = 0
-    for k in (1, 4, 32, n - 1):
+    val_checks = bitwise = sources = 0
+    for k in (1, 4, 32, 33, 100, n - 1):
         graph = pald_topk.topk_select_cuda(X, k)
-        idx = graph.indices
+        idx, dn = graph.indices, graph.distances
         tiles = {"distance": knn.gather_tile_from_distances(D, idx),
                  "features": knn.gather_tile_from_features(X, idx,
                                                            "euclidean")}
@@ -943,24 +1037,52 @@ def phase_knn_vs_plain(dev) -> None:
                 tiles["distance"], True)
         for w in functionals():
             for kind, g in tiles.items():
-                vk = pald_knn.knn_values_cuda(graph.distances, g, idx, ties=w)
-                vp = pald_knn.knn_values_torch(graph.distances, g, idx,
-                                               ties=w)
+                vk = pald_knn.knn_values_cuda(dn, g, idx, ties=w)
+                vp = pald_knn.knn_values_torch(dn, g, idx, ties=w)
                 compare(f"knn_values {w.name} {kind} n={n} k={k}", vk, vp,
                         False)
                 bitwise += bool(torch.equal(vk, vp))
                 val_checks += 1
+                vs = (pald_knn.knn_values_from_distances_cuda(D, dn, idx,
+                                                              ties=w)
+                      if kind == "distance" else
+                      pald_knn.knn_values_from_features_cuda(X, dn, idx,
+                                                             ties=w))
+                compare(f"knn_values {w.name} {kind} source vs the cube "
+                        f"n={n} k={k}", vs, vk, True)
+                sources += 1
             if k == n - 1:
                 C = knn.scatter_dense(graph, pald_knn.knn_values_cuda(
-                    graph.distances, tiles["distance"], idx, ties=w))
+                    dn, tiles["distance"], idx, ties=w))
                 compare(f"k-NN at k=n-1 vs the dense kernels {w.name}", C,
                         ops.pald(D, impl="cuda", ties=w), False)
                 val_checks += 1
+    # the features source at every metric, with its rows staged (d = 5)
+    # and read from X (d = 300), the tile in shared memory (k <= 64) and
+    # not (k = 100)
+    for d in (5, 300):
+        Xd = knn_features(rng, n, d, dev)
+        for metric in METRICS:
+            for k in (32, 100):
+                graph = pald_topk.topk_select_cuda(Xd, k, metric=metric)
+                idx, dn = graph.indices, graph.distances
+                g = knn.gather_tile_from_features(Xd, idx, metric)
+                for w in functionals()[:3]:
+                    vk = pald_knn.knn_values_cuda(dn, g, idx, ties=w)
+                    vs = pald_knn.knn_values_from_features_cuda(
+                        Xd, dn, idx, metric=metric, ties=w)
+                    compare(f"knn_values {w.name} features source {metric} "
+                            f"d={d} k={k} vs the cube", vs, vk, True)
+                    sources += 1
     torch.cuda.synchronize()
     print(f"phase 9: {topk_checks} selection checks bitwise (indices and "
-          f"distances); {val_checks} values checks within rtol {RTOL}, atol "
-          f"{ATOL} ({bitwise} of {val_checks - 5} kernel-vs-plain bitwise; "
-          f"k = n-1 against the dense kernels for 5 families)")
+          f"distances); {smem_checks} (k, d) where both kernels' shared "
+          f"memory is smem_per_cta's; {val_checks} values checks "
+          f"within rtol {RTOL}, atol {ATOL} ({bitwise} of "
+          f"{val_checks - 5} kernel-vs-plain bitwise; k = n-1 against the "
+          f"dense kernels for 5 families); {sources} features and D "
+          f"sources bitwise the cube source (k in 1, 4, 32, 33, 100, n-1; "
+          f"four metrics at d = 5 and 300)")
 
 
 def make_mixture(n, comm_size, d, seed=0):
@@ -1046,12 +1168,17 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
         fail("a plain torch version ran on the k-NN main path")
 
     patched = [(ops, "topk_select_torch"), (ops, "knn_values_torch"),
-               (pald_topk, "topk_select_torch"),
+               (ops, "_gather_tiles"), (pald_topk, "topk_select_torch"),
                (pald_knn, "knn_values_torch"),
+               (pald_knn, "knn_values_from_features_torch"),
+               (pald_knn, "knn_values_from_distances_torch"),
                (ops, "focus_fused_torch"), (ops, "cohesion_fused_torch"),
                (ops, "focus_general_torch"), (ops, "cohesion_general_torch")]
     saved = [getattr(m, a) for m, a in patched]
     counted = {"topk_select": pald_topk.topk_select_cuda,
+               "knn_values_features": pald_knn.knn_values_from_features_cuda,
+               "knn_values_distances":
+                   pald_knn.knn_values_from_distances_cuda,
                "knn_values": pald_knn.knn_values_cuda,
                "focus_general": pald_focus.focus_general_cuda,
                "cohesion_general": pald_cohesion.cohesion_general_cuda,
@@ -1072,18 +1199,23 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
         secs = time.perf_counter() - t0
         launches = {name: f.launches for name, f in counted.items()}
         GRIDS.update((name, counted[name].grid_launches)
-                     for name in ("topk_select", "knn_values"))
+                     for name in ("topk_select", "knn_values_features",
+                                  "knn_values"))
         peak = torch.cuda.max_memory_allocated() - base
     finally:
         for (m, a), f in zip(patched, saved):
             setattr(m, a, f)
     print(f"phase 10: select_cohere(X, k={k}) n={n} d={d} (euclidean, drop):"
-          f" {secs:.3f} s wall (first call), launches {launches}")
-    if launches["topk_select"] != 1 or launches["knn_values"] != 1:
+          f" {secs:.3f} s wall (first call), launches {launches}, selection "
+          f"grids {GRIDS['topk_select']} (row norms, selection)")
+    if launches["topk_select"] != 1 or launches["knn_values_features"] != 1:
         fail(f"the k-NN kernels did not run once each: {launches}")
     if any(launches[name] for name in launches
-           if name not in ("topk_select", "knn_values")):
-        fail(f"a dense or fused kernel ran on the k-NN path: {launches}")
+           if name not in ("topk_select", "knn_values_features")):
+        fail(f"another kernel or tile source ran on the k-NN path: "
+             f"{launches}")
+    if GRIDS["topk_select"] != 2:
+        fail(f"the selection issued {GRIDS['topk_select']} grids")
     if (tuple(graph.indices.shape) != (n, k) or tuple(vals.shape) != (n, k + 1)
             or vals.device != Xg.device or vals.dtype != torch.float32):
         fail(f"graph {tuple(graph.indices.shape)}, values "
@@ -1091,9 +1223,16 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
     if not bool(torch.isfinite(vals).all()):
         fail("the values have non-finite entries")
     g_bytes = 4 * n * k * k
-    print(f"phase 10: peak device memory above the input {peak} B "
-          f"({peak / g_bytes:.3f} x the (n, k, k) gathered tiles of "
-          f"{g_bytes} B; a dense D would be {4 * n * n} B)")
+    terms = {"graph": 8 * n * k, "values": 4 * n * (k + 1), "norms": 4 * n,
+             "slack": 1 << 20}
+    allowed = sum(terms.values())
+    print(f"phase 10: peak device memory above the input {peak} B, allowed "
+          f"{allowed} B = {' + '.join(f'{t} {b}' for t, b in terms.items())}"
+          f" ({peak / g_bytes:.3f} x the (n, k, k) cube of {g_bytes} B, "
+          f"which nothing allocates; a dense D would be {4 * n * n} B)")
+    if peak > allowed:
+        fail(f"select_cohere peaked at {peak} B above its input, over "
+             f"{allowed} B")
 
     knn_slab_check("phase 10", Xg, graph, vals, min(30001, n - SLAB), k)
 
@@ -1126,9 +1265,10 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
     launches_d = {name: f.launches for name, f in counted.items()}
     print(f"phase 10: cohesion(D, method='knn', k={k}) n={N_MAIN}: "
           f"{secs_d:.3f} s wall (first call), launches {launches_d}")
-    if launches_d["knn_values"] != 1 or sum(launches_d.values()) != 1:
-        fail(f"cohesion(D, method='knn') did not run the values kernel "
-             f"alone, once: {launches_d}")
+    if (launches_d["knn_values_distances"] != 1
+            or sum(launches_d.values()) != 1):
+        fail(f"cohesion(D, method='knn') did not run the values kernel's D "
+             f"source alone, once: {launches_d}")
     gp, vp = ops.pald_knn(D, k=k, impl="torch", normalize=True)
     Cp = knn.scatter_dense(gp, vp)
     compare(f"cohesion(D, method='knn') n={N_MAIN} vs plain", C, Cp, False)
@@ -1148,73 +1288,123 @@ def knn_bound_ms(kernel, n, k, d, clock_mhz):
     X and the (n, k) distances and indices; the distance loop is symmetric
     (d(x, y) and d(y, x) are bitwise equal), so 2d + 4 instructions for
     each of the n (n-1) / 2 unordered pairs, plus one compare for each of
-    the n^2 (row, candidate) visits.  Values: g, dn, idx and the (n, k+1)
-    output; n k (k+1) 7 instructions."""
+    the n^2 (row, candidate) visits.  Values from the cube: g, dn, idx and
+    the (n, k+1) output; n k (k+1) 7 instructions.  The stage "gather +
+    values" (the features source): X, dn, idx and the output; each row's
+    k (k-1) / 2 tile distances at 2d + 4 and the same 7 k (k+1)."""
     if kernel == "topk_select":
         nbytes = 4 * (n * d + 2 * n * k)
         ops = n * (n - 1) // 2 * (2 * d + 4) + n * n
-    else:
+    elif kernel == "knn_values":
         nbytes = 4 * (n * k * k + 2 * n * k + n * (k + 1))
         ops = 7 * n * k * (k + 1)
+    else:
+        nbytes = 4 * (n * d + 2 * n * k + n * (k + 1))
+        ops = n * (k * (k - 1) // 2 * (2 * d + 4) + 7 * k * (k + 1))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / (FP32_LANES * clock_mhz * 1e6)
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
                                         else "bytes")
 
 
+# The k-NN path before the values kernel built its own tiles, at n =
+# 50,000, k = 32, d = 8 (PERF.md; NVIDIA H100 80GB HBM3, 700 W): the plain
+# torch gather into the (n, k, k) cube and the values kernel on it (the
+# stage the features source replaces), select_cohere, and select_cohere
+# at n = 10^6
+CUBE_GATHER_MS, CUBE_VALUES_MS = 6.87, 0.248
+CUBE_SELECT_COHERE_MS, CUBE_SELECT_COHERE_BIG_S = 13.74, 1.82
+
+
 def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
-    """Phase 11: each k-NN kernel and its plain version, the gather and
-    select_cohere at n = N_KNN; then select_cohere at N_KNN_BIG (or the
-    largest n its projected time allows)."""
+    """Phase 11: the selection (at k = 1, 32, 256 and 1024, and on the
+    rows in a random order), the values kernel's cube source with the plain gather
+    that feeds it, the stage "gather + values" (the features source), and
+    select_cohere at n = N_KNN, each beside its plain version and bound;
+    then select_cohere at N_KNN_BIG (or the largest n its projected time
+    allows) with its peak memory; ptxas's report of both sources."""
     import torch
-    from repro_torch.kernels import ops, pald_knn, pald_topk
+    from repro_torch.kernels import _build, ops, pald_knn, pald_topk
 
     n, d = Xg.shape
     k = graph.indices.shape[1]
     rows = []
 
-    def row(name, src, replaces, ms_k, ms_p, err):
+    def row(name, src, replaces, ms_k, ms_p, err, launched, grids, **extra):
         b_ms, b_by = knn_bound_ms(name, n, k, d, clock_mhz)
         print(f"phase 11: {name} n={n} k={k} d={d}: kernel {ms_k!r} ms, "
               f"plain {ms_p!r} ms, bound {b_ms!r} ms ({b_by}), kernel/bound "
               f"{ms_k / b_ms:.3f}, library: none (no single PyTorch call "
               f"computes it)")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "grid_launches": GRIDS[name], "max_abs_err": err,
+                     "replaces": replaces, "launches": launched,
+                     "grid_launches": grids, "max_abs_err": err,
                      "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "library_ms": None, **extra})
 
     ms_k, gk = time_ms(lambda: pald_topk.topk_select_cuda(Xg, k), reps)
     ms_p, gp = time_ms(lambda: pald_topk.topk_select_torch(Xg, k), 1)
     compare(f"topk n={n} indices", gk.indices, gp.indices, True)
     err = compare(f"topk n={n} distances", gk.distances, gp.distances, True)
     row("topk_select", "src/repro_torch/csrc/pald_topk.cu",
-        "src/repro/kernels/pald_topk.py:181", ms_k, ms_p, err)
+        "src/repro/kernels/pald_topk.py:181", ms_k, ms_p, err,
+        launches["topk_select"], GRIDS["topk_select"])
     del gp
-    idx = gk.indices
-    ms_g, g = time_ms(lambda: ops._gather_tiles(Xg, idx, "features",
-                                                "euclidean"), reps)
-    print(f"phase 11: gather_tile_from_features (plain torch) n={n} k={k}: "
-          f"{ms_g!r} ms for {g.numel() * 4} B")
-    ms_k, vk = time_ms(lambda: pald_knn.knn_values_cuda(gk.distances, g, idx),
-                       reps)
-    ms_p, vp = time_ms(lambda: pald_knn.knn_values_torch(
-        gk.distances, g, idx, block=4096), 1)
-    err = compare(f"knn_values n={n}", vk, vp, False)
-    row("knn_values", "src/repro_torch/csrc/pald_knn.cu",
-        "src/repro/kernels/pald_knn.py:74", ms_k, ms_p, err)
-    del g, vk, vp
-    ms_e, _ = time_ms(lambda: ops.select_cohere(Xg, k=k, normalize=True),
-                      reps)
-    print(f"phase 11: select_cohere n={n} k={k} end to end: {ms_e!r} ms "
-          f"(median of {reps})")
-    # the selection's two list layouts: registers up to k = 32, shared
-    # memory past it
-    for kk in (1, 256, pald_topk.MAX_K):
+    # the list layouts: registers up to k = 32, shared memory past it
+    for kk in (1, 32, 256, pald_topk.MAX_K):
         ms_kk, _ = time_ms(lambda: pald_topk.topk_select_cuda(Xg, kk), 3)
         print(f"phase 11: topk_select n={n} k={kk}: kernel {ms_kk!r} ms "
               f"(median of 3)")
+    # the mixture lists its communities in turn, so a block's own chunk
+    # (visited first) holds most of its rows' neighbors; the same points
+    # in a random order show the selection without that help
+    perm = torch.as_tensor(np.random.default_rng(SEED).permutation(n),
+                           device=Xg.device)
+    Xs = Xg[perm].contiguous()
+    for kk in (1, k):
+        ms_s, gs = time_ms(lambda: pald_topk.topk_select_cuda(Xs, kk), 3)
+        print(f"phase 11: topk_select n={n} k={kk} on the rows in a random "
+              f"order: kernel {ms_s!r} ms (median of 3)")
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=perm.device)
+    compare(f"topk n={n} k={k} rows in a random order, distances",
+            gs.distances[inv], gk.distances, True)
+    del Xs, gs
+
+    idx, dn = gk.indices, gk.distances
+    ms_g, g = time_ms(lambda: ops._gather_tiles(Xg, idx, "features",
+                                                "euclidean"), reps)
+    print(f"phase 11: gather_tile_from_features (plain torch) n={n} k={k}: "
+          f"{ms_g!r} ms for {g.numel() * 4} B (before: {CUBE_GATHER_MS} ms)")
+    ms_k, vk = time_ms(lambda: pald_knn.knn_values_cuda(dn, g, idx), reps)
+    ms_p, vp = time_ms(lambda: pald_knn.knn_values_torch(
+        dn, g, idx, block=4096), 1)
+    err = compare(f"knn_values n={n}", vk, vp, False)
+    row("knn_values", "src/repro_torch/csrc/pald_knn.cu",
+        "src/repro/kernels/pald_knn.py:74", ms_k, ms_p, err,
+        launches["knn_values"], GRIDS["knn_values"],
+        entry="cube (timed); the main path launches the features source")
+    del g, vp
+    ms_f, vf = time_ms(lambda: pald_knn.knn_values_from_features_cuda(
+        Xg, dn, idx), reps)
+    ms_fp, vfp = time_ms(lambda: pald_knn.knn_values_from_features_torch(
+        Xg, dn, idx, block=4096), 1)
+    compare(f"knn_values features source n={n} vs the cube", vf, vk, True)
+    err = compare(f"knn_values features source n={n} vs plain", vf, vfp,
+                  False)
+    row("knn_values_features", "src/repro_torch/csrc/pald_knn.cu",
+        "src/repro/kernels/pald_knn.py:74", ms_f, ms_fp, err,
+        launches["knn_values_features"], GRIDS["knn_values_features"],
+        stage="gather + values", cube_path_ms=ms_g + ms_k)
+    print(f"phase 11: gather + values n={n} k={k}: features source "
+          f"{ms_f!r} ms against the cube path's {CUBE_GATHER_MS} + "
+          f"{CUBE_VALUES_MS} "
+          f"ms and this call's plain gather + cube {ms_g + ms_k!r} ms")
+    del vk, vf, vfp
+    ms_e, _ = time_ms(lambda: ops.select_cohere(Xg, k=k, normalize=True),
+                      reps)
+    print(f"phase 11: select_cohere n={n} k={k} end to end: {ms_e!r} ms "
+          f"(median of {reps}; before: {CUBE_SELECT_COHERE_MS} ms)")
 
     # the reference's largest run, if the times scaled by n^2 allow it
     big = N_KNN_BIG
@@ -1233,14 +1423,18 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     ms_t, _ = time_ms(lambda: pald_topk.topk_select_cuda(Xb, k), 1)
-    ms_v, _ = time_ms(lambda: pald_knn.knn_values_cuda(
-        gb.distances, ops._gather_tiles(Xb, gb.indices, "features",
-                                        "euclidean"), gb.indices), 1)
+    ms_v, _ = time_ms(lambda: pald_knn.knn_values_from_features_cuda(
+        Xb, gb.distances, gb.indices), 1)
     print(f"phase 11: select_cohere n={big} k={k} d={d}: {secs:.3f} s wall "
-          f"(first call); topk_select kernel {ms_t!r} ms, gather + "
-          f"knn_values {ms_v!r} ms (one timed call each after a warm-up); "
-          f"peak device memory above the input {peak} B")
+          f"(first call; before: {CUBE_SELECT_COHERE_BIG_S} s); topk_select "
+          f"kernel {ms_t!r} ms, gather + "
+          f"values (features source) {ms_v!r} ms (one timed call each after "
+          f"a warm-up); peak device memory above the input {peak} B (the "
+          f"cube alone would be {4 * big * k * k} B)")
     knn_slab_check("phase 11", Xb, gb, vb, min(654321, big - SLAB), k)
+    for source in ("pald_topk", "pald_knn"):
+        for kernel, resources in _build.ptxas_report(source):
+            print(f"phase 11: ptxas {source}: {kernel}: {resources}")
     return rows
 
 
@@ -1326,7 +1520,10 @@ def phase_tri_main_path(dev, n=N_MAIN, d=D_MAIN):
                "focus_fused": pald_fused.focus_fused_cuda,
                "cohesion_fused": pald_fused.cohesion_fused_cuda,
                "topk_select": pald_topk.topk_select_cuda,
-               "knn_values": pald_knn.knn_values_cuda}
+               "knn_values": pald_knn.knn_values_cuda,
+               "knn_values_features": pald_knn.knn_values_from_features_cuda,
+               "knn_values_distances":
+                   pald_knn.knn_values_from_distances_cuda}
     for m, a in patched:
         setattr(m, a, plain_called)
     try:

@@ -20,10 +20,17 @@ over the feature axis from 0 to d-1, one rounded multiply (or difference)
 and one rounded add per feature, with no ``matmul``.  Each entry then
 depends only on its two rows, never on the tile it lies in, and the CUDA
 kernels (``csrc/pald_dist.cuh``) repeat the same operations in the same
-order, so their distances are bitwise these.  Against the reference's they
-differ by a few ulps (ROADMAP.md, queue 3).
+order, so their distances are bitwise these.  On the CPU each operation
+is taken in float64 and rounded to float32 at once (:func:`_rn`): the
+float64 result of one multiply, add, subtract or divide of float32
+operands rounds to the correctly rounded float32 one (53 >= 2 * 24 + 2
+bits), so the bits do not depend on how a CPU's float32 kernels evaluate
+(on the card torch's float32 operations are the correctly rounded ones).
+Against the reference's they differ by a few ulps (ROADMAP.md, queue 3).
 """
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -31,7 +38,8 @@ METRICS = ("sqeuclidean", "euclidean", "cosine", "manhattan")
 
 _NORM_EPS = 1e-30  # cosine guard: zero vectors get distance 1, not nan
 
-__all__ = ["METRICS", "cdist_reference", "dist_tile", "finish_dist",
+__all__ = ["METRICS", "cdist_reference", "dist_step", "dist_tile",
+           "finish_dist",
            "masked_dist_tile", "pad_features", "row_norms"]
 
 
@@ -41,6 +49,19 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     sqrt on the CPU is not always correctly rounded, and then an entry
     would depend on where in the tensor it lies; CUDA's __fsqrt_rn is.)"""
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _rn(op, a, b) -> torch.Tensor:
+    """``op(a, b)`` of float32 operands (tensors or Python floats) as the
+    correctly rounded float32, as the kernels' ``_rn`` intrinsics round it:
+    on the CPU taken in float64 and rounded once; elsewhere torch's float32
+    operation, which is correctly rounded there."""
+    t = a if isinstance(a, torch.Tensor) else b
+    if t.device.type != "cpu":
+        return op(a, b)
+    a = a.to(torch.float64) if isinstance(a, torch.Tensor) else a
+    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else b
+    return op(a, b).to(torch.float32)
 
 
 def _check_metric(metric: str) -> None:
@@ -59,7 +80,7 @@ def row_norms(X: torch.Tensor, metric: str) -> torch.Tensor:
     if metric == "manhattan":
         return s
     for k in range(X.shape[1]):
-        s = s + X[:, k] * X[:, k]
+        s = _rn(operator.add, s, _rn(operator.mul, X[:, k], X[:, k]))
     if metric == "cosine":
         s = _sqrt_rn(torch.where(s < _NORM_EPS, _NORM_EPS, s))
     return s
@@ -74,12 +95,20 @@ def dist_tile(XA: torch.Tensor, XB: torch.Tensor, metric: str) -> torch.Tensor:
     acc = torch.zeros((XA.shape[0], XB.shape[0]), dtype=torch.float32,
                       device=XA.device)
     for k in range(XA.shape[1]):
-        a, b = XA[:, k, None], XB[None, :, k]
-        acc = acc + (torch.abs(a - b) if metric == "manhattan" else a * b)
+        acc = dist_step(acc, XA[:, k, None], XB[None, :, k], metric)
     if metric == "manhattan":
         return acc
     return finish_dist(acc, row_norms(XA, metric)[:, None],
                        row_norms(XB, metric)[None, :], metric)
+
+
+def dist_step(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              metric: str) -> torch.Tensor:
+    """One feature of the pair sums: ``acc + a * b`` (manhattan: ``acc +
+    |a - b|``), broadcast, each operation rounded to float32."""
+    term = (torch.abs(_rn(operator.sub, a, b)) if metric == "manhattan"
+            else _rn(operator.mul, a, b))
+    return _rn(operator.add, acc, term)
 
 
 def finish_dist(acc: torch.Tensor, na: torch.Tensor, nb: torch.Tensor,
@@ -87,8 +116,10 @@ def finish_dist(acc: torch.Tensor, na: torch.Tensor, nb: torch.Tensor,
     """The distance from the pair sums ``acc`` and the two rows' norm terms
     (broadcast against it), for the metrics with norms."""
     if metric == "cosine":
-        return 1.0 - acc / (na * nb)
-    d2 = (na + nb) - 2.0 * acc
+        q = _rn(operator.truediv, acc, _rn(operator.mul, na, nb))
+        return _rn(operator.sub, 1.0, q)
+    d2 = _rn(operator.sub, _rn(operator.add, na, nb),
+             _rn(operator.mul, 2.0, acc))
     d2 = torch.where(d2 < 0, 0.0, d2)  # nan passes, as jnp.maximum's does
     return _sqrt_rn(d2) if metric == "euclidean" else d2
 

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .features import finish_dist, row_norms
+from .features import dist_step, finish_dist, row_norms
 from .weights import (DEFAULT_TIES, focus_weight, resolve_weight,
                       support_weight)
 
@@ -213,8 +213,7 @@ def gather_tile_from_features(X: torch.Tensor, idx: torch.Tensor,
         return torch.zeros((b, 0, 0), dtype=torch.float32, device=X.device)
     acc = torch.zeros((b, k, k), dtype=torch.float32, device=X.device)
     for f in range(Xn.shape[2]):
-        a, c = Xn[:, :, None, f], Xn[:, None, :, f]
-        acc = acc + (torch.abs(a - c) if metric == "manhattan" else a * c)
+        acc = dist_step(acc, Xn[:, :, None, f], Xn[:, None, :, f], metric)
     if metric == "manhattan":
         G = acc
     else:

@@ -1,50 +1,68 @@
 // Sparse k-NN PaLD cohesion on Hopper: for every row x of the neighbor
 // graph, the (k+1) values [self, nbr_0, ..., nbr_{k-1}] of
 //
-//     U[j]   = focus(0, dn[j], dn[j]) + sum_m focus(dn[m], g[j][m], dn[j])
+//     U[j]   = focus(0, dn[j], dn[j]) + sum_m focus(dn[m], g(j, m), dn[j])
 //     W[j]   = U[j] > 0 ? 1 / U[j] : 0
 //     out[0] = sum_j support(0, dn[j], dn[j], x > idx[j]) W[j]
-//     out[1+m] = sum_j support(dn[m], g[j][m], dn[j], x > idx[j]) W[j]
+//     out[1+m] = sum_j support(dn[m], g(j, m), dn[j], x > idx[j]) W[j]
 //
-// from dn (n, k) neighbor distances, g (n, k, k) gathered
-// neighbor-to-neighbor distances and idx (n, k) neighbor indices.
-// Replaces the TPU kernel repro/kernels/pald_knn.py::knn_values_pallas on
-// the real k (no lane padding); the plain version is
-// repro_torch/core/knn.py::knn_values_tile.  For a functional with a
-// share (soft) the support is share(own, other) * focus(own, other, pair),
-// the plain version's reuse of its focus cube, recomputed here.
+// from dn (n, k) neighbor distances, idx (n, k) neighbor indices and the
+// neighbor-to-neighbor distances g(j, m) = d(nbr_j, nbr_m).  Replaces the
+// TPU kernel repro/kernels/pald_knn.py::knn_values_pallas on the real k
+// (no lane padding); the plain version is
+// repro_torch/core/knn.py::knn_values_tile.  For a functional with a share
+// (soft) the support is share(own, other) * focus(own, other, pair), the
+// plain version's reuse of its focus cube, recomputed here.
 //
-// What bounds it on the H100: bytes.  Each row reads its k^2 floats of g
-// once from device memory (g dominates: 205 MB at n = 50,000, k = 32)
-// against ~7 lane instructions per (j, m) pair; U and W never leave the
-// block.
+// One kernel body (values_passes), three sources of g, one entry each:
+//   - pald_knn_values_f32: a gathered (n, k, k) cube in device memory, the
+//     direct counterpart of knn_values_pallas (bound by reading the cube);
+//   - pald_knn_values_features_f32: the row's k neighbor feature rows (X
+//     (n, d) and idx): the warp stages them in shared memory (or, past
+//     16 KB of them, reads them from X through L1/L2), computes their
+//     norms, and, for k <= 64, the k x k tile once: the upper triangle two
+//     rows a step (row f's entries and row k-2-f's: k of them, so the warp
+//     stays full), each entry written to (a, c) and (c, a), since d(a, c)
+//     is bitwise d(c, a) for all four metrics.  Past k = 64 each pass
+//     computes every entry where it reads it.  Every entry takes
+//     pald_dist.cuh's steps, so it is bitwise gather_tile_from_features's
+//     (the same-index entries, the diagonal, exactly 0);
+//   - pald_knn_values_distances_f32: D (n, n) and idx, D[idx_j, idx_m]
+//     read straight, as gather_tile_from_distances gathers it.
+// Neither of the last two writes any (n, k, k) array: what the main path
+// moves is X's rows (through L2), dn, idx and the (n, k+1) output.  What
+// bounds them on the H100: operations, the tile's k (k-1) / 2 distances
+// (2d + 4 each) and the passes' ~7 k (k+1) per row.
 //
-// Design.  One warp per row, four rows per block of 128 threads; the row's
-// dn, W and idx sit in shared memory (12 k bytes a warp, so k <= 1024
-// fits the 48 KB of static-sized dynamic shared memory).  Pass 1 walks the
-// pairs j in order: lane l sums the focus terms of m = l, l + 32, ... (the
-// warp reads row j of g coalesced), a butterfly of shuffles adds the 32
-// partial sums (every lane ends with the same bits), and lane 0 stores
-// W[j].  Pass 2 gives each lane the column m = l + 32t and walks j in
-// order, again reading row j of g coalesced (now from L1/L2), summing 32
-// terms into a partial and the partial into the total (two-level, as the
-// dense kernels do); the self column is one term per j, summed over the
-// lanes as in pass 1.  Every weight is pald_weights.cuh's, bitwise torch's;
-// only the order of the sums differs from the plain version, so the
-// smooth families' U (and every value) agree to rounding, and the exact
-// families' U bitwise.  64-bit offsets (n k^2 passes 2^31 at k = 32 past
-// n = 2.1e6).
+// Design of the passes.  One warp per row, four rows per block of 128
+// threads; the row's dn, W and idx sit in shared memory.  Pass 1 walks the
+// pairs j in order: lane l sums the focus terms of m = l, l + 32, ..., a
+// butterfly of shuffles adds the 32 partial sums (every lane ends with the
+// same bits), and lane 0 stores W[j].  Pass 2 gives each lane the column m
+// = l + 32t and walks j in order, summing 32 terms into a partial and the
+// partial into the total (two-level, as the dense kernels do); the self
+// column is one term per j, summed over the lanes as in pass 1.  The three
+// sources run the same passes in the same order, so on the same g they
+// give bitwise the same values.  Every weight is pald_weights.cuh's,
+// bitwise torch's; only the order of the sums differs from the plain
+// version, so the smooth families' U (and every value) agree to rounding,
+// and the exact families' U bitwise.  64-bit offsets (n k^2 passes 2^31 at
+// k = 32 past n = 2.1e6).
 #include <cstdint>
 
+#include "pald_dist.cuh"
 #include "pald_weights.cuh"
 
 namespace {
 
+using pald::Dist;
 using pald::Params;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxK = 1024;
+constexpr int kTileMaxK = 64;          // the k x k tile in shared memory
+constexpr int kStageBytes = 16 << 10;  // neighbor rows staged per warp
 
 // the support of z for the pair (x, y): the functional's own, or for a
 // functional with a share (soft) share * focus on the same triple
@@ -76,32 +94,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-knn_values_kernel(const float* __restrict__ dn, const float* __restrict__ g,
-                  const int* __restrict__ idx, float* __restrict__ out,
-                  int64_t n, int k, Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (x >= n) return;  // a whole warp: no block-wide barrier below
-  float* sd = reinterpret_cast<float*>(smem) + warp * 3 * k;  // dn[x]
-  float* sw = sd + k;                                         // W[x]
-  int* si = reinterpret_cast<int*>(sw + k);                   // idx[x]
-  const float* gx = g + x * static_cast<int64_t>(k) * k;
+// the row's shared memory: dn, W, idx (and the features source's norms,
+// tile and staged rows after them)
+struct RowSmem {
+  float* sd;
+  float* sw;
+  int* si;
+};
+
+// Load row x's dn and idx into its warp's shared memory.
+__device__ __forceinline__ RowSmem load_row(float* base, const float* dn,
+                                            const int* idx, int64_t x, int k,
+                                            int lane) {
+  RowSmem r{base, base + k, reinterpret_cast<int*>(base + 2 * k)};
   for (int j = lane; j < k; j += 32) {
-    sd[j] = dn[x * k + j];
-    si[j] = idx[x * k + j];
+    r.sd[j] = dn[x * k + j];
+    r.si[j] = idx[x * k + j];
   }
   __syncwarp();
+  return r;
+}
 
+// Passes 1 and 2 of row x with g(j, m) = get(j, m); writes out[x].
+template <class F, class Get>
+__device__ __forceinline__ void values_passes(const Get& get,
+                                              const RowSmem& r, int64_t x,
+                                              int k, int lane,
+                                              const Params& p, float* out) {
+  const float* sd = r.sd;
+  float* sw = r.sw;
+  const int* si = r.si;
   // pass 1: U[j] and W[j] for every pair (x, nbr_j)
   for (int j = 0; j < k; ++j) {
     const float dxy = sd[j];
-    const float* gj = gx + static_cast<int64_t>(j) * k;
     float part = 0.f;
     for (int m = lane; m < k; m += 32)
-      part = __fadd_rn(part, F::focus(sd[m], gj[m], dxy, p));
+      part = __fadd_rn(part, F::focus(sd[m], get(j, m), dxy, p));
     const float u = __fadd_rn(F::focus(0.f, dxy, dxy, p), warp_sum(part));
     if (lane == 0) sw[j] = u > 0.f ? __fdiv_rn(1.f, u) : 0.f;
   }
@@ -126,8 +154,8 @@ knn_values_kernel(const float* __restrict__ dn, const float* __restrict__ g,
     const float dxz = sd[m];
     float total = 0.f, acc = 0.f;
     for (int j = 0; j < k; ++j) {
-      const float t = KnnSupport<F>::eval(
-          dxz, gx[static_cast<int64_t>(j) * k + m], sd[j], x > si[j], p);
+      const float t =
+          KnnSupport<F>::eval(dxz, get(j, m), sd[j], x > si[j], p);
       acc = __fadd_rn(acc, __fmul_rn(t, sw[j]));
       if ((j & 31) == 31) {
         total = __fadd_rn(total, acc);
@@ -138,7 +166,154 @@ knn_values_kernel(const float* __restrict__ dn, const float* __restrict__ g,
   }
 }
 
-struct KnnLaunch {
+// source 1: the gathered cube g (n, k, k)
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+knn_cube_kernel(const float* __restrict__ dn, const float* __restrict__ g,
+                const int* __restrict__ idx, float* __restrict__ out,
+                int64_t n, int k, Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (x >= n) return;  // a whole warp: no block-wide barrier below
+  const RowSmem r = load_row(smem + warp * 3 * k, dn, idx, x, k, lane);
+  const float* gx = g + x * static_cast<int64_t>(k) * k;
+  values_passes<F>(
+      [&](int j, int m) { return gx[static_cast<int64_t>(j) * k + m]; }, r,
+      x, k, lane, p, out);
+}
+
+// source 2: D (ldd columns), D[idx_j, idx_m]
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+knn_dist_kernel(const float* __restrict__ dn, const float* __restrict__ D,
+                int64_t ldd, const int* __restrict__ idx,
+                float* __restrict__ out, int64_t n, int k, Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (x >= n) return;
+  const RowSmem r = load_row(smem + warp * 3 * k, dn, idx, x, k, lane);
+  const int* si = r.si;
+  values_passes<F>(
+      [&](int j, int m) {
+        return __ldg(D + static_cast<int64_t>(si[j]) * ldd + si[m]);
+      },
+      r, x, k, lane, p, out);
+}
+
+// the tile's pitch: odd, so a column of 32 consecutive rows hits 32 banks
+__host__ __device__ constexpr int tile_pitch(int k) { return k | 1; }
+
+// d(a, c) of metric M from the two rows' features and norm terms:
+// pald_dist.cuh's steps and finish
+template <int M>
+__device__ __forceinline__ float feat_dist(const float* fa, const float* fc,
+                                           int64_t d, float na, float nb) {
+  float acc = 0.f;
+  for (int64_t f = 0; f < d; ++f) acc = Dist<M>::step(acc, fa[f], fc[f]);
+  return Dist<M>::finish(acc, na, nb);
+}
+
+// the same for a metric id known at run time (one branch a distance, the
+// same in every lane): the kernel is compiled once per family, not once
+// per family and metric
+__device__ __forceinline__ float metric_dist(int metric, const float* fa,
+                                             const float* fc, int64_t d,
+                                             float na, float nb) {
+  switch (metric) {
+    case pald::kSqEuclidean:
+      return feat_dist<pald::kSqEuclidean>(fa, fc, d, na, nb);
+    case pald::kEuclidean:
+      return feat_dist<pald::kEuclidean>(fa, fc, d, na, nb);
+    case pald::kCosine:
+      return feat_dist<pald::kCosine>(fa, fc, d, na, nb);
+    default:
+      return feat_dist<pald::kManhattan>(fa, fc, d, na, nb);
+  }
+}
+
+// source 3: the neighbors' feature rows.  Shared memory a warp (floats):
+// dn, W, idx, norms (4k), then the tile (kTile: k * tile_pitch(k)), then
+// the staged rows (fpitch > 0: k * fpitch; 0: read from X).
+template <bool kTile, class F>
+__global__ void __launch_bounds__(kThreads)
+knn_feat_kernel(const float* __restrict__ dn, const float* __restrict__ X,
+                int64_t d, const int* __restrict__ idx,
+                float* __restrict__ out, int64_t n, int k, int metric,
+                int fpitch, int wstride, Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (x >= n) return;
+  float* base = smem + static_cast<int64_t>(warp) * wstride;
+  const RowSmem r = load_row(base, dn, idx, x, k, lane);
+  const int* si = r.si;
+  float* snrm = base + 3 * k;
+  float* tile = snrm + k;
+  float* sf = tile + (kTile ? k * tile_pitch(k) : 0);
+  if (fpitch > 0) {
+    const int dd = static_cast<int>(d);  // k d <= kStageBytes / 4 here
+    for (int e = lane; e < k * dd; e += 32) {
+      const int j = e / dd, f = e - j * dd;
+      sf[j * fpitch + f] = X[static_cast<int64_t>(si[j]) * d + f];
+    }
+    __syncwarp();
+  }
+  auto feats = [&](int j) -> const float* {
+    return fpitch > 0 ? sf + j * fpitch : X + static_cast<int64_t>(si[j]) * d;
+  };
+  // the neighbors' norms, each a loop over its features in order (the
+  // row-norm pre-pass's steps; manhattan has none)
+  for (int j = lane; j < k; j += 32) {
+    const float* fj = feats(j);
+    float s = 0.f;
+    if (metric != pald::kManhattan)
+      for (int64_t f = 0; f < d; ++f)
+        s = Dist<pald::kSqEuclidean>::step(s, fj[f], fj[f]);
+    snrm[j] = metric == pald::kCosine ? Dist<pald::kCosine>::norm(s) : s;
+  }
+  __syncwarp();
+  // d(nbr_a, nbr_c): exactly 0 for the same index
+  auto dist = [&](int a, int c) {
+    if (si[a] == si[c]) return 0.f;
+    return metric_dist(metric, feats(a), feats(c), d, snrm[a], snrm[c]);
+  };
+  if constexpr (kTile) {
+    const int tp = tile_pitch(k);
+    for (int a = lane; a < k; a += 32) tile[a * tp + a] = 0.f;
+    // step f: row f's entries (f, f+1..k-1), then row k-2-f's (k-2-f,
+    // k-1-f..k-1); the middle row of an even k twice (the same bits)
+    for (int f = 0; f < k / 2; ++f) {
+      for (int e = lane; e < k; e += 32) {
+        const bool first = e < k - 1 - f;
+        const int a = first ? f : k - 2 - f;
+        const int c = first ? f + 1 + e : e;
+        const float v = dist(a, c);
+        tile[a * tp + c] = v;
+        tile[c * tp + a] = v;
+      }
+    }
+    __syncwarp();
+    values_passes<F>([&](int j, int m) { return tile[j * tp + m]; }, r, x, k,
+                     lane, p, out);
+  } else {
+    values_passes<F>(dist, r, x, k, lane, p, out);
+  }
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+unsigned row_blocks(int64_t n) {
+  return static_cast<unsigned>((n + kWarps - 1) / kWarps);
+}
+
+struct CubeLaunch {
   const float* dn;
   const float* g;
   const int* idx;
@@ -151,28 +326,134 @@ struct KnnLaunch {
   template <class F>
   int operator()() const {
     const size_t smem = size_t(kWarps) * 3 * k * sizeof(float);
-    const unsigned blocks = static_cast<unsigned>((n + kWarps - 1) / kWarps);
-    knn_values_kernel<F><<<blocks, kThreads, smem, stream>>>(dn, g, idx, out,
-                                                             n, k, p);
+    const int st = set_smem(knn_cube_kernel<F>, smem);
+    if (st != 0) return st;
+    knn_cube_kernel<F><<<row_blocks(n), kThreads, smem, stream>>>(
+        dn, g, idx, out, n, k, p);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
+struct DistLaunch {
+  const float* dn;
+  const float* D;
+  int64_t ldd;
+  const int* idx;
+  float* out;
+  int64_t n;
+  int k;
+  Params p;
+  cudaStream_t stream;
+
+  template <class F>
+  int operator()() const {
+    const size_t smem = size_t(kWarps) * 3 * k * sizeof(float);
+    const int st = set_smem(knn_dist_kernel<F>, smem);
+    if (st != 0) return st;
+    knn_dist_kernel<F><<<row_blocks(n), kThreads, smem, stream>>>(
+        dn, D, ldd, idx, out, n, k, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The features source's floats per warp at (k, d): dn, W, idx, norms,
+// the tile for k <= kTileMaxK, and the k staged rows when they fit in
+// kStageBytes (*fpitch their pitch, odd so that a column of staged rows
+// hits 32 banks; 0: the rows are read from X).
+int feat_layout(int k, int64_t d, int* fpitch) {
+  const int64_t fp = d | 1;
+  *fpitch = d > 0 && k * fp * 4 <= kStageBytes ? static_cast<int>(fp) : 0;
+  return 4 * k + (k <= kTileMaxK ? k * tile_pitch(k) : 0) + k * *fpitch;
+}
+
+// the features source for family F
+struct FeatLaunch {
+  const float* dn;
+  const float* X;
+  int64_t d;
+  const int* idx;
+  float* out;
+  int64_t n;
+  int k, metric;
+  Params p;
+  cudaStream_t stream;
+
+  template <class F>
+  int operator()() const {
+    const bool tile = k <= kTileMaxK;
+    int fpitch;
+    const int wstride = feat_layout(k, d, &fpitch);
+    const size_t smem = size_t(kWarps) * wstride * sizeof(float);
+    const auto kern =
+        tile ? knn_feat_kernel<true, F> : knn_feat_kernel<false, F>;
+    const int st = set_smem(kern, smem);
+    if (st != 0) return st;
+    kern<<<row_blocks(n), kThreads, smem, stream>>>(dn, X, d, idx, out, n, k,
+                                                     metric, fpitch, wstride,
+                                                     p);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+bool bad_shape(int64_t n, int k) {
+  return n < 1 || k < 1 || k > kMaxK ||
+         (n + kWarps - 1) / kWarps > static_cast<int64_t>(0x7fffffff);
+}
+
 }  // namespace
 
 // The sparse cohesion values out (n, k+1) float32 of the graph (dn (n, k)
-// float32, g (n, k, k) float32, idx (n, k) int32, all row-major
-// contiguous) for weight family `wid` with parameters p0, p1.  Needs n >= 1
-// and 1 <= k <= 1024.  Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unknown family or a shape out of range).
+// float32, idx (n, k) int32, all row-major contiguous) for weight family
+// `wid` with parameters p0, p1, the neighbor-to-neighbor distances taken
+// from g (n, k, k) float32.  Needs n >= 1 and 1 <= k <= 1024.  Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unknown family or a shape out of range).
 extern "C" int pald_knn_values_f32(const float* dn, const float* g,
                                    const int* idx, float* out, int64_t n,
                                    int k, int wid, float p0, float p1,
                                    void* stream) {
-  if (n < 1 || k < 1 || k > kMaxK ||
-      (n + kWarps - 1) / kWarps > static_cast<int64_t>(0x7fffffff))
+  if (bad_shape(n, k)) return static_cast<int>(cudaErrorInvalidValue);
+  return pald::dispatch_weight(
+      wid, CubeLaunch{dn, g, idx, out, n, k, {p0, p1},
+                      static_cast<cudaStream_t>(stream)});
+}
+
+// The same with the distances computed from the neighbors' rows of X (n,
+// d) float32 for `metric` (0 sqeuclidean, 1 euclidean, 2 cosine, 3
+// manhattan), bitwise gather_tile_from_features's.
+extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
+                                            int64_t d, const int* idx,
+                                            float* out, int64_t n, int k,
+                                            int metric, int wid, float p0,
+                                            float p1, void* stream) {
+  if (bad_shape(n, k) || d < 0 || metric < pald::kSqEuclidean ||
+      metric > pald::kManhattan)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
-      wid, KnnLaunch{dn, g, idx, out, n, k, {p0, p1},
-                     static_cast<cudaStream_t>(stream)});
+      wid, FeatLaunch{dn, X, d, idx, out, n, k, metric, {p0, p1},
+                      static_cast<cudaStream_t>(stream)});
+}
+
+// The same with the distances read from D (rows of ldd float32),
+// D[idx_j, idx_m] as gather_tile_from_distances gathers them.
+extern "C" int pald_knn_values_distances_f32(const float* dn, const float* D,
+                                             int64_t ldd, const int* idx,
+                                             float* out, int64_t n, int k,
+                                             int wid, float p0, float p1,
+                                             void* stream) {
+  if (bad_shape(n, k) || ldd < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return pald::dispatch_weight(
+      wid, DistLaunch{dn, D, ldd, idx, out, n, k, {p0, p1},
+                      static_cast<cudaStream_t>(stream)});
+}
+
+// The dynamic shared memory of a values block at k, in bytes, as the
+// launches set it: the features source's at width d, the cube and D
+// sources' for d < 0; -1 for a k outside 1..kMaxK.
+extern "C" int pald_knn_smem_bytes(int k, int64_t d) {
+  if (k < 1 || k > kMaxK) return -1;
+  int fpitch;
+  const int floats = d < 0 ? 3 * k : feat_layout(k, d, &fpitch);
+  return static_cast<int>(kWarps * floats * sizeof(float));
 }

@@ -3,7 +3,7 @@
 // by (distance, index).  Replaces the TPU kernel
 // repro/kernels/pald_topk.py::topk_pallas.  D never exists in device
 // memory: each block computes its distance tiles from the feature rows and
-// folds them into per-row best-lists in shared memory.
+// folds them into per-row best-lists.
 //
 // What bounds it on the H100: operations.  Every one of the n^2 pairs needs
 // its distance (d rounded multiplies and d rounded adds, no FMA, plus the
@@ -12,33 +12,48 @@
 // outputs.  At n = 50,000, d = 8 that is ~5e10 lane instructions against
 // ~3 MB of memory traffic.
 //
-// Design.  A block of 256 threads owns R rows (R = 64 for k <= 128, 32 for
-// k <= 512, 16 for k <= 1024) and streams all n candidates through shared
-// memory in chunks of 64:
-//   1. thread (ty, tx) = (tid / 16, tid % 16) sums rows ty*R/16.. against
-//      candidates 4tx..4tx+3 in registers, the features staged 16 at a
-//      time (transposed, so any d fits), and finishes each pair with the
-//      rows' norms (an (n,) pre-pass);
-//   2. it compares its 16 pairs with their rows' current k-th best (per-row
-//      thresholds in shared memory); only a thread holding a pair at or
-//      below one looks closer, and appends each pair that beats its row's
-//      k-th best to the row's queue (a shared counter per row);
-//   3. if anything was queued (the barrier's __syncthreads_or says), warp
-//      w drains the queues of rows w*R/8..: each queued candidate that
-//      still beats the k-th best is inserted into the row's sorted
-//      best-list, and the row's threshold is updated.  For k <= 32 the
-//      lists live in registers, entry l of each of the warp's rows in lane
-//      l (position by a ballot, shift by one shuffle); past 32 in shared
-//      memory (position by a warp-wide count, entries after it shifted
-//      down by one, the last dropped).
-// Queuing is rare after the first chunks (about k ln(n/k) insertions a row
-// on random order), so steps 1-2 dominate.  For euclidean the pairs are
-// finished as squared distances, and the correctly rounded root is taken
-// only for pairs at or below the row's bound B = (next float above the
-// k-th best)^2,
-// rounded up: a larger square has a root above that float, so it cannot
-// enter the list, and the root of every pair that can is the plain
-// version's.
+// Design.  A block of 8 warps owns R = 8 TR rows (TR = 4 for k <= 32, 8
+// for k <= 128, 4 for k <= 256, 2 for k <= 1024), warp w the TR rows
+// w TR.., and streams all n candidates through shared memory in chunks
+// of 128:
+//   - grid ceil(n / R): at n = 50,000 and k <= 32, 1563 blocks for 528
+//     slots (four blocks an SM).  Splitting the candidates between blocks
+//     (a grid (ceil(n / R), S) and a merge of the S lists) was slower at
+//     every n measured, 8192 included, where the grid is below one wave:
+//     each segment refills its lists from scratch;
+//   - staging: a ring of kStages slots, each a chunk's features ([128][p]
+//     floats, p a multiple of 4 with an odd count of 16-byte pieces, so
+//     the float4 reads of 8 consecutive candidates hit 32 distinct banks)
+//     and their norms, filled by 16-byte cp.async pieces (4-byte ones when
+//     d % 4 != 0 or X is not 16-byte aligned).  A block waits at one
+//     barrier per slot: the copies of slot t+1 run under the loop of slot
+//     t.  Past d = 64 a chunk takes one slot per 64 features, and the rows
+//     ride in each slot; up to 64 they are staged once.  The chunks come
+//     in turn from the one that holds the block's own rows;
+//   - lane l of warp w sums its TR rows against candidates l, l+32, l+64,
+//     l+96 (TR x 4 sums in registers; a row's float4 is a broadcast, a
+//     candidate's a conflict-free read), then finishes each pair with the
+//     rows' and candidates' norms (an (n,) pre-pass);
+//   - the warp compares each row's least pair with the row's bound (its
+//     k-th best; for euclidean the square of the next float above it),
+//     and only for a row where some lane holds a pair at or below it does
+//     it ballot the pairs that beat the k-th best, a ballot (32
+//     candidates) at a time.  For k <= 32 a row's list sits in registers
+//     while its warp works on it (entry l in lane l; between chunks in
+//     shared memory, so the sums keep the registers: 4 blocks an SM), and
+//     each candidate is inserted in turn (position by a ballot, shift by
+//     one shuffle).  Past 32 the lists sit in shared memory: the row's
+//     passing candidates of the chunk (up to 128) are gathered, sorted by
+//     rank and merged into the list in one pass (merge_batch: every
+//     entry's new place by a binary search in the other sequence).
+// Rows, their thresholds, lists and batches belong to one warp, so the
+// insertions need no block barrier.  Insertions are rare after the first
+// chunks (about k ln(n/k) a row on random order), so at small k the sums
+// dominate.  For euclidean the pairs are finished as squared distances,
+// and the correctly rounded root is taken only for pairs at or below the
+// row's bound B = (next float above the k-th best)^2, rounded up: a larger
+// square has a root above that float, so it cannot enter the list, and the
+// root of every pair that can is the plain version's.
 
 // Contract (the plain version is kernels/pald_topk.py::topk_select_torch):
 //   - every distance is pald_dist.cuh's, bitwise cdist_reference's;
@@ -51,19 +66,25 @@
 //     sentinels, which any real candidate beats);
 //   - k <= kMaxK = 1024; the wrapper raises beyond it.
 // Distances are assumed not nan (finite features give none).  64-bit
-// offsets throughout.
+// offsets throughout; no atomics.
 #include <cstdint>
 
 #include "pald_dist.cuh"
+#include "pald_tile.cuh"
 
 namespace {
 
+using pald::cp_async16;
+using pald::cp_async4;
+using pald::cp_async_commit;
+using pald::cp_async_wait;
 using pald::Dist;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCand = 64;       // candidates per chunk
-constexpr int kChunk = 16;      // features staged per step
+constexpr int kCand = 128;     // candidates per chunk, 4 a lane
+constexpr int kStages = 2;     // slots in the staging ring
+constexpr int kMaxFeat = 64;   // features per slot
 constexpr int kMaxK = 1024;
 constexpr int kSentinel = 0x7fffffff;
 
@@ -72,22 +93,43 @@ __device__ __forceinline__ bool key_less(float v1, int i1, float v2, int i2) {
   return (v1 < v2) | ((v1 == v2) & (i1 < i2));
 }
 
-// shared-memory layout of a block with R rows and lists of k entries:
-// staged row and candidate features, the per-row queues of one chunk, the
-// per-row thresholds and queue counts, the best-lists
-template <int R>
+// floats of a staged row of f features: a multiple of 4 holding an odd
+// number of 16-byte pieces
+__host__ __device__ constexpr int stage_pitch(int f) {
+  return ((f + 3) / 4) % 2 ? (f + 3) / 4 * 4 : (f + 3) / 4 * 4 + 4;
+}
+
+// The shared-memory layout of a block of R rows at (d, k), in floats:
+// the rows staged once (d <= kMaxFeat), the ring, the rows' thresholds and
+// norms, and their lists: for k <= 32 where each lane keeps its entry
+// between chunks (32 a row), past 32 the lists and each warp's batch (two
+// of kCand entries: as found, and sorted).
 struct Layout {
-  static constexpr int kLdA = R + 1;      // staged row features (padded)
-  static constexpr int kLdB = kCand + 4;  // staged candidate features
-  static constexpr size_t fb = sizeof(float) * kChunk * kLdA;
-  static constexpr size_t queue = fb + sizeof(float) * kChunk * kLdB;
-  static constexpr size_t rows = queue + size_t(R) * kCand * 8;
-  static constexpr size_t lists = rows + size_t(R) * 16;
-  // the lists live in shared memory only past 32 entries
-  static size_t bytes(int k) {
-    return lists + (k <= 32 ? 0 : size_t(R) * k * 8);
+  int kd;         // features per slot
+  int parts;      // slots per chunk of candidates
+  int pitch;      // floats per staged row
+  int rows;       // floats of the rows staged once (0 past kMaxFeat)
+  int slot;       // floats per slot: candidates, their norms, rows
+  __host__ __device__ Layout(int64_t d, int R) {
+    kd = static_cast<int>(d < kMaxFeat ? d : kMaxFeat);
+    parts = d <= kMaxFeat ? 1 : static_cast<int>((d + kMaxFeat - 1) / kMaxFeat);
+    pitch = stage_pitch(kd);
+    rows = parts == 1 ? R * pitch : 0;
+    slot = kCand * pitch + kCand + (parts == 1 ? 0 : R * pitch);
+  }
+  __host__ __device__ size_t bytes(int R, int k) const {
+    return sizeof(float) * (size_t(rows) + size_t(kStages) * slot + 4 * R) +
+           (k <= 32 ? size_t(R) * 32 * 8
+                    : size_t(R) * k * 8 + size_t(kWarps) * kCand * 16);
   }
 };
+
+// TR, the rows of each warp at k (a block holds kWarps * TR rows): four
+// with the lists in registers (k <= 32) at four blocks an SM, past that
+// as many as two blocks an SM hold in shared memory
+constexpr int warp_rows(int k) {
+  return k <= 32 ? 4 : k <= 128 ? 8 : k <= 256 ? 4 : 2;
+}
 
 // The largest squared distance whose correctly rounded root can still be
 // <= tv, rounded up: (next float above tv)^2.
@@ -96,33 +138,71 @@ __device__ __forceinline__ float root_bound(float tv) {
   return __fmul_ru(u, u);
 }
 
-// One warp inserts (v, i) into the sorted list lv/li of k entries: the
-// entries from its position on move down by one, the last is dropped.
-// tv, ti become the new k-th entry, in every lane.
-__device__ __forceinline__ void insert(float* lv, int* li, int k, float v,
-                                       int i, int lane, float& tv, int& ti) {
-  int cnt = 0;
-  for (int e = lane; e < k; e += 32) cnt += key_less(lv[e], li[e], v, i);
-  const int p = __reduce_add_sync(0xffffffffu, cnt);
-  for (int top = k - 1; top > p; top -= 32) {
+// lower_bound on the composite key: how many of the n sorted entries
+// (lv, li) lie below (v, i)
+__device__ __forceinline__ int count_below(const float* lv, const int* li,
+                                           int n, float v, int i) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (key_less(lv[mid], li[mid], v, i))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// One warp merges its batch of cnt candidates (bv, bi: distinct, each
+// below the list's k-th entry) into the sorted list lv/li of k entries in
+// one pass: the batch sorted by rank into sv/si, each batch entry placed
+// at its rank plus the list entries below it, each list entry from the
+// first place that changes moved down by the batch entries below it
+// (tail first, so nothing is overwritten before it is read), the last
+// ones dropped.  tv, ti become the new k-th entry, in every lane.
+__device__ __forceinline__ void merge_batch(float* lv, int* li, int k,
+                                            const float* bv, const int* bi,
+                                            float* sv, int* si, int cnt,
+                                            int lane, float& tv, int& ti) {
+  for (int e = lane; e < cnt; e += 32) {
+    const float v = bv[e];
+    const int i = bi[e];
+    int r = 0;
+    for (int o = 0; o < cnt; ++o) r += key_less(bv[o], bi[o], v, i);
+    sv[r] = v;
+    si[r] = i;
+  }
+  __syncwarp();
+  int place[kCand / 32];
+#pragma unroll
+  for (int t = 0; t < kCand / 32; ++t) {
+    const int e = lane + 32 * t;
+    place[t] = e < cnt ? e + count_below(lv, li, k, sv[e], si[e]) : k;
+  }
+  const int first = __shfl_sync(0xffffffffu, place[0], 0);
+  for (int top = k - 1; top >= first; top -= 32) {
     const int e = top - lane;
-    float sv = 0.f;
-    int si = 0;
-    const bool act = e > p;
-    if (act) {
-      sv = lv[e - 1];
-      si = li[e - 1];
+    float v = 0.f;
+    int i = 0, dst = k;
+    if (e >= first) {
+      v = lv[e];
+      i = li[e];
+      dst = e + count_below(sv, si, cnt, v, i);
     }
     __syncwarp();
-    if (act) {
-      lv[e] = sv;
-      li[e] = si;
+    if (dst < k) {
+      lv[dst] = v;
+      li[dst] = i;
     }
     __syncwarp();
   }
-  if (lane == 0) {
-    lv[p] = v;
-    li[p] = i;
+#pragma unroll
+  for (int t = 0; t < kCand / 32; ++t) {
+    const int e = lane + 32 * t;
+    if (place[t] < k) {
+      lv[place[t]] = sv[e];
+      li[place[t]] = si[e];
+    }
   }
   __syncwarp();
   tv = lv[k - 1];
@@ -148,231 +228,315 @@ __device__ __forceinline__ void insert_reg(float& lv, int& li, int k, float v,
   ti = __shfl_sync(0xffffffffu, li, k - 1);
 }
 
-// kRegs: k <= 32, each warp keeps its rows' lists in registers
-template <int M, int R, bool kRegs>
-__global__ void __launch_bounds__(kThreads)
-topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
-            float* __restrict__ out_v, int* __restrict__ out_i, int64_t n,
-            int64_t d, int k) {
-  constexpr int TR = R / 16;       // rows per thread in the tile
-  constexpr int RW = R / kWarps;   // rows per warp in the drain
-  // euclidean: squared distances, the root taken for the survivors only
-  constexpr bool kLazyRoot = M == pald::kEuclidean;
-  constexpr int MT = kLazyRoot ? static_cast<int>(pald::kSqEuclidean) : M;
-  using L = Layout<R>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float (*fa)[L::kLdA] = reinterpret_cast<float (*)[L::kLdA]>(smem);
-  float (*fb)[L::kLdB] = reinterpret_cast<float (*)[L::kLdB]>(smem + L::fb);
-  float (*qv)[kCand] = reinterpret_cast<float (*)[kCand]>(smem + L::queue);
-  int (*qi)[kCand] = reinterpret_cast<int (*)[kCand]>(qv + R);
-  float* tv = reinterpret_cast<float*>(smem + L::rows);  // k-th best value
-  int* ti = reinterpret_cast<int*>(tv + R);              // and its index
-  float* tb = reinterpret_cast<float*>(ti + R);          // root_bound(tv)
-  int* qn = reinterpret_cast<int*>(tb + R);              // queue lengths
-  float* lv_all = reinterpret_cast<float*>(smem + L::lists);  // !kRegs
-  int* li_all = reinterpret_cast<int*>(lv_all + R * k);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * R;
-  const float inf = __int_as_float(0x7f800000);
-
-  float rv[kRegs ? RW : 1];  // kRegs: entry `lane` of the warp's rows' lists
-  int ri[kRegs ? RW : 1];
-#pragma unroll
-  for (int q = 0; q < (kRegs ? RW : 1); ++q) {
-    rv[q] = inf;
-    ri[q] = kSentinel;
+// A thread's share of the pieces of a staged row block: pp pieces a row
+// (16-byte ones when vec, else 4-byte), pieces tid, tid + kThreads, ...
+// walked without a division: (r, q) the first, (dr, dq) the step.
+struct Pieces {
+  int pp, r, q, dr, dq;
+  __device__ Pieces(int nf, bool vec, int tid) {
+    pp = vec ? nf / 4 : nf;
+    const int p = pp > 0 ? pp : 1;
+    r = pp > 0 ? tid / p : 1 << 30;
+    q = tid - (tid / p) * p;
+    dr = kThreads / p;
+    dq = kThreads - dr * p;
   }
-  if constexpr (!kRegs) {
-    for (int e = tid; e < R * k; e += kThreads) {
-      lv_all[e] = inf;
-      li_all[e] = kSentinel;
-    }
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    tv[r] = inf;
-    ti[r] = kSentinel;
-    tb[r] = inf;
-    qn[r] = 0;
-  }
-  float nr[TR];  // the thread's rows' norms
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int64_t row = r0 + ty * TR + a;
-    nr[a] = (Dist<M>::kNorms && row < n) ? norms[row] : 0.f;
-  }
+};
 
-  // the rows' features of feature chunk k0 into fa (neighbouring threads
-  // read neighbouring features of a row)
-  auto stage_rows = [&](int64_t k0, int kc) {
-    for (int e = tid; e < kChunk * R; e += kThreads) {
-      const int r = e / kChunk, f = e % kChunk;
-      const int64_t row = r0 + r;
-      fa[f][r] = (row < n && f < kc) ? x[row * d + k0 + f] : 0.f;
+// Copy rows [base, base + count) of X, features [f0, f0 + nf) (nf as in
+// P), into dst ([count][pitch]); rows at or past `limit` are left as they
+// are.
+__device__ __forceinline__ void stage_rows(float* dst, const float* x,
+                                           int64_t base, int count,
+                                           int64_t limit, int64_t d, int f0,
+                                           int pitch, bool vec,
+                                           const Pieces& P) {
+  int r = P.r, q = P.q;
+  while (r < count) {
+    const int64_t row = base + r;
+    if (row < limit) {
+      if (vec)  // d % 4 == 0, X 16-byte aligned
+        cp_async16(dst + r * pitch + 4 * q, x + row * d + f0 + 4 * q);
+      else
+        cp_async4(dst + r * pitch + q, x + row * d + f0 + q);
     }
-  };
-  // with d <= 16 the rows' features are staged once for all chunks
-  const bool rows_once = d <= kChunk;
-  if (rows_once) stage_rows(0, static_cast<int>(d));
-
-  for (int64_t c0 = 0; c0 < n; c0 += kCand) {
-    // 1. the pair sums of the R x 64 tile (at least one pass, so the
-    // barriers below run even for d = 0)
-    float acc[TR][4] = {};
-    int64_t k0 = 0;
-    do {
-      const int kc = static_cast<int>(d - k0 < kChunk ? d - k0 : kChunk);
-      if (!rows_once) stage_rows(k0, kc);
-      for (int e = tid; e < kChunk * kCand; e += kThreads) {
-        const int c = e / kChunk, f = e % kChunk;
-        const int64_t col = c0 + c;
-        fb[f][c] = (col < n && f < kc) ? x[col * d + k0 + f] : 0.f;
-      }
-      __syncthreads();
-      for (int f = 0; f < kc; ++f) {
-        const float4 b = *reinterpret_cast<const float4*>(&fb[f][tx * 4]);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int a = 0; a < TR; ++a) {
-          const float av = fa[f][ty * TR + a];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[a][j] = Dist<M>::step(acc[a][j], av, bv[j]);
-        }
-      }
-      __syncthreads();
-      k0 += kChunk;
-    } while (k0 < d);
-
-    // 2. finish each pair in place, and queue the ones that beat their
-    // row's k-th best (a threshold of the last drain: only ever looser).
-    // A pair above its row's bound (k-th best, or for euclidean B) cannot
-    // beat it: only a thread holding one at or below it looks closer.
-    float nc[4];  // the candidates' norms
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t col = c0 + tx * 4 + j;
-      nc[j] = (Dist<M>::kNorms && col < n) ? norms[col] : 0.f;
-    }
-    bool any = false;
-#pragma unroll
-    for (int a = 0; a < TR; ++a) {
-      const int lr = ty * TR + a;
-      const float bound = kLazyRoot ? tb[lr] : tv[lr];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[a][j] = Dist<MT>::finish(acc[a][j], nr[a], nc[j]);
-        any |= acc[a][j] <= bound;
-      }
-    }
-    bool queued = false;
-    if (any) {
-#pragma unroll
-      for (int a = 0; a < TR; ++a) {
-        const int lr = ty * TR + a;
-        const int64_t row = r0 + lr;
-        const float tva = tv[lr], tba = tb[lr];
-        const int tia = ti[lr];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int64_t col = c0 + tx * 4 + j;
-          if (row >= n || col >= n || col == row) continue;
-          float v = acc[a][j];
-          bool keep;
-          if constexpr (kLazyRoot) {
-            keep = v <= tba;
-            if (keep) {
-              v = __fsqrt_rn(v);
-              keep = key_less(v, static_cast<int>(col), tva, tia);
-            }
-          } else {
-            keep = key_less(v, static_cast<int>(col), tva, tia);
-          }
-          if (keep) {
-            const int p = atomicAdd(&qn[lr], 1);
-            qv[lr][p] = v;
-            qi[lr][p] = static_cast<int>(col);
-            queued = true;
-          }
-        }
-      }
-    }
-    // the barrier also tells the block whether anything was queued
-    if (!__syncthreads_or(queued)) continue;
-
-    // 3. each warp drains its rows' queues into their lists
-#pragma unroll
-    for (int q = 0; q < RW; ++q) {
-      const int lr = warp * RW + q;
-      const int cnt = qn[lr];  // uniform across the warp
-      if (cnt == 0) continue;
-      float tvq = tv[lr];
-      int tiq = ti[lr];
-      for (int base = 0; base < cnt; base += 32) {
-        const int e = base + lane;
-        float v = inf;
-        int i = kSentinel;
-        if (e < cnt) {
-          v = qv[lr][e];
-          i = qi[lr][e];
-        }
-        unsigned mask = __ballot_sync(0xffffffffu, key_less(v, i, tvq, tiq));
-        while (mask) {
-          const int b = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float cv = __shfl_sync(0xffffffffu, v, b);
-          const int ci = __shfl_sync(0xffffffffu, i, b);
-          if (!key_less(cv, ci, tvq, tiq)) continue;
-          if constexpr (kRegs)
-            insert_reg(rv[q], ri[q], k, cv, ci, lane, tvq, tiq);
-          else
-            insert(lv_all + lr * k, li_all + lr * k, k, cv, ci, lane, tvq,
-                   tiq);
-        }
-      }
-      __syncwarp();
-      if (lane == 0) {
-        tv[lr] = tvq;
-        ti[lr] = tiq;
-        tb[lr] = root_bound(tvq);
-        qn[lr] = 0;
-      }
-    }
-    // the next chunk's first barrier orders these writes before its reads
-  }
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int q = 0; q < RW; ++q) {
-      const int64_t row = r0 + warp * RW + q;
-      if (row < n && lane < k) {
-        out_v[row * k + lane] = rv[q];
-        out_i[row * k + lane] = ri[q];
-      }
-    }
-  } else {
-    __syncthreads();
-    for (int e = tid; e < R * k; e += kThreads) {
-      const int64_t row = r0 + e / k;
-      if (row < n) {
-        out_v[row * k + e % k] = lv_all[e];
-        out_i[row * k + e % k] = li_all[e];
-      }
+    r += P.dr;
+    q += P.dq;
+    if (q >= P.pp) {
+      q -= P.pp;
+      ++r;
     }
   }
 }
 
-template <int M, int R, bool kRegs>
+// kRegs: k <= 32, each warp keeps its rows' lists in registers
+template <int M, int TR, bool kRegs>
+__global__ void __launch_bounds__(kThreads, kRegs ? 4 : 2)
+topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
+            float* __restrict__ out_v, int* __restrict__ out_i, int64_t n,
+            int64_t d, int k, bool vec) {
+  constexpr int R = kWarps * TR;
+  // euclidean: squared distances, the root taken for the survivors only
+  constexpr bool kLazyRoot = M == pald::kEuclidean;
+  constexpr bool kSquares = M == pald::kSqEuclidean || kLazyRoot;
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(d, R);
+  float* srows = smem;                       // [R][pitch], d <= kMaxFeat
+  float* ring = smem + L.rows;               // kStages slots
+  float* tv = ring + kStages * L.slot;       // k-th best value
+  int* ti = reinterpret_cast<int*>(tv + R);  // and its index
+  float* tb = reinterpret_cast<float*>(ti + R);  // euclidean: root_bound(tv)
+  float* tn = tb + R;                        // the rows' norms
+  float* lv_all = tn + R;                    // the lists (kRegs: homes)
+  int* li_all = reinterpret_cast<int*>(lv_all + R * (kRegs ? 32 : k));
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* bv = reinterpret_cast<float*>(li_all + R * (kRegs ? 32 : k)) +
+              warp * kCand * 4;                  // !kRegs: the batch
+  int* bi = reinterpret_cast<int*>(bv + kCand);
+  float* sv = bv + 2 * kCand;                    // and sorted
+  int* sidx = reinterpret_cast<int*>(bv + 3 * kCand);
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int chunks = static_cast<int>((n + kCand - 1) / kCand);
+  const int slots = chunks * L.parts;
+  // the chunks in turn from the one holding the block's first row: in
+  // data whose near neighbors lie near in index, the lists fill with near
+  // candidates first and the later chunks insert little.  The lists do
+  // not depend on the order.
+  const int first = static_cast<int>(r0 / kCand);
+  const float inf = __int_as_float(0x7f800000);
+
+  // the warp's rows: thresholds, norms, lists (a list of k <= 32 lives
+  // in registers while the warp works on its row, in shared memory
+  // between chunks)
+  const int lk = kRegs ? 32 : k;
+  for (int e = lane; e < TR * lk; e += 32) {
+    lv_all[warp * TR * lk + e] = inf;
+    li_all[warp * TR * lk + e] = kSentinel;
+  }
+  if (lane < TR) {  // a row past n: a bound no pair meets
+    const int64_t row = r0 + warp * TR + lane;
+    const bool live = row < n;
+    tv[warp * TR + lane] = live ? inf : -inf;
+    ti[warp * TR + lane] = kSentinel;
+    tb[warp * TR + lane] = live ? inf : -inf;
+    tn[warp * TR + lane] = (Dist<M>::kNorms && live) ? norms[row] : 0.f;
+  }
+  __syncwarp();
+
+  // slot t: chunk t / parts (counted from the block's own chunk), features
+  // (t % parts) * kMaxFeat..; the last part of a chunk also brings the
+  // candidates' norms
+  auto locate = [&](int t, int& fp, int64_t& c0) {
+    int ci = t;
+    fp = 0;
+    if (L.parts > 1) {
+      ci = t / L.parts;
+      fp = t - ci * L.parts;
+    }
+    ci += first;
+    if (ci >= chunks) ci -= chunks;
+    c0 = static_cast<int64_t>(ci) * kCand;
+  };
+  const int last_nf = static_cast<int>(d - int64_t(L.parts - 1) * kMaxFeat);
+  const Pieces full(L.kd, vec, tid), tail(last_nf, vec, tid);
+  auto issue = [&](int t) {
+    if (t < slots) {
+      float* s = ring + (t % kStages) * L.slot;
+      int fp;
+      int64_t c0;
+      locate(t, fp, c0);
+      const int f0 = fp * kMaxFeat;
+      const Pieces& P = fp == L.parts - 1 ? tail : full;
+      stage_rows(s, x, c0, kCand, n, d, f0, L.pitch, vec, P);
+      if (L.parts > 1)
+        stage_rows(s + kCand * L.pitch + kCand, x, r0, R, n, d, f0, L.pitch,
+                   vec, P);
+      if (Dist<M>::kNorms && fp == L.parts - 1) {
+        float* sn = s + kCand * L.pitch;
+        for (int p = tid; p < kCand / 4; p += kThreads) {
+          const int64_t col = c0 + 4 * p;  // c0 % 4 == 0
+          if (col + 4 <= n) {
+            cp_async16(sn + 4 * p, norms + col);
+          } else {
+            for (int q = 0; q < 4; ++q)
+              if (col + q < n) cp_async4(sn + 4 * p + q, norms + col + q);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (L.parts == 1) stage_rows(srows, x, r0, R, n, d, 0, L.pitch, vec, full);
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+
+  float acc[TR][4] = {};
+  for (int t = 0; t < slots; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slot t landed; slot t - 1 is free for slot t + 1
+    issue(t + kStages - 1);
+    const float* s = ring + (t % kStages) * L.slot;
+    int fp;
+    int64_t c0;
+    locate(t, fp, c0);
+    const int nf = fp == L.parts - 1 ? last_nf : L.kd;
+    const float* rf = L.parts == 1 ? srows : s + kCand * L.pitch + kCand;
+    const float* rw = rf + warp * TR * L.pitch;
+    const float* cf = s + lane * L.pitch;
+    const int n4 = nf / 4;
+    for (int q = 0; q < n4; ++q) {
+      float4 b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(cf + 32 * j * L.pitch + 4 * q);
+#pragma unroll
+      for (int a = 0; a < TR; ++a) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(rw + a * L.pitch + 4 * q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[a][j] = Dist<M>::step(acc[a][j], av.x, b[j].x);
+          acc[a][j] = Dist<M>::step(acc[a][j], av.y, b[j].y);
+          acc[a][j] = Dist<M>::step(acc[a][j], av.z, b[j].z);
+          acc[a][j] = Dist<M>::step(acc[a][j], av.w, b[j].w);
+        }
+      }
+    }
+    for (int f = 4 * n4; f < nf; ++f) {
+      float b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = cf[32 * j * L.pitch + f];
+#pragma unroll
+      for (int a = 0; a < TR; ++a) {
+        const float av = rw[a * L.pitch + f];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[a][j] = Dist<M>::step(acc[a][j], av, b[j]);
+      }
+    }
+    if (fp != L.parts - 1) continue;
+
+    // finish the chunk's pairs: squares before the clamp at 0 (a negative
+    // one is at or below every bound, and the clamp comes before its
+    // root), cosine and manhattan in full; then flag each row whose least
+    // pair is at or below the row's bound
+    float nc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      nc[j] = Dist<M>::kNorms ? s[kCand * L.pitch + lane + 32 * j] : 0.f;
+    unsigned hit = 0;
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      const int lr = warp * TR + a;
+      const float nr = tn[lr];
+      float least = inf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kSquares)
+          acc[a][j] = __fsub_rn(__fadd_rn(nr, nc[j]),
+                                __fmul_rn(2.f, acc[a][j]));
+        else
+          acc[a][j] = Dist<M>::finish(acc[a][j], nr, nc[j]);
+        least = fminf(least, acc[a][j]);
+      }
+      hit |= (least <= (kLazyRoot ? tb[lr] : tv[lr]) ? 1u : 0u) << a;
+    }
+    hit = __reduce_or_sync(0xffffffffu, hit);
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      if (hit >> a & 1) {
+        const int lr = warp * TR + a;
+        const int64_t row = r0 + lr;
+        float tva = tv[lr];
+        int tia = ti[lr];
+        const float tba = tb[lr];
+        float rv = 0.f;  // kRegs: entry `lane` of the row's list
+        int ri = 0;
+        if constexpr (kRegs) {
+          rv = lv_all[lr * 32 + lane];
+          ri = li_all[lr * 32 + lane];
+        }
+        int cnt = 0;  // !kRegs: the batch so far
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int64_t col = c0 + lane + 32 * j;
+          float v = acc[a][j];
+          if constexpr (kSquares) v = v < 0.f ? 0.f : v;  // nan passes
+          bool keep = row < n && col < n && col != row;
+          if constexpr (kLazyRoot) {
+            keep = keep && v <= tba;
+            if (keep) v = __fsqrt_rn(v);
+          }
+          keep = keep && key_less(v, static_cast<int>(col), tva, tia);
+          unsigned mask = __ballot_sync(0xffffffffu, keep);
+          if constexpr (kRegs) {
+            while (mask) {
+              const int b = __ffs(mask) - 1;
+              mask &= mask - 1;
+              const float cv = __shfl_sync(0xffffffffu, v, b);
+              const int cidx =
+                  __shfl_sync(0xffffffffu, static_cast<int>(col), b);
+              if (!key_less(cv, cidx, tva, tia)) continue;
+              insert_reg(rv, ri, k, cv, cidx, lane, tva, tia);
+            }
+          } else {
+            if (keep) {
+              const int at = cnt + __popc(mask & ((1u << lane) - 1));
+              bv[at] = v;
+              bi[at] = static_cast<int>(col);
+            }
+            cnt += __popc(mask);
+          }
+        }
+        if constexpr (kRegs) {
+          lv_all[lr * 32 + lane] = rv;
+          li_all[lr * 32 + lane] = ri;
+        } else {
+          __syncwarp();
+          if (cnt)
+            merge_batch(lv_all + lr * k, li_all + lr * k, k, bv, bi, sv,
+                        sidx, cnt, lane, tva, tia);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          tv[lr] = tva;
+          ti[lr] = tia;
+          tb[lr] = root_bound(tva);
+        }
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < TR; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+  }
+  cp_async_wait<0>();
+
+  __syncwarp();
+  for (int a = 0; a < TR; ++a) {
+    const int lr = warp * TR + a;
+    const int64_t row = r0 + lr;
+    if (row >= n) continue;
+    for (int e = lane; e < k; e += 32) {
+      out_v[row * k + e] = lv_all[lr * lk + e];
+      out_i[row * k + e] = li_all[lr * lk + e];
+    }
+  }
+}
+
+template <int M, int TR, bool kRegs>
 int launch_rows(const float* x, const float* norms, float* out_v, int* out_i,
-                int64_t n, int64_t d, int k, cudaStream_t stream) {
-  const size_t smem = Layout<R>::bytes(k);
+                int64_t n, int64_t d, int k, bool vec, cudaStream_t stream) {
+  constexpr int R = kWarps * TR;
+  const size_t smem = Layout(d, R).bytes(R, k);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_kernel<M, R, kRegs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_kernel<M, TR, kRegs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n + R - 1) / R);
-  topk_kernel<M, R, kRegs><<<blocks, kThreads, smem, stream>>>(
-      x, norms, out_v, out_i, n, d, k);
+  const unsigned grid = static_cast<unsigned>((n + R - 1) / R);
+  topk_kernel<M, TR, kRegs><<<grid, kThreads, smem, stream>>>(
+      x, norms, out_v, out_i, n, d, k, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,6 +547,7 @@ struct TopkPerMetric {
   int* out_i;
   int64_t n, d;
   int k;
+  bool vec;
   cudaStream_t stream;
 
   template <int M>
@@ -390,14 +555,16 @@ struct TopkPerMetric {
     const int status = pald::launch_row_norms<M>(x, norms, n, d, stream);
     if (status != 0) return status;
     if (k <= 32)
-      return launch_rows<M, 64, true>(x, norms, out_v, out_i, n, d, k, stream);
+      return launch_rows<M, warp_rows(32), true>(x, norms, out_v, out_i, n, d,
+                                                 k, vec, stream);
     if (k <= 128)
-      return launch_rows<M, 64, false>(x, norms, out_v, out_i, n, d, k,
-                                       stream);
-    if (k <= 512)
-      return launch_rows<M, 32, false>(x, norms, out_v, out_i, n, d, k,
-                                       stream);
-    return launch_rows<M, 16, false>(x, norms, out_v, out_i, n, d, k, stream);
+      return launch_rows<M, warp_rows(128), false>(
+          x, norms, out_v, out_i, n, d, k, vec, stream);
+    if (k <= 256)
+      return launch_rows<M, warp_rows(256), false>(
+          x, norms, out_v, out_i, n, d, k, vec, stream);
+    return launch_rows<M, warp_rows(kMaxK), false>(
+        x, norms, out_v, out_i, n, d, k, vec, stream);
   }
 };
 
@@ -416,7 +583,16 @@ extern "C" int pald_topk_f32(const float* x, float* norms, float* out_v,
   if (n < 2 || d < 0 || k < 1 || k > kMaxK || k > n - 1 ||
       n > static_cast<int64_t>(kSentinel))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   return pald::dispatch_metric(
-      metric, TopkPerMetric{x, norms, out_v, out_i, n, d, k,
+      metric, TopkPerMetric{x, norms, out_v, out_i, n, d, k, vec,
                             static_cast<cudaStream_t>(stream)});
+}
+
+// The dynamic shared memory of a selection block at (k, d), in bytes, as
+// launch_rows sets it; -1 for a k outside 1..kMaxK or a negative d.
+extern "C" int pald_topk_smem_bytes(int k, int64_t d) {
+  if (k < 1 || k > kMaxK || d < 0) return -1;
+  const int R = kWarps * warp_rows(k);
+  return static_cast<int>(Layout(d, R).bytes(R, k));
 }

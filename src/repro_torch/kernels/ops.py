@@ -38,7 +38,9 @@ The sparse k-NN pipeline (``core/knn.py`` has the semantics):
 
     topk_select(X, k)                   -> NeighborGraph (n, k), streamed
                                            from features (pald_topk.py)
-    knn_values(x, graph, kind=...)      -> (n, k+1) values (pald_knn.py)
+    knn_values(x, graph, kind=...)      -> (n, k+1) values (pald_knn.py;
+                                           the kernel computes or reads
+                                           each row's neighbor tile)
     pald_knn(x, k=..., kind=...)        -> (graph, values): selection, then
                                            values
     select_cohere(X, k=...)             -> (graph, values): the two kernels
@@ -61,7 +63,8 @@ from .pald_focus import focus_general_cuda, focus_general_torch
 from .pald_focus_tri import focus_tri_cuda, focus_tri_torch
 from .pald_fused import (cohesion_fused_cuda, cohesion_fused_torch,
                          focus_fused_cuda, focus_fused_torch)
-from .pald_knn import knn_values_cuda, knn_values_torch
+from .pald_knn import (check_indices, knn_values_from_distances_cuda,
+                       knn_values_from_features_cuda, knn_values_torch)
 from .pald_topk import topk_select_cuda, topk_select_torch
 from .ref import weights_ref
 
@@ -322,21 +325,23 @@ def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
 
 
 # --------------------------------------------------------------------------
-# sparse k-NN pipeline: selection (pald_topk.py), the gathered (n, k, k)
-# neighbor-to-neighbor tiles staged in device memory (plain torch, as the
-# reference stages them in HBM), then the values (pald_knn.py)
+# sparse k-NN pipeline: selection (pald_topk.py), then the values
+# (pald_knn.py), whose kernel computes (from features) or reads (from D)
+# each row's neighbor-to-neighbor tile itself; the plain versions stage the
+# gathered (n, k, k) tiles in memory, as the reference stages them in HBM
 # --------------------------------------------------------------------------
-_GATHER_ROWS = 8192  # rows per gather chunk: bounds its temporaries
+_GATHER_ROWS = 8192  # rows per gather chunk (fewer past 2^24 / k^2 entries)
 
 
 def _gather_tiles(x, idx, kind: str, metric: str) -> torch.Tensor:
     """The (n, k, k) neighbor-to-neighbor distances of the graph, gathered
-    from D or recomputed from features, chunk by chunk."""
+    from D or recomputed from features, chunk by chunk (the plain path)."""
     n, k = idx.shape
     g = torch.empty((n, k, k), dtype=torch.float32, device=x.device)
-    for s in range(0, n, _GATHER_ROWS):
-        ic = idx[s:s + _GATHER_ROWS]
-        g[s:s + _GATHER_ROWS] = (
+    rows = max(1, min(_GATHER_ROWS, (1 << 24) // max(k * k, 1)))
+    for s in range(0, n, rows):
+        ic = idx[s:s + rows]
+        g[s:s + rows] = (
             _knn.gather_tile_from_distances(x, ic) if kind == "distance"
             else _knn.gather_tile_from_features(x, ic, metric))
     return g
@@ -360,12 +365,25 @@ def knn_values(x, graph: "_knn.NeighborGraph", *, kind: str = "distance",
             recomputed from them, D never materialized).
         graph: ``core.knn.NeighborGraph`` over the same ``x``.
         block: rows per chunk of the plain version.
-        impl: "cuda" (the kernel), "torch" (the plain version), or None
-            for the device's default.
+        impl: "cuda" (the kernel, which computes or reads each row's
+            tile itself: no (n, k, k) array), "torch" (the plain version
+            over the gathered (n, k, k) tiles), or None for the device's
+            default.
 
     Returns:
         (n, k+1) float32 values, column 0 the self support, un-normalized.
+
+    Raises:
+        ValueError: a neighbor index outside [0, n) (the kernel would
+            read outside ``x``).
     """
+    check_indices("knn_values", graph.indices, x.shape[0])
+    return _knn_values(x, graph, kind=kind, metric=metric, block=block,
+                       impl=impl, ties=ties)
+
+
+def _knn_values(x, graph, *, kind, metric, block, impl, ties):
+    """:func:`knn_values` without the index check, for a graph built here."""
     ties = resolve_weight(ties)
     _check_kind(kind)
     impl = _check_impl(impl or default_impl(x.device))
@@ -375,10 +393,13 @@ def knn_values(x, graph: "_knn.NeighborGraph", *, kind: str = "distance",
         return torch.zeros((n, 1), dtype=torch.float32, device=x.device)
     dn = _f32(graph.distances)
     idx = graph.indices.to(torch.int32).contiguous()
-    g = _gather_tiles(x, idx, kind, metric)
     if impl == "torch":
+        g = _gather_tiles(x, idx, kind, metric)
         return knn_values_torch(dn, g, idx, ties=ties, block=int(block))
-    return knn_values_cuda(dn, g, idx, ties=ties)
+    if kind == "distance":
+        return knn_values_from_distances_cuda(x, dn, idx, ties=ties)
+    return knn_values_from_features_cuda(x, dn, idx, metric=metric,
+                                         ties=ties)
 
 
 def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
@@ -402,14 +423,16 @@ def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
     x = _f32(x)
     n = x.shape[0]
     k = min(int(k), max(n - 1, 0))
+    # a caller's graph has its indices checked; one built here does not
+    values = knn_values if graph is not None else _knn_values
     if graph is None:
         if kind == "distance":
             graph = _knn.knn_from_distances(x, k, row_chunk=row_chunk)
         else:
             graph = topk_select(x, k, metric=metric, impl=impl,
                                 block=row_chunk)
-    vals = knn_values(x, graph, kind=kind, metric=metric, block=block,
-                      impl=impl, ties=ties)
+    vals = values(x, graph, kind=kind, metric=metric, block=block,
+                  impl=impl, ties=ties)
     if normalize:
         vals = vals / max(n - 1, 1)
     return graph, vals
@@ -443,8 +466,10 @@ def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
                   normalize: bool = False):
     """Streaming selection, then sparse cohesion, from features: the two
     kernels back to back, the selection's device tensors handed straight
-    to the gather and the values kernel.  Bitwise ``topk_select`` then
-    ``pald_knn(..., graph=...)``.
+    to the values kernel, which computes each row's neighbor tile from X.
+    Bitwise ``topk_select`` then ``pald_knn(..., graph=...)``.  Peak
+    memory on the card beyond X: the graph, the values and the
+    selection's (n,) norms.
 
     Args:
         X: (n, d) features.
@@ -467,10 +492,10 @@ def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
                 torch.zeros((n, 1), dtype=torch.float32, device=X.device))
     graph = topk_select(X, k, metric=metric, impl=select or impl,
                         block=block)
-    vals = knn_values(X, graph, kind="features", metric=metric,
-                      block=cohere_block, impl=impl, ties=ties)
+    vals = _knn_values(X, graph, kind="features", metric=metric,
+                       block=cohere_block, impl=impl, ties=ties)
     if normalize:
-        vals = vals / max(n - 1, 1)
+        vals.div_(max(n - 1, 1))  # in place: no second (n, k+1) buffer
     return graph, vals
 
 

@@ -1,41 +1,79 @@
-"""Sparse k-NN PaLD cohesion values: the CUDA kernel's wrapper and its
-plain torch version.
+"""Sparse k-NN PaLD cohesion values: the CUDA kernel's wrappers and their
+plain torch versions.
 
 From a neighbor graph's (n, k) distances ``dn`` and indices ``idx`` and the
-(n, k, k) gathered neighbor-to-neighbor distances ``g``, the (n, k+1)
-values [self, nbr_0, ..., nbr_{k-1}] of ``core.knn.knn_values_tile``:
+neighbor-to-neighbor distances g(j, m) = d(nbr_j, nbr_m) of each row, the
+(n, k+1) values [self, nbr_0, ..., nbr_{k-1}] of ``core.knn.knn_values_tile``:
 focus sizes over {x} + N_k(x) per directed pair, W = 1/U, then the support
 of each candidate.  The kernel (``csrc/pald_knn.cu``) replaces the TPU
 kernel ``repro/kernels/pald_knn.py::knn_values_pallas`` on the real k (no
-lane padding); U and W never leave the block.  Bound by reading g; the
-source note in the ``.cu`` file has the details.  g is built outside the
-kernel by the plain torch ``core.knn.gather_tile_from_*``, as the
-reference stages it in HBM.
+lane padding); U and W never leave the block.  It takes g from one of
+three sources, one entry point each:
 
-:func:`knn_values_cuda` dispatches on the tensors' device: CUDA tensors
-launch the kernel (or raise), CPU tensors take :func:`knn_values_torch`,
-``knn_values_tile`` over row chunks.
+- :func:`knn_values_cuda`: a gathered (n, k, k) cube, the direct
+  counterpart of ``knn_values_pallas`` (the reference stages g in HBM);
+- :func:`knn_values_from_features_cuda`: X (n, d) and the metric; each
+  row's k x k tile is computed in the block from its neighbors' rows,
+  bitwise ``core.knn.gather_tile_from_features``'s;
+- :func:`knn_values_from_distances_cuda`: D (n, n); D[idx_j, idx_m] read
+  straight, as ``core.knn.gather_tile_from_distances`` gathers it.
+
+On the same g the three give bitwise the same values (one kernel body, the
+same sums in the same order).  The last two write no (n, k, k) array.  The
+source note in the ``.cu`` file has the details.
+
+Each wrapper dispatches on the tensors' device: CUDA tensors launch the
+kernel (or raise), CPU tensors take the plain version (:func:`knn_values_torch`,
+``knn_values_tile`` over row chunks, each chunk's tiles gathered by the
+plain ``gather_tile_from_*``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.knn import knn_values_tile
+from repro_torch.core.knn import (gather_tile_from_distances,
+                                  gather_tile_from_features, knn_values_tile)
 from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
 
 from . import _build
 from .pald_focus import check_operands
+from .pald_fused import metric_id
 from .pald_topk import MAX_K
 
-__all__ = ["knn_values_cuda", "knn_values_torch", "smem_per_cta"]
+__all__ = ["knn_values_cuda", "knn_values_torch",
+           "knn_values_from_features_cuda", "knn_values_from_features_torch",
+           "knn_values_from_distances_cuda",
+           "knn_values_from_distances_torch", "check_indices", "tile_layout",
+           "smem_per_cta"]
+
+TILE_MAX_K = 64  # csrc/pald_knn.cu kTileMaxK: the k x k tile in shared memory
+_STAGE_BYTES = 16 << 10  # csrc/pald_knn.cu kStageBytes
 
 _WARPS = 4  # rows per thread block (csrc/pald_knn.cu: one warp per row)
 
 
-def smem_per_cta(k: int) -> int:
+def tile_layout(k: int, d: int) -> tuple[bool, bool]:
+    """How the features source holds row x's tile at (k, d): (the k x k
+    tile computed once into shared memory (k <= 64; else each pass
+    computes every entry where it reads it), the k neighbor rows staged in
+    shared memory (up to 16 KB of them; else read from X through
+    L1/L2))."""
+    return k <= TILE_MAX_K, d > 0 and k * (d | 1) * 4 <= _STAGE_BYTES
+
+
+def smem_per_cta(k: int, d: int | None = None) -> int:
     """Shared memory of one thread block of the kernel at ``k``, in bytes:
-    each of its four rows' dn, W and idx."""
-    return _WARPS * 3 * 4 * k
+    each of its four rows' dn, W and idx (the cube and D sources,
+    ``d=None``), and for the features source at width ``d`` the norms,
+    the tile and the staged rows (csrc/pald_knn.cu ``feat_layout``).  A
+    card test holds it to the kernel's own report, the C entry
+    ``pald_knn_smem_bytes``."""
+    if d is None:
+        return _WARPS * 3 * 4 * k
+    tile, staged = tile_layout(k, d)
+    per_row = 4 * k + (k * (k | 1) if tile else 0) + (k * (d | 1) if staged
+                                                       else 0)
+    return _WARPS * 4 * per_row
 
 
 def knn_values_torch(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
@@ -56,6 +94,141 @@ def knn_values_torch(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
         out[s:e] = knn_values_tile(dn[s:e].to(torch.float32),
                                    g[s:e].to(torch.float32), ow, wfun)
     return out
+
+
+def knn_values_from_features_torch(X: torch.Tensor, dn: torch.Tensor,
+                                   idx: torch.Tensor, *,
+                                   metric: str = "euclidean",
+                                   ties=DEFAULT_TIES,
+                                   block: int = 128) -> torch.Tensor:
+    """Plain version of the features source (any device): row chunks of
+    ``block``, each chunk's tiles gathered from X, then
+    :func:`knn_values_torch`; never more than a (block, k, k) tile."""
+    metric_id(metric)
+    n, k = dn.shape
+    out = torch.empty((n, k + 1), dtype=torch.float32, device=dn.device)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        g = gather_tile_from_features(X, idx[s:e], metric)
+        out[s:e] = knn_values_torch(dn[s:e], g, idx[s:e], ties=ties,
+                                    block=block, row_off=s)
+    return out
+
+
+def knn_values_from_distances_torch(D: torch.Tensor, dn: torch.Tensor,
+                                    idx: torch.Tensor, *, ties=DEFAULT_TIES,
+                                    block: int = 128) -> torch.Tensor:
+    """Plain version of the D source (any device), chunked as
+    :func:`knn_values_from_features_torch`."""
+    n, k = dn.shape
+    out = torch.empty((n, k + 1), dtype=torch.float32, device=dn.device)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        g = gather_tile_from_distances(D, idx[s:e])
+        out[s:e] = knn_values_torch(dn[s:e], g, idx[s:e], ties=ties,
+                                    block=block, row_off=s)
+    return out
+
+
+def _launch(name, fn_args, out, counter):
+    fn = _build.load(name)
+    dev = out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*fn_args, stream)
+    _build.check(status, name)
+    counter.launches += 1
+    counter.grid_launches += 1
+    return out
+
+
+def check_indices(who: str, idx: torch.Tensor, m: int) -> None:
+    """Raise unless every neighbor index lies in [0, m): the features and
+    D sources read rows of X or D at them unchecked, so ``ops.knn_values``
+    checks a graph that a caller built (one ``aminmax`` of idx and one
+    host sync; a graph the selection just built is not checked)."""
+    if idx.numel() == 0:
+        return
+    lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+    if lo < 0 or hi >= m:
+        raise ValueError(f"{who}: neighbor indices span [{lo}, {hi}], "
+                         f"outside the {m} rows they index")
+
+
+def _check_k(who: str, k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{who}: k={k} outside the kernel's "
+                         f"range 1..{MAX_K} (ROADMAP.md queue 3)")
+
+
+def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
+                                  idx: torch.Tensor, *,
+                                  metric: str = "euclidean",
+                                  ties=DEFAULT_TIES) -> torch.Tensor:
+    """(n, k+1) values with each row's tile computed from X in the kernel,
+    for CUDA tensors; :func:`knn_values_from_features_torch` for CPU ones.
+
+    CUDA operands must be contiguous (X, dn float32; idx int32) on one
+    device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
+    weight functional without a kernel id.  Allocates the output only.
+    Every index must lie in [0, n_X): the kernel reads X's rows at them
+    unchecked (:func:`check_indices`).  Each launch adds one to
+    ``.launches`` and ``.grid_launches``.
+    """
+    if dn.device.type == "cpu":
+        return knn_values_from_features_torch(X, dn, idx, metric=metric,
+                                              ties=ties)
+    mid = metric_id(metric)
+    wid, p0, p1 = kernel_spec(ties)
+    dev = dn.device
+    if dev.type != "cuda":
+        raise ValueError(f"knn_values_from_features_cuda: unsupported "
+                         f"device {dev}")
+    n, k = dn.shape
+    m, d = X.shape
+    check_operands("knn_values_from_features_cuda", dev,
+                   X=(X, (m, d), torch.float32),
+                   dn=(dn, (n, k), torch.float32),
+                   idx=(idx, (n, k), torch.int32))
+    _check_k("knn_values_from_features_cuda", k)
+    out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    return _launch("pald_knn_values_features_f32",
+                   (dn.data_ptr(), X.data_ptr(), d, idx.data_ptr(),
+                    out.data_ptr(), n, k, mid, wid, p0, p1), out,
+                   knn_values_from_features_cuda)
+
+
+def knn_values_from_distances_cuda(D: torch.Tensor, dn: torch.Tensor,
+                                   idx: torch.Tensor, *,
+                                   ties=DEFAULT_TIES) -> torch.Tensor:
+    """(n, k+1) values with D[idx_j, idx_m] read straight from D in the
+    kernel, for CUDA tensors; :func:`knn_values_from_distances_torch` for
+    CPU ones.  Operands and counters as
+    :func:`knn_values_from_features_cuda`'s (D (m, m) float32; every
+    index in [0, m))."""
+    if dn.device.type == "cpu":
+        return knn_values_from_distances_torch(D, dn, idx, ties=ties)
+    wid, p0, p1 = kernel_spec(ties)
+    dev = dn.device
+    if dev.type != "cuda":
+        raise ValueError(f"knn_values_from_distances_cuda: unsupported "
+                         f"device {dev}")
+    n, k = dn.shape
+    m = D.shape[0]
+    check_operands("knn_values_from_distances_cuda", dev,
+                   D=(D, (m, m), torch.float32),
+                   dn=(dn, (n, k), torch.float32),
+                   idx=(idx, (n, k), torch.int32))
+    _check_k("knn_values_from_distances_cuda", k)
+    out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    return _launch("pald_knn_values_distances_f32",
+                   (dn.data_ptr(), D.data_ptr(), m, idx.data_ptr(),
+                    out.data_ptr(), n, k, wid, p0, p1), out,
+                   knn_values_from_distances_cuda)
 
 
 def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
@@ -79,22 +252,16 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
                    dn=(dn, (n, k), torch.float32),
                    g=(g, (n, k, k), torch.float32),
                    idx=(idx, (n, k), torch.int32))
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_values_cuda: k={k} outside the kernel's "
-                         f"range 1..{MAX_K} (ROADMAP.md queue 3)")
+    _check_k("knn_values_cuda", k)
     out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    fn = _build.load("pald_knn_values_f32")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(dn.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                    out.data_ptr(), n, k, wid, p0, p1, stream)
-    _build.check(status, "pald_knn_values_f32")
-    knn_values_cuda.launches += 1
-    knn_values_cuda.grid_launches += 1
-    return out
+    return _launch("pald_knn_values_f32",
+                   (dn.data_ptr(), g.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(), n, k, wid, p0, p1), out, knn_values_cuda)
 
 
-knn_values_cuda.launches = 0
-knn_values_cuda.grid_launches = 0
+for _f in (knn_values_cuda, knn_values_from_features_cuda,
+           knn_values_from_distances_cuda):
+    _f.launches = 0
+    _f.grid_launches = 0

@@ -6,12 +6,12 @@ distances and (n, k) int32 indices, each row ascending by (distance,
 index), the lower index first on ties.  The kernel (``csrc/pald_topk.cu``)
 replaces the TPU kernel ``repro/kernels/pald_topk.py::topk_pallas``: it
 computes each block's distance tiles from the feature rows
-(``csrc/pald_dist.cuh``, bitwise ``cdist_reference``'s), queues the pairs
-that beat their row's current k-th best and folds them into per-row
-best-lists in shared memory on the composite (value, index) key, so D
-never exists and the result does not depend on the order in which
-candidates are visited.  Bound by operations (n^2 distances and compares);
-the source note in the ``.cu`` file has the details.
+(``csrc/pald_dist.cuh``, bitwise ``cdist_reference``'s) and folds the pairs
+that beat their row's current k-th best into per-row best-lists on the
+composite (value, index) key, so D never exists and the result does not
+depend on the order in which candidates are visited.  Bound by operations
+(n^2 distances and compares); the source note in the ``.cu`` file has the
+details.
 
 :func:`topk_select_cuda` dispatches on the tensor's device: a CUDA X
 launches the kernel (or raises), a CPU X takes :func:`topk_select_torch`:
@@ -33,16 +33,37 @@ from .pald_fused import metric_id, norm_grids
 __all__ = ["topk_select_cuda", "topk_select_torch", "MAX_K", "smem_per_cta"]
 
 MAX_K = 1024  # the largest k the kernel takes (csrc/pald_topk.cu: kMaxK)
+_CAND, _STAGES, _MAX_FEAT = 128, 2, 64  # csrc/pald_topk.cu
 
 
-def smem_per_cta(k: int) -> int:
-    """Shared memory of one thread block of the kernel at ``k``, in bytes
-    (csrc/pald_topk.cu ``Layout``: the staged features, R queues of 64
-    candidates, R thresholds and, past k = 32, R best-lists of k (float,
-    int) entries)."""
-    r = 64 if k <= 128 else 32 if k <= 512 else 16
-    lists = 0 if k <= 32 else 8 * r * k
-    return 4 * 16 * (r + 1 + 68) + 8 * 64 * r + 16 * r + lists
+def rows_per_block(k: int) -> int:
+    """R, the rows of one thread block at ``k`` (8 warps of
+    ``warp_rows(k)`` rows)."""
+    return 32 if k <= 32 else 64 if k <= 128 else 32 if k <= 256 else 16
+
+
+def _stage_pitch(f: int) -> int:
+    q = (f + 3) // 4
+    return 4 * q if q % 2 else 4 * q + 4
+
+
+def smem_per_cta(k: int, d: int | None = None) -> int:
+    """Shared memory of one thread block of the kernel at ``k`` and ``d``,
+    in bytes (csrc/pald_topk.cu ``Layout``: the rows staged once, a ring
+    of two slots of 128 candidates' features and norms, the rows'
+    thresholds and norms, and R best-lists of max(k, 32) (float, int)
+    entries, past k = 32 with each warp's two batches of 128);
+    ``d=None``: the largest over every d (past 64 features, when the rows
+    ride in each slot).  A card test holds it to the kernel's own report,
+    the C entry ``pald_topk_smem_bytes``."""
+    r = rows_per_block(k)
+    kd = _MAX_FEAT if d is None else min(d, _MAX_FEAT)
+    parts_once = d is not None and d <= _MAX_FEAT
+    pitch = _stage_pitch(kd)
+    rows = r * pitch if parts_once else 0
+    slot = _CAND * pitch + _CAND + (0 if parts_once else r * pitch)
+    lists = 8 * r * 32 if k <= 32 else 8 * r * k + 8 * _CAND * 16
+    return 4 * (rows + _STAGES * slot + 4 * r) + lists
 
 
 def topk_select_torch(X: torch.Tensor, k: int, *, metric: str = "euclidean",
@@ -75,9 +96,10 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
     for a CUDA X, through :func:`topk_select_torch` for a CPU X.
 
     A CUDA X must be contiguous float32 (``ops`` prepares it), and k at
-    most :data:`MAX_K`; anything else raises.  Each call that launches the
-    kernel adds one to ``topk_select_cuda.launches``, and the grids it
-    issues (the row-norm pre-pass's too) to ``.grid_launches``.
+    most :data:`MAX_K`; anything else raises.  Each call that launches
+    the kernel adds one to ``topk_select_cuda.launches``, and the grids it
+    issues (the row-norm pre-pass's, then the selection's) to
+    ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return topk_select_torch(X, k, metric=metric)

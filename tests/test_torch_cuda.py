@@ -13,7 +13,9 @@ The fused features kernels are held to their plain versions the same way,
 their distances bitwise to ``cdist_reference``, and their U and C bitwise
 to the dense kernels' on those distances (the same loops on the same
 numbers).  The k-NN selection kernel is held bitwise to its plain version
-(indices and distances), the k-NN values kernel to rtol 1e-5.  The tri
+(indices and distances, and across two calls), the k-NN
+values kernel's cube source to rtol 1e-5, its features and D sources
+bitwise to the cube source.  The tri
 kernels are held to their plain versions the same way, their U bitwise to
 the dense kernel's, and their C bitwise to itself across two calls and to
 the dense kernel's C on a symmetric D and W.  A W with a non-finite entry
@@ -320,12 +322,14 @@ def _knn_features(n, d, seed=0, quantum=0.1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k", [(2, 1), (33, 7), (33, 32), (257, 1),
-                                 (257, 32), (257, 256), (1100, 1024)])
-@pytest.mark.parametrize("d", [1, 5, 300])
+                                 (257, 31), (257, 32), (257, 33), (257, 256),
+                                 (1100, 1024)])
+@pytest.mark.parametrize("d", [1, 5, 8, 300])
 @pytest.mark.parametrize("metric", METRICS)
 def test_cuda_topk_vs_plain(cuda_device, metric, d, n, k):
     """The selection kernel against its plain version on the card, indices
-    and distances bitwise, on tie-heavy quantized rows."""
+    and distances bitwise, on tie-heavy quantized rows at a ragged n; a
+    second call bitwise the first, with its grids counted."""
     from repro_torch.kernels import pald_topk
 
     Xg = torch.as_tensor(_knn_features(n, d, seed=n + d), device=cuda_device)
@@ -336,6 +340,12 @@ def test_cuda_topk_vs_plain(cuda_device, metric, d, n, k):
     assert pald_topk.topk_select_cuda.launches == t0 + 1
     assert torch.equal(gk.indices, gp.indices)
     assert torch.equal(gk.distances, gp.distances)
+    g0 = pald_topk.topk_select_cuda.grid_launches
+    gs = pald_topk.topk_select_cuda(Xg, k, metric=metric)
+    assert (pald_topk.topk_select_cuda.grid_launches - g0
+            == (metric != "manhattan") + 1)
+    assert torch.equal(gs.indices, gk.indices)
+    assert torch.equal(gs.distances, gk.distances)
 
 
 @pytest.mark.cuda
@@ -349,6 +359,43 @@ def test_cuda_topk_limits(cuda_device):
         pald_topk.topk_select_cuda(X[:5], 5)
     g = pald_topk.topk_select_cuda(X[:1], 0)
     assert g.indices.shape == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 128, 129, 256, 257,
+                               1024])
+def test_cuda_knn_smem_estimates_are_the_kernels(cuda_device, k):
+    """``pald_topk.smem_per_cta`` and ``pald_knn.smem_per_cta`` give the
+    bytes that the C launches set (``pald_topk_smem_bytes``,
+    ``pald_knn_smem_bytes``) at every width: the Python copies of the
+    layouts cannot drift from the kernels unnoticed."""
+    from repro_torch.kernels import _build, pald_knn, pald_topk
+
+    topk_c = _build.load("pald_topk_smem_bytes")
+    knn_c = _build.load("pald_knn_smem_bytes")
+    assert knn_c(k, -1) == pald_knn.smem_per_cta(k)
+    for d in (0, 1, 2, 5, 8, 63, 64, 65, 128, 300, 4097):
+        assert topk_c(k, d) == pald_topk.smem_per_cta(k, d), (k, d)
+        assert knn_c(k, d) == pald_knn.smem_per_cta(k, d), (k, d)
+    assert max(topk_c(k, d) for d in range(0, 260)) == \
+        pald_topk.smem_per_cta(k)
+    assert topk_c(1025, 8) == knn_c(1025, 8) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["distance", "features"])
+def test_cuda_knn_sources_reject_out_of_range_indices(cuda_device, kind):
+    """A caller's graph with an index past the rows raises before the
+    kernel would read outside X or D."""
+    from repro_torch.core.knn import NeighborGraph
+
+    X = torch.rand((40, 3), device=cuda_device)
+    x = torch.cdist(X, X) if kind == "distance" else X
+    g = ops.topk_select(X, 4)
+    idx = g.indices.clone()
+    idx[3, 1] = 40
+    with pytest.raises(ValueError, match="outside the 40 rows"):
+        ops.knn_values(x, NeighborGraph(idx, g.distances), kind=kind)
 
 
 @pytest.mark.cuda
@@ -378,22 +425,78 @@ def test_cuda_knn_values_vs_plain(cuda_device, name, kind, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 32, 33, 100, 1024])
+@pytest.mark.parametrize("kind", ["distance", "features"])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_knn_sources_bitwise_cube(cuda_device, name, kind, k):
+    """The values kernel's features and D sources, which compute or read
+    each row's tile themselves, bitwise its cube source on the gathered
+    (n, k, k) tiles (one kernel body, the same sums in the same order):
+    the tile in shared memory up to k = 64, computed in each pass past it,
+    at a ragged n."""
+    from repro_torch.core import knn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_knn, pald_topk
+
+    n = 1030 if k == 1024 else 301
+    Xg = torch.as_tensor(_knn_features(n, 5, seed=k), device=cuda_device)
+    graph = pald_topk.topk_select_cuda(Xg, k)
+    idx, dn = graph.indices, graph.distances
+    if kind == "distance":
+        D = cdist_reference(Xg)
+        g = knn.gather_tile_from_distances(D, idx)
+        counter = pald_knn.knn_values_from_distances_cuda
+        vs = counter(D, dn, idx, ties=name)
+    else:
+        g = ops._gather_tiles(Xg, idx, "features", "euclidean")
+        counter = pald_knn.knn_values_from_features_cuda
+        before = counter.launches
+        vs = counter(Xg, dn, idx, ties=name)
+        assert counter.launches == before + 1
+    vk = pald_knn.knn_values_cuda(dn, g, idx, ties=name)
+    torch.cuda.synchronize()
+    _assert_bitwise(f"{kind} source vs the cube", vs, vk)
+
+
+@pytest.mark.cuda
+def test_cuda_select_cohere_allocates_no_cube(cuda_device):
+    """select_cohere on the card holds the graph, the values and the norms
+    at most: its peak above the input stays under the (n, k, k) cube's
+    bytes."""
+    from repro_torch.kernels import ops
+
+    n, k = 4096, 32
+    Xg = torch.as_tensor(_knn_features(n, 8, seed=3), device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    graph, vals = ops.select_cohere(Xg, k=k, normalize=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    need = 8 * n * k + 4 * n * (k + 1) + 4 * n
+    assert peak <= need + (1 << 20)
+    assert peak < 4 * n * k * k
+    assert vals.shape == (n, k + 1) and bool(torch.isfinite(vals).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
 def test_cuda_knn_facade_matches_cpu(cuda_device, metric):
-    """from_features(X, k=...) on the card (the two k-NN kernels once
-    each, no dense or fused kernel) against the same call on the CPU."""
+    """from_features(X, k=...) on the card (the selection kernel and the
+    values kernel's features source once each, no dense or fused kernel)
+    against the same call on the CPU."""
     from repro_torch.core import pald
     from repro_torch.kernels import pald_fused, pald_knn, pald_topk
 
     X = _knn_features(300, 7, seed=5)
-    before = [f.launches for f in (
-        pald_topk.topk_select_cuda, pald_knn.knn_values_cuda,
-        pald_fused.focus_fused_cuda, pald_focus.focus_general_cuda)]
+    counted = (pald_topk.topk_select_cuda,
+               pald_knn.knn_values_from_features_cuda,
+               pald_knn.knn_values_cuda, pald_fused.focus_fused_cuda,
+               pald_focus.focus_general_cuda)
+    before = [f.launches for f in counted]
     Cg = pald.from_features(X, metric=metric, k=16, ties="ignore")
-    after = [f.launches for f in (
-        pald_topk.topk_select_cuda, pald_knn.knn_values_cuda,
-        pald_fused.focus_fused_cuda, pald_focus.focus_general_cuda)]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
+    after = [f.launches for f in counted]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0, 0]
     Cc = pald.from_features(X, metric=metric, k=16, ties="ignore",
                             device="cpu")
     np.testing.assert_allclose(Cg.cpu().numpy(), Cc.numpy(), rtol=RTOL,

@@ -10,7 +10,9 @@ takes it for CPU tensors).  Held to:
   through its jnp fallback beyond, for the five built-in families and
   k in {1, 4, 11, n-1}, at rtol 1e-5, atol 1e-6 (tests/test_conformance.py);
 - itself: the features kind bitwise the distance kind on
-  ``cdist_reference(X)`` (the gathered tiles are bitwise the same),
+  ``cdist_reference(X)`` (the gathered tiles are bitwise the same), the
+  plain versions of the kernel's features and D sources bitwise its cube
+  source's,
   ``select_cohere`` bitwise selection then ``pald_knn``, and at k = n-1
   the scattered values within rtol 1e-5 of the dense C;
 - the engine's k-NN knobs and cells, and the sparse analyses against the
@@ -216,6 +218,117 @@ def test_values_cuda_wrapper_takes_plain_version_on_cpu():
     assert pald_knn.knn_values_cuda.launches == before
     assert torch.equal(v, pald_knn.knn_values_torch(
         g.distances, tiles, g.indices, ties="split"))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_tile_sources_plain_versions_equal_the_cube(name, metric):
+    """The plain versions of the values kernel's features and D sources
+    (each row chunk's tiles gathered as it goes) bitwise the cube source's
+    plain version on the whole gathered cube."""
+    X = torch.from_numpy(_dup_X(70, d=4, seed=11))
+    D = _D(X.numpy(), metric)
+    g = knn.knn_from_distances(D, 9)
+    cube = knn.gather_tile_from_features(X, g.indices, metric)
+    want = pald_knn.knn_values_torch(g.distances, cube, g.indices, ties=name)
+    vf = pald_knn.knn_values_from_features_torch(
+        X, g.distances, g.indices, metric=metric, ties=name, block=16)
+    vd = pald_knn.knn_values_from_distances_torch(
+        D, g.distances, g.indices, ties=name, block=16)
+    assert torch.equal(vf, want)
+    assert torch.equal(vd, want)
+
+
+@pytest.mark.parametrize("impl", ["interpret", "jnp"])
+@pytest.mark.parametrize("kind", ["distance", "features"])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_knn_values_plain_matches_reference(name, kind, impl):
+    """``ops.knn_values(..., impl="torch")`` and the plain versions of the
+    tile sources against the reference's ``knn_values`` on the same graph,
+    in interpret mode (the TPU kernel's body) and jnp mode."""
+    n, k = 40, 7
+    X = _dup_X(n, d=3, seed=12)
+    D = _D(X)
+    g = knn.knn_from_distances(D, k)
+    x = D if kind == "distance" else torch.from_numpy(X)
+    v = ops.knn_values(x, g, kind=kind, impl="torch", ties=name)
+    v_src = (pald_knn.knn_values_from_distances_torch(D, g.distances,
+                                                      g.indices, ties=name)
+             if kind == "distance" else
+             pald_knn.knn_values_from_features_torch(
+                 x, g.distances, g.indices, ties=name))
+    assert torch.equal(v_src, v)
+    jg = jknn.NeighborGraph(jnp.asarray(g.indices.numpy()),
+                            jnp.asarray(g.distances.numpy()))
+    jx = jnp.asarray(x.numpy())
+    want = np.asarray(jops.knn_values(jx, jg, kind=kind, impl=impl,
+                                      block=16, ties=name))
+    np.testing.assert_allclose(v.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_select_cohere_plain_matches_reference(name):
+    """``ops.select_cohere(..., impl="torch")`` against the reference's
+    ``select_cohere`` (jnp) on tie-free points: the same graph, the
+    values to rtol 1e-5 (the reference's distances differ by ulps)."""
+    X = _X(45, d=4, seed=14)
+    g, v = ops.select_cohere(torch.from_numpy(X), k=7, impl="torch",
+                             ties=name, normalize=True)
+    jg, jv = jops.select_cohere(jnp.asarray(X), k=7, impl="jnp", block=16,
+                                ties=name, normalize=True)
+    np.testing.assert_array_equal(g.indices.numpy(), np.asarray(jg.indices))
+    np.testing.assert_allclose(g.distances.numpy(), np.asarray(jg.distances),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_tile_source_wrappers_take_plain_versions_on_cpu():
+    X = torch.from_numpy(_dup_X(30, d=3, seed=13))
+    D = _D(X.numpy())
+    g = knn.knn_from_distances(D, 5)
+    before = (pald_knn.knn_values_from_features_cuda.launches,
+              pald_knn.knn_values_from_distances_cuda.launches)
+    vf = pald_knn.knn_values_from_features_cuda(X, g.distances, g.indices,
+                                                ties="ignore")
+    vd = pald_knn.knn_values_from_distances_cuda(D, g.distances, g.indices,
+                                                 ties="ignore")
+    assert (pald_knn.knn_values_from_features_cuda.launches,
+            pald_knn.knn_values_from_distances_cuda.launches) == before
+    assert torch.equal(vf, pald_knn.knn_values_from_features_torch(
+        X, g.distances, g.indices, ties="ignore"))
+    assert torch.equal(vd, vf)
+
+
+@pytest.mark.parametrize("bad", [-1, 30, 1 << 20])
+@pytest.mark.parametrize("kind", ["features", "distance"])
+def test_tile_sources_reject_out_of_range_indices(kind, bad):
+    """A caller-built graph with an index outside [0, n) raises through
+    ``ops.knn_values`` and ``ops.pald_knn(graph=...)`` on either impl
+    before any row is read: on the card the tile sources read X / D
+    unchecked."""
+    X = torch.from_numpy(_dup_X(30, d=3, seed=13))
+    x = _D(X.numpy()) if kind == "distance" else X
+    g = knn.knn_from_distances(_D(X.numpy()), 5)
+    idx = g.indices.clone()
+    idx[7, 2] = bad
+    bad_graph = knn.NeighborGraph(idx, g.distances)
+    for impl in ("cuda", "torch"):
+        with pytest.raises(ValueError, match="outside the 30 rows"):
+            ops.knn_values(x, bad_graph, kind=kind, impl=impl)
+    with pytest.raises(ValueError, match="outside the 30 rows"):
+        ops.pald_knn(x, k=5, kind=kind, graph=bad_graph)
+    ops.knn_values(x, g, kind=kind)  # the graph as built passes
+
+
+@pytest.mark.parametrize("k", [1, 32, 64, 65, 1024])
+@pytest.mark.parametrize("d", [None, 1, 8, 300])
+def test_values_smem_estimate_fits_the_card(k, d):
+    """The values kernel's per-block shared memory (four rows, each
+    source's layout) stays within the H100's 227 KB at every k it
+    takes; the tile lives in shared memory up to k = 64."""
+    assert 0 < pald_knn.smem_per_cta(k, d) <= 232448
+    assert pald_knn.tile_layout(k, 8)[0] == (k <= 64)
 
 
 def test_soft_reuses_focus_bitwise():

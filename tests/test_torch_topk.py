@@ -188,3 +188,27 @@ def test_topk_smem_estimate_fits_the_card(k):
     at every k the kernel takes."""
     assert 0 < pald_topk.smem_per_cta(k) <= 232448
     assert k <= pald_topk.MAX_K
+
+
+@pytest.mark.parametrize("d", [1, 8, 64, 65, 300])
+@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 512, 513, 1024])
+def test_topk_smem_estimate_fits_the_card_at_every_width(k, d):
+    """The per-block shared memory at each feature width stays within the
+    H100's 227 KB and under the estimate over every width."""
+    assert 0 < pald_topk.smem_per_cta(k, d) <= pald_topk.smem_per_cta(k)
+    assert pald_topk.smem_per_cta(k) <= 232448
+
+
+@pytest.mark.parametrize("k", [1, 32, 33])
+@pytest.mark.parametrize("block", [1, 7, 32])
+@pytest.mark.parametrize("metric", METRICS)
+def test_row_slabs_do_not_change_the_selection(metric, block, k):
+    """The plain selection in slabs of ``block`` rows is bitwise the one
+    slab of all rows, on tie-heavy rows with duplicates: the composite
+    (value, index) key orders every row alike, however rows are grouped
+    (the kernel's blocks group them by 32)."""
+    X = torch.from_numpy(_dup_X(90, 5, seed=block + k))
+    want = pald_topk.topk_select_torch(X, k, metric=metric)
+    got = pald_topk.topk_select_torch(X, k, metric=metric, block=block)
+    assert torch.equal(got.indices, want.indices)
+    assert torch.equal(got.distances, want.distances)

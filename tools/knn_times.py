@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the k-NN path of whichever ``repro_torch`` is on the path.
+
+    PYTHONPATH=src python3 tools/knn_times.py [--big]
+
+On the k-NN example's mixture (n = 50,000 points in communities of 25,
+d = 8, seed 0; ``examples/pald_knn_clusters.py``): ``ops.topk_select(X,
+k)`` at k in {1, 32, 256, 1024}, ``ops.knn_values(X, graph,
+kind="features")`` at k = 32 (the stage "gather + values": the plain
+gather and the cube kernel before the values kernel built its own tiles)
+and ``ops.select_cohere(X, k=32)``, each the median of 3 CUDA-event
+timings after a warm-up.  The same points in a random order (seed 0;
+``"shuffled"``): the selection at k = 1 and 32 and ``select_cohere``; the
+mixture lists its communities in turn, so in its own order a block's
+nearby rows share most of their neighbors.  At n in {8192, 10000}
+(``"small"``), where the card holds fewer row blocks than it has slots:
+the selection and ``select_cohere`` at k = 32, median of 11; on a tree
+whose selection splits its candidates into segments, also the selection
+at S in {1, 2, 4, 8} and ``select_cohere`` with the split turned off
+(``pald_topk.default_segments`` pinned to 1; ``"S"`` is the default's
+choice).  ``--big`` adds ``select_cohere`` at n = 10^6 (one timed call
+after a warm-up).  Prints the card's name and power limit, then one JSON
+line ``{"n": ..., "topk": {k: ms}, "values": ms, "select_cohere": ms,
+"shuffled": {...}, "small": {n: {...}}, ...}``.
+
+It uses only entry points that every slice of the port has, so it times
+two trees in one call on one card: run it with ``PYTHONPATH`` set to each
+tree's ``src`` in turns (base, new, new, base).  Needs a CUDA GPU.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+N, K, D, COMM, SEED, REPS = 50_000, 32, 8, 25, 0, 3
+N_BIG = 1_000_000
+N_SMALL, REPS_SMALL = (8192, 10_000), 11
+
+
+def mixture(n: int, comm: int, d: int, seed: int) -> torch.Tensor:
+    """examples/pald_knn_clusters.py::make_mixture on the card."""
+    rng = np.random.default_rng(seed)
+    c = max(n // comm, 1)
+    centers = rng.normal(size=(c, d)) * (6.0 * c ** (1.0 / d))
+    X = np.concatenate([centers[i] + rng.normal(size=(comm, d))
+                        for i in range(c)])
+    return torch.as_tensor(X.astype(np.float32), device="cuda")
+
+
+def median_ms(fn, reps: int = REPS) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def small_times(ops, n: int) -> dict:
+    """The selection and select_cohere at n, k = K; with the candidate
+    split turned off too where the tree has one."""
+    from repro_torch.kernels import pald_topk
+
+    X = mixture(n, COMM, D, SEED)
+    out = {"topk": median_ms(lambda: ops.topk_select(X, K), REPS_SMALL),
+           "select_cohere": median_ms(lambda: ops.select_cohere(X, k=K),
+                                      REPS_SMALL)}
+    split = getattr(pald_topk, "default_segments", None)
+    if split is not None:
+        out["S"] = split(n, K, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        out["topk_by_S"] = {s: median_ms(lambda: pald_topk.topk_select_cuda(
+            X, K, segments=s), REPS_SMALL) for s in (1, 2, 4, 8)}
+        pald_topk.default_segments = lambda *a: 1
+        try:
+            out["select_cohere_S1"] = median_ms(
+                lambda: ops.select_cohere(X, k=K), REPS_SMALL)
+        finally:
+            pald_topk.default_segments = split
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("knn_times: needs a CUDA GPU")
+    from repro_torch.kernels import ops
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    X = mixture(N, COMM, D, SEED)
+    out = {"n": N, "d": D, "topk": {}}
+    for k in (1, K, 256, 1024):
+        out["topk"][k] = median_ms(lambda: ops.topk_select(X, k))
+    graph = ops.topk_select(X, K)
+    out["values"] = median_ms(
+        lambda: ops.knn_values(X, graph, kind="features"))
+    out["select_cohere"] = median_ms(lambda: ops.select_cohere(X, k=K))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.select_cohere(X, k=K)
+    torch.cuda.synchronize()
+    out["select_cohere_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    perm = torch.as_tensor(np.random.default_rng(SEED).permutation(N),
+                           device="cuda")
+    Xs = X[perm].contiguous()
+    out["shuffled"] = {f"topk_{k}": median_ms(lambda: ops.topk_select(Xs, k))
+                       for k in (1, K)}
+    out["shuffled"]["select_cohere"] = median_ms(
+        lambda: ops.select_cohere(Xs, k=K))
+    del Xs
+    out["small"] = {n: small_times(ops, n) for n in N_SMALL}
+    if "--big" in sys.argv[1:]:
+        del graph
+        Xb = mixture(N_BIG, COMM, D, SEED)
+        out["select_cohere_big_ms"] = median_ms(
+            lambda: ops.select_cohere(Xb, k=K), 1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
