@@ -102,7 +102,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 15. a ``torch.profiler`` window over one dense and one tri call at
    n = 8192: the device's busy share and the kernel time by name; then
    both pipelines at a ragged n = 8000 (the engine pads it to 8064), timed
-   in turns, with their peak device memory.
+   in turns, with their peak device memory;
+16. guarded execution (``on_error="fallback"``) on the card: at n = 1024,
+   dense and tri, a fault-free fallback plan bitwise the raise plan with
+   no event and both kernels launched, then every CUDA entry point faulted
+   (``testing.faults.fail_kernel(impl="cuda")``) and the ``impl:torch``
+   rung within rtol 1e-5, atol 1e-6 with one event; a real
+   ``torch.cuda.OutOfMemoryError``: 8 items at n = 4096 under a memory cap
+   (``torch.cuda.set_per_process_memory_fraction``, restored after; 16.5
+   items' bytes above the reserved memory) that a chunk of 8 exceeds and
+   one of 2 does not, rescued by halving ``batch``,
+   bitwise the per-item C; the ``select="chunked"`` rung's graph bitwise
+   the CUDA selection's at n = 50,000, k = 32, with both times; k = 2048
+   (past the k-NN kernels' 1024) raising under "raise" and rescued by the
+   torch rung under "fallback", bitwise an ``impl="torch"`` call;
+17. batched chunks: B = 64 items at n = 256 and B = 16 at n = 1024, dense
+   and tri, one chunk (one grid a pass, b x the upper tile pairs of focus
+   blocks counted on the card) against one item a launch (``batch=1``):
+   both times (medians of 3, in turns) beside the card's name and power
+   limit, C bitwise.  Reports only; no speed gate.
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches``: wrapper calls on the main path; ``grid_launches``: the grids
@@ -1787,6 +1805,207 @@ def phase_profile_and_ragged(D, n_ragged=8000, reps=3):
           f"({peaks['tri'] / buf:.3f} n^2)")
 
 
+# phase 16: the OOM cell, items and size (2.25 n^2 float32 of state an item)
+N_OOM, B_OOM = 4096, 8
+# phase 17: the batched cells, (items, n)
+CHUNK_CELLS = ((64, 256), (16, 1024))
+
+
+def _pipeline_wrappers(sched):
+    """The (focus, cohesion) wrappers of the kernel method's schedule."""
+    from repro_torch.kernels import (pald_cohesion, pald_cohesion_tri,
+                                     pald_focus, pald_focus_tri)
+
+    if sched == "tri":
+        return pald_focus_tri.focus_tri_cuda, pald_cohesion_tri.cohesion_tri_cuda
+    return pald_focus.focus_general_cuda, pald_cohesion.cohesion_general_cuda
+
+
+def _stack_distances(items, n, dev, seed):
+    """(items, n, n) clustered distance matrices on the card."""
+    import torch
+
+    D = torch.empty((items, n, n), dtype=torch.float32, device=dev)
+    for i in range(items):
+        X, _ = clustered_points(n, D_MAIN, seed + i)
+        D[i] = distances_on_device(torch.as_tensor(X, device=dev))
+    return D
+
+
+def phase_guard(dev, n=1024):
+    """Phase 16: guarded execution on the card.  A fault-free fallback
+    plan bitwise the raise plan with the kernels launched and no event;
+    every CUDA entry point faulted, the plan keeps its kernels: no plain
+    rung answers, the call ends in ``FallbackExhausted``; a real CUDA OOM
+    rescued by halving ``batch``, bitwise; the chunked selection rung
+    bitwise the CUDA selection at the k-NN example's size; k past the
+    k-NN kernels' limit ends in ``FallbackExhausted`` too."""
+    import warnings
+
+    import torch
+    from repro_torch.core import pald, resilience
+    from repro_torch.kernels import ops, pald_topk
+    from repro_torch.testing import faults
+
+    X, _ = clustered_points(n, D_MAIN, SEED + 16)
+    D = distances_on_device(torch.as_tensor(X, device=dev))
+    for sched in ("dense", "tri"):
+        focus, coh = _pipeline_wrappers(sched)
+        kw = dict(method="kernel", schedule=sched, ties="ignore")
+        strict = pald.cohesion(D, **kw)
+        f0, c0 = focus.launches, coh.launches
+        p = pald.plan(D, on_error="fallback", **kw)
+        C = p.execute(D)
+        moved = (focus.launches - f0, coh.launches - c0)
+        if moved != (1, 1) or p.explain()["degradations"]:
+            fail(f"phase 16: {sched} fallback plan: launches {moved}, "
+                 f"events {p.explain()['degradations']}")
+        compare(f"phase 16 {sched} fallback plan", C, strict, True)
+        p = pald.plan(D, on_error="fallback", **kw)
+        try:
+            with faults.fail_kernel(impl="cuda") as rule:
+                p.execute(D)
+        except resilience.FallbackExhausted as exc:
+            exhausted = exc
+        else:
+            fail(f"phase 16: {sched} dead kernels answered off the kernels")
+        labels = [st.label for st in resilience.chain_for(p)]
+        if rule.trips != 1 or p.explain()["degradations"] or any(
+                f"{lb}: FallbackUnavailable" not in str(exhausted)
+                for lb in labels):
+            fail(f"phase 16: {sched} dead kernels: trips {rule.trips}, "
+                 f"events {p.explain()['degradations']}, {exhausted}")
+        print(f"phase 16: {sched} n={n}: fallback plan bitwise the raise "
+              f"plan, 0 events, launches {moved}; every CUDA entry point "
+              f"faulted: FallbackExhausted, rungs {labels} unavailable on "
+              f"the card, from {exhausted.__cause__!r}")
+    del D, C, strict, exhausted
+
+    # a real torch.cuda.OutOfMemoryError, rescued by halving batch
+    Db = _stack_distances(B_OOM, N_OOM, dev, SEED + 160)
+    kw = dict(method="kernel", ties="ignore")
+    want = pald.plan(Db, batch=1, **kw).execute(Db)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    item = 4 * N_OOM * N_OOM
+    total = torch.cuda.get_device_properties(dev).total_memory
+    base = torch.cuda.memory_reserved(dev)
+    print(f"phase 16: OOM cell: {torch.cuda.memory_allocated(dev)} B "
+          f"allocated, {base} B reserved before the cap")
+    # one chunk of 8 needs 18 items' bytes (U, W, W's mask), chunks of 4
+    # 17 after the first (the output's 8 + 9), chunks of 2 12.5: the cap
+    # leaves 4 items for what the failed attempts fragment
+    allow = base + int(16.5 * item)
+    p = pald.plan(Db, on_error="fallback", **kw)
+    torch.cuda.set_per_process_memory_fraction(allow / total, dev)
+    try:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", resilience.DegradationWarning)
+            got = p.execute(Db)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    except resilience.FallbackExhausted as exc:
+        fail(f"phase 16: OOM cell exhausted ({exc}); events "
+             f"{p.explain()['degradations']}")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    events = p.explain()["degradations"]
+    if not events or any(e["cause"] != "oom" or "OutOfMemoryError"
+                         not in e["error"] for e in events):
+        fail(f"phase 16: OOM cell: events {events}")
+    compare(f"phase 16 OOM rescue B={B_OOM} n={N_OOM}", got, want, True)
+    print(f"phase 16: {B_OOM} items at n={N_OOM}, batch=None under a cap of "
+          f"{allow} B ({(allow - base) / item:.1f} items above the "
+          f"{base} B reserved): halved to batch "
+          f"{[e['batch'] for e in events]} by torch.cuda.OutOfMemoryError, "
+          f"C bitwise the per-item C, {wall:.1f} ms; first error: "
+          f"{events[0]['error'][:120]}")
+    del Db, want, got
+    torch.cuda.empty_cache()
+
+    # the chunked selection rung at the k-NN example's size
+    Xm, _ = make_mixture(N_KNN, COMM_KNN, D_KNN, SEED)
+    Xg = torch.as_tensor(Xm, device=dev)
+    ms_k, g = time_ms(lambda: ops.topk_select(Xg, K_KNN, impl="cuda"), 3)
+    ms_c, gc = time_ms(lambda: ops.topk_select(Xg, K_KNN, impl="chunked"), 1)
+    compare("phase 16 chunked rung indices", gc.indices, g.indices, True)
+    compare("phase 16 chunked rung distances", gc.distances, g.distances,
+            True)
+    print(f"phase 16: select='chunked' n={Xg.shape[0]} k={K_KNN}: graph "
+          f"bitwise topk_select_cuda's; chunked {ms_c!r} ms, kernel "
+          f"{ms_k!r} ms")
+    del Xg, g, gc
+
+    # k past the k-NN kernels' limit
+    Xs, _ = make_mixture(2100, COMM_KNN, D_KNN, SEED + 1)
+    Xs = torch.as_tensor(Xs, device=dev)
+    kw = dict(k=2 * pald_topk.MAX_K, block=32)
+    try:
+        pald.from_features(Xs, **kw)
+    except ValueError as exc:
+        raised = str(exc)
+    else:
+        fail("phase 16: k=2048 under on_error='raise' did not raise")
+    p = pald.plan(Xs, kind="features", on_error="fallback", **kw)
+    try:
+        p.execute(Xs)
+    except resilience.FallbackExhausted as exc:
+        exhausted = str(exc)
+        if not isinstance(exc.__cause__, ValueError):
+            fail(f"phase 16: k=2048: exhausted from {exc.__cause__!r}")
+    else:
+        fail("phase 16: k=2048 under on_error='fallback' answered off the "
+             "kernels")
+    if p.explain()["degradations"] or "select:chunked: FallbackUnavailable" \
+            not in exhausted:
+        fail(f"phase 16: k=2048: {exhausted}")
+    print(f"phase 16: from_features(X, k={kw['k']}) n={Xs.shape[0]}: "
+          f"'raise' raised ValueError ({raised[:60]}...); 'fallback' ended "
+          f"in FallbackExhausted, no plain rung on the card")
+    torch.cuda.empty_cache()
+
+
+def phase_chunks(dev, card, reps=3):
+    """Phase 17: batched chunks.  B small items through the kernel method,
+    one item a launch (batch=1) against the whole batch in one chunk (one
+    grid a pass): times (median of ``reps``, in turns) and C bitwise."""
+    import torch
+    from repro_torch.core import pald
+    from repro_torch.kernels import pald_focus
+
+    for items, n in CHUNK_CELLS:
+        Db = _stack_distances(items, n, dev, SEED + 170)
+        for sched in ("dense", "tri"):
+            kw = dict(method="kernel", schedule=sched, ties="ignore")
+            loop = pald.plan(Db, batch=1, **kw)
+            chunk = pald.plan(Db, **kw)
+            pald_focus.reset_tile_counts()
+            focus, coh = _pipeline_wrappers(sched)
+            f0, c0 = focus.launches, coh.launches
+            C = chunk.execute(Db)
+            blocks = pald_focus.tile_counts(dev)[0]
+            if (focus.launches - f0, coh.launches - c0) != (1, 1) or \
+                    blocks != items * pald_focus.focus_blocks(n, n, True):
+                fail(f"phase 17: {sched} B={items} n={n}: launches "
+                     f"{(focus.launches - f0, coh.launches - c0)}, focus "
+                     f"blocks {blocks}")
+            compare(f"phase 17 {sched} B={items} n={n}", C,
+                    loop.execute(Db), True)
+            t = {"loop": [], "chunk": []}
+            for which in ("loop", "chunk", "chunk", "loop"):
+                plan_ = loop if which == "loop" else chunk
+                ms, _ = time_ms(lambda: plan_.execute(Db), reps)
+                t[which].append(ms)
+            print(f"phase 17: {sched} B={items} n={n}: one chunk (1 launch "
+                  f"a pass, {blocks} focus blocks) {t['chunk']} ms, one "
+                  f"item a launch {t['loop']} ms (medians of {reps}, in "
+                  f"turns), loop/chunk "
+                  f"{min(t['loop']) / min(t['chunk']):.2f}; C bitwise; "
+                  f"{card}")
+        del Db
+
+
 def main() -> int:
     import torch
 
@@ -1794,6 +2013,7 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available; this script runs only on "
               "the card", file=sys.stderr)
         return 2
+    sys.stdout.reconfigure(line_buffering=True)  # a cut run keeps its log
     start = time.perf_counter()
     from repro_torch.kernels import _build
 
@@ -1862,6 +2082,12 @@ def main() -> int:
     phase_profile_and_ragged(D)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     del D
+    t0 = time.perf_counter()
+    phase_guard(dev)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_chunks(dev, card)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

@@ -10,7 +10,9 @@
     The single dispatch path: moves ``x`` to the plan's device, checks it,
     looks the resolved ``(kind, method, schedule)`` up in the EXECUTOR
     REGISTRY and runs it.  Batched ``(B, n, n)`` distances or ``(B, n, d)``
-    features run item by item.
+    features run in chunks of up to ``batch`` items (``run_batched``).
+    With ``on_error="fallback"`` a failure walks the cell's degradation
+    chain (``core/resilience.py``).
 
 ``register_executor(kind, method, schedule)``
     How ``core/pairwise``, ``core/triplet`` and ``kernels/ops`` contribute
@@ -40,7 +42,7 @@ the caller passes ``device="cpu"``.  Without a GPU the default raises; it
 never carries on on the CPU.
 
 Knobs of the reference that later slices of the port bring (ROADMAP.md,
-queue 1) raise ``NotImplementedError`` naming their slice; none is
+queue 1) raise ``NotImplementedError`` naming their item; none is
 silently dropped.
 """
 from __future__ import annotations
@@ -51,6 +53,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from . import resilience as _res
 from .weights import (DEFAULT_TIES, WeightFunctional, registered_weights,
                       resolve_weight, validate_ties)
 
@@ -62,6 +65,9 @@ __all__ = [
     "available_executors",
     "pad_distance_matrix",
     "run_batched",
+    "run_chunk",
+    "per_item",
+    "chunk_or_items",
     "resolve_device",
 ]
 
@@ -79,12 +85,8 @@ _IMPL_METHODS = ("kernel", "fused", "knn")
 _SLICE = {
     "block_auto": "block= / block_z= / select_block='auto' need the tuning "
                   "cache (ROADMAP.md queue 1, item 9: tuning)",
-    "fallback": "on_error='fallback' is the guarded-execution slice "
-                "(ROADMAP.md queue 1, item 8: resilience)",
     "mesh": "mesh= / strategy= are the distributed slice (ROADMAP.md queue "
             "1, item 10)",
-    "chunked": "select='chunked' is the terminal selection rung of guarded "
-               "execution (ROADMAP.md queue 1, item 8: resilience)",
     "select_tile": "select_tile= is the tuned tile-min prefilter of the "
                    "selection (ROADMAP.md queue 1, item 9: tuning)",
 }
@@ -107,7 +109,8 @@ def resolve_device(device) -> torch.device:
 def pad_distance_matrix(
     D: torch.Tensor, block: int, *, dtype=torch.float32
 ) -> tuple[torch.Tensor, int]:
-    """Pad D to a multiple of ``block`` with +inf off-diagonal, 0 diagonal.
+    """Pad D (or each item of a (b, n, n) chunk) to a multiple of
+    ``block`` with +inf off-diagonal, 0 diagonal.
 
     Padded points are infinitely far from everything: they never enter a
     real pair's local focus (inf < d is false) and contribute to padded
@@ -115,13 +118,14 @@ def pad_distance_matrix(
     pipeline's one explicit downcast point.
     """
     D = D.to(dtype)
-    n = D.shape[0]
+    n = D.shape[-1]
     m = -(-n // block) * block
     if m == n:
         return D, n
-    P = torch.full((m, m), float("inf"), dtype=D.dtype, device=D.device)
-    P[:n, :n] = D
-    P.fill_diagonal_(0.0)
+    P = torch.full(D.shape[:-2] + (m, m), float("inf"), dtype=D.dtype,
+                   device=D.device)
+    P[..., :n, :n] = D
+    P.diagonal(dim1=-2, dim2=-1).fill_(0.0)
     return P, n
 
 
@@ -131,13 +135,17 @@ def pad_distance_matrix(
 _EXECUTORS: dict[tuple[str, str, str], Callable] = {}
 
 
-def register_executor(kind: str, method: str, schedule: str = "dense"):
+def register_executor(kind: str, method: str, schedule: str = "dense", *,
+                      chunks: bool = False):
     """Decorator: contribute the executor for one (kind, method, schedule)
     cell.  The callable receives ``(x, plan)`` with ``x`` one UNBATCHED
     item on the plan's device and owns the per-item pipeline: cast, pad,
-    compute, slice, normalize."""
+    compute, slice, normalize.  ``chunks=True``: it also takes a (b, ...)
+    chunk of items and runs it as one (the kernel cells: one launch per
+    pass for the whole chunk), bitwise its items run one at a time."""
 
     def deco(fn):
+        fn.chunks = chunks
         _EXECUTORS[(kind, method, schedule)] = fn
         return fn
 
@@ -167,13 +175,71 @@ def available_executors() -> list[tuple[str, str, str]]:
     return sorted(_EXECUTORS)
 
 
-def run_batched(fn, x, plan: "PaldPlan"):
-    """Run executor ``fn`` over ``x``: 2-D input straight through, 3-D
-    input one item at a time (the reference vmaps chunks of ``batch``
-    items; here items run in turn, so peak memory is one item's)."""
+def per_item(fn, *operands):
+    """``fn`` over the leading item axis of (b, ...) operands (a None
+    operand passes through), each item's result written into one (b, ...)
+    output allocated at the first item: a chunk through code that takes
+    one item (an executor, a plain version, a kernel entry without an
+    item axis)."""
+    out = None
+    b = operands[0].shape[0]
+    for i in range(b):
+        r = fn(*(None if t is None else t[i] for t in operands))
+        if out is None:
+            out = r.new_empty((b,) + tuple(r.shape))
+        out[i] = r
+        del r
+    return out
+
+
+def chunk_or_items(fn, Dp: torch.Tensor, impl: str | None) -> torch.Tensor:
+    """``fn`` over a padded (n, n) item or (b, n, n) chunk: a chunk goes
+    whole to the CUDA kernels (one grid a pass), item by item to the plain
+    versions, which take one item (``impl="torch"``, or a CPU tensor)."""
+    if Dp.ndim == 2 or (Dp.device.type == "cuda" and impl != "torch"):
+        return fn(Dp)
+    return per_item(fn, Dp)
+
+
+def run_chunk(fn, xc, plan: "PaldPlan") -> torch.Tensor:
+    """Executor ``fn`` over a (b, ...) chunk: in one call when it takes
+    chunks, else item by item into the chunk's (b, n, n) output."""
+    if getattr(fn, "chunks", False):
+        return fn(xc, plan)
+    return per_item(lambda xi: fn(xi, plan), xc)
+
+
+def run_batched(fn, x, plan: "PaldPlan", batch: int | None = None):
+    """The engine's batch layer: run executor ``fn`` over ``x``.
+
+    2-D input goes straight through; a (B, ...) stack runs in chunks of
+    ``min(batch, B)`` items (all B when ``batch`` is None), as the
+    reference vmaps them.  A chunk is held and run together
+    (:func:`run_chunk`), so its working buffers, and peak memory, grow
+    with it, and the OOM retry of ``core/resilience`` has a bound to
+    halve.  Chunking is a pure re-partition: any chunk size gives bitwise
+    the same result.  Shared by ``PaldPlan.execute`` and the degradation
+    chain's steps.
+    """
     if x.ndim == 2:
         return fn(x, plan)
-    return torch.stack([fn(xi, plan) for xi in x])
+    B = x.shape[0]
+    eff = max(1, B if batch is None else min(batch, B))
+    _res.fault_point("engine.batch", batch=eff, n=plan.n, kind=plan.kind,
+                     method=plan.method, impl=plan.impl)
+    if eff >= B:
+        if B == 0:
+            return torch.empty((0, plan.n, plan.n), dtype=torch.float32,
+                               device=x.device)
+        return run_chunk(fn, x, plan)
+    out = None
+    for s in range(0, B, eff):
+        part = run_chunk(fn, x[s:s + eff], plan)
+        if out is None:
+            out = part.new_empty((B,) + tuple(part.shape[1:]))
+        out[s:s + part.shape[0]] = part
+        del part
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +263,8 @@ class PaldPlan:
     z_chunk: int | None           # dense-method z streaming chunk
     ties: str                     # the weight functional's name
     normalize: bool
-    batch: int | None             # accepted for the reference's surface
+    batch: int | None             # chunk bound for batched input (None:
+    #                               the whole batch in one chunk)
     check: bool                   # deep input validation on execute
     n: int                        # per-item point count
     device: torch.device
@@ -207,18 +274,41 @@ class PaldPlan:
     metric: str | None = None     # features kind only
     d: int | None = None          # feature dimension (features kind)
     k: int | None = None          # neighborhood size (knn only)
-    select: str | None = None     # knn selection impl; None follows impl
+    select: str | None = None     # knn selection impl ("cuda" |
+    #                               "torch" | "chunked"); None follows impl
     select_block: int | None = None  # selection rows per slab (features
     #                                  knn; the plain version's)
+    on_error: str = "raise"       # "raise" | "fallback" (degradation chain)
+    # degradation events appended by core/resilience under
+    # on_error="fallback", surfaced by explain(); init=False keeps the
+    # frozen plan replace()-safe: derived plans start with a fresh log
+    # while the guard records on the plan the caller holds
+    _events: list = dataclasses.field(
+        default_factory=list, init=False, compare=False, repr=False)
 
     def execute(self, x) -> torch.Tensor:
         """Run the planned pipeline on ``x`` (numpy array or tensor), one
         item ((n, n) distances or (n, d) features) or a batch of them, on
-        the plan's device."""
+        the plan's device.  A batch runs in chunks of up to ``batch``
+        items, each held and run together.
+
+        With ``on_error="fallback"`` a failing execution degrades instead
+        of raising: an OOM of a batched call retries with ``batch`` halved
+        (bitwise the same values), any other failure walks the cell's
+        degradation chain (``core/resilience``) with the same ties and
+        normalize; each degradation is recorded in
+        ``explain()["degradations"]``.  A plan on the card keeps its
+        kernels: there the chain's rungs are unavailable, and a failure
+        the halving does not rescue ends in ``FallbackExhausted``.
+        """
         x = torch.as_tensor(x, device=self.device)
         _check_input(x, self)
+        if self.on_error == "fallback":
+            return _res.execute_plan(self, x)
+        _res.fault_point("engine.execute", kind=self.kind, method=self.method,
+                         schedule=self.schedule, impl=self.impl)
         fn = get_executor(self.kind, self.method, self.schedule)
-        return run_batched(fn, x, self)
+        return run_batched(fn, x, self, self.batch)
 
     @property
     def padded_n(self) -> int:
@@ -254,12 +344,16 @@ class PaldPlan:
                              if self.kind == "distance"
                              else (self.padded_n, self.d)),
             "k": self.k,
+            "on_error": self.on_error,
             "select": self.select,
             "select_block": self.select_block,
             "method_source": self.method_source,
             "block_source": self.block_source,
             "executor": f"{fn.__module__}.{fn.__qualname__}",
             "est_smem_bytes_per_cta": _est_smem_per_cta(self),
+            # the guard's events (cell / cause / error / fallback /
+            # retries), in order; a copy, empty on a plan never degraded
+            "degradations": list(self._events),
         }
 
 
@@ -426,6 +520,13 @@ def plan(
     GPU, the plain torch versions on the CPU.  ``impl="torch"`` on a GPU
     runs the plain versions there; ``impl="cuda"`` on the CPU goes through
     the kernel wrappers, which take the plain versions for CPU tensors.
+    ``batch`` bounds the items of a batched input run together.
+    ``on_error``: "raise" (default) propagates the first executor
+    failure; "fallback" halves ``batch`` on OOM and, on the CPU, walks
+    the cell's degradation chain (``core/resilience``), and records each
+    degradation in ``explain()["degradations"]``.  ``select="chunked"`` (k-NN) is the
+    chain's terminal selection rung, row-chunked stable sorts; on a
+    distance matrix it is the only ``select`` value.
 
     Raises:
         RuntimeError: ``device="cuda"`` without a GPU.
@@ -441,11 +542,11 @@ def plan(
                          "(expected 'distance' or 'features')")
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if on_error == "fallback":
-        raise NotImplementedError(_SLICE["fallback"])
-    if on_error != "raise":
-        raise ValueError(f"unknown on_error {on_error!r} (expected 'raise' "
-                         "or 'fallback')")
+    if on_error not in _res.ON_ERROR_MODES:
+        raise ValueError(f"unknown on_error {on_error!r} (expected one of "
+                         f"{_res.ON_ERROR_MODES}): 'raise' propagates the "
+                         "first executor failure, 'fallback' walks the "
+                         "degradation chain")
     if mesh is not None or strategy is not None:
         raise NotImplementedError(_SLICE["mesh"])
     if kind == "distance" and d is not None:
@@ -528,22 +629,21 @@ def plan(
             "select=/select_block=/select_tile= configure the knn neighbor "
             f"selection stage (got method={method!r}); drop them, or pass "
             "method='knn'")
-    if select == "chunked":
-        raise NotImplementedError(_SLICE["chunked"])
     if select_tile is not None:
         raise NotImplementedError(_SLICE["select_tile"])
     if select is not None:
-        from repro_torch.kernels.ops import IMPLS
+        from repro_torch.kernels.ops import SELECTS
 
-        if select not in IMPLS:
+        if select not in SELECTS:
             raise ValueError(f"unknown select {select!r} (expected one of "
-                             f"{IMPLS})")
-    if kind == "distance" and (select is not None
+                             f"{SELECTS})")
+    if kind == "distance" and (select not in (None, "chunked")
                                or select_block is not None):
         raise ValueError(
             "select=/select_block= configure the streaming selection from "
             "features (kind='features'); a distance matrix is selected from "
-            "by a stable sort of its rows")
+            "by a stable sort of its rows, and only the row-chunked rung "
+            "select='chunked' applies to it")
 
     # -- impl --------------------------------------------------------------
     if method in _IMPL_METHODS:
@@ -566,7 +666,7 @@ def plan(
     common = dict(kind=kind, method=method, schedule=schedule, impl=impl,
                   ties=ties, weight=weight, normalize=normalize, batch=batch,
                   check=check, n=n, device=dev, metric=metric, d=d,
-                  method_source=method_source)
+                  method_source=method_source, on_error=on_error)
     if method == "knn":
         if block_z is not None:
             raise ValueError(
@@ -612,13 +712,21 @@ def plan(
 # these cells are pure composition, so they live with the registry.
 # ---------------------------------------------------------------------------
 def _materialize_then(X, p: PaldPlan):
+    """D from the features (each item of a chunk into one (b, n, n) D),
+    then the distance executor of the same method."""
     from .features import cdist_reference
 
-    D = cdist_reference(X, metric=p.metric)
-    return get_executor("distance", p.method, p.schedule)(D, p)
+    fn = get_executor("distance", p.method, p.schedule)
+    if X.ndim == 2:
+        return fn(cdist_reference(X, metric=p.metric), p)
+    D = torch.empty((X.shape[0], p.n, p.n), dtype=torch.float32,
+                    device=X.device)
+    for i, xi in enumerate(X):
+        D[i] = cdist_reference(xi, metric=p.metric)
+    return run_chunk(fn, D, p)
 
 
 for _m in _MATERIALIZING:
-    register_executor("features", _m, "dense")(_materialize_then)
-register_executor("features", "kernel", "tri")(_materialize_then)
+    register_executor("features", _m, "dense", chunks=True)(_materialize_then)
+register_executor("features", "kernel", "tri", chunks=True)(_materialize_then)
 del _m

@@ -141,7 +141,11 @@ def cdist_reference(X: torch.Tensor, Y: torch.Tensor | None = None, *,
                     metric: str = "euclidean") -> torch.Tensor:
     """Pairwise distances in plain torch, float32.  With ``Y=None`` the
     square form zeroes its diagonal exactly (the dot-product form of
-    d(x, x) is only zero up to rounding)."""
+    d(x, x) is only zero up to rounding).  The ``features.cdist`` fault
+    point (``core/resilience``) is here."""
+    from .resilience import fault_point
+
+    fault_point("features.cdist", metric=metric)
     X = torch.as_tensor(X).to(torch.float32)
     if Y is not None:
         return dist_tile(X, torch.as_tensor(Y, device=X.device), metric)

@@ -97,7 +97,8 @@ def _top_k_rows(rows: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
     lower column first (the reference's stable ``lax.top_k`` on the negated
     rows).  ``torch.topk`` is not documented as stable and is not used."""
     vals, idx = torch.sort(rows, dim=1, stable=True)
-    return vals[:, :k], idx[:, :k].to(torch.int32)
+    # copies: a view would hold the whole sorted slab alive
+    return vals[:, :k].clone(), idx[:, :k].to(torch.int32)
 
 
 def knn_from_distances(D: torch.Tensor, k: int, *,

@@ -9,6 +9,8 @@ execution-plan engine (counterpart of ``repro.core.pald``).
     C = pald.cohesion(D, method="pairwise")   # blocked plain torch (Fig. 5)
     C = pald.cohesion(D, method="dense")      # un-blocked plain torch
     C = pald.cohesion(Db, method="kernel")    # batched: (B, n, n) -> (B, n, n)
+    C = pald.cohesion(Db, batch=8)            # ... in chunks of 8 items
+    C = pald.cohesion(D, on_error="fallback") # degrade instead of raising
     C = pald.cohesion(D, method="kernel", device="cpu")  # plain torch on CPU
     C = pald.from_features(X)                 # fused CUDA kernels, D never
     #                                           whole (one panel of rows)
@@ -96,8 +98,8 @@ def cohesion(
             "knn" (the sparse k-NN restriction: a stable sort of D's rows,
             then the k-NN cohesion kernel; needs ``k``).  "auto" with
             ``k`` is "knn", with ``schedule="tri"`` "kernel"; otherwise
-            "auto" needs the tuning cache, a later slice of the port, and
-            raises ``NotImplementedError``.
+            the reference's choice without a tuning cache: "dense" up to
+            n = 256, else "triplet" (the tri kernels on the card).
         block: tile of the engine's +inf pad for the blocked paths
             (default 128), the k-NN plain version's rows per chunk.
             ``method="dense"`` has no tile.
@@ -115,11 +117,21 @@ def cohesion(
             ``WeightFunctional`` (``core/weights.py``).  The CUDA kernels
             run the built-in families; a user-registered functional runs on
             the plain paths only.
-        batch: accepted for the reference's surface (items run in turn).
+        batch: for a batched D, the most items held and run together (one
+            launch per pass for a chunk on the kernel method); None: the
+            whole batch in one chunk.  Peak memory grows with the chunk;
+            any chunk size gives bitwise the same C.
         check: add deep input validation (finite, symmetric, nonnegative).
         k: neighborhood size of ``method="knn"`` (pins it), clamped to
             n-1; at k >= n-1 the result is ``method="dense"``'s, bitwise.
-        on_error: "raise" ("fallback" is a later slice).
+        on_error: "raise" (default: the first failure propagates) or
+            "fallback": an out-of-memory batched call retries with
+            ``batch`` halved, and on the CPU any other failure walks the
+            cell's degradation chain (plain torch, the blocked methods,
+            the reference oracle; ``core/resilience.py``); each
+            degradation is in ``plan.explain()["degradations"]``.  On the
+            card only the halving rescues: the chain's rungs would leave
+            the kernels, so the call ends in ``FallbackExhausted``.
         device: "cuda" (default) or "cpu".
 
     Returns:
@@ -173,7 +185,9 @@ def from_features(
             selects each point's k nearest neighbors straight from the
             features (the streaming top-k kernel) and runs the k-NN
             cohesion kernel (``ops.select_cohere``).
-        batch: accepted for the reference's surface (items run in turn).
+        batch: for a batched X, the most items held and run together;
+            None: the whole batch in one chunk.  Peak memory grows with the
+            chunk; any chunk size gives bitwise the same C.
         block: the plain versions' row block (default 128) and the
             materializing paths' tile.  Unlike the reference, whose
             default is "auto" (the tuning cache, a later slice), the
@@ -195,13 +209,14 @@ def from_features(
             n-1; at k >= n-1 the result is the dense method's on
             ``cdist_reference(X)``.
         select: the k-NN selection's impl ("cuda" or "torch"; None
-            follows ``impl``); ``select="chunked"`` is a later slice and
-            raises ``NotImplementedError``.
+            follows ``impl``), or "chunked": the guard's terminal rung,
+            row slabs of distances and a stable sort each.
         select_block: the selection plain version's rows per slab
             (default 1024).
         select_tile, mesh, strategy: knobs of the tuning and distributed
             slices; they raise ``NotImplementedError``.
-        on_error: "raise" ("fallback" is a later slice).
+        on_error: "raise" (default) or "fallback" (see ``cohesion``; the
+            k-NN cells end on ``select="chunked"``).
         device: "cuda" (default; raises without a GPU) or "cpu" (the
             plain versions).
 

@@ -21,7 +21,8 @@ chunk, as the reference's ``pald_block_symmetric`` (``jnp`` and
 ``einsum``, no kernel) takes it.  The executor runs the same pipeline on
 D's device: the plain versions on the CPU, the tri CUDA kernels on the
 card (what ``method="kernel", schedule="tri"`` runs), whose C equals the
-plain versions' within rounding.
+plain versions' within rounding.  On the card a (b, n, n) chunk runs
+as one (``ops.pald_tri``); the plain versions take it item by item.
 """
 from __future__ import annotations
 
@@ -49,13 +50,15 @@ def pald_block_symmetric(D, *, block: int = 128, normalize: bool = False,
                     n_valid=n_valid, impl="torch", ties=ties)
 
 
-@_engine.register_executor("distance", "triplet", "dense")
+@_engine.register_executor("distance", "triplet", "dense", chunks=True)
 def _exec_triplet(D, plan):
     from repro_torch.kernels.ops import pald_tri
 
     Dp, n0 = _engine.pad_distance_matrix(D, plan.block)  # f32 boundary cast
-    nv = n0 if Dp.shape[0] != n0 else None
-    C = pald_tri(Dp, block=plan.block, block_z=Dp.shape[0], n_valid=nv,
-                 ties=plan.weight)  # impl from D's device
-    C = C[:n0, :n0]
+    nv = n0 if Dp.shape[-1] != n0 else None
+    C = _engine.chunk_or_items(
+        lambda d: pald_tri(d, block=plan.block, block_z=Dp.shape[-1],
+                           n_valid=nv, ties=plan.weight),  # D's device's impl
+        Dp, None)
+    C = C[..., :n0, :n0]
     return C / max(n0 - 1, 1) if plan.normalize else C

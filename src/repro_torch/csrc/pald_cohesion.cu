@@ -18,24 +18,26 @@
 // TPU kernel's iota route).
 #include "pald_cohesion.cuh"
 
-// C (mx, mz) from row-major contiguous float32 DXZ (mx, mz), DYZ (my, mz),
-// DXY and W (mx, my); `xw` is an optional (mx, my) bool tiebreak (null:
+// C (items, mx, mz) from `items` row-major contiguous float32 DXZ (mx, mz),
+// DYZ (my, mz), DXY and W (mx, my), each operand's items one after
+// another (the engine's batch= chunks, one grid for all: the item is
+// blockIdx.z); `xw` is an optional (items, mx, my) bool tiebreak (null:
 // derive x > y from row_off + x > col_off + y).  Weight family `wid` with
-// parameters p0, p1; `add` != 0 says every W is finite (the predicated
-// form).  Launches one grid on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unknown family or a grid too large).
-// mx, mz >= 1.
+// parameters p0, p1; `add` != 0 says every W of the chunk is finite (the
+// predicated form).  Launches one grid (one more per 65535 items) on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unknown family or a grid too large).  mx, mz, items >= 1.
 extern "C" int pald_cohesion_f32(const float* dxz, const float* dyz,
                                  const float* dxy, const float* w,
                                  const uint8_t* xw, float* c, int64_t mx,
-                                 int64_t my, int64_t mz, int64_t row_off,
-                                 int64_t col_off, int wid, float p0, float p1,
-                                 int add, void* stream) {
-  if (mx < 1 || mz < 1 || my < 0 ||
+                                 int64_t my, int64_t mz, int64_t items,
+                                 int64_t row_off, int64_t col_off, int wid,
+                                 float p0, float p1, int add, void* stream) {
+  if (mx < 1 || mz < 1 || my < 0 || items < 1 ||
       (mx + pald::kTile - 1) / pald::kTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const pald::CohesionArgs a{dxz, dyz, dxy, w, xw, c, mx, my, mz, row_off,
-                             col_off, {p0, p1}, add != 0,
+                             col_off, items, {p0, p1}, add != 0,
                              static_cast<cudaStream_t>(stream)};
   return pald::dispatch_weight(wid, pald::CohesionLaunch<false>{a});
 }

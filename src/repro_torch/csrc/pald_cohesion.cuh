@@ -47,6 +47,19 @@
 // Ragged edges are masked: y past my is never visited (the last slab loops
 // to its own length), x / z past the edge read zero-filled copies and are
 // never stored.  64-bit offsets.
+//
+// A chunk of items (the engine's batch= chunks): blockIdx.z is the item,
+// whose operands and C lie one item's extent past the previous one's
+// (DXZ and C mx mz elements, DYZ my mz, DXY, W and the bool tiebreak
+// mx my); every item has the same shape.  Each item's block runs exactly
+// what a one-item grid's does, so a chunk's C is bitwise its items' one
+// at a time; `add` is one flag for the chunk, and the predicated sum is
+// bitwise the multiply form's on a finite W, so a chunk with a non-finite
+// W changes no finite item's bits.  CohesionLaunch issues one grid per
+// 65535 items (gridDim.z).  A one-item call takes the kChunk = false
+// instantiation, with no item offsets: held in registers, the six shifted
+// pointers cost the dense kernel 1.5 ms of 93 at n = 8192 on an H100
+// (PERF.md).
 #pragma once
 
 #include <cstdint>
@@ -140,7 +153,7 @@ __device__ __forceinline__ void transpose(float (*s)[kTile],
   }
 }
 
-template <class F, bool kAdd, bool kTri>
+template <class F, bool kAdd, bool kTri, bool kChunk>
 __global__ void __launch_bounds__(kThreads, 2)
 cohesion_kernel(const float* __restrict__ dxz, const float* __restrict__ dyz,
                 const float* __restrict__ dxy, const float* __restrict__ w,
@@ -149,6 +162,15 @@ cohesion_kernel(const float* __restrict__ dxz, const float* __restrict__ dyz,
                 int64_t col_off, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   CohesionSmem& sm = *reinterpret_cast<CohesionSmem*>(smem);
+  if constexpr (kChunk) {  // this block's item of the chunk
+    const int64_t item = blockIdx.z;
+    dxz += item * mx * mz;
+    dyz += item * my * mz;
+    dxy += item * mx * my;
+    w += item * mx * my;
+    if (xw) xw += item * mx * my;
+    c += item * mx * mz;
+  }
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   // tile-local indices in 32 bits (the grid's limit keeps them there),
@@ -254,6 +276,7 @@ struct CohesionArgs {
   const uint8_t* xw;
   float* c;
   int64_t mx, my, mz, row_off, col_off;
+  int64_t items;  // the chunk's items, one after another
   Params p;
   bool add;  // W is finite: the predicated form, where the family has one
   cudaStream_t stream;
@@ -261,17 +284,27 @@ struct CohesionArgs {
 
 template <class F, bool kAdd, bool kTri>
 int launch_cohesion(const CohesionArgs& a) {
-  const auto kernel = cohesion_kernel<F, kAdd, kTri>;
+  const auto kernel = a.items > 1 ? cohesion_kernel<F, kAdd, kTri, true>
+                                  : cohesion_kernel<F, kAdd, kTri, false>;
   constexpr int smem = sizeof(CohesionSmem);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((a.mz + kTile - 1) / kTile),
-                  static_cast<unsigned>((a.mx + kTile - 1) / kTile));
-  kernel<<<grid, kThreads, smem, a.stream>>>(a.dxz, a.dyz, a.dxy, a.w, a.xw,
-                                             a.c, a.mx, a.my, a.mz,
-                                             a.row_off, a.col_off, a.p);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int64_t kMaxItems = 65535;  // gridDim.z
+  const int64_t sxz = a.mx * a.mz, syz = a.my * a.mz, sxy = a.mx * a.my;
+  for (int64_t i0 = 0; i0 < a.items; i0 += kMaxItems) {
+    const int64_t b = a.items - i0 < kMaxItems ? a.items - i0 : kMaxItems;
+    const dim3 grid(static_cast<unsigned>((a.mz + kTile - 1) / kTile),
+                    static_cast<unsigned>((a.mx + kTile - 1) / kTile),
+                    static_cast<unsigned>(b));
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        a.dxz + i0 * sxz, a.dyz + i0 * syz, a.dxy + i0 * sxy,
+        a.w + i0 * sxy, a.xw ? a.xw + i0 * sxy : nullptr, a.c + i0 * sxz,
+        a.mx, a.my, a.mz, a.row_off, a.col_off, a.p);
+    const cudaError_t launch = cudaGetLastError();
+    if (launch != cudaSuccess) return static_cast<int>(launch);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 // one grid of cohesion_kernel<F, ...> for the family F (dispatch_weight)

@@ -29,18 +29,21 @@
 // in the same order).
 #include "pald_cohesion.cuh"
 
-// C (n, n) row-major float32 from row-major contiguous symmetric float32
-// d and w (n, n), of which only the upper 64 x 64 pair tiles are read.
-// Weight family `wid` with parameters p0, p1; `add` != 0 says every W is
-// finite (the predicated form).  Launches one grid on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unknown family or a
-// grid too large).  n >= 1.
+// C (items, n, n) row-major float32 from `items` row-major contiguous
+// symmetric float32 d and w (n, n), one after another (the engine's
+// batch= chunks, one grid for all: the item is blockIdx.z), of which only
+// the upper 64 x 64 pair tiles are read.  Weight family `wid` with
+// parameters p0, p1; `add` != 0 says every W of the chunk is finite (the
+// predicated form).  Launches one grid (one more per 65535 items) on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unknown family or a grid too large).  n, items >= 1.
 extern "C" int pald_cohesion_tri_f32(const float* d, const float* w,
-                                     float* c, int64_t n, int wid, float p0,
-                                     float p1, int add, void* stream) {
-  if (n < 1 || (n + pald::kTile - 1) / pald::kTile > 65535)
+                                     float* c, int64_t n, int64_t items,
+                                     int wid, float p0, float p1, int add,
+                                     void* stream) {
+  if (n < 1 || items < 1 || (n + pald::kTile - 1) / pald::kTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const pald::CohesionArgs a{d, d, d, w, nullptr, c, n, n, n, 0, 0,
+  const pald::CohesionArgs a{d, d, d, w, nullptr, c, n, n, n, 0, 0, items,
                              {p0, p1}, add != 0,
                              static_cast<cudaStream_t>(stream)};
   return pald::dispatch_weight(wid, pald::CohesionLaunch<true>{a});

@@ -22,7 +22,9 @@
 //                          b) buffer and the scatter that mirrored it.
 // Both take `counts`: null, or two device counters, [0] gaining one for
 // each thread block that ran and [1] one for each off-diagonal tile pair
-// whose thresholds were not symmetric (square entry).  What bounds the
+// whose thresholds were not symmetric (square entry).  The square entry
+// takes a chunk of `items` square D, one after another (the engine's
+// batch= chunks), in one grid: the item is blockIdx.z.  What bounds the
 // kernel and its design are in pald_focus.cuh.
 #include "pald_focus.cuh"
 
@@ -39,23 +41,25 @@ extern "C" int pald_focus_f32(const float* dxz, const float* dyz,
   if (mx < 1 || my < 1 || mz < 0 ||
       (mx + pald::kTile - 1) / pald::kTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const pald::FocusArgs a{dxz, dyz, dxy, u, mx, my, mz, counts, {p0, p1},
+  const pald::FocusArgs a{dxz, dyz, dxy, u, mx, my, mz, 1, counts, {p0, p1},
                           static_cast<cudaStream_t>(stream)};
   return pald::dispatch_weight(wid, pald::FocusLaunch<false>{a});
 }
 
-// U (n, n) from one row-major contiguous float32 D (n, n), any D; weight
-// family `wid` with parameters p0, p1.  Launches one grid of nb (nb + 1) / 2
-// blocks (nb = ceil(n / 64)) on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unknown family or a grid too large).
-// n >= 1.
+// U (items, n, n) from `items` row-major contiguous float32 D (n, n), one
+// after another, any D; weight family `wid` with parameters p0, p1.
+// Launches one grid of nb (nb + 1) / 2 x items blocks (nb = ceil(n / 64);
+// one more grid per 65535 items) on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unknown family or a
+// grid too large).  n, items >= 1.
 extern "C" int pald_focus_square_f32(const float* d, float* u, int64_t n,
+                                     int64_t items,
                                      unsigned long long* counts, int wid,
                                      float p0, float p1, void* stream) {
   const int64_t nb = (n + pald::kTile - 1) / pald::kTile;
-  if (n < 1 || nb * (nb + 1) / 2 > 0x7fffffff)
+  if (n < 1 || items < 1 || nb * (nb + 1) / 2 > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  const pald::FocusArgs a{d, d, d, u, n, n, n, counts, {p0, p1},
+  const pald::FocusArgs a{d, d, d, u, n, n, n, items, counts, {p0, p1},
                           static_cast<cudaStream_t>(stream)};
   return pald::dispatch_weight(wid, pald::FocusLaunch<true>{a});
 }

@@ -42,6 +42,14 @@
 //                it: it stores once.
 // Either grid's thread 0 of each block adds one to counts[0], so the caller
 // reads the blocks that ran, not the grid it asked for.
+//
+// A chunk of items (the engine's batch= chunks): blockIdx.z is the item,
+// whose operands and U lie one item's extent (mx mz, my mz, mx my
+// elements) past the previous one's; every item has the same shape.  Each
+// item's block runs exactly what a one-item grid's does, so a chunk's U is
+// bitwise its items' one at a time, and counts[0] reads items x the grid.
+// A launch holds up to 65535 items (gridDim.z); FocusLaunch issues one
+// grid per 65535.
 // So on a symmetric D the two give bitwise the same U, term for term and
 // in the same order (z ascending, two-level sums), as the fused kernel
 // does on the same distances.
@@ -224,6 +232,12 @@ focus_kernel(const float* __restrict__ dxz, const float* __restrict__ dyz,
              int64_t mx, int64_t my, int64_t mz,
              unsigned long long* __restrict__ counts, Params p) {
   __shared__ __align__(16) FocusSmem sm;
+  // this block's item of the chunk
+  const int64_t item = blockIdx.z;
+  dxz += item * mx * mz;
+  dyz += item * my * mz;
+  dxy += item * mx * my;
+  u += item * mx * my;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   int64_t bx, by;
@@ -273,31 +287,43 @@ struct FocusArgs {
   const float *dxz, *dyz, *dxy;
   float* u;
   int64_t mx, my, mz;
+  int64_t items;  // the chunk's items, one after another
   // null, or [0] blocks run, [1] asymmetric tile pairs (square grid)
   unsigned long long* counts;
   Params p;
   cudaStream_t stream;
 };
 
-// one grid of focus_kernel<F, kSquare> for the family F (dispatch_weight):
-// every tile, or the upper tile pairs of a square D
+constexpr int64_t kMaxItems = 65535;  // gridDim.z
+
+// the grids of focus_kernel<F, kSquare> for the family F (dispatch_weight):
+// every tile, or the upper tile pairs of a square D, for up to kMaxItems
+// items each
 template <bool kSquare>
 struct FocusLaunch {
   const FocusArgs& a;
 
   template <class F>
   int operator()() const {
-    dim3 grid;
+    unsigned gx, gy = 1;
     if constexpr (kSquare) {
       const int64_t nb = (a.mx + kTile - 1) / kTile;
-      grid = dim3(static_cast<unsigned>(nb * (nb + 1) / 2));
+      gx = static_cast<unsigned>(nb * (nb + 1) / 2);
     } else {
-      grid = dim3(static_cast<unsigned>((a.my + kTile - 1) / kTile),
-                  static_cast<unsigned>((a.mx + kTile - 1) / kTile));
+      gx = static_cast<unsigned>((a.my + kTile - 1) / kTile);
+      gy = static_cast<unsigned>((a.mx + kTile - 1) / kTile);
     }
-    focus_kernel<F, kSquare><<<grid, kThreads, 0, a.stream>>>(
-        a.dxz, a.dyz, a.dxy, a.u, a.mx, a.my, a.mz, a.counts, a.p);
-    return static_cast<int>(cudaGetLastError());
+    for (int64_t i0 = 0; i0 < a.items; i0 += kMaxItems) {
+      const int64_t b = a.items - i0 < kMaxItems ? a.items - i0 : kMaxItems;
+      focus_kernel<F, kSquare>
+          <<<dim3(gx, gy, static_cast<unsigned>(b)), kThreads, 0,
+             a.stream>>>(a.dxz + i0 * a.mx * a.mz, a.dyz + i0 * a.my * a.mz,
+                         a.dxy + i0 * a.mx * a.my, a.u + i0 * a.mx * a.my,
+                         a.mx, a.my, a.mz, a.counts, a.p);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaSuccess);
   }
 };
 

@@ -42,10 +42,11 @@ SIGNATURES = {
                        (_P, _P, _P, _P, _I64, _I64, _I64, _P, _I32, _F32,
                         _F32, _P)),
     "pald_focus_square_f32": ("pald_focus",
-                              (_P, _P, _I64, _P, _I32, _F32, _F32, _P)),
+                              (_P, _P, _I64, _I64, _P, _I32, _F32, _F32,
+                               _P)),
     "pald_cohesion_f32": ("pald_cohesion",
                           (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                           _I64, _I32, _F32, _F32, _I32, _P)),
+                           _I64, _I64, _I32, _F32, _F32, _I32, _P)),
     "pald_focus_fused_f32": ("pald_fused",
                              (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                               _I32, _F32, _F32, _P)),
@@ -68,7 +69,8 @@ SIGNATURES = {
     "pald_topk_smem_bytes": ("pald_topk", (_I32, _I64)),
     "pald_knn_smem_bytes": ("pald_knn", (_I32, _I64)),
     "pald_cohesion_tri_f32": ("pald_cohesion_tri",
-                              (_P, _P, _P, _I64, _I32, _F32, _F32, _I32, _P)),
+                              (_P, _P, _P, _I64, _I64, _I32, _F32, _F32,
+                               _I32, _P)),
 }
 
 _lock = threading.Lock()

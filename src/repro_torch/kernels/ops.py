@@ -34,6 +34,12 @@ multiple of max(block, block_z).
 from (n, d) feature vectors (``pald_fused.py``), D never whole past the
 kernels' panel budget.
 
+The square pipelines (``focus``, ``cohesion_from_weights``, ``pald``,
+``pald_tri``) also take a (b, n, n) chunk of items on the card: the CUDA
+kernels run it in one grid per pass (the item on ``blockIdx.z``), bitwise
+the items one at a time.  The plain versions take one item; the kernel
+executors split a chunk for them (``engine.chunk_or_items``).
+
 The sparse k-NN pipeline (``core/knn.py`` has the semantics):
 
     topk_select(X, k)                   -> NeighborGraph (n, k), streamed
@@ -46,8 +52,14 @@ The sparse k-NN pipeline (``core/knn.py`` has the semantics):
     select_cohere(X, k=...)             -> (graph, values): the two kernels
                                            back to back on device tensors
 
+``topk_select(..., impl="chunked")`` is the terminal selection rung of
+guarded execution (``core/resilience``): slabs of rows, each slab's
+distance rows, self at +inf, a stable sort, synced before the next slab.
+
 Every entry point takes ``ties`` (a mode string, a registered functional
-name, or a ``WeightFunctional``).
+name, or a ``WeightFunctional``), and carries the fault point of its
+reference counterpart (``core/resilience.fault_point``) with the resolved
+``impl``.
 """
 from __future__ import annotations
 
@@ -55,6 +67,8 @@ import torch
 
 from repro_torch.core import engine as _engine
 from repro_torch.core import knn as _knn
+from repro_torch.core.features import masked_dist_tile
+from repro_torch.core.resilience import fault_point
 from repro_torch.core.weights import DEFAULT_TIES, resolve_weight
 
 from .pald_cohesion import cohesion_general_cuda, cohesion_general_torch
@@ -81,9 +95,13 @@ __all__ = [
     "focus_general",
     "cohesion_general",
     "IMPLS",
+    "SELECTS",
 ]
 
 IMPLS = ("cuda", "torch")
+# the k-NN selection's impls: the kernel, the plain version, and the
+# guard's terminal rung
+SELECTS = IMPLS + ("chunked",)
 
 
 def default_impl(device) -> str:
@@ -102,11 +120,13 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_schedule(schedule: str, D) -> bool:
-    """True for the tri schedule, which takes a square D only."""
+    """True for the tri schedule, which takes a square D (or a (b, n, n)
+    chunk) only."""
     if schedule not in _engine.SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r} (expected one of "
                          f"{_engine.SCHEDULES})")
-    if schedule == "tri" and (D.ndim != 2 or D.shape[0] != D.shape[1]):
+    if schedule == "tri" and (D.ndim not in (2, 3)
+                              or D.shape[-2] != D.shape[-1]):
         raise ValueError("schedule='tri' takes a square (n, n) D, got shape "
                          f"{tuple(D.shape)}")
     return schedule == "tri"
@@ -164,12 +184,13 @@ def focus_general(DXZ, DYZ, DXY, *, block=128, block_z=512,
                   impl: str | None = None, ties=DEFAULT_TIES) -> torch.Tensor:
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(DXZ.device))
+    fault_point("ops.focus_general", impl=impl, ties=ties.name)
     DXZ, DYZ, DXY = _f32(DXZ), _f32(DYZ), _f32(DXY)
     if impl == "torch":
         U = focus_general_torch(DXZ, DYZ, DXY, chunk=int(block_z), ties=ties)
     else:
         U = focus_general_cuda(DXZ, DYZ, DXY, ties=ties)
-    mz = DXZ.shape[1]
+    mz = DXZ.shape[-1]
     return _add_pad_excess(U, DXY, _padded_extent(mz, int(block_z)) - mz,
                            ties)
 
@@ -184,6 +205,7 @@ def cohesion_general(DXZ, DYZ, DXY, W, *, block=128, block_z=512,
     passes (0, 0))."""
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(DXZ.device))
+    fault_point("ops.cohesion_general", impl=impl, ties=ties.name)
     DXZ, DYZ, DXY, W = _f32(DXZ), _f32(DYZ), _f32(DXY), _f32(W)
     if not ties.needs_index_tiebreak:
         xwins = xw_offsets = None
@@ -211,7 +233,7 @@ def focus(D, *, block=128, block_z=512, impl: str | None = None,
                                 ties=ties)
         else:
             U = focus_tri_cuda(D, ties=ties)
-        n = D.shape[0]
+        n = D.shape[-1]
         return _add_pad_excess(U, D, _tri_padded(n, block, block_z) - n, ties)
     D = _f32(D)  # once: the kernel's square entry takes one matrix
     return focus_general(D, D, D, block=block, block_z=block_z, impl=impl,
@@ -260,7 +282,7 @@ def pald(D, *, block=128, block_z=512, normalize: bool = False, n_valid=None,
     C = cohesion_from_weights(D, W, block=block, block_z=block_z, impl=impl,
                               ties=ties)
     if normalize:
-        C = C / (D.shape[0] - 1)
+        C = C / (D.shape[-1] - 1)
     return C
 
 
@@ -274,6 +296,9 @@ def pald_tri(D, *, block=128, block_z=512, normalize: bool = False,
     tiles (the kernels' are fixed), ``n_valid`` zeroes the weights of
     padded points.  Peak memory as ``pald``'s: 2.25 n^2 float32 buffers.
     """
+    ties = resolve_weight(ties)
+    fault_point("ops.pald_tri", impl=_check_impl(impl or default_impl(
+        D.device)), ties=ties.name)
     U = focus(D, block=block, block_z=block_z, impl=impl, schedule="tri",
               ties=ties)
     W = weights_ref(U, n_valid)
@@ -281,7 +306,7 @@ def pald_tri(D, *, block=128, block_z=512, normalize: bool = False,
     C = cohesion_from_weights(D, W, block=block, block_z=block_z, impl=impl,
                               schedule="tri", ties=ties)
     if normalize:
-        C = C / (D.shape[0] - 1)
+        C = C / (D.shape[-1] - 1)
     return C
 
 
@@ -305,6 +330,7 @@ def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
     """
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(X.device))
+    fault_point("ops.pald_fused", impl=impl, ties=ties.name)
     X = _f32(X)  # the one boundary cast
     n = X.shape[0]
     if impl == "torch":
@@ -387,6 +413,7 @@ def _knn_values(x, graph, *, kind, metric, block, impl, ties):
     ties = resolve_weight(ties)
     _check_kind(kind)
     impl = _check_impl(impl or default_impl(x.device))
+    fault_point("ops.knn_values", impl=impl, ties=ties.name)
     x = _f32(x)
     n, k = graph.indices.shape
     if k == 0:  # n == 1, or an explicit empty graph: no pairs, no support
@@ -446,18 +473,75 @@ def topk_select(X, k: int, *, metric: str = "euclidean",
     self excluded; D never materialized.
 
     impl: "cuda" (the kernel, k <= ``pald_topk.MAX_K``), "torch" (the
-    plain version, ``block`` rows per slab), or None for the device's
+    plain version, ``block`` rows per slab), "chunked" (the guard's
+    terminal rung: ``block`` rows per slab, each synced before the next,
+    self excluded by the reference rung's rule), or None for the device's
     default.
 
     Raises:
         ValueError: unknown metric or impl, or ``k > n-1``.
     """
-    impl = _check_impl(impl or default_impl(X.device))
+    impl = impl or default_impl(X.device)
+    if impl not in SELECTS:
+        raise ValueError(f"unknown impl {impl!r} (expected one of "
+                         f"{SELECTS})")
+    fault_point("ops.topk_select", impl=impl, metric=metric)
     X = _f32(X)
     _knn.check_k(k, X.shape[0])
+    if impl == "chunked":
+        return _topk_select_chunked(X, k, metric=metric, row_chunk=int(block))
     if impl == "torch":
         return topk_select_torch(X, k, metric=metric, block=int(block))
     return topk_select_cuda(X, k, metric=metric)
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _chunked_rows(n: int, k: int, row_chunk: int, rows_of, device):
+    """The rung's slabs: ``rows_of(s, e)`` gives rows [s, e) of the
+    distances (a fresh tensor), self is set to +inf, the stable sort
+    (``core.knn._top_k_rows``) takes the first k, and each slab is synced
+    before the next starts."""
+    if k <= 0:
+        return _knn.empty_graph(n, device)
+    dist, idx = [], []
+    for s in range(0, n, row_chunk):
+        rows = rows_of(s, min(s + row_chunk, n))
+        r = torch.arange(rows.shape[0], device=device)
+        rows[r, s + r] = _INF
+        dv, di = _knn._top_k_rows(rows, k)
+        del rows
+        _sync(dv)
+        dist.append(dv)
+        idx.append(di)
+    return _knn.NeighborGraph(torch.cat(idx), torch.cat(dist))
+
+
+def _topk_select_chunked(X, k: int, *, metric: str, row_chunk: int = 1024):
+    """The terminal selection rung from features (the reference's
+    ``ops._topk_select_chunked``): each slab's full distance rows from the
+    pieces of ``cdist_reference`` (``masked_dist_tile``), so on the card
+    they are bitwise the selection kernel's.  Self at +inf, as in the
+    reference rung: among +inf entries it takes its index's place (the
+    kernel and the plain selection sort it after every candidate)."""
+    n = X.shape[0]
+    return _chunked_rows(
+        n, k, row_chunk,
+        lambda s, e: masked_dist_tile(X[s:e], X, metric, s, 0, n), X.device)
+
+
+def _knn_from_distances_chunked(D, k: int, *, row_chunk: int = 1024):
+    """The distance kind's terminal rung (the reference's
+    ``ops._knn_from_distances_chunked``): bitwise
+    ``core.knn.knn_from_distances``, slab at a time with a sync."""
+    D = _f32(D)
+    n = D.shape[0]
+    _knn.check_k(k, n)
+    return _chunked_rows(n, k, row_chunk, lambda s, e: D[s:e].clone(),
+                         D.device)
 
 
 def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
@@ -484,14 +568,16 @@ def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
         (graph, values), values (n, k+1) with column 0 the self support.
     """
     ties = resolve_weight(ties)
+    impl = _check_impl(impl or default_impl(X.device))
+    sel = select or impl
+    fault_point("ops.select_cohere", impl=impl, select=sel, ties=ties.name)
     X = _f32(X)
     n = X.shape[0]
     k = min(int(k), max(n - 1, 0))
     if k <= 0:
         return (_knn.empty_graph(n, X.device),
                 torch.zeros((n, 1), dtype=torch.float32, device=X.device))
-    graph = topk_select(X, k, metric=metric, impl=select or impl,
-                        block=block)
+    graph = topk_select(X, k, metric=metric, impl=sel, block=block)
     vals = _knn_values(X, graph, kind="features", metric=metric,
                        block=cohere_block, impl=impl, ties=ties)
     if normalize:
@@ -500,26 +586,28 @@ def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
 
 
 # --------------------------------------------------------------------------
-# engine executor: the kernel-pipeline cell of the dispatch registry
-# (repro_torch.core.engine).  It receives one unbatched item plus the
-# resolved plan; tiles, impl and weight were fixed once at plan() time.
+# engine executors: the kernel-pipeline cells of the dispatch registry
+# (repro_torch.core.engine).  Each receives one item, or a (b, n, n) chunk
+# of them (one grid per pass for the chunk), plus the resolved plan;
+# tiles, impl and weight were fixed once at plan() time.
 # --------------------------------------------------------------------------
 def _kernel_exec(D, plan, pipeline):
     Dp, n0 = _engine.pad_distance_matrix(D, plan.block)  # f32 boundary cast
-    nv = n0 if Dp.shape[0] != n0 else None
+    nv = n0 if Dp.shape[-1] != n0 else None
     kz = {} if plan.block_z is None else {"block_z": plan.block_z}
-    C = pipeline(Dp, block=plan.block, n_valid=nv, impl=plan.impl,
-                 ties=plan.weight, **kz)
-    C = C[:n0, :n0]
+    C = _engine.chunk_or_items(
+        lambda d: pipeline(d, block=plan.block, n_valid=nv, impl=plan.impl,
+                           ties=plan.weight, **kz), Dp, plan.impl)
+    C = C[..., :n0, :n0]
     return C / max(n0 - 1, 1) if plan.normalize else C
 
 
-@_engine.register_executor("distance", "kernel", "dense")
+@_engine.register_executor("distance", "kernel", "dense", chunks=True)
 def _exec_kernel_dense(D, plan):
     return _kernel_exec(D, plan, pald)
 
 
-@_engine.register_executor("distance", "kernel", "tri")
+@_engine.register_executor("distance", "kernel", "tri", chunks=True)
 def _exec_kernel_tri(D, plan):
     return _kernel_exec(D, plan, pald_tri)
 
@@ -547,8 +635,12 @@ def _exec_knn_distance(D, plan):
     n = D.shape[0]
     if plan.k >= n - 1:
         return _knn_dense_fallback(D, plan)
+    graph = None
+    if plan.select == "chunked":
+        # the terminal selection rung: row-chunked stable sorts of D
+        graph = _knn_from_distances_chunked(D, plan.k)
     graph, vals = pald_knn(D, k=plan.k, kind="distance", block=plan.block,
-                           impl=plan.impl, ties=plan.weight)
+                           impl=plan.impl, ties=plan.weight, graph=graph)
     C = _knn.scatter_dense(graph, vals)
     return C / max(n - 1, 1) if plan.normalize else C
 

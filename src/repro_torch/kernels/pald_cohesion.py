@@ -25,7 +25,10 @@ passes (0, 0)).
 :func:`cohesion_general_cuda` dispatches on the tensors' device: CUDA
 tensors launch the kernel (or raise), CPU tensors take
 :func:`cohesion_general_torch`, the counterpart of the reference's
-``ops._cohesion_general_jnp``.
+``ops._cohesion_general_jnp``.  The kernel also takes (b, ...) chunks of
+operands (the engine's ``batch=`` chunks on the card) and runs every item
+in one grid, the item on ``blockIdx.z``; the chunk's C is bitwise its
+items' one at a time.  The plain version takes one item.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from repro_torch.core.weights import (DEFAULT_TIES, KERNEL_DROP,
                                       resolve_weight, support_weight)
 
 from . import _build
-from .pald_focus import adaptive_chunk, check_operands
+from .pald_focus import adaptive_chunk, check_operands, item_grids
 
 __all__ = ["cohesion_general_cuda", "cohesion_general_torch", "add_form",
            "SMEM_PER_CTA"]
@@ -55,7 +58,9 @@ def add_form(wid: int, W: torch.Tensor) -> int:
     """1 when the cohesion kernels may add W under a predicate: the family
     has that form and every W is finite.  The predicated sum is bitwise the
     multiply form's on a finite W; a W with an infinite or nan entry takes
-    the multiply form, which gives the reference's nan (0 * inf).
+    the multiply form, which gives the reference's nan (0 * inf).  For a
+    chunk of items it decides once: one non-finite item sends the whole
+    chunk to the multiply form, which changes no finite item's bits.
 
     One read of W through ``aminmax`` (nan propagates to both ends), no
     temporary: ``torch.isfinite(W)`` would hold an (n, n) float ``abs(W)``
@@ -107,7 +112,9 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
     CUDA operands must be contiguous float32 (``xwins``: bool) on one
     device (``ops`` prepares them); anything else raises, as does a weight
     functional without a kernel id.  W is checked for non-finite entries
-    (:func:`add_form`).  Each launch adds one to
+    (:func:`add_form`).  Operands with a leading item axis, (b, mx, mz),
+    (b, my, mz), (b, mx, my) (W and ``xwins`` too), are a chunk: one grid
+    for all b, C (b, mx, mz).  Each launch adds one to
     ``cohesion_general_cuda.launches`` (and to ``.grid_launches``: one
     grid).
     """
@@ -120,31 +127,35 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
     wfun = resolve_weight(ties)
     wid, p0, p1 = kernel_spec(wfun)
     _require_tiebreak(wfun, xwins, xw_offsets)
-    mx, mz = DXZ.shape
-    my = DYZ.shape[0]
+    lead = tuple(DXZ.shape[:1]) if DXZ.ndim == 3 else ()
+    mx, mz = DXZ.shape[-2:]
+    my = DYZ.shape[-2]
     f32 = torch.float32
-    named = dict(DXZ=(DXZ, (mx, mz), f32), DYZ=(DYZ, (my, mz), f32),
-                 DXY=(DXY, (mx, my), f32), W=(W, (mx, my), f32))
+    named = dict(DXZ=(DXZ, lead + (mx, mz), f32),
+                 DYZ=(DYZ, lead + (my, mz), f32),
+                 DXY=(DXY, lead + (mx, my), f32),
+                 W=(W, lead + (mx, my), f32))
     xw_ptr, row_off, col_off = None, 0, 0
     if wfun.needs_index_tiebreak:
         if xwins is not None:
-            named["xwins"] = (xwins, (mx, my), torch.bool)
+            named["xwins"] = (xwins, lead + (mx, my), torch.bool)
             xw_ptr = xwins.data_ptr()
         else:
             row_off, col_off = int(xw_offsets[0]), int(xw_offsets[1])
     check_operands("cohesion_general_cuda", dev, **named)
-    C = torch.empty((mx, mz), dtype=f32, device=dev)
-    if mx == 0 or mz == 0:
+    C = torch.empty(lead + (mx, mz), dtype=f32, device=dev)
+    if C.numel() == 0:
         return C
+    items = lead[0] if lead else 1
     fn = _build.load("pald_cohesion_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),
-                    W.data_ptr(), xw_ptr, C.data_ptr(), mx, my, mz, row_off,
-                    col_off, wid, p0, p1, add_form(wid, W), stream)
+                    W.data_ptr(), xw_ptr, C.data_ptr(), mx, my, mz, items,
+                    row_off, col_off, wid, p0, p1, add_form(wid, W), stream)
     _build.check(status, "pald_cohesion_f32")
     cohesion_general_cuda.launches += 1
-    cohesion_general_cuda.grid_launches += 1
+    cohesion_general_cuda.grid_launches += item_grids(items)
     return C
 
 

@@ -27,6 +27,8 @@ the details.
 :func:`cohesion_tri_cuda` dispatches on the tensors' device: CUDA tensors
 launch the kernel (or raise), CPU tensors take :func:`cohesion_tri_torch`,
 the counterpart of the reference's ``ops._cohesion_tri_jnp``.
+The kernel also takes a (b, n, n) chunk of items, in one grid; the plain
+version takes one item.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from repro_torch.core.weights import (DEFAULT_TIES, index_xwins, kernel_spec,
 
 from . import _build
 from .pald_cohesion import SMEM_PER_CTA, add_form
-from .pald_focus import adaptive_chunk, check_operands
+from .pald_focus import adaptive_chunk, check_operands, item_grids
 from .pald_focus_tri import tri_pairs
 
 __all__ = ["cohesion_tri_cuda", "cohesion_tri_torch", "SMEM_PER_CTA"]
@@ -77,12 +79,13 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
     """C (n, n) through the CUDA kernel for CUDA tensors, through
     :func:`cohesion_tri_torch` for CPU tensors.
 
-    D and W must be contiguous float32 (n, n) tensors on one device
-    (``ops`` prepares them); anything else raises, as does a weight
-    functional without a kernel id.  W is checked for non-finite entries
-    (``pald_cohesion.add_form``).  Besides C the call allocates nothing.
-    Each call adds one to ``cohesion_tri_cuda.launches`` and to
-    ``.grid_launches`` (one grid).
+    D and W must be contiguous float32 (n, n) tensors, or (b, n, n)
+    chunks, on one device (``ops`` prepares them); anything else raises,
+    as does a weight functional without a kernel id.  W is checked for
+    non-finite entries (``pald_cohesion.add_form``, once for a chunk).
+    Besides C the call allocates nothing.  Each call adds one to
+    ``cohesion_tri_cuda.launches`` and to ``.grid_launches`` (one grid,
+    for a whole chunk).
     """
     dev = D.device
     if dev.type == "cpu":
@@ -90,21 +93,22 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"cohesion_tri_cuda: unsupported device {dev}")
     wid, p0, p1 = kernel_spec(ties)
-    n = D.shape[0]
+    lead, n = (tuple(D.shape[:1]) if D.ndim == 3 else ()), D.shape[-1]
     f32 = torch.float32
-    check_operands("cohesion_tri_cuda", dev, D=(D, (n, n), f32),
-                   W=(W, (n, n), f32))
-    C = torch.empty((n, n), dtype=f32, device=dev)
-    if n == 0:
+    check_operands("cohesion_tri_cuda", dev, D=(D, lead + (n, n), f32),
+                   W=(W, lead + (n, n), f32))
+    C = torch.empty(lead + (n, n), dtype=f32, device=dev)
+    if C.numel() == 0:
         return C
+    items = lead[0] if lead else 1
     fn = _build.load("pald_cohesion_tri_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(D.data_ptr(), W.data_ptr(), C.data_ptr(), n, wid, p0, p1,
-                    add_form(wid, W), stream)
+        status = fn(D.data_ptr(), W.data_ptr(), C.data_ptr(), n, items, wid,
+                    p0, p1, add_form(wid, W), stream)
     _build.check(status, "pald_cohesion_tri_f32")
     cohesion_tri_cuda.launches += 1
-    cohesion_tri_cuda.grid_launches += 1
+    cohesion_tri_cuda.grid_launches += item_grids(items)
     return C
 
 

@@ -19,6 +19,11 @@ details.
 :func:`focus_general_cuda` dispatches on the tensors' device: CUDA tensors
 launch the kernel (or raise), CPU tensors take :func:`focus_general_torch`,
 the counterpart of the reference's ``ops._focus_general_jnp``.
+
+The kernel's square entry also takes a (b, n, n) chunk of square D (the
+engine's ``batch=`` chunks on the card) and runs it in one grid, the item
+on ``blockIdx.z`` (:func:`launch_square`), bitwise its items one at a
+time.  The plain version takes one item; the engine splits a chunk for it.
 """
 from __future__ import annotations
 
@@ -30,12 +35,17 @@ from . import _build
 
 __all__ = ["focus_general_cuda", "focus_general_torch", "adaptive_chunk",
            "check_operands", "focus_blocks", "tile_counts",
-           "reset_tile_counts", "launch_square", "TILE", "SMEM_PER_CTA"]
+           "reset_tile_counts", "launch_square", "item_grids",
+           "TILE", "SMEM_PER_CTA", "MAX_ITEMS"]
 
 TILE = 64  # the kernel's U tile edge
 # the kernel's two (32, 68) float32 z slabs and two (64, 36) landing
 # buffers (csrc/pald_focus.cuh: FocusSmem)
 SMEM_PER_CTA = 4 * (2 * 32 * 68 + 2 * 64 * 36)
+
+# items of a chunk in one grid (gridDim.z); a larger chunk takes one grid
+# per MAX_ITEMS (csrc/pald_focus.cuh, pald_cohesion.cuh: kMaxItems)
+MAX_ITEMS = 65535
 
 # The plain versions materialize an (mx, my, chunk) comparison cube per
 # step; cap the cube at 512 MiB of bools (2 GiB once cast to float32) so the
@@ -47,6 +57,11 @@ def adaptive_chunk(m1: int, m2: int, want: int) -> int:
     """Chunk of the reduced axis for an (m1, m2, chunk) cube: ``want``,
     capped by the cube budget, at least 1."""
     return max(min(int(want), max(_CUBE_BUDGET // max(m1 * m2, 1), 8)), 1)
+
+
+def item_grids(items: int) -> int:
+    """Grids that one launch of a chunk of ``items`` issues."""
+    return max(1, -(-items // MAX_ITEMS))
 
 
 def focus_general_torch(DXZ, DYZ, DXY, *, chunk: int = 512,
@@ -121,14 +136,16 @@ def reset_tile_counts() -> None:
 
 
 def launch_square(D, U, wid: int, p0: float, p1: float) -> None:
-    """U (n, n) from one square CUDA D through the kernel's square entry
-    (the upper tile pairs; the dense and the tri wrappers), weight family
+    """U (n, n) from one square CUDA D, or U (b, n, n) from a chunk of b,
+    through the kernel's square entry (the upper tile pairs of each item,
+    all items in one grid; the dense and the tri wrappers), weight family
     ``kernel_spec(ties)``.  Raises on a CUDA error."""
     dev = D.device
+    items = D.shape[0] if D.ndim == 3 else 1
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _build.load("pald_focus_square_f32")(
-            D.data_ptr(), U.data_ptr(), D.shape[0],
+            D.data_ptr(), U.data_ptr(), D.shape[-1], items,
             _counts(dev).data_ptr(), wid, p0, p1, stream)
     _build.check(status, "pald_focus_square_f32")
 
@@ -140,9 +157,11 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     CUDA operands must be contiguous float32 on one device (``ops``
     prepares them); anything else raises, as does a weight functional
     without a kernel id.  Three operands that are one square (n, n)
-    tensor take the kernel's square entry (upper tile pairs).  Each launch
-    adds one to ``focus_general_cuda.launches`` (and to ``.grid_launches``:
-    one grid); the kernel counts its thread blocks (:func:`tile_counts`).
+    tensor take the kernel's square entry (upper tile pairs), and so do
+    three that are one (b, n, n) chunk: one grid for its b items, U
+    (b, n, n).  Each launch adds one to ``focus_general_cuda.launches``
+    (and to ``.grid_launches``: one grid, :func:`item_grids` for a chunk);
+    the kernel counts its thread blocks (:func:`tile_counts`).
     """
     dev = DXZ.device
     if dev.type == "cpu":
@@ -150,6 +169,8 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"focus_general_cuda: unsupported device {dev}")
     wid, p0, p1 = kernel_spec(ties)
+    if DXZ.ndim == 3:
+        return _focus_chunk_cuda(DXZ, DYZ, DXY, ties, wid, p0, p1)
     mx, mz = DXZ.shape
     my = DYZ.shape[0]
     f32 = torch.float32
@@ -172,6 +193,29 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
         _build.check(status, "pald_focus_f32")
     focus_general_cuda.launches += 1
     focus_general_cuda.grid_launches += 1
+    return U
+
+
+def _focus_chunk_cuda(DXZ, DYZ, DXY, ties, wid, p0, p1) -> torch.Tensor:
+    """A (b, n, n) chunk: one square grid; the three operands must be
+    one tensor (the rectangular entry takes one item)."""
+    if not (DXZ.data_ptr() == DYZ.data_ptr() == DXY.data_ptr()
+            and DXZ.shape == DYZ.shape == DXY.shape
+            and DXZ.shape[-1] == DXZ.shape[-2]):
+        raise ValueError("focus_general_cuda: a (b, n, n) chunk takes one "
+                         "square D as all three operands, got shapes "
+                         f"{tuple(DXZ.shape)}, {tuple(DYZ.shape)}, "
+                         f"{tuple(DXY.shape)}")
+    dev = DXZ.device
+    b, n = DXZ.shape[0], DXZ.shape[-1]
+    check_operands("focus_general_cuda", dev,
+                   D=(DXZ, (b, n, n), torch.float32))
+    U = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    if b == 0 or n == 0:
+        return U
+    launch_square(DXZ, U, wid, p0, p1)
+    focus_general_cuda.launches += 1
+    focus_general_cuda.grid_launches += item_grids(b)
     return U
 
 

@@ -21,6 +21,8 @@ the plain version mirrors the upper 128-row blocks.
 :func:`focus_tri_cuda` dispatches on the tensor's device: CUDA tensors
 launch the kernel (or raise), CPU tensors take :func:`focus_tri_torch`,
 the counterpart of the reference's ``ops._focus_tri_jnp``.
+The kernel also takes a (b, n, n) chunk of items, in one grid; the plain
+version takes one item.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from repro_torch.core.weights import DEFAULT_TIES, focus_weight, kernel_spec
 
 from .pald_focus import (SMEM_PER_CTA, adaptive_chunk, check_operands,
-                         launch_square)
+                         item_grids, launch_square)
 
 __all__ = ["focus_tri_cuda", "focus_tri_torch", "tri_pairs", "SMEM_PER_CTA"]
 
@@ -70,12 +72,12 @@ def focus_tri_cuda(D, *, ties=DEFAULT_TIES) -> torch.Tensor:
     """U (n, n) through the CUDA kernel for CUDA tensors, through
     :func:`focus_tri_torch` for CPU tensors.
 
-    D must be a contiguous float32 (n, n) tensor (``ops`` prepares it);
-    anything else raises, as does a weight functional without a kernel id.
-    D must be symmetric (see the module notes).  Each launch adds one to
-    ``focus_tri_cuda.launches`` (and to ``.grid_launches``: one grid); the
-    kernel counts its nb (nb + 1) / 2 thread blocks
-    (:func:`pald_focus.tile_counts`).
+    D must be a contiguous float32 (n, n) tensor, or a (b, n, n) chunk
+    (``ops`` prepares it); anything else raises, as does a weight
+    functional without a kernel id.  D must be symmetric (see the module
+    notes).  Each launch adds one to ``focus_tri_cuda.launches`` (and to
+    ``.grid_launches``: one grid for a whole chunk); the kernel counts its
+    nb (nb + 1) / 2 thread blocks per item (:func:`pald_focus.tile_counts`).
     """
     dev = D.device
     if dev.type == "cpu":
@@ -83,14 +85,15 @@ def focus_tri_cuda(D, *, ties=DEFAULT_TIES) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"focus_tri_cuda: unsupported device {dev}")
     wid, p0, p1 = kernel_spec(ties)
-    n = D.shape[0]
-    check_operands("focus_tri_cuda", dev, D=(D, (n, n), torch.float32))
-    U = torch.empty((n, n), dtype=torch.float32, device=dev)
-    if n == 0:
+    lead, n = (tuple(D.shape[:1]) if D.ndim == 3 else ()), D.shape[-1]
+    check_operands("focus_tri_cuda", dev, D=(D, lead + (n, n),
+                                             torch.float32))
+    U = torch.empty(lead + (n, n), dtype=torch.float32, device=dev)
+    if U.numel() == 0:
         return U
     launch_square(D, U, wid, p0, p1)
     focus_tri_cuda.launches += 1
-    focus_tri_cuda.grid_launches += 1
+    focus_tri_cuda.grid_launches += item_grids(D.shape[0] if lead else 1)
     return U
 
 

@@ -23,7 +23,8 @@ def focus_ref(D: torch.Tensor, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
 def weights_ref(U: torch.Tensor, n_valid=None) -> torch.Tensor:
     """W = 1/U with a zero diagonal, zero where U == 0, and zero rows and
-    columns for padded points (index >= ``n_valid``).
+    columns for padded points (index >= ``n_valid``); U may be a (b, n, n)
+    chunk, each item taken alike.
 
     Built in place in the one (n, n) output, so the step holds U, W and an
     (n, n) bool mask, no float temporaries: at n = 8192 each float buffer
@@ -35,10 +36,10 @@ def weights_ref(U: torch.Tensor, n_valid=None) -> torch.Tensor:
     W.reciprocal_()
     W.masked_fill_(zero, 0.0)
     del zero
-    W.fill_diagonal_(0.0)
+    W.diagonal(dim1=-2, dim2=-1).fill_(0.0)
     if n_valid is not None:
-        W[n_valid:] = 0.0
-        W[:, n_valid:] = 0.0
+        W[..., n_valid:, :] = 0.0
+        W[..., :, n_valid:] = 0.0
     return W
 
 

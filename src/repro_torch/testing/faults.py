@@ -1,0 +1,119 @@
+"""Fault-injection harness for the guarded-execution layer (counterpart of
+``repro.testing.faults``).
+
+Context managers that arm the named fault points threaded through the
+engine dispatch, the kernel entry points and the feature front-end
+(``repro_torch.core.resilience.fault_point``).  Each yields the armed
+``FaultRule``, so a test can read ``rule.trips`` afterwards; disarming is
+exception-safe.
+
+    from repro_torch.testing import faults
+
+    with faults.failing("engine.execute"):
+        pald.cohesion(D, on_error="fallback")       # the chain rescues it
+
+    with faults.fail_kernel(impl="cuda"):
+        ...                                          # every CUDA call dies
+
+    with faults.simulate_oom(max_batch=2):
+        plan.execute(Db)                             # halves batch to 2
+
+Injection sites (substring-matched): ``engine.execute`` (the primary
+dispatch, both modes), ``engine.batch`` (the batch layer, with the chunk
+size as ``batch=``), ``ops.focus_general`` / ``ops.cohesion_general`` /
+``ops.pald_tri`` / ``ops.pald_fused`` / ``ops.knn_values`` /
+``ops.topk_select`` / ``ops.select_cohere`` (the kernel entry points, with
+the *resolved* ``impl=``, "cuda" or "torch"), ``features.cdist`` (the
+materialize-D front-end) and ``resilience.step`` (each rung).  The tuning
+cache's helpers of the reference come with the tuning cache (ROADMAP.md
+queue 1, item 9).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Iterator
+
+from repro_torch.core import resilience as _res
+from repro_torch.core.resilience import FaultRule, simulated_oom
+
+__all__ = ["failing", "fail_kernel", "simulate_oom", "reset"]
+
+
+def reset() -> None:
+    """Fresh harness state: disarm every rule, forget warn-once keys."""
+    with _res._RULES_LOCK:
+        _res._RULES.clear()
+    _res.reset_warnings()
+
+
+@contextlib.contextmanager
+def failing(
+    site: str = "",
+    *,
+    exc: Callable[[], BaseException] | None = None,
+    match: dict | None = None,
+    pred: Callable[..., bool] | None = None,
+    nth: int = 1,
+    times: int | None = None,
+) -> Iterator[FaultRule]:
+    """Arm one fault rule for the ``with`` body.
+
+    ``site`` substring-matches the fault-point name ("" = every site);
+    ``match`` requires exact equality on context kwargs (e.g.
+    ``impl="cuda"``); ``pred`` is a predicate over ``(site=..., **ctx)``;
+    ``nth`` is the 1-based matching call at which tripping starts;
+    ``times`` caps the trips (None = every matching call).  ``exc`` is a
+    zero-arg exception factory (default: a RuntimeError naming the site).
+    """
+    if exc is None:
+        def exc(s=site):  # noqa: E731 - default factory names the site
+            return RuntimeError(f"injected fault at {s or '<any site>'}")
+    rule = _res.arm(FaultRule(exc=exc, site=site, match=match, pred=pred,
+                              nth=nth, times=times))
+    try:
+        yield rule
+    finally:
+        _res.disarm(rule)
+
+
+@contextlib.contextmanager
+def fail_kernel(
+    impl: str | None = None,
+    *,
+    nth: int = 1,
+    times: int | None = None,
+    exc: Callable[[], BaseException] | None = None,
+) -> Iterator[FaultRule]:
+    """Make the Nth kernel entry-point call raise.
+
+    Matches every ``ops.*`` fault point; ``impl=`` narrows it to one
+    backend: the sites report the *resolved* impl, so ``impl="cuda"``
+    faults exactly the calls a dead kernel library would kill while the
+    plain torch rungs run clean.
+    """
+    match = None if impl is None else {"impl": impl}
+    with failing("ops.", exc=exc, match=match, nth=nth, times=times) as rule:
+        yield rule
+
+
+@contextlib.contextmanager
+def simulate_oom(
+    site: str = "engine.batch",
+    *,
+    max_batch: int | None = None,
+    nth: int = 1,
+    times: int | None = None,
+) -> Iterator[FaultRule]:
+    """Raise an out-of-memory error (``simulated_oom``) at ``site``.
+
+    With ``max_batch=``, only batched calls whose chunk exceeds it trip:
+    a device that fits ``max_batch`` items, so the guard's halving
+    converges on a chunk it accepts.
+    """
+    pred = None
+    if max_batch is not None:
+        def pred(site, batch=None, **ctx):  # noqa: A002 - fault-point ctx
+            return batch is not None and batch > max_batch
+    with failing(site, exc=simulated_oom, pred=pred, nth=nth,
+                 times=times) as rule:
+        yield rule

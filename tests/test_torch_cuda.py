@@ -21,6 +21,14 @@ the dense kernel's, and their C bitwise to itself across two calls and to
 the dense kernel's C on a symmetric D and W.  A W with a non-finite entry
 takes the cohesion kernels' multiply form and gives the plain versions'
 nan and inf.
+Guarded execution on the card (``on_error="fallback"``): a plan on the
+card keeps its kernels, so a dead CUDA impl ends in ``FallbackExhausted``
+on every kernel cell (each plain rung unavailable), as does k above the
+k-NN kernels' limit, where ``"raise"`` raises the wrapper's ValueError; a
+fault-free fallback plan launches the kernels and records nothing.  A
+(b, n, n) chunk runs the dense and tri kernels in one grid per pass,
+bitwise its items one at a time, and a batched call's peak memory is its
+chunk's.
 ``chip_smoke.py`` repeats the comparisons at the main paths' full size.
 """
 import numpy as np
@@ -863,3 +871,217 @@ def test_cuda_property_laws_through_focus_kernels(cuda_device):
                                        rtol=1e-4, atol=1e-5)
 
     laws()
+
+
+# ---------------------------------------------------------------------------
+# guarded execution and batch chunks on the card
+# ---------------------------------------------------------------------------
+KERNEL_CELLS = [("distance", "kernel", "dense"), ("distance", "kernel", "tri"),
+                ("distance", "knn", "dense"), ("features", "fused", "dense"),
+                ("features", "kernel", "dense"), ("features", "kernel", "tri"),
+                ("features", "knn", "dense")]
+
+
+def _cell_input(kind, n, dev, seed=0):
+    if kind == "features":
+        return torch.as_tensor(_features(n, 4, seed=seed), device=dev)
+    return torch.as_tensor(_tri_D(n, seed=seed), device=dev)
+
+
+def _cell_plan(cell, x, dev, **kw):
+    from repro_torch.core import pald
+
+    kind, method, schedule = cell
+    if method == "knn":
+        kw["k"] = 8
+    return pald.plan(x, kind=kind, method=method, schedule=schedule,
+                     ties="ignore", device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", KERNEL_CELLS, ids=["-".join(c)
+                                                    for c in KERNEL_CELLS])
+def test_cuda_dead_kernels_end_exhausted_on_the_card(cuda_device, cell):
+    """``fail_kernel(impl="cuda")``: every CUDA entry point dies, and a
+    plan on the card is not answered by a plain version or the host: each
+    rung is unavailable, the call ends in ``FallbackExhausted`` chained
+    from the injected failure, nothing is recorded, and the kernels answer
+    again once the fault is gone."""
+    from repro_torch.core import resilience
+    from repro_torch.testing import faults
+
+    x = _cell_input(cell[0], 150, cuda_device, seed=3)
+    strict = _cell_plan(cell, x, cuda_device).execute(x)
+    p = _cell_plan(cell, x, cuda_device, on_error="fallback")
+    labels = [s.label for s in resilience.chain_for(p)]
+    assert labels and "impl:cuda" not in labels
+    faults.reset()
+    try:
+        with faults.fail_kernel(impl="cuda") as rule:
+            with pytest.raises(resilience.FallbackExhausted) as ei:
+                p.execute(x)
+    finally:
+        faults.reset()
+    assert rule.trips == 1
+    assert "injected fault" in str(ei.value.__cause__)
+    for label in labels:
+        assert f"{label}: FallbackUnavailable" in str(ei.value), label
+    assert p.explain()["degradations"] == []
+    _assert_bitwise(f"{cell} after the fault", p.execute(x), strict)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["dense", "tri"])
+def test_cuda_fallback_plan_without_fault_runs_the_kernels(cuda_device,
+                                                           schedule):
+    from repro_torch.core import pald
+
+    D = torch.as_tensor(_tri_D(200, seed=5), device=cuda_device)
+    focus = (pald_focus_tri.focus_tri_cuda if schedule == "tri"
+             else pald_focus.focus_general_cuda)
+    coh = (pald_cohesion_tri.cohesion_tri_cuda if schedule == "tri"
+           else pald_cohesion.cohesion_general_cuda)
+    strict = pald.cohesion(D, method="kernel", schedule=schedule)
+    f0, c0 = focus.launches, coh.launches
+    p = pald.plan(D, method="kernel", schedule=schedule, on_error="fallback")
+    out = p.execute(D)
+    assert (focus.launches, coh.launches) == (f0 + 1, c0 + 1)
+    assert p.explain()["degradations"] == []
+    _assert_bitwise(f"fallback plan {schedule}", out, strict)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 130, 257])
+@pytest.mark.parametrize("schedule", ["dense", "tri"])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_chunk_one_grid_bitwise_items(cuda_device, name, schedule, n):
+    """A chunk of b = 5 symmetric, tie-heavy D through ``ops.pald``: one
+    launch (one grid) per pass for the chunk, the focus kernel's blocks
+    b x the upper tile pairs (counted on the card), U and C bitwise the
+    items one at a time."""
+    b = 5
+    Db = torch.as_tensor(np.stack([_tri_D(n, seed=40 + i) for i in range(b)]),
+                         device=cuda_device)
+    tri = schedule == "tri"
+    focus = (pald_focus_tri.focus_tri_cuda if tri
+             else pald_focus.focus_general_cuda)
+    coh = (pald_cohesion_tri.cohesion_tri_cuda if tri
+           else pald_cohesion.cohesion_general_cuda)
+    f0, fg0 = focus.launches, focus.grid_launches
+    c0, cg0 = coh.launches, coh.grid_launches
+    pald_focus.reset_tile_counts()
+    Ub = ops.focus(Db, impl="cuda", schedule=schedule, ties=name)
+    Cb = ops.pald(Db, impl="cuda", schedule=schedule, ties=name)
+    blocks, twice = pald_focus.tile_counts(cuda_device)
+    assert (focus.launches, focus.grid_launches) == (f0 + 2, fg0 + 2)
+    assert (coh.launches, coh.grid_launches) == (c0 + 1, cg0 + 1)
+    assert blocks == 2 * b * pald_focus.focus_blocks(n, n, True)
+    assert twice == 0
+    for i in range(b):
+        _assert_bitwise(f"U item {i}", Ub[i],
+                        ops.focus(Db[i], impl="cuda", schedule=schedule,
+                                  ties=name))
+        _assert_bitwise(f"C item {i}", Cb[i],
+                        ops.pald(Db[i], impl="cuda", schedule=schedule,
+                                 ties=name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["dense", "tri"])
+def test_cuda_engine_chunks_bitwise(cuda_device, schedule):
+    """``cohesion(Db, batch=b)`` on the card: every chunk size gives the
+    per-item C bitwise; the kernels launch once per chunk and pass."""
+    from repro_torch.core import pald
+
+    Db = torch.as_tensor(np.stack([_tri_D(190, seed=60 + i)
+                                   for i in range(7)]), device=cuda_device)
+    coh = (pald_cohesion_tri.cohesion_tri_cuda if schedule == "tri"
+           else pald_cohesion.cohesion_general_cuda)
+    one = pald.cohesion(Db, method="kernel", schedule=schedule, batch=1)
+    for b in (2, 3, 7, None):
+        c0 = coh.launches
+        out = pald.cohesion(Db, method="kernel", schedule=schedule, batch=b)
+        assert coh.launches - c0 == -(-7 // (b or 7))
+        _assert_bitwise(f"batch={b}", out, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tri", [False, True])
+@pytest.mark.parametrize("name", ["drop", "ignore", "kernelized"])
+def test_cuda_chunk_nonfinite_item_keeps_finite_bits(cuda_device, name, tri):
+    """``add_form`` decides once per chunk: one item with an infinite W
+    sends the chunk to the multiply form, and the finite items keep the
+    bits of their own (predicated) calls."""
+    b, n = 3, 130
+    D = torch.as_tensor(np.stack([_tri_D(n, seed=70 + i) for i in range(b)]),
+                        device=cuda_device)
+    W = torch.as_tensor(np.random.default_rng(7).random((b, n, n)),
+                        dtype=torch.float32, device=cuda_device)
+    W = (W + W.transpose(1, 2)).contiguous()
+    W[1, 5, 70] = W[1, 70, 5] = np.inf
+    wid = tw.kernel_spec(name)[0]
+    assert pald_cohesion.add_form(wid, W) == 0
+    assert pald_cohesion.add_form(wid, W[0]) == 1
+    if tri:
+        run = lambda d, w: pald_cohesion_tri.cohesion_tri_cuda(  # noqa: E731
+            d, w, ties=name)
+    else:
+        run = lambda d, w: pald_cohesion.cohesion_general_cuda(  # noqa: E731
+            d, d, d, w, ties=name, xw_offsets=(0, 0))
+    Cb = run(D, W)
+    for i in (0, 2):
+        _assert_bitwise(f"finite item {i}", Cb[i], run(D[i], W[i]))
+    got, want = Cb[1].cpu().numpy(), run(D[1], W[1]).cpu().numpy()
+    assert not np.isfinite(want).all()
+    np.testing.assert_array_equal(got, want)  # nan where nan, bits else
+
+
+@pytest.mark.cuda
+def test_cuda_knn_beyond_the_kernel_limit(cuda_device):
+    """k = 2048 > ``pald_topk.MAX_K`` on the features k-NN cell: "raise"
+    raises the wrapper's ValueError; "fallback" does not leave the
+    kernels for the plain rungs on the card and ends in
+    ``FallbackExhausted`` chained from that ValueError."""
+    from repro_torch.core import pald, resilience
+
+    X = torch.as_tensor(_features(2060, 2, seed=9), device=cuda_device)
+    kw = dict(k=2048, block=32)
+    with pytest.raises(ValueError, match="exceeds the kernel's limit"):
+        pald.from_features(X, **kw)
+    p = pald.plan(X, kind="features", on_error="fallback", **kw)
+    with pytest.raises(resilience.FallbackExhausted,
+                       match="impl:torch: FallbackUnavailable") as ei:
+        p.execute(X)
+    assert isinstance(ei.value.__cause__, ValueError)
+    assert "select:chunked: FallbackUnavailable" in str(ei.value)
+    assert p.explain()["degradations"] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, None])
+@pytest.mark.parametrize("schedule", ["dense", "tri"])
+def test_cuda_batched_peak_memory_is_the_chunks(cuda_device, schedule,
+                                                batch):
+    """A batched call holds one chunk's working buffers at a time: its
+    peak above the input is at least a chunk of b items' U, W and W's bool
+    mask (2.25 n^2 float32 each) and at most that plus the whole output
+    when the batch runs in more than one chunk (``batch=None`` is one
+    chunk of all B items: bound memory with ``batch=``)."""
+    from repro_torch.core import pald
+
+    B, n = 6, 512
+    Db = torch.as_tensor(np.stack([_tri_D(n, seed=80 + i) for i in range(B)]),
+                         device=cuda_device)
+    p = pald.plan(Db, method="kernel", schedule=schedule, batch=batch)
+    want = p.execute(Db)  # builds, and allocates the focus counters
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out = p.execute(Db)
+    torch.cuda.synchronize(cuda_device)
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    b, item = (batch or B), 4 * n * n
+    lo = 2.25 * b * item
+    hi = lo + (B * item if b < B else 0) + (1 << 20)
+    assert lo <= peak <= hi, (schedule, batch, peak / item)
+    _assert_bitwise(f"batch={batch}", out, want)

@@ -242,10 +242,13 @@ def test_from_features_knob_errors():
         p.execute(_X(10, d=3))
     for knobs in ({"method": "triplet", "block": "auto"},
                   {"schedule": "tri", "block_z": "auto"},
-                  {"block": "auto"}, {"on_error": "fallback"},
-                  {"strategy": "ring"}):
+                  {"block": "auto"}, {"strategy": "ring"}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
             pald.from_features(X, device="cpu", **knobs)
+    # on_error="fallback" runs (tests/test_torch_faults.py holds the guard)
+    assert torch.equal(pald.from_features(X, on_error="fallback",
+                                          device="cpu"),
+                       pald.from_features(X, device="cpu"))
 
 
 def test_from_features_check_rejects_nonfinite():

@@ -429,7 +429,6 @@ def test_knn_knobs_raise_value_error(kind, knobs):
 
 
 @pytest.mark.parametrize("knobs,item", [
-    ({"select": "chunked"}, "item 8"),
     ({"select_tile": 64}, "item 9"),
     ({"select_block": "auto"}, "item 9"),
     ({"mesh": object()}, "item 10"),

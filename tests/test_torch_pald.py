@@ -277,7 +277,6 @@ def test_shape_errors():
     {"method": "kernel", "schedule": "tri", "block_z": "auto"},
     {"method": "kernel", "block": "auto"},
     {"method": "kernel", "block_z": "auto"},
-    {"method": "kernel", "on_error": "fallback"},
     {"method": "kernel", "mesh": object()},
     {"method": "kernel", "strategy": "ring"},
 ])
