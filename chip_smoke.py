@@ -120,7 +120,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and tri, one chunk (one grid a pass, b x the upper tile pairs of focus
    blocks counted on the card) against one item a launch (``batch=1``):
    both times (medians of 3, in turns) beside the card's name and power
-   limit, C bitwise.  Reports only; no speed gate.
+   limit, C bitwise.  Reports only; no speed gate;
+18. the tuning cache on the card (``repro_torch.tuning``): the measured
+   method crossover (``tune_methods`` at n in {64, ..., 1024}: each
+   method's ms and the winner per n, and the record n = 8192 resolves
+   to), the engine's +inf pad swept at the ragged n = 8000 (``tune(8000,
+   "pald" / "pald_tri", impl="cuda")``, block in {64, 128, 256, 512}: each
+   row's ms and padded n), then ``plan(D, method="kernel", block="auto")``
+   at n = 8000 from that cache (``block_source`` the record keyed by the
+   card's name, C bitwise an explicit plan with the same block and within
+   rtol 1e-5, atol 1e-6 of ``block=128``), ``pald.cohesion(D)`` with
+   default knobs at n = 256 and 1024 reading its method from the cache
+   (C within rtol 1e-5, atol 1e-6 of ``method="kernel"``), and the cache
+   truncated (``testing.faults.corrupt_tuning_cache``): the plan falls
+   back to the defaults, C bitwise a fresh plan's, the corrupt file moved
+   aside.
+
+The whole run reads and writes a tuning cache of its own, a fresh
+temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
+cache left on the machine changes nothing that phases 1-17 measure: they
+plan on a cold cache.
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches``: wrapper calls on the main path; ``grid_launches``: the grids
@@ -134,10 +153,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -2006,6 +2028,128 @@ def phase_chunks(dev, card, reps=3):
         del Db
 
 
+# phase 18: the method crossover's sizes, and the pad sweep's n and blocks
+METHOD_NS = (64, 128, 256, 512, 1024)
+N_PAD, PAD_BLOCKS = 8000, (64, 128, 256, 512)
+DEFAULT_NS = (256, 1024)
+
+
+def phase_tuned(dev, card, iters=3):
+    """Phase 18: tune on the card into the run's own cache, then plan the
+    main path from it (see the module docstring)."""
+    import torch
+    from repro_torch.core import pald
+    from repro_torch.testing import faults
+    from repro_torch.tuning import autotune
+
+    backend = autotune.backend_of(dev)
+    if backend != torch.cuda.get_device_name(dev):
+        fail(f"phase 18: the cache's backend {backend!r} is not the card's "
+             f"name")
+    rows = autotune.tune_methods(ns=METHOD_NS, device=dev, iters=iters,
+                                 time_budget=30.0)
+    for r in rows:
+        if "skipped" in r or r.get("failed"):
+            fail(f"phase 18: method crossover at n={r['n']}: {r}")
+        print(f"phase 18: methods n={r['n']}: " + ", ".join(
+            f"{m} {t * 1e3:.3f} ms" for m, t in r["timings"].items())
+            + f" -> {r['method']} (median of {iters}; {card})")
+    print("phase 18: crossover on " + backend + ": " + ", ".join(
+        f"n={r['n']} {r['method']}" for r in rows))
+    far = pald.plan(n=8192).explain()
+    print(f"phase 18: pald.cohesion(D) at n=8192 would resolve to "
+          f"method={far['method']!r} from {far['method_source']}"
+          + ("" if far["method"] in ("triplet", "kernel") else
+             " (plain torch: the default call would leave the kernels)"))
+
+    X, _ = clustered_points(N_PAD, D_MAIN, SEED + 180)
+    D = distances_on_device(torch.as_tensor(X, device=dev))
+    for pass_ in ("pald", "pald_tri"):
+        rec = autotune.tune(N_PAD, pass_, impl="cuda", device=dev,
+                            blocks=PAD_BLOCKS, iters=iters, time_budget=20.0)
+        for row in rec["grid"]:
+            if "seconds" not in row:
+                fail(f"phase 18: tune {pass_} n={N_PAD}: {row}")
+            print(f"phase 18: pad sweep {pass_} n={N_PAD} block="
+                  f"{row['block']} padded_n={row['padded_n']}: "
+                  f"{row['seconds'] * 1e3:.3f} ms (median of {iters}, "
+                  f"synchronized wall time; {card})")
+        print(f"phase 18: {pass_} n={N_PAD}: best block {rec['block']} "
+              f"({rec['seconds'] * 1e3:.3f} ms), cached under "
+              f"{backend}|cuda|{N_PAD}|{pass_}")
+
+    p = pald.plan(D, method="kernel", block="auto")
+    want_src = f"cache:{backend}|cuda|{N_PAD}|pald"
+    if p.block_source != want_src or p.impl != "cuda":
+        fail(f"phase 18: block='auto' plan: block_source "
+             f"{p.block_source!r}, impl {p.impl!r}; want {want_src!r}")
+    def peak_run(plan_):
+        """C of one call and its peak device memory above the input, in
+        n^2 float32 buffers."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = plan_.execute(D)
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / (
+            4 * N_PAD * N_PAD)
+
+    C, peak = peak_run(p)
+    compare(f"phase 18 block=auto ({p.block}) against an explicit plan",
+            C, pald.plan(D, method="kernel", block=p.block).execute(D), True)
+    C128, peak128 = peak_run(pald.plan(D, method="kernel", block=128))
+    err = compare("phase 18 block=auto against block=128", C, C128, False)
+    print(f"phase 18: plan(D, method='kernel', block='auto') n={N_PAD}: "
+          f"block {p.block} (padded_n {p.padded_n}) from {p.block_source}; "
+          f"C bitwise the explicit block={p.block} plan's, max |err| "
+          f"{err!r} against block=128; peak device memory above the input "
+          f"{peak:.3f} n^2 (block=128: {peak128:.3f} n^2)")
+    del C
+    ends = {"auto": [], 128: []}
+    for blk in ("auto", 128, 128, "auto"):
+        ms, _ = time_ms(lambda: pald.cohesion(D, method="kernel", block=blk),
+                        iters)
+        ends[blk].append(ms)
+    print(f"phase 18: cohesion(D, method='kernel') n={N_PAD} end to end "
+          f"(CUDA events, median of {iters}, in turns auto, 128, 128, "
+          f"auto): block='auto' ({p.block}) {ends['auto']} ms, block=128 "
+          f"{ends[128]} ms; {card}")
+
+    for n in DEFAULT_NS:
+        Xn, _ = clustered_points(n, D_MAIN, SEED + 181)
+        Dn = distances_on_device(torch.as_tensor(Xn, device=dev))
+        pn = pald.plan(Dn)
+        want_src = f"cache:{backend}|-|{n}|method"
+        if pn.method_source != want_src:
+            fail(f"phase 18: default plan n={n}: method_source "
+                 f"{pn.method_source!r}, want {want_src!r}")
+        err = compare(f"phase 18 cohesion(D) n={n} ({pn.method})",
+                      pn.execute(Dn), pald.cohesion(Dn, method="kernel"),
+                      False)
+        print(f"phase 18: pald.cohesion(D) n={n}: method {pn.method!r} from "
+              f"{pn.method_source}; max |err| {err!r} against "
+              f"method='kernel'")
+
+    with faults.corrupt_tuning_cache() as path:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pc = pald.plan(D, method="kernel", block="auto")
+        moved = [f for f in os.listdir(os.path.dirname(path))
+                 if f.startswith(os.path.basename(path) + ".corrupt-")]
+        if pc.block_source != "default" or pc.block != 128 or not moved:
+            fail(f"phase 18: corrupt cache: block_source "
+                 f"{pc.block_source!r}, block {pc.block}, moved {moved}")
+        compare("phase 18 corrupt cache against a fresh plan",
+                pc.execute(D), C128, True)
+        print(f"phase 18: corrupt cache: plan block {pc.block} from "
+              f"{pc.block_source!r}, C bitwise a fresh plan's; quarantined "
+              f"to {moved[0]}; {len(caught)} warning(s): "
+              f"{str(caught[0].message)[:80] if caught else ''}")
+    if pald.plan(D, method="kernel", block="auto").block_source != \
+            f"cache:{backend}|cuda|{N_PAD}|pald":
+        fail("phase 18: the cache was not restored after the corruption")
+
+
 def main() -> int:
     import torch
 
@@ -2014,6 +2158,20 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 2
     sys.stdout.reconfigure(line_buffering=True)  # a cut run keeps its log
+    # the run's own tuning cache: every phase plans on a cold cache, and
+    # phase 18 tunes into it; removed at the end
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(cache_dir,
+                                                        "blocktune.json")
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run_phases() -> int:
+    import torch
+
     start = time.perf_counter()
     from repro_torch.kernels import _build
 
@@ -2088,6 +2246,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_chunks(dev, card)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_tuned(dev, card)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

@@ -23,11 +23,15 @@
 
 Two kinds of input: ``"distance"`` (an (n, n) matrix, ``pald.cohesion``)
 and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On a
-distance matrix ``method="auto"`` resolves as the reference does without a
-tuning cache: ``z_chunk=`` pins ``"dense"``, ``impl=`` or an explicit
-``block_z`` pins ``"kernel"``, and otherwise ``"dense"`` for n <= 256 and
-``"triplet"`` above (``method_source="heuristic"``; the reference's cache
-lookup comes with ROADMAP.md queue 1, item 9).  On features
+distance matrix ``method="auto"`` resolves as the reference does:
+``z_chunk=`` pins ``"dense"``, ``impl=`` or an explicit ``block_z`` pins
+``"kernel"``, and otherwise the tuning cache's measured crossover for the
+plan's device (``tuning/autotune.method_for_ex``, keyed by the CUDA
+device's name or "cpu"; ``method_source`` "cache:<key>" /
+"nearest:<key>"), else ``"dense"`` for n <= 256 and ``"triplet"`` above
+(``"heuristic"``).  ``block`` / ``block_z`` / ``select_block`` /
+``select_tile`` set to ``"auto"`` resolve from the same cache
+(``block_source`` / ``select_source``), as in the reference.  On features
 ``method="auto"`` resolves to ``"fused"`` (distances computed by the
 kernels one panel of rows at a time, D never whole); ``"dense"`` / ``"pairwise"`` / ``"kernel"``
 materialize D once with ``features.cdist_reference`` and run the distance
@@ -52,6 +56,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.tuning import autotune as _tuner
 
 from . import resilience as _res
 from .weights import (DEFAULT_TIES, WeightFunctional, registered_weights,
@@ -83,12 +89,8 @@ _IMPL_METHODS = ("kernel", "fused", "knn")
 
 # where each unported knob of the reference lands (ROADMAP.md, queue 1)
 _SLICE = {
-    "block_auto": "block= / block_z= / select_block='auto' need the tuning "
-                  "cache (ROADMAP.md queue 1, item 9: tuning)",
     "mesh": "mesh= / strategy= are the distributed slice (ROADMAP.md queue "
             "1, item 10)",
-    "select_tile": "select_tile= is the tuned tile-min prefilter of the "
-                   "selection (ROADMAP.md queue 1, item 9: tuning)",
 }
 
 
@@ -278,6 +280,9 @@ class PaldPlan:
     #                               "torch" | "chunked"); None follows impl
     select_block: int | None = None  # selection rows per slab (features
     #                                  knn; the plain version's)
+    select_tile: int | None = None   # the plain selection's tile-min
+    #                                  prefilter width (>= n: direct)
+    select_source: str = "n/a"       # selection tiles' provenance
     on_error: str = "raise"       # "raise" | "fallback" (degradation chain)
     # degradation events appended by core/resilience under
     # on_error="fallback", surfaced by explain(); init=False keeps the
@@ -347,6 +352,8 @@ class PaldPlan:
             "on_error": self.on_error,
             "select": self.select,
             "select_block": self.select_block,
+            "select_tile": self.select_tile,
+            "select_source": self.select_source,
             "method_source": self.method_source,
             "block_source": self.block_source,
             "executor": f"{fn.__module__}.{fn.__qualname__}",
@@ -549,6 +556,9 @@ def plan(
                          "degradation chain")
     if mesh is not None or strategy is not None:
         raise NotImplementedError(_SLICE["mesh"])
+    # the tuning cache's backend: a record of another card (or of the CPU)
+    # never steers this plan
+    backend = _tuner.backend_of(dev)
     if kind == "distance" and d is not None:
         raise ValueError("d= only applies to kind='features'")
     n, d = _shape_of(x, n, d, kind)
@@ -596,9 +606,8 @@ def plan(
             # block_z="auto" is not
             method, method_source = "kernel", "impl/block_z"
         else:
-            # the reference's heuristic when its tuning cache has no entry
-            method = "dense" if n <= 256 else "triplet"
-            method_source = "heuristic"
+            # the measured crossover of this device, else the heuristic
+            method, method_source = _tuner.method_for_ex(n, backend=backend)
     if method not in allowed:
         raise ValueError(f"unknown method {method!r} for kind={kind!r} "
                          f"(expected one of {('auto',) + allowed})")
@@ -606,8 +615,6 @@ def plan(
         raise ValueError(
             f"schedule='tri' is only available for method='kernel', got "
             f"method={method!r}; pass method='kernel' or drop schedule=")
-    if block == "auto" or block_z == "auto" or select_block == "auto":
-        raise NotImplementedError(_SLICE["block_auto"])
 
     # -- neighborhood size and selection stage (knn only) -----------------
     if method == "knn":
@@ -629,8 +636,6 @@ def plan(
             "select=/select_block=/select_tile= configure the knn neighbor "
             f"selection stage (got method={method!r}); drop them, or pass "
             "method='knn'")
-    if select_tile is not None:
-        raise NotImplementedError(_SLICE["select_tile"])
     if select is not None:
         from repro_torch.kernels.ops import SELECTS
 
@@ -638,9 +643,11 @@ def plan(
             raise ValueError(f"unknown select {select!r} (expected one of "
                              f"{SELECTS})")
     if kind == "distance" and (select not in (None, "chunked")
-                               or select_block is not None):
+                               or select_block is not None
+                               or select_tile is not None):
         raise ValueError(
-            "select=/select_block= configure the streaming selection from "
+            "select=/select_block=/select_tile= configure the streaming "
+            "selection from "
             "features (kind='features'); a distance matrix is selected from "
             "by a stable sort of its rows, and only the row-chunked rung "
             "select='chunked' applies to it")
@@ -667,40 +674,80 @@ def plan(
                   ties=ties, weight=weight, normalize=normalize, batch=batch,
                   check=check, n=n, device=dev, metric=metric, d=d,
                   method_source=method_source, on_error=on_error)
-    if method == "knn":
-        if block_z is not None:
-            raise ValueError(
-                "block_z= does not apply to method='knn' (the third axis "
-                "is the k neighbors themselves); block= sets the plain "
-                "version's rows per chunk")
-        if kind == "features":
-            select_block = 1024 if select_block is None else int(select_block)
-        return PaldPlan(block=128 if block is None else int(block),
-                        block_z=None, z_chunk=None,
-                        block_source="explicit" if block is not None
-                        else "default", k=k, select=select,
-                        select_block=select_block, **common)
     if method == "dense":
-        if block_z is not None:
+        if block_z not in (None, "auto"):
             raise ValueError("block_z= does not apply to method='dense' "
                              "(it has no z tile; use z_chunk=)")
         return PaldPlan(block=None, block_z=None, z_chunk=z_chunk,
                         block_source="n/a", **common)
-    if method in ("pairwise", "triplet") and block_z is not None:
-        raise ValueError(f"block_z= does not apply to method={method!r} (the "
-                         "blocked plain paths stream the full z axis per "
-                         "block pair)")
-    if method == "fused":
-        # the kernels' tiles are fixed; block / block_z only set the plain
-        # versions' row block and chunk (ops.pald_fused: 128 / 512)
-        return PaldPlan(block=None if block is None else int(block),
-                        block_z=None if block_z is None else int(block_z),
-                        z_chunk=None,
-                        block_source="explicit" if block is not None
-                        else "default", **common)
+    if method in ("pairwise", "triplet"):
+        if block_z not in (None, "auto"):
+            raise ValueError(
+                f"block_z= does not apply to method={method!r} (the "
+                "blocked plain paths stream the full z axis per block pair)")
+        # "auto" resolves to "no z tile" here: a resolution, not a dropped
+        # knob (explain() shows block_z=None with no z provenance)
+        block_z = None
+    if method == "knn":
+        if block_z not in (None, "auto"):
+            raise ValueError(
+                "block_z= does not apply to method='knn' (the third axis "
+                "is the k neighbors themselves); block= sets the plain "
+                "version's rows per chunk")
+        block_z = None
+
+    # -- tiles (the reference's resolution; the cache's impl is the one
+    # that will run, the device's default on the methods without impl=)
+    from repro_torch.kernels.ops import default_impl
+
+    cache_impl = impl or default_impl(dev)
     block_source = "explicit"
     if block is None:
-        block, block_source = 128, "default"
+        block = "auto" if method in ("fused", "knn") else 128
+        block_source = "default"
+    if method == "knn":
+        if block == "auto":
+            block, _, block_source = _tuner.resolve_blocks_ex(
+                n, "pald_knn", ties=weight, k=k, impl=impl, backend=backend)
+        block = max(min(int(block), max(n, 1)), 1)
+        sel_source = "n/a"
+        sb = st = None
+        if kind == "features":
+            # the selection's tiles resolve here, once, so explain()
+            # reports the slab and tile the executor runs
+            sb = "auto" if select_block is None else select_block
+            st = "auto" if select_tile is None else select_tile
+            sel_source = "explicit"
+            if sb == "auto" or st == "auto":
+                rb, rt, sel_source = _tuner.resolve_blocks_ex(
+                    n, "pald_topk", d=d, k=k, impl=(select or impl),
+                    backend=backend)
+                sb = rb if sb == "auto" else sb
+                st = rt if st == "auto" else st
+            sb = max(min(int(sb), max(n, 1)), 1)
+            st = max(min(int(st), max(n, 1)), 1)
+        return PaldPlan(block=block, block_z=None, z_chunk=None,
+                        block_source=block_source, k=k, select=select,
+                        select_block=sb, select_tile=st,
+                        select_source=sel_source, **common)
+    if method == "fused":
+        # one authority for the fused tiles, shared with ops.pald_fused;
+        # the kernels' tiles are fixed, these set the plain versions'
+        was_auto = block == "auto"
+        block, block_z, src = _tuner.resolve_fused_tiles(
+            n, d, block, block_z, impl=impl, backend=backend, ties=weight)
+        if src is not None:
+            # provenance tracks the block tile; an explicit block with an
+            # auto block_z does not claim the cache chose the caller's tile
+            block_source = src if was_auto else f"{block_source}; z:{src}"
+    elif block == "auto" or block_z == "auto":
+        pass_ = "pald_tri" if schedule == "tri" else "pald"
+        rb, rbz, src = _tuner.resolve_blocks_ex(
+            n, pass_, ties=weight, impl=cache_impl, backend=backend)
+        block_source = src if block == "auto" else f"{block_source}; z:{src}"
+        block = rb if block == "auto" else block
+        if method == "kernel" and block_z in (None, "auto"):
+            block_z = rbz
     return PaldPlan(block=int(block),
                     block_z=None if block_z is None else int(block_z),
                     z_chunk=None, block_source=block_source, **common)

@@ -135,15 +135,19 @@ def knn_from_distances(D: torch.Tensor, k: int, *,
 
 
 def knn_from_features(X, k: int, *, metric: str = "euclidean",
-                      row_chunk: int = 1024,
-                      impl: str | None = None) -> NeighborGraph:
+                      row_chunk: int | str = 1024,
+                      impl: str | None = None,
+                      tile: int | str = "auto") -> NeighborGraph:
     """k nearest neighbors straight from (n, d) features, D never
     materialized: a facade over ``kernels.ops.topk_select`` (the CUDA
-    kernel for CUDA tensors; ``row_chunk`` rows per slab in the plain
-    version)."""
+    kernel for CUDA tensors).  ``row_chunk`` is the plain version's rows
+    per slab and ``tile`` its tile-min prefilter's width (>= n: the
+    direct sort; the result does not depend on either); "auto" resolves
+    both under the ``pald_topk:k<k>:d<d>`` tuning-cache pass."""
     from repro_torch.kernels.ops import topk_select
 
-    return topk_select(X, k, metric=metric, impl=impl, block=row_chunk)
+    return topk_select(X, k, metric=metric, impl=impl, block=row_chunk,
+                       tile=tile)
 
 
 # ---------------------------------------------------------------------------

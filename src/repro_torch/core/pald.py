@@ -98,12 +98,17 @@ def cohesion(
             "knn" (the sparse k-NN restriction: a stable sort of D's rows,
             then the k-NN cohesion kernel; needs ``k``).  "auto" with
             ``k`` is "knn", with ``schedule="tri"`` "kernel"; otherwise
-            the reference's choice without a tuning cache: "dense" up to
-            n = 256, else "triplet" (the tri kernels on the card).
+            the method the tuning cache measured fastest on this device at
+            the nearest n (``python -m repro_torch.tuning.hillclimb
+            methods``), else the reference's heuristic: "dense" up to
+            n = 256, "triplet" above (the tri kernels on the card).
         block: tile of the engine's +inf pad for the blocked paths
-            (default 128), the k-NN plain version's rows per chunk.
+            (default 128), the k-NN plain version's rows per chunk;
+            "auto" reads the tuning cache (``pald`` / ``pald_tri`` /
+            ``pald_knn:k<k>`` passes, keyed by the device's name).
             ``method="dense"`` has no tile.
-        block_z: z chunk of the kernel pipeline's plain version.
+        block_z: z chunk of the kernel pipeline's plain version ("auto":
+            the cache, or no z tile on "pairwise" / "triplet").
         schedule: "dense", or "tri" (kernel method only): both passes on
             the upper-triangular block pairs, through the tri CUDA
             kernels (``ops.pald_tri``); D must be symmetric.
@@ -152,7 +157,7 @@ def from_features(
     metric: str = "euclidean",
     method: str = "auto",
     batch: int | None = None,
-    block: int | str | None = None,
+    block: int | str = "auto",
     block_z: int | str | None = None,
     schedule: str = "dense",
     normalize: bool = True,
@@ -188,11 +193,15 @@ def from_features(
         batch: for a batched X, the most items held and run together;
             None: the whole batch in one chunk.  Peak memory grows with the
             chunk; any chunk size gives bitwise the same C.
-        block: the plain versions' row block (default 128) and the
-            materializing paths' tile.  Unlike the reference, whose
-            default is "auto" (the tuning cache, a later slice), the
-            default is None: the kernels' fixed 64 x 64 tiles.
-        block_z: the plain versions' reduced-axis chunk (default 512).
+        block: the plain versions' row block and the materializing
+            paths' tile; "auto" (the default, as in the reference) reads
+            the tuning cache (the ``pald_fused:d<d>`` pass, the knn pass
+            by k, the ``pald`` / ``pald_tri`` passes when D is
+            materialized), else 128.  The CUDA kernels' tiles are fixed
+            at 64 x 64: on the card ``block`` acts through the engine's
+            +inf pad of a materialized D.
+        block_z: the plain versions' reduced-axis chunk (default: with
+            ``block``, else 512).
         schedule: "dense", or "tri": pins ``method="kernel"`` and runs the
             tri kernel pipeline on the materialized D.
         normalize: apply the 1/(n-1) factor; on by default.
@@ -212,9 +221,13 @@ def from_features(
             follows ``impl``), or "chunked": the guard's terminal rung,
             row slabs of distances and a stable sort each.
         select_block: the selection plain version's rows per slab
-            (default 1024).
-        select_tile, mesh, strategy: knobs of the tuning and distributed
-            slices; they raise ``NotImplementedError``.
+            ("auto"/None: the ``pald_topk:k<k>:d<d>`` cache pass, cold
+            1024).
+        select_tile: the plain selection's tile-min prefilter width (>= n
+            sorts whole rows; bitwise the same graph either way;
+            "auto"/None: the same cache pass, cold n).
+        mesh, strategy: knobs of the distributed slice; they raise
+            ``NotImplementedError``.
         on_error: "raise" (default) or "fallback" (see ``cohesion``; the
             k-NN cells end on ``select="chunked"``).
         device: "cuda" (default; raises without a GPU) or "cpu" (the

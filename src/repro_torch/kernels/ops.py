@@ -52,6 +52,13 @@ The sparse k-NN pipeline (``core/knn.py`` has the semantics):
     select_cohere(X, k=...)             -> (graph, values): the two kernels
                                            back to back on device tensors
 
+``block`` / ``block_z`` (and the selection's ``block`` / ``tile``) take
+``"auto"``: the tuning cache (``repro_torch.tuning.autotune``) resolves
+them under the entry point's pass, keyed by the device's name, the impl
+and n, as the reference's entry points resolve theirs.  The k-NN entry
+points default to ``"auto"``, as the reference's do; on a cold cache that
+is the size-aware default.
+
 ``topk_select(..., impl="chunked")`` is the terminal selection rung of
 guarded execution (``core/resilience``): slabs of rows, each slab's
 distance rows, self at +inf, a stable sort, synced before the next slab.
@@ -70,6 +77,7 @@ from repro_torch.core import knn as _knn
 from repro_torch.core.features import masked_dist_tile
 from repro_torch.core.resilience import fault_point
 from repro_torch.core.weights import DEFAULT_TIES, resolve_weight
+from repro_torch.tuning import autotune as _tuner
 
 from .pald_cohesion import cohesion_general_cuda, cohesion_general_torch
 from .pald_cohesion_tri import cohesion_tri_cuda, cohesion_tri_torch
@@ -113,6 +121,19 @@ def _check_impl(impl: str) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
     return impl
+
+
+def _resolve_blocks(n: int, pass_: str, block, block_z, impl: str, ties,
+                    device) -> tuple[int, int]:
+    """"auto" tiles from the tuning cache under ``pass_`` (the reference's
+    ``ops._resolve_blocks``), keyed by ``device``'s name and ``impl``; a
+    non-default functional has its own cell."""
+    if block == "auto" or block_z == "auto":
+        rb, rbz = _tuner.resolve_blocks(n, pass_, impl=impl, ties=ties,
+                                        device=device)
+        block = rb if block == "auto" else block
+        block_z = rbz if block_z == "auto" else block_z
+    return int(block), int(block_z)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -185,6 +206,8 @@ def focus_general(DXZ, DYZ, DXY, *, block=128, block_z=512,
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(DXZ.device))
     fault_point("ops.focus_general", impl=impl, ties=ties.name)
+    block, block_z = _resolve_blocks(max(DXZ.shape[-2:]), "focus", block,
+                                     block_z, impl, ties, DXZ.device)
     DXZ, DYZ, DXY = _f32(DXZ), _f32(DYZ), _f32(DXY)
     if impl == "torch":
         U = focus_general_torch(DXZ, DYZ, DXY, chunk=int(block_z), ties=ties)
@@ -206,6 +229,8 @@ def cohesion_general(DXZ, DYZ, DXY, W, *, block=128, block_z=512,
     ties = resolve_weight(ties)
     impl = _check_impl(impl or default_impl(DXZ.device))
     fault_point("ops.cohesion_general", impl=impl, ties=ties.name)
+    block, block_z = _resolve_blocks(max(DXZ.shape[-2:]), "cohesion", block,
+                                     block_z, impl, ties, DXZ.device)
     DXZ, DYZ, DXY, W = _f32(DXZ), _f32(DYZ), _f32(DXY), _f32(W)
     if not ties.needs_index_tiebreak:
         xwins = xw_offsets = None
@@ -227,6 +252,8 @@ def focus(D, *, block=128, block_z=512, impl: str | None = None,
     if _check_schedule(schedule, D):
         ties = resolve_weight(ties)
         impl = _check_impl(impl or default_impl(D.device))
+        block, block_z = _resolve_blocks(D.shape[-1], "focus_tri", block,
+                                         block_z, impl, ties, D.device)
         D = _f32(D)
         if impl == "torch":
             U = focus_tri_torch(D, block=int(block), block_z=int(block_z),
@@ -251,6 +278,8 @@ def cohesion_from_weights(D, W, *, block=128, block_z=512,
     ties = resolve_weight(ties)
     if _check_schedule(schedule, D):
         impl = _check_impl(impl or default_impl(D.device))
+        block, block_z = _resolve_blocks(D.shape[-1], "cohesion_tri", block,
+                                         block_z, impl, ties, D.device)
         D, W = _f32(D), _f32(W)
         if impl == "torch":
             return cohesion_tri_torch(D, W, block=int(block),
@@ -310,7 +339,7 @@ def pald_tri(D, *, block=128, block_z=512, normalize: bool = False,
     return C
 
 
-def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
+def pald_fused(X, *, metric: str = "euclidean", block=128, block_z=512,
                normalize: bool = False, impl: str | None = None,
                ties=DEFAULT_TIES) -> torch.Tensor:
     """Fused features -> cohesion pipeline: X (n, d) -> C (n, n).
@@ -323,8 +352,10 @@ def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
     U, W = 1/U and C are the only (n, n) buffers.  The kernels mask
     ragged edges themselves, so no row is padded.  ``block`` /
     ``block_z`` set the plain versions' row block and reduced-axis chunk
-    (default 128 / 512); the kernels' tiles are fixed.  Peak memory: U,
-    W and an (n, n) bool mask while W is built, then W, C and a panel of
+    (default 128 / 512; "auto": the ``pald_fused:d<d>`` cache pass, a
+    ``block_z`` of None riding along with ``block``); the kernels' tiles
+    are fixed.  Peak memory: U, W and an (n, n) bool mask while W is
+    built, then W, C and a panel of
     min(``PANEL_BUDGET``, about n^2 * 4) bytes: 2.25 n^2 float32 buffers
     from n = 8192 up, about 3 n^2 up to n = 4096.
     """
@@ -332,10 +363,11 @@ def pald_fused(X, *, metric: str = "euclidean", block=None, block_z=None,
     impl = _check_impl(impl or default_impl(X.device))
     fault_point("ops.pald_fused", impl=impl, ties=ties.name)
     X = _f32(X)  # the one boundary cast
-    n = X.shape[0]
+    n, d = X.shape
     if impl == "torch":
-        kw = dict(metric=metric, block=int(block or 128),
-                  block_z=int(block_z or 512), ties=ties)
+        block, block_z, _ = _tuner.resolve_fused_tiles(
+            n, d, block, block_z, impl=impl, ties=ties, device=X.device)
+        kw = dict(metric=metric, block=block, block_z=block_z, ties=ties)
         U = focus_fused_torch(X, **kw)
         W = weights_ref(U)
         del U
@@ -380,7 +412,7 @@ def _check_kind(kind: str) -> None:
 
 
 def knn_values(x, graph: "_knn.NeighborGraph", *, kind: str = "distance",
-               metric: str = "euclidean", block: int = 128,
+               metric: str = "euclidean", block: int | str = "auto",
                impl: str | None = None, ties=DEFAULT_TIES) -> torch.Tensor:
     """Sparse (n, k+1) cohesion values of a prebuilt neighbor graph.
 
@@ -390,7 +422,8 @@ def knn_values(x, graph: "_knn.NeighborGraph", *, kind: str = "distance",
             (``kind="features"``; the neighbor-to-neighbor distances are
             recomputed from them, D never materialized).
         graph: ``core.knn.NeighborGraph`` over the same ``x``.
-        block: rows per chunk of the plain version.
+        block: rows per chunk of the plain version; "auto" resolves
+            under the ``pald_knn:k<k>`` cache pass.
         impl: "cuda" (the kernel, which computes or reads each row's
             tile itself: no (n, k, k) array), "torch" (the plain version
             over the gathered (n, k, k) tiles), or None for the device's
@@ -421,8 +454,12 @@ def _knn_values(x, graph, *, kind, metric, block, impl, ties):
     dn = _f32(graph.distances)
     idx = graph.indices.to(torch.int32).contiguous()
     if impl == "torch":
+        if block == "auto":
+            block, _ = _tuner.resolve_blocks(n, "pald_knn", impl=impl,
+                                             ties=ties, k=k, device=x.device)
+        block = max(min(int(block), n), 1)
         g = _gather_tiles(x, idx, kind, metric)
-        return knn_values_torch(dn, g, idx, ties=ties, block=int(block))
+        return knn_values_torch(dn, g, idx, ties=ties, block=block)
     if kind == "distance":
         return knn_values_from_distances_cuda(x, dn, idx, ties=ties)
     return knn_values_from_features_cuda(x, dn, idx, metric=metric,
@@ -430,16 +467,19 @@ def _knn_values(x, graph, *, kind, metric, block, impl, ties):
 
 
 def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
-             block: int = 128, impl: str | None = None, ties=DEFAULT_TIES,
-             normalize: bool = False, row_chunk: int = 1024,
+             block: int | str = "auto", impl: str | None = None,
+             ties=DEFAULT_TIES, normalize: bool = False,
+             row_chunk: int = 1024,
              graph: "_knn.NeighborGraph | None" = None):
     """Sparse k-NN PaLD: neighbor selection, then the (n, k+1) values.
 
     ``k`` is clamped to n-1.  Unlike the ``method="knn"`` executors, this
     entry point runs the sparse pipeline even at k = n-1.  ``graph`` skips
-    the selection; ``row_chunk`` is the selection's rows per slab (the
-    plain versions').  Selection: a stable sort per row slab of D
-    (``kind="distance"``) or ``topk_select`` (``kind="features"``).
+    the selection; ``row_chunk`` is the selection's rows per slab and
+    ``block`` the values' rows per chunk ("auto": the ``pald_knn:k<k>``
+    cache pass), both the plain versions'.  Selection: a stable sort per
+    row slab of D (``kind="distance"``) or ``topk_select``
+    (``kind="features"``).
 
     Returns:
         (graph, values); ``core.knn.scatter_dense`` expands the values to
@@ -465,18 +505,33 @@ def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
     return graph, vals
 
 
+def _resolve_topk_tiles(n: int, d: int, k: int, block, tile, impl: str,
+                        device) -> tuple[int, int]:
+    """"auto" selection knobs into (rows per slab, tile) from the
+    ``pald_topk:k<k>:d<d>`` cache pass (the reference's)."""
+    if block == "auto" or tile == "auto":
+        rb, rt = _tuner.resolve_blocks(n, "pald_topk", impl=impl, d=d, k=k,
+                                       device=device)
+        block = rb if block == "auto" else block
+        tile = rt if tile == "auto" else tile
+    return max(min(int(block), max(n, 1)), 1), int(tile)
+
+
 def topk_select(X, k: int, *, metric: str = "euclidean",
-                impl: str | None = None,
-                block: int = 1024) -> "_knn.NeighborGraph":
+                impl: str | None = None, block: int | str = "auto",
+                tile: int | str = "auto") -> "_knn.NeighborGraph":
     """Streaming neighbor selection: (n, d) features -> NeighborGraph,
     rows ascending by (distance, index), the lower index first on ties,
     self excluded; D never materialized.
 
     impl: "cuda" (the kernel, k <= ``pald_topk.MAX_K``), "torch" (the
-    plain version, ``block`` rows per slab), "chunked" (the guard's
+    plain version, ``block`` rows per slab, and with ``tile`` < n the
+    tile-min prefilter, bitwise the direct sort), "chunked" (the guard's
     terminal rung: ``block`` rows per slab, each synced before the next,
     self excluded by the reference rung's rule), or None for the device's
-    default.
+    default.  ``block`` / ``tile`` "auto" resolve under the
+    ``pald_topk:k<k>:d<d>`` cache pass (cold: 1024 rows, tile n, direct);
+    the kernel reads neither.
 
     Raises:
         ValueError: unknown metric or impl, or ``k > n-1``.
@@ -487,12 +542,14 @@ def topk_select(X, k: int, *, metric: str = "euclidean",
                          f"{SELECTS})")
     fault_point("ops.topk_select", impl=impl, metric=metric)
     X = _f32(X)
-    _knn.check_k(k, X.shape[0])
+    n, d = X.shape
+    _knn.check_k(k, n)
+    if impl == "cuda":
+        return topk_select_cuda(X, k, metric=metric)
+    block, tile = _resolve_topk_tiles(n, d, k, block, tile, impl, X.device)
     if impl == "chunked":
-        return _topk_select_chunked(X, k, metric=metric, row_chunk=int(block))
-    if impl == "torch":
-        return topk_select_torch(X, k, metric=metric, block=int(block))
-    return topk_select_cuda(X, k, metric=metric)
+        return _topk_select_chunked(X, k, metric=metric, row_chunk=block)
+    return topk_select_torch(X, k, metric=metric, block=block, tile=tile)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -544,8 +601,9 @@ def _knn_from_distances_chunked(D, k: int, *, row_chunk: int = 1024):
                          D.device)
 
 
-def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
-                  cohere_block: int = 128, impl: str | None = None,
+def select_cohere(X, *, k: int, metric: str = "euclidean",
+                  block: int | str = "auto", tile: int | str = "auto",
+                  cohere_block: int | str = "auto", impl: str | None = None,
                   select: str | None = None, ties=DEFAULT_TIES,
                   normalize: bool = False):
     """Streaming selection, then sparse cohesion, from features: the two
@@ -558,8 +616,10 @@ def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
     Args:
         X: (n, d) features.
         k: neighborhood size, clamped to n-1.
-        block: the selection's rows per slab (plain version).
-        cohere_block: the values' rows per chunk (plain version).
+        block / tile: the selection's rows per slab and prefilter tile
+            (plain version; see ``topk_select``).
+        cohere_block: the values' rows per chunk (plain version; "auto"
+            as ``knn_values``'s ``block``).
         impl: the values' impl; ``select``: the selection's (None follows
             ``impl``).
         normalize: divide the values by n-1.
@@ -577,7 +637,8 @@ def select_cohere(X, *, k: int, metric: str = "euclidean", block: int = 1024,
     if k <= 0:
         return (_knn.empty_graph(n, X.device),
                 torch.zeros((n, 1), dtype=torch.float32, device=X.device))
-    graph = topk_select(X, k, metric=metric, impl=sel, block=block)
+    graph = topk_select(X, k, metric=metric, impl=sel, block=block,
+                        tile=tile)
     vals = _knn_values(X, graph, kind="features", metric=metric,
                        block=cohere_block, impl=impl, ties=ties)
     if normalize:
@@ -658,7 +719,7 @@ def _exec_knn_features(X, plan):
                                    plan)
     graph, vals = select_cohere(
         X, k=plan.k, metric=plan.metric, block=plan.select_block,
-        cohere_block=plan.block, impl=plan.impl, select=plan.select,
-        ties=plan.weight)
+        tile=plan.select_tile, cohere_block=plan.block, impl=plan.impl,
+        select=plan.select, ties=plan.weight)
     C = _knn.scatter_dense(graph, vals)
     return C / max(n - 1, 1) if plan.normalize else C

@@ -16,7 +16,8 @@ details.
 :func:`topk_select_cuda` dispatches on the tensor's device: a CUDA X
 launches the kernel (or raises), a CPU X takes :func:`topk_select_torch`:
 (block, n) slabs of ``cdist_reference``, self excluded, a stable sort, the
-first k.  Self is excluded as the kernel excludes it: it sorts after every
+first k (or, with ``tile=``, the reference's tile-min prefilter, bitwise
+the same).  Self is excluded as the kernel excludes it: it sorts after every
 real candidate, even one at +inf distance.
 """
 from __future__ import annotations
@@ -67,10 +68,17 @@ def smem_per_cta(k: int, d: int | None = None) -> int:
 
 
 def topk_select_torch(X: torch.Tensor, k: int, *, metric: str = "euclidean",
-                      block: int = 1024, rows: tuple[int, int] | None = None
-                      ) -> NeighborGraph:
+                      block: int = 1024, tile: int | None = None,
+                      rows: tuple[int, int] | None = None) -> NeighborGraph:
     """Plain torch selection (any device), ``block`` rows per slab; with
-    ``rows=(start, stop)`` only those rows' neighbors (against all n)."""
+    ``rows=(start, stop)`` only those rows' neighbors (against all n).
+
+    ``tile`` picks the strategy per slab, as the reference's jnp
+    selection does (``repro/kernels/ops.py::_topk_chunk``): None, ``>= n``
+    or ``< 1`` sorts each full row (direct); otherwise the tile-min
+    prefilter sorts only the columns of each row's k best tiles of
+    ``tile`` columns, which is bitwise the direct result
+    (:func:`_prefiltered`)."""
     metric_id(metric)
     X = X.to(torch.float32)
     n = X.shape[0]
@@ -78,16 +86,54 @@ def topk_select_torch(X: torch.Tensor, k: int, *, metric: str = "euclidean",
     start, stop = (0, n) if rows is None else rows
     if k <= 0:
         return empty_graph(stop - start, X.device)
+    direct = tile is None or tile >= n or tile < 1
     dist, idx = [], []
     for s in range(start, stop, block):
         slab = masked_dist_tile(X[s:min(s + block, stop)], X, metric, s, 0, n)
         r = torch.arange(slab.shape[0], device=X.device)
         # nan sorts after +inf: self loses to every real candidate
         slab[r, s + r] = float("nan")
-        dv, di = torch.sort(slab, dim=1, stable=True)
+        if direct:
+            dv, di = torch.sort(slab, dim=1, stable=True)
+        else:
+            dv, di = _prefiltered(slab, k, int(tile))
         dist.append(dv[:, :k])
         idx.append(di[:, :k].to(torch.int32))
     return NeighborGraph(torch.cat(idx), torch.cat(dist))
+
+
+def _prefiltered(slab: torch.Tensor, k: int, tile: int):
+    """The first k of each row of ``slab`` (self already nan) in the order
+    of the direct strategy's stable sort, from the columns of the row's k
+    best tiles: (values, column indices), each (rows, >= k).
+
+    Exact, by the reference's argument (``repro/kernels/ops.py``, the
+    note above ``_topk_chunk``), taken in the direct sort's own order:
+    value first, nan after +inf, then index.  A tile's key is its least
+    element in that order: the least non-nan entry, or nan when all its
+    entries are (a tile whose one real column is self, as every tile is
+    at ``tile=1``).  A stable sort of the keys keeps the lower tile id on
+    ties.  If an element e were left out, k kept tiles would rank before
+    its tile, each holding an element that beats e: a strictly smaller
+    one, or an equal one at a lower index.  So the row's true first k are
+    among the gathered columns, which stay in index order (kept tile ids
+    sorted ascending), and their stable sort is the direct one's.  Padded
+    columns (the last tile's, past n) are nan with indices past every
+    real column, so none is taken before a real one."""
+    m, n = slab.shape
+    nt = -(-n // tile)
+    S = torch.nn.functional.pad(slab, (0, nt * tile - n), value=float("nan"))
+    T = S.view(m, nt, tile)
+    nan = torch.isnan(T)
+    key = torch.where(nan, float("inf"), T).amin(dim=2)
+    key[nan.all(dim=2)] = float("nan")
+    kt = min(k, nt)
+    tids = torch.sort(key, dim=1, stable=True)[1][:, :kt]
+    tids = torch.sort(tids, dim=1)[0]
+    cols = (tids[:, :, None] * tile
+            + torch.arange(tile, device=slab.device)).reshape(m, kt * tile)
+    dv, p = torch.sort(torch.gather(S, 1, cols), dim=1, stable=True)
+    return dv, torch.gather(cols, 1, p)
 
 
 def topk_select_cuda(X: torch.Tensor, k: int, *,

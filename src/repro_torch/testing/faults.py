@@ -3,7 +3,8 @@
 
 Context managers that arm the named fault points threaded through the
 engine dispatch, the kernel entry points and the feature front-end
-(``repro_torch.core.resilience.fault_point``).  Each yields the armed
+(``repro_torch.core.resilience.fault_point``), plus the tuning cache's
+corruption and locking helpers.  Each fault manager yields the armed
 ``FaultRule``, so a test can read ``rule.trips`` afterwards; disarming is
 exception-safe.
 
@@ -18,25 +19,31 @@ exception-safe.
     with faults.simulate_oom(max_batch=2):
         plan.execute(Db)                             # halves batch to 2
 
+    with faults.corrupt_tuning_cache(path):
+        pald.plan(n=256, device="cpu")               # quarantine, not crash
+
 Injection sites (substring-matched): ``engine.execute`` (the primary
 dispatch, both modes), ``engine.batch`` (the batch layer, with the chunk
 size as ``batch=``), ``ops.focus_general`` / ``ops.cohesion_general`` /
 ``ops.pald_tri`` / ``ops.pald_fused`` / ``ops.knn_values`` /
 ``ops.topk_select`` / ``ops.select_cohere`` (the kernel entry points, with
 the *resolved* ``impl=``, "cuda" or "torch"), ``features.cdist`` (the
-materialize-D front-end) and ``resilience.step`` (each rung).  The tuning
-cache's helpers of the reference come with the tuning cache (ROADMAP.md
-queue 1, item 9).
+materialize-D front-end) and ``resilience.step`` (each rung).  The cache
+helpers act on the port's tuning cache (``repro_torch.tuning.autotune``,
+``$REPRO_TORCH_TUNE_CACHE``).
 """
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 from typing import Callable, Iterator
 
 from repro_torch.core import resilience as _res
 from repro_torch.core.resilience import FaultRule, simulated_oom
 
-__all__ = ["failing", "fail_kernel", "simulate_oom", "reset"]
+__all__ = ["failing", "fail_kernel", "simulate_oom", "reset",
+           "corrupt_tuning_cache", "locked_tuning_cache", "write_cache"]
 
 
 def reset() -> None:
@@ -117,3 +124,72 @@ def simulate_oom(
     with failing(site, exc=simulated_oom, pred=pred, nth=nth,
                  times=times) as rule:
         yield rule
+
+
+@contextlib.contextmanager
+def corrupt_tuning_cache(
+    path: str | None = None,
+    garbage: str = '{"cpu|cuda|1024|pald": {"block": 256, "bl',
+) -> Iterator[str]:
+    """Replace the tuning cache file with garbled bytes for the body.
+
+    The default garbage is a truncated JSON object, the kill-the-writer
+    corruption.  On exit the original file (if any) is restored, the
+    quarantine files the body left are removed, and the in-memory memo is
+    dropped both ways so the corruption is actually read.  Yields the
+    cache path."""
+    from repro_torch.tuning import autotune as _tuner
+
+    p = os.path.abspath(_tuner.cache_path(path))
+    os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+    original = None
+    if os.path.exists(p):
+        with open(p) as f:
+            original = f.read()
+    with open(p, "w") as f:
+        f.write(garbage)
+    _tuner._MEM.pop(p, None)
+    try:
+        yield p
+    finally:
+        _tuner._MEM.pop(p, None)
+        _tuner._QUARANTINE_WARNED.discard(p)
+        for name in os.listdir(os.path.dirname(p)):
+            full = os.path.join(os.path.dirname(p), name)
+            if full.startswith(p + ".corrupt-"):
+                os.remove(full)
+        if original is None:
+            if os.path.exists(p):
+                os.remove(p)
+        else:
+            with open(p, "w") as f:
+                f.write(original)
+
+
+@contextlib.contextmanager
+def locked_tuning_cache(path: str | None = None) -> Iterator[str]:
+    """Hold the exclusive ``save_entry`` lock for the body: a concurrent
+    ``save_entry`` on the same cache waits, or past its ``lock_timeout``
+    warns and writes unlocked.  A plain yield without fcntl."""
+    from repro_torch.tuning import autotune as _tuner
+
+    p = os.path.abspath(_tuner.cache_path(path))
+    if _tuner.fcntl is None:  # pragma: no cover - non-POSIX platform
+        yield p
+        return
+    os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+    with open(p + ".lock", "w") as lf:
+        _tuner.fcntl.flock(lf, _tuner.fcntl.LOCK_EX)
+        try:
+            yield p
+        finally:
+            _tuner.fcntl.flock(lf, _tuner.fcntl.LOCK_UN)
+
+
+def write_cache(path: str, records: dict) -> str:
+    """Write a well-formed cache file of ``records`` (a test fixture)."""
+    p = os.path.abspath(path)
+    os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+    with open(p, "w") as f:
+        json.dump(records, f, indent=1, sort_keys=True)
+    return p

@@ -1,0 +1,201 @@
+"""Command line of the port's tuner (counterpart of the reference's
+``benchmarks/hillclimb.py``): measure on a device and persist the winners
+in the tuning cache that ``block="auto"``, ``select_block`` /
+``select_tile="auto"`` and ``method="auto"`` read.
+
+``blocks``: the candidate grid of one (n, pass, impl) cell.  On
+``--impl cuda`` the kernels' tiles are fixed, so ``pald`` / ``pald_tri``
+sweep the engine's +inf pad (``--blocks``) and every other pass times one
+candidate, the size-aware default.
+
+    python -m repro_torch.tuning.hillclimb blocks \\
+        --n 8000 --pass pald --impl cuda --blocks 64,128,256,512
+
+``methods``: the method crossover (dense / pairwise / triplet) across n,
+the per-n winner recorded for ``pald.cohesion(D)``'s default
+``method="auto"``.
+
+    python -m repro_torch.tuning.hillclimb methods --ns 64,256,1024
+
+``topk``: the selection cell (``pald_topk:k<k>:d<d>``): the plain
+selection's row slab (``--blocks``) against its tile-min prefilter width
+(``--tiles``; a value >= n, or the word ``direct``, sorts whole rows).
+
+    python -m repro_torch.tuning.hillclimb topk \\
+        --n 4096 --d 8 --k 32 --impl torch --tiles 32,64,direct
+
+Every subcommand takes ``--device`` ("cuda" by default, "cpu"), ``--cache``
+(default ``$REPRO_TORCH_TUNE_CACHE``, else
+``~/.cache/repro_pald_torch/blocktune.json``), ``--iters`` and ``--budget``
+(wall seconds for the sweep).  The records are keyed by the device's name,
+so a cache measured on one card never steers another.  The reference's
+``cell`` subcommand (the LM dry run) and its mesh cells (``--p`` > 1) are
+not ported (ROADMAP.md queue 1, items 12 and 10).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from repro_torch.tuning import autotune
+
+
+def _csv_ints(s: str):
+    return tuple(int(x) for x in s.split(",") if x)
+
+
+def _print_grid(rec: dict, label) -> None:
+    for row in rec["grid"]:
+        head = f"  block={row['block']:5d} {label(row):16s} "
+        if "seconds" in row:
+            mark = " <- best" if (row["block"], row["block_z"]) == (
+                rec["block"], rec["block_z"]) else ""
+            print(f"{head}{row['seconds'] * 1e3:10.3f} ms{mark}")
+        elif row.get("failed"):
+            print(f"{head}    FAILED: {row['error']}")
+        else:
+            print(f"{head}   skipped ({row['skipped']})")
+    if rec.get("fixed_tiles"):
+        print("  (the CUDA kernels' tiles are fixed: one candidate, the "
+              "size-aware default)")
+
+
+def run_blocks(args) -> None:
+    from repro_torch.core.weights import resolve_weight
+
+    kw = {}
+    if args.blocks:
+        kw["blocks"] = _csv_ints(args.blocks)
+    if args.block_z:
+        kw["blocks_z"] = _csv_ints(args.block_z)
+    if getattr(args, "pass") == "pald_fused":
+        kw["d"] = args.d
+    if getattr(args, "pass") == "pald_knn":
+        kw["k"] = args.k
+    if args.weight and args.ties != "drop":
+        raise SystemExit("--weight and --ties are contradictory; "
+                         "--ties is sugar for the built-in modes")
+    ties = resolve_weight(args.weight) if args.weight else args.ties
+    rec = autotune.tune(
+        args.n, getattr(args, "pass"), impl=args.impl, device=args.device,
+        path=args.cache, iters=args.iters, ties=ties,
+        time_budget=args.budget, **kw)
+    print(f"# tuned {getattr(args, 'pass')} n={args.n} "
+          f"impl={args.impl or 'default'} weight={args.weight or args.ties} "
+          f"on {autotune.backend_of(args.device)}")
+
+    def label(row):
+        z = f"block_z={row['block_z']}"
+        return f"{z} padded_n={row['padded_n']}" if "padded_n" in row else z
+
+    _print_grid(rec, label)
+    print(f"# cached under {autotune.cache_path(args.cache)}")
+
+
+def run_topk(args) -> None:
+    if args.p and args.p > 1:
+        raise SystemExit(f"--p {args.p}: {autotune._DISTRIBUTED}")
+    kw = {"d": args.d, "k": args.k}
+    if args.blocks:
+        kw["blocks"] = _csv_ints(args.blocks)
+    if args.tiles:
+        # "direct" is a tile >= n: whole rows sorted, no prefilter
+        kw["blocks_z"] = tuple(
+            args.n if t.strip() == "direct" else int(t)
+            for t in args.tiles.split(",") if t.strip())
+    rec = autotune.tune(
+        args.n, "pald_topk", impl=args.impl, device=args.device,
+        path=args.cache, iters=args.iters, time_budget=args.budget, **kw)
+    print(f"# tuned pald_topk n={args.n} d={args.d} k={args.k} "
+          f"impl={args.impl or 'default'} on "
+          f"{autotune.backend_of(args.device)}")
+    _print_grid(rec, lambda row: ("direct" if row["block_z"] >= args.n
+                                  else f"tile={row['block_z']}"))
+    print(f"# cached under {autotune.cache_path(args.cache)}")
+
+
+def run_methods(args) -> None:
+    rows = autotune.tune_methods(
+        ns=_csv_ints(args.ns), device=args.device, path=args.cache,
+        iters=args.iters, time_budget=args.budget)
+    print(f"# method crossover on {autotune.backend_of(args.device)}")
+    for r in rows:
+        if "skipped" in r:
+            print(f"  n={r['n']:6d} skipped ({r['skipped']})")
+            continue
+        t = " ".join(f"{m}={s * 1e3:.3f}ms" for m, s in r["timings"].items())
+        print(f"  n={r['n']:6d} best={r['method']:9s} {t}")
+        for m, err in r.get("failed", {}).items():
+            print(f"           {m} FAILED: {err}")
+    print(f"# cached under {autotune.cache_path(args.cache)}")
+
+
+def _common(p) -> None:
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--cache", default=None, help="tuning cache path")
+    p.add_argument("--budget", type=float, default=None,
+                   help="wall-seconds budget for the whole sweep; the "
+                        "rest is skipped")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.tuning.hillclimb",
+        description="measure and persist the port's tuning cache")
+    sub = ap.add_subparsers(dest="cmd")
+
+    blocks = sub.add_parser("blocks", help="tune one pass's block sizes")
+    blocks.add_argument("--n", type=int, required=True)
+    blocks.add_argument("--pass", required=True,
+                        choices=[p for p in autotune.PASSES
+                                 if p != "pald_topk"])
+    blocks.add_argument("--impl", default=None, choices=("cuda", "torch"))
+    blocks.add_argument("--d", type=int, default=8,
+                        help="feature dim (pald_fused cells key on it)")
+    blocks.add_argument("--k", type=int, default=16,
+                        help="neighborhood size (pald_knn cells key on it)")
+    blocks.add_argument("--ties", default="drop",
+                        choices=("drop", "split", "ignore"))
+    blocks.add_argument("--weight", default=None,
+                        help="registered weight functional name; tunes its "
+                             "own :w-<name> cell")
+    blocks.add_argument("--blocks", default=None, help="csv candidate blocks")
+    blocks.add_argument("--block-z", default=None,
+                        help="csv candidate z tiles")
+    _common(blocks)
+
+    methods = sub.add_parser("methods", help="tune the method crossover")
+    methods.add_argument("--ns", default="64,128,256,512,1024")
+    _common(methods)
+
+    topk = sub.add_parser("topk", help="tune the neighbor selection "
+                                       "(pald_topk)")
+    topk.add_argument("--n", type=int, required=True)
+    topk.add_argument("--d", type=int, default=8)
+    topk.add_argument("--k", type=int, default=16)
+    topk.add_argument("--impl", default=None,
+                      choices=("cuda", "torch", "chunked"))
+    topk.add_argument("--blocks", default=None,
+                      help="csv selection row-slab candidates")
+    topk.add_argument("--tiles", default=None,
+                      help="csv prefilter tiles; >= n or 'direct' sorts "
+                           "whole rows")
+    topk.add_argument("--p", type=int, default=None,
+                      help="mesh device count; p > 1 is refused (the "
+                           "distributed slice)")
+    _common(topk)
+
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.cmd == "blocks":
+        run_blocks(args)
+    elif args.cmd == "methods":
+        run_methods(args)
+    elif args.cmd == "topk":
+        run_topk(args)
+    else:
+        ap.print_help()
+
+
+if __name__ == "__main__":
+    main()

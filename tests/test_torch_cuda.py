@@ -43,6 +43,18 @@ RTOL, ATOL = 1e-5, 1e-6
 FUNCTIONALS = ["drop", "split", "ignore", "soft", "kernelized"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _operands(mx, my, mz, seed=0, inf_frac=0.03):
     """Asymmetric, tie-heavy DXZ, DYZ, DXY (multiples of 0.5, a few +inf),
     a positive W and a random explicit tiebreak, as numpy arrays."""
@@ -1085,3 +1097,93 @@ def test_cuda_batched_peak_memory_is_the_chunks(cuda_device, schedule,
     hi = lo + (B * item if b < B else 0) + (1 << 20)
     assert lo <= peak <= hi, (schedule, batch, peak / item)
     _assert_bitwise(f"batch={batch}", out, want)
+
+
+# ---------------------------------------------------------------------------
+# the tuning cache on the card: records keyed by the card's name
+# ---------------------------------------------------------------------------
+def _card_D(n, dev, seed=0):
+    from repro_torch.core.features import cdist_reference
+
+    X = np.random.default_rng(seed).normal(size=(n, 5)).astype(np.float32)
+    return cdist_reference(torch.from_numpy(X).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pass_,schedule", [("pald", "dense"),
+                                            ("pald_tri", "tri")])
+def test_cuda_tune_then_block_auto(cuda_device, tmp_path, monkeypatch,
+                                   pass_, schedule):
+    """tune() on the card writes a record keyed by the card's name;
+    plan(block="auto") reads it, and its C is bitwise the explicit
+    block's."""
+    from repro_torch.core import pald
+    from repro_torch.tuning import autotune
+
+    cache = str(tmp_path / "tune.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", cache)
+    n = 200  # ragged: the blocks pad it to 208, 224, 256
+    rec = autotune.tune(n, pass_, impl="cuda", device=cuda_device,
+                        blocks=(16, 32, 64), iters=1)
+    name = torch.cuda.get_device_name(cuda_device)
+    key = f"{name}|cuda|{n}|{pass_}"
+    assert set(autotune.load_cache(cache)) == {key}
+    assert [r["padded_n"] for r in rec["grid"]] == [208, 224, 256]
+    D = _card_D(n, cuda_device)
+    p = pald.plan(D, method="kernel", schedule=schedule, block="auto")
+    assert p.block == rec["block"] and p.block_source == f"cache:{key}"
+    assert p.impl == "cuda" and p.device.type == "cuda"
+    C = p.execute(D)
+    Ce = pald.plan(D, method="kernel", schedule=schedule,
+                   block=rec["block"]).execute(D)
+    assert torch.equal(C, Ce)
+    C128 = pald.plan(D, method="kernel", schedule=schedule,
+                     block=128).execute(D)
+    torch.testing.assert_close(C, C128, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_method_auto_reads_the_cards_record(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """method="auto" reads a record keyed by the card's name and ignores
+    one keyed "cpu"; the chosen method runs on the card."""
+    from repro_torch.core import pald
+    from repro_torch.kernels import pald_focus
+    from repro_torch.testing import faults
+
+    cache = str(tmp_path / "tune.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", cache)
+    name = torch.cuda.get_device_name(cuda_device)
+    n = 96
+    D = _card_D(n, cuda_device, seed=1)
+    faults.write_cache(cache, {f"cpu|-|{n}|method": {"method": "pairwise"}})
+    p = pald.plan(D)
+    assert (p.method, p.method_source) == ("dense", "heuristic")
+    faults.write_cache(cache, {f"cpu|-|{n}|method": {"method": "pairwise"},
+                               f"{name}|-|{n}|method": {"method": "kernel"}})
+    p = pald.plan(D)
+    assert (p.method, p.method_source) == ("kernel",
+                                           f"cache:{name}|-|{n}|method")
+    assert p.impl == "cuda"
+    before = pald_focus.focus_general_cuda.launches
+    C = p.execute(D)
+    assert pald_focus.focus_general_cuda.launches == before + 1
+    torch.testing.assert_close(C, pald.cohesion(D, method="dense"),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_tune_methods_records_the_crossover(cuda_device, tmp_path):
+    from repro_torch.tuning import autotune
+
+    cache = str(tmp_path / "tune.json")
+    rows = autotune.tune_methods(ns=(48, 96), device=cuda_device, iters=1,
+                                 path=cache)
+    name = torch.cuda.get_device_name(cuda_device)
+    assert set(autotune.load_cache(cache)) == {f"{name}|-|48|method",
+                                               f"{name}|-|96|method"}
+    for r in rows:
+        assert set(r["timings"]) == {"dense", "pairwise", "triplet"}
+        assert autotune.method_for_ex(r["n"], device=cuda_device,
+                                      path=cache) == (
+            r["method"], f"cache:{name}|-|{r['n']}|method")

@@ -58,6 +58,18 @@ _IDS = ["-".join(c) for c in CELLS]
 _IMPL_METHODS = ("kernel", "fused", "knn")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _fresh_harness():
     faults.reset()
@@ -748,3 +760,159 @@ def test_select_on_distances_takes_only_chunked():
             pald.plan(D, k=3, select=select, device="cpu")
     with pytest.raises(ValueError, match="unknown select"):
         pald.plan(_X(), kind="features", k=3, select="pallas", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the plan's provenance (tests/test_engine.py:52-110), against the
+# reference's plans; each test's caches are private and cold
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cold_caches(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "port.json"))
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "ref.json"))
+    return tmp_path
+
+
+def _both(D, **knobs):
+    """(port explain, reference explain) of one knob set."""
+    return (pald.plan(D, device="cpu", **knobs).explain(),
+            jpald.plan(jnp.asarray(D), **knobs).explain())
+
+
+def test_plan_auto_resolves_method_and_records_provenance(cold_caches):
+    D = _D(n=12)
+    p, jp = _both(D, method="auto")
+    assert p["method"] in ("dense", "pairwise", "triplet", "kernel")
+    assert (p["method"], p["method_source"]) == (jp["method"],
+                                                 jp["method_source"])
+    assert p["method_source"] == "heuristic"
+    pt, jpt = _both(D, schedule="tri")
+    assert pt["method"] == "kernel" and pt["method_source"] == "schedule=tri"
+    assert (pt["method"], pt["method_source"]) == (jpt["method"],
+                                                   jpt["method_source"])
+    pe, _ = _both(D, method="triplet", block=8)
+    assert pe["method_source"] == "explicit"
+    assert pe["block_source"] == "explicit"
+    pa, jpa = _both(D, method="triplet", block="auto")
+    assert pa["block_source"] == jpa["block_source"] == "default"
+    assert pa["block"] == jpa["block"]
+    # a measured crossover of this device wins over the heuristic
+    faults.write_cache(str(cold_caches / "port.json"),
+                       {"cpu|-|12|method": {"method": "pairwise"}})
+    pm = pald.plan(D, device="cpu").explain()
+    assert (pm["method"], pm["method_source"]) == (
+        "pairwise", "cache:cpu|-|12|method")
+    pn = pald.plan(_D(n=20), device="cpu").explain()
+    assert pn["method_source"] == "nearest:cpu|-|12|method"
+
+
+def test_explain_contract(cold_caches):
+    D = _D(n=12)
+    p = pald.plan(D, method="kernel", schedule="tri", block=8, block_z=8,
+                  device="cpu")
+    info = p.explain()
+    for key in ("kind", "method", "schedule", "impl", "block", "block_z",
+                "ties", "normalize", "n", "padded_n", "padded_shape",
+                "method_source", "block_source", "select_block",
+                "select_tile", "select_source", "executor",
+                "est_smem_bytes_per_cta"):
+        assert key in info, key
+    assert info["method"] == "kernel" and info["schedule"] == "tri"
+    assert info["padded_n"] % 8 == 0
+    assert info["executor"].startswith("repro_torch.kernels.ops.")
+    assert info["est_smem_bytes_per_cta"] > 0
+    assert info["select_source"] == "n/a"
+    pf = pald.plan(n=32, d=4, kind="features", device="cpu")
+    assert pf.explain()["padded_shape"][1] == 4
+
+
+def test_auto_method_pinned_by_path_specific_knobs(cold_caches):
+    """With method='auto', a dense-only or kernel-only knob pins the
+    method; "auto" tiles do not, and go through the measured crossover."""
+    D = _D(n=12)
+    p = pald.plan(D, z_chunk=4, device="cpu")
+    assert p.method == "dense" and p.method_source == "z_chunk"
+    assert p.z_chunk == 4
+    p = pald.plan(D, impl="torch", device="cpu")
+    assert p.method == "kernel" and p.method_source == "impl/block_z"
+    p = pald.plan(D, block_z=8, device="cpu")
+    assert p.method == "kernel" and p.block_z == 8
+    with pytest.raises(ValueError, match="explicit method"):
+        pald.plan(D, z_chunk=4, impl="torch", device="cpu")
+    p, jp = _both(D, block="auto", block_z="auto")
+    assert p["method_source"] == jp["method_source"] == "heuristic"
+    assert (p["method"], p["block"], p["block_z"]) == (
+        jp["method"], jp["block"], jp["block_z"])
+
+
+def test_block_z_auto_resolves_to_no_tile_on_blocked_paths(cold_caches):
+    """block_z='auto' on pairwise / triplet / dense is "no z tile" (None,
+    no z provenance); an explicit int stays an error."""
+    D = _D(n=12)
+    for method in ("pairwise", "triplet"):
+        p, jp = _both(D, method=method, block=8, block_z="auto")
+        assert p["block_z"] is None and "z:" not in p["block_source"]
+        assert (p["block_z"], p["block_source"]) == (jp["block_z"],
+                                                     jp["block_source"])
+        with pytest.raises(ValueError, match="block_z"):
+            pald.plan(D, method=method, block_z=8, device="cpu")
+    p = pald.plan(D, method="dense", block_z="auto", device="cpu")
+    assert p.block_z is None
+
+
+# ---------------------------------------------------------------------------
+# corrupted tuning state: provenance changes, values never
+# (tests/test_faults.py:433)
+# ---------------------------------------------------------------------------
+def test_corrupt_tuning_cache_changes_only_provenance(tmp_path, monkeypatch):
+    cache = tmp_path / "blocktune.json"
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(cache))
+    D = _D(n=20, seed=7)
+    p_fresh = pald.plan(D, method="kernel", block="auto", device="cpu")
+    baseline = p_fresh.execute(D)
+    assert p_fresh.explain()["block_source"] == "default"
+
+    # truncated JSON: quarantined at load, the same defaults, bitwise
+    with faults.corrupt_tuning_cache() as p:
+        assert p == str(cache)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            p_corrupt = pald.plan(D, method="kernel", block="auto",
+                                  device="cpu")
+        assert torch.equal(p_corrupt.execute(D), baseline)
+        assert p_corrupt.explain()["block_source"] == "default"
+        assert list(tmp_path.glob("*.corrupt-*")), "corrupt file not moved"
+    assert not list(tmp_path.glob("*.corrupt-*"))  # the harness cleaned up
+
+    # wrong-typed record: quarantined:<key>, the values unchanged
+    bad = {"block": -8, "block_z": "nope"}
+    faults.write_cache(str(cache), {"cpu|torch|20|pald": bad,
+                                    "cpu|cuda|20|pald": bad})
+    p_bad = pald.plan(D, method="kernel", block="auto", device="cpu")
+    assert p_bad.explain()["block_source"] == "quarantined:cpu|torch|20|pald"
+    assert torch.equal(p_bad.execute(D), baseline)
+    # the reference's plan on the same records, renamed, agrees
+    jcache = tmp_path / "ref.json"
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(jcache))
+    jfaults.write_cache(str(jcache), {"cpu|jnp|20|pald": bad})
+    jp = jpald.plan(jnp.asarray(D), method="kernel", block="auto")
+    assert jp.explain()["block_source"] == "quarantined:cpu|jnp|20|pald"
+    np.testing.assert_allclose(
+        baseline.numpy(), np.asarray(jp.execute(jnp.asarray(D))),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_a_cached_record_never_moves_a_plan_off_its_device(tmp_path,
+                                                           monkeypatch):
+    """A method record names a method, never a device or an impl: the
+    plan keeps its device and the impl it asked for."""
+    cache = tmp_path / "blocktune.json"
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(cache))
+    faults.write_cache(str(cache), {
+        "cpu|-|17|method": {"method": "kernel"},
+        "cpu|torch|17|pald": {"block": 8, "block_z": 16}})
+    p = pald.plan(_D(), device="cpu")
+    assert (p.method, p.impl, p.device.type) == ("kernel", "torch", "cpu")
+    assert p.method_source == "cache:cpu|-|17|method"
+    pc = pald.plan(_D(), device="cpu", impl="cuda", block="auto")
+    assert pc.impl == "cuda" and pc.block_source == "default"  # no cuda key

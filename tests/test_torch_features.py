@@ -24,6 +24,18 @@ ATOL = {"sqeuclidean": 1e-6, "euclidean": 1e-6, "cosine": 1e-5,
         "manhattan": 1e-6}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _X(n, d, seed=0):
     return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
 

@@ -47,9 +47,11 @@ FUNCTIONALS = ["drop", "split", "ignore", "soft", "kernelized"]
 
 @pytest.fixture(autouse=True)
 def _isolated_tuning_cache(tmp_path, monkeypatch):
-    """The reference resolves block='auto' through its tuning cache; keep
-    it away from any cache file of the machine."""
+    """Both packages resolve method / block 'auto' through their tuning
+    caches; keep them away from any cache file of the machine."""
     monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE",
+                       str(tmp_path / "port_tune.json"))
 
 
 def _X(n, d=4, seed=0):
@@ -211,7 +213,11 @@ def test_from_features_explain():
         assert info[key] == ref[key], key
     assert info["method"] == "fused" and info["method_source"] == "default"
     assert info["metric"] == "euclidean" and info["d"] == 6
-    assert info["impl"] == "torch" and info["block"] is None
+    # block defaults to "auto": the cold cache's 128, clamped to n, as in
+    # the reference (the kernels' own tiles are fixed)
+    assert info["impl"] == "torch" and info["block"] == ref["block"] == 40
+    assert info["block_z"] == ref["block_z"] == 40
+    assert info["block_source"] == ref["block_source"] == "default"
     assert info["padded_shape"] == (40, 6)
     assert info["executor"].endswith("ops._exec_fused")
     smem = info["est_smem_bytes_per_cta"]
@@ -240,11 +246,10 @@ def test_from_features_knob_errors():
     p = pald.plan(X, kind="features", device="cpu")
     with pytest.raises(ValueError, match="does not match"):
         p.execute(_X(10, d=3))
-    for knobs in ({"method": "triplet", "block": "auto"},
-                  {"schedule": "tri", "block_z": "auto"},
-                  {"block": "auto"}, {"strategy": "ring"}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
-            pald.from_features(X, device="cpu", **knobs)
+    # the "auto" tiles resolve as the reference's
+    # (tests/test_torch_tuning.py); the distributed knobs raise
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
+        pald.from_features(X, device="cpu", strategy="ring")
     # on_error="fallback" runs (tests/test_torch_faults.py holds the guard)
     assert torch.equal(pald.from_features(X, on_error="fallback",
                                           device="cpu"),

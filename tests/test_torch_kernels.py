@@ -39,6 +39,18 @@ COHESION_CASES = [(name, route) for name in FUNCTIONALS
                                 else ("none",))]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _exact_u(name) -> bool:
     return not name.startswith("soft")
 

@@ -40,9 +40,11 @@ FUNCTIONALS = ["drop", "split", "ignore", "soft", "kernelized"]
 
 @pytest.fixture(autouse=True)
 def _isolated_tuning_cache(tmp_path, monkeypatch):
-    """The reference resolves block='auto' through its tuning cache; keep
-    it away from any cache file of the machine."""
+    """Both packages resolve method / block 'auto' through their tuning
+    caches; keep them away from any cache file of the machine."""
     monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE",
+                       str(tmp_path / "port_tune.json"))
 
 
 def _X(n, d=3, seed=0):
@@ -368,7 +370,10 @@ def test_k_pins_knn_and_clamps(kind):
     assert (e["method"], e["method_source"], e["k"]) == ("knn", "k", 19)
     assert e["executor"].endswith(f"_exec_knn_{kind}")
     assert e["est_smem_bytes_per_cta"] > 0 and e["padded_n"] == 20
-    assert e["select_block"] == (1024 if kind == "features" else None)
+    # the cold cache's 1024-row slab, clamped to n as the reference clamps
+    # it; the distance kind has no selection slab
+    assert e["select_block"] == (20 if kind == "features" else None)
+    assert e["select_tile"] == (20 if kind == "features" else None)
 
 
 @pytest.mark.parametrize("name", ["drop", "ignore", "soft"])
@@ -429,8 +434,6 @@ def test_knn_knobs_raise_value_error(kind, knobs):
 
 
 @pytest.mark.parametrize("knobs,item", [
-    ({"select_tile": 64}, "item 9"),
-    ({"select_block": "auto"}, "item 9"),
     ({"mesh": object()}, "item 10"),
     ({"strategy": "ring"}, "item 10"),
 ])

@@ -35,6 +35,18 @@ GOLDEN = os.path.join(REPO, "tests", "golden", "pald_golden.npz")
 GOLDEN_12PT = os.path.join(REPO, "tests", "golden", "weights_builtins_12pt.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _points_D(n, seed=0, d=4):
     X = np.random.default_rng(100 + n + seed).normal(size=(n, d))
     D = np.sqrt(((X[:, None, :] - X[None, :, :]) ** 2).sum(-1))
@@ -272,17 +284,14 @@ def test_shape_errors():
 
 
 @pytest.mark.parametrize("knobs", [
-    {"method": "knn", "k": 3, "select_tile": 8},
-    {"method": "triplet", "block": "auto"},
-    {"method": "kernel", "schedule": "tri", "block_z": "auto"},
-    {"method": "kernel", "block": "auto"},
-    {"method": "kernel", "block_z": "auto"},
     {"method": "kernel", "mesh": object()},
     {"method": "kernel", "strategy": "ring"},
 ])
 def test_unported_knobs_raise(knobs):
     """Every knob of a later slice raises and names its ROADMAP.md slice;
-    none is dropped silently."""
+    none is dropped silently.  (The tuning cache's knobs, "auto" tiles
+    and ``select_tile=``, resolve as the reference's:
+    tests/test_torch_tuning.py::test_auto_knobs_resolve_as_the_reference.)"""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
         engine.plan(_points_D(8), device="cpu", **knobs)
 

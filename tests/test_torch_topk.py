@@ -30,6 +30,18 @@ from repro_torch.core.features import METRICS, cdist_reference
 from repro_torch.kernels import ops, pald_topk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _points_D(n, seed=0, d=3):
     X = np.random.default_rng(seed).normal(size=(n, d))
     D = np.sqrt(((X[:, None, :] - X[None, :, :]) ** 2).sum(-1))
@@ -212,3 +224,85 @@ def test_row_slabs_do_not_change_the_selection(metric, block, k):
     got = pald_topk.topk_select_torch(X, k, metric=metric, block=block)
     assert torch.equal(got.indices, want.indices)
     assert torch.equal(got.distances, want.distances)
+
+
+# ---------------------------------------------------------------------------
+# the tile-min prefilter of the plain selection (``tile=``; the reference's
+# jnp strategy, repro/kernels/ops.py::_topk_chunk)
+# ---------------------------------------------------------------------------
+def _prefilter_X(kind, seed):
+    if kind == "random":
+        return np.random.default_rng(seed).normal(size=(N, 4)).astype(
+            np.float32)
+    if kind == "tied":  # integer grid: every row full of exact ties
+        return np.random.default_rng(seed).integers(0, 3, size=(N, 2)).astype(
+            np.float32)
+    X = _dup_X(N, 3, seed=seed)
+    if kind == "inf":  # rows whose every candidate is at +inf
+        X[[3, 17, 30]] = [[3e38] * 3, [-3e38] * 3, [3e38, -3e38, 3e38]]
+    return X
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, 32, N])
+@pytest.mark.parametrize("kind", ["random", "tied", "dup", "inf"])
+def test_prefilter_is_bitwise_the_direct_strategy(kind, tile):
+    X = torch.from_numpy(_prefilter_X(kind, seed=tile))
+    for metric in METRICS:
+        for k in (1, 2, 7, N - 2, N - 1):
+            want = pald_topk.topk_select_torch(X, k, metric=metric)
+            for block in (5, N):
+                got = ops.topk_select(X, k, metric=metric, impl="torch",
+                                      block=block, tile=tile)
+                assert torch.equal(got.indices, want.indices), (metric, k)
+                assert torch.equal(got.distances.isnan(),
+                                   want.distances.isnan())
+                assert torch.equal(got.distances.nan_to_num(),
+                                   want.distances.nan_to_num())
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, 32, N])
+def test_prefilter_indices_match_the_references_jnp_prefilter(tile):
+    """On tie-free rows the port's prefilter selects the reference's jnp
+    prefilter's neighbors; its distances agree to rtol 1e-5 (the two
+    packages order the distance sums differently, ROADMAP.md queue 3)."""
+    from repro.kernels import ops as jops
+
+    X = _prefilter_X("random", seed=40 + tile)
+    for metric in METRICS:
+        for k in (1, 7, N - 1):
+            g = ops.topk_select(torch.from_numpy(X), k, metric=metric,
+                                impl="torch", block=16, tile=tile)
+            jg = jops.topk_select(jnp.asarray(X), k, metric=metric,
+                                  impl="jnp", block=16, tile=tile)
+            np.testing.assert_array_equal(g.indices.numpy(),
+                                          np.asarray(jg.indices))
+            np.testing.assert_allclose(g.distances.numpy(),
+                                       np.asarray(jg.distances),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_prefilter_tile_auto_reads_the_cache(tmp_path, monkeypatch):
+    """``tile="auto"`` / ``select_tile`` resolve under the
+    ``pald_topk:k<k>:d<d>`` pass; any tile gives the same graph and C."""
+    from repro_torch.core import pald
+    from repro_torch.testing import faults
+    from repro_torch.tuning import autotune
+
+    cache = str(tmp_path / "tune.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", cache)
+    X = torch.from_numpy(_dup_X(N, 3, seed=11))
+    direct = ops.topk_select(X, 5, impl="torch")
+    faults.write_cache(cache, {
+        f"cpu|torch|{N}|pald_topk:k5:d3": {"block": 8, "block_z": 4}})
+    assert autotune.resolve_blocks(N, "pald_topk", k=5, d=3,
+                                   device="cpu") == (8, 4)
+    g = ops.topk_select(X, 5, impl="torch")
+    assert torch.equal(g.indices, direct.indices)
+    assert torch.equal(g.distances, direct.distances)
+    p = pald.plan(X, kind="features", k=5, device="cpu")
+    assert (p.select_block, p.select_tile) == (8, 4)
+    assert p.select_source == f"cache:cpu|torch|{N}|pald_topk:k5:d3"
+    C = p.execute(X)
+    for st in (1, N):
+        assert torch.equal(pald.from_features(X, k=5, select_tile=st,
+                                              device="cpu"), C)

@@ -40,6 +40,18 @@ NS = [1, 2, 17, 33, 64, 65, 130]
 BLOCK = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _tri_D(n, seed=0):
     """Symmetric float32 distances: multiples of 0.5 (many exact ties), a
     few +inf pairs, an exactly-zero diagonal."""

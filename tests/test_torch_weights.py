@@ -24,6 +24,18 @@ PARAMETRIZED = [("soft_threshold", 0.05), ("soft_threshold", 1e-4),
                 ("kernelized", 0.5), ("kernelized", 3.0)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _private_tuning_caches(tmp_path_factory):
+    """Plans read the tuning caches of both packages (``method="auto"``,
+    the "auto" tiles): keep them away from any cache file of the
+    machine."""
+    d = tmp_path_factory.mktemp("tuning")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE", str(d / "port.json"))
+        mp.setenv("REPRO_TUNE_CACHE", str(d / "reference.json"))
+        yield
+
+
 def _tie_matrix():
     """The 12-point integer tie matrix of tests/test_weights.py."""
     rng = np.random.default_rng(42)
