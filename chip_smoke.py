@@ -134,7 +134,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (C within rtol 1e-5, atol 1e-6 of ``method="kernel"``), and the cache
    truncated (``testing.faults.corrupt_tuning_cache``): the plan falls
    back to the defaults, C bitwise a fresh plan's, the corrupt file moved
-   aside.
+   aside;
+19. dense distributed PaLD (``core/distributed.py``) in a world of 4
+   ranks sharing the card (``testing/world.py``: gloo, every collective
+   staged through the host; NCCL refuses two ranks on one device):
+   allgather and ring on ("data",) and 2d on (2, 2) at n = 8192 (phase
+   3's D), each rank's wall time, kernel time (CUDA events around every
+   kernel call), focus and cohesion launches and staged bytes, and rank
+   0's C within rtol 1e-5, atol 1e-6 of single-device ``cohesion(D,
+   method="kernel")`` with mass n/2; bfloat16 communication at n = 2048
+   against single-device on the bfloat16-cast D; ring at a ragged n =
+   8190; the pod stream on (2, 2, 2) in a world of 8 at n = 2048; then a
+   world of one rank on NCCL: ring and allgather at n = 8192 against the
+   gloo world's C (bitwise, or within tolerance where the sums run in
+   another order);
+20. the focus kernel's rectangular entry and the cohesion kernel alone at
+   the allgather body's shape (DXZ = DXY (2048, 8192), DYZ (8192, 8192)):
+   CUDA events, U bitwise and C within rtol 1e-4 of the plain versions,
+   beside their bounds;
+21. ``pald_distributed_from_features`` at n = 8192, d = 64, ring and
+   allgather on 4 ranks, C within rtol 1e-5, atol 1e-6 of single-device
+   ``from_features(X, method="kernel")``;
+22. the sharded k-NN pipeline (``core/distributed_knn.py``) on the k-NN
+   example's mixture (n = 50,000, k = 32, d = 8) on 4 ranks, allgather,
+   ring and 2d on (2, 2): graph and values bitwise single-device
+   ``select_cohere``, each rank's launches of the selection's block entry
+   and of the values kernel's sources; ``pald.from_features(X, k=32,
+   mesh=)`` at n = 8175, C bitwise single-device and ``explain()`` naming
+   the mesh; then the block entry and the neighbor-row source at a
+   shard's shapes against their plain versions, timed;
+23. the guard: a fault at ``distributed_knn.body`` armed in every rank
+   (``World.run(faults=...)``): ``on_error="fallback"`` bitwise
+   single-device (the module, and a mesh plan through its
+   ``mesh:single-device`` rung), ``"raise"`` raising in every rank, the
+   world then running on; every call of a world within its deadline, and
+   every rank process exiting 0.
 
 The whole run reads and writes a tuning cache of its own, a fresh
 temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
@@ -147,7 +181,10 @@ those calls issued; ``blocks``, for the focus kernels: the thread blocks
 of those grids, counted by the kernel on the card; ``bound_ms``: the function's least work, shared by the
 dense, tri and fused kernels of one pass, see :func:`pass_ops`); the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
-fails before printing any result.
+exits 2 before printing any result, and 3 when it is run alone (no
+``src/repro_torch`` beside it); any failed check raises (exit 1).  A
+passing run exits 0.  The phases that start worlds of ranks stop them
+before they end, and fail when a rank exits otherwise than cleanly.
 """
 from __future__ import annotations
 
@@ -2150,6 +2187,579 @@ def phase_tuned(dev, card, iters=3):
         fail("phase 18: the cache was not restored after the corruption")
 
 
+# ---------------------------------------------------------------------------
+# phases 19-23: distributed PaLD (core/distributed.py, distributed_knn.py)
+# in local worlds of ranks that share the card (testing/world.py: gloo,
+# host-staged; NCCL refuses two ranks on one device), and one NCCL rank
+# ---------------------------------------------------------------------------
+P_DIST = 4             # ranks sharing the card
+N_SMALL_DIST = 2048    # the pod stream's and bfloat16 communication's n
+N_RAGGED_DIST = 8190   # ring at a ragged n (padded to 8192)
+N_FACADE = 8192        # the k-NN facade's dense C (the mixture's rows)
+WORLD_DEADLINE = 600.0  # seconds any one call of a world may take
+
+_RANK_INPUTS: dict = {}  # a rank's inputs, made once in each rank process
+
+
+class _KernelClock:
+    """CUDA events around every call of the kernel wrappers that
+    ``(module, name)`` names (each name replaced for the ``with`` body by a
+    timing wrapper; a name the wrapper's own module reads for its counter
+    must not be replaced: replace a caller's reference to it, or wrap the
+    tuple a ``(module, name)`` function returns with ``returns=True``):
+    their device time."""
+
+    def __init__(self, targets, returns=False):
+        self.targets, self.saved, self.pairs = targets, [], []
+        self.returns = returns
+
+    def timed(self, fn):
+        import torch
+
+        def timed(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            self.pairs.append((s, e))
+            return out
+
+        return timed
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            if self.returns:
+                setattr(mod, name, lambda *a, _fn=fn, **k: tuple(
+                    self.timed(f) for f in _fn(*a, **k)))
+            else:
+                setattr(mod, name, self.timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def _rank_device():
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rank_D(n):
+    """Phase 3's clustered distances at n (the same seed), on the card."""
+    import torch
+
+    if ("D", n) not in _RANK_INPUTS:
+        X, _ = clustered_points(n, D_MAIN, SEED)
+        _RANK_INPUTS[("D", n)] = distances_on_device(
+            torch.as_tensor(X, device=_rank_device()))
+    return _RANK_INPUTS[("D", n)]
+
+
+def _rank_X(kind, n):
+    """Phase 7's features (d = 64) or phase 10's mixture (d = 8)."""
+    import torch
+
+    if (kind, n) not in _RANK_INPUTS:
+        X = (clustered_points(n, D_FUSED, SEED)[0] if kind == "fused"
+             else make_mixture(n, COMM_KNN, D_KNN, SEED)[0])
+        _RANK_INPUTS[(kind, n)] = torch.as_tensor(X, device=_rank_device())
+    return _RANK_INPUTS[(kind, n)]
+
+
+def _drop_inputs():
+    _RANK_INPUTS.clear()
+
+
+def _hold(tag, C, want, n, mass=True):
+    """Rank 0's check of a distributed C against single-device."""
+    import torch
+
+    if not bool(torch.isfinite(C).all()):
+        fail(f"{tag}: non-finite C")
+    err = float((C.double() - want.double()).abs().max())
+    if not torch.allclose(C, want, rtol=RTOL, atol=ATOL):
+        fail(f"{tag}: max |err| {err!r} beyond rtol {RTOL}, atol {ATOL} of "
+             "single-device")
+    total = float(C.double().sum())
+    if mass and abs(total - n / 2) > 1e-3 * n:
+        fail(f"{tag}: mass {total!r} != n/2 = {n / 2}")
+    return err, total
+
+
+def _dense_counters():
+    from repro_torch.kernels import ops, pald_cohesion, pald_focus
+
+    foc = pald_focus.focus_general_cuda
+    coh = pald_cohesion.cohesion_general_cuda
+    foc.launches = coh.launches = 0
+    return foc, coh, _KernelClock([(ops, "focus_general_cuda"),
+                                   (ops, "cohesion_general_cuda")])
+
+
+def rank_dense(mesh, n, strategy, *, comm_bf16=False, pod_stream=None,
+               features=False, save=None, against=None):
+    """A rank of phases 19 and 21: ``pald_distributed`` (or, with
+    ``features``, ``pald_distributed_from_features`` at d = 64) at n on
+    the card, timed (host clock, and each kernel call by CUDA events),
+    its launches and staged bytes counted; rank 0 holds C to single-device
+    ``cohesion(D, method="kernel")`` (``from_features(X,
+    method="kernel")``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed, pald
+
+    src = _rank_X("fused", n) if features else _rank_D(n)
+    foc, coh, clock = _dense_counters()
+    distributed.reset_staged_bytes()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with clock:
+        if features:
+            C = distributed.pald_distributed_from_features(src, mesh,
+                                                           strategy=strategy)
+        else:
+            C = distributed.pald_distributed(
+                src, mesh, strategy=strategy, pod_stream=pod_stream,
+                comm_dtype=torch.bfloat16 if comm_bf16 else None)
+        torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "wall_s": time.perf_counter() - t0,
+           "kernel_ms": clock.ms(), "focus": foc.launches,
+           "cohesion": coh.launches, "staged": distributed.staged_bytes()}
+    if foc.launches == 0 or coh.launches == 0:
+        fail(f"rank {out['rank']}: {strategy}: a kernel was not launched "
+             f"(focus {foc.launches}, cohesion {coh.launches})")
+    if dist.get_rank() == 0:
+        if features:
+            want = pald.from_features(src, method="kernel")
+        else:
+            Dw = src.to(torch.bfloat16).float() if comm_bf16 else src
+            want = pald.cohesion(Dw, method="kernel")
+        out["max_abs_err"], out["mass"] = _hold(
+            f"{strategy} n={n}", C, want, n, mass=not comm_bf16)
+        Cn = C.cpu().numpy()
+        if save:
+            np.save(save, Cn)
+        if against:
+            prev = np.load(against)
+            out["bitwise_prev"] = bool(np.array_equal(prev, Cn))
+            out["err_prev"] = float(np.abs(prev.astype(np.float64)
+                                           - Cn).max())
+            if not np.allclose(Cn, prev, rtol=RTOL, atol=ATOL):
+                fail(f"{strategy}: the NCCL rank's C is {out['err_prev']!r} "
+                     "from the gloo world's")
+    return out
+
+
+def _print_ranks(phase, tag, outs, card):
+    for o in outs:
+        extra = ""
+        if "max_abs_err" in o:
+            extra = (f", C within rtol {RTOL}, atol {ATOL} of single-device "
+                     f"(max |err| {o['max_abs_err']!r}"
+                     + (f", mass {o['mass']!r})" if "mass" in o else ")"))
+        if "bitwise_prev" in o:
+            extra += (", C bitwise the gloo world's" if o["bitwise_prev"]
+                      else f", C {o['err_prev']!r} from the gloo world's")
+        print(f"phase {phase}: {tag} rank {o['rank']}: {o['wall_s']:.3f} s "
+              f"wall, kernels {o['kernel_ms']:.3f} ms (CUDA events), "
+              + (f"launches focus {o['focus']} cohesion {o['cohesion']}, "
+                 if "focus" in o else "")
+              + f"staged {o['staged']} B{extra} ({card})")
+
+
+def _closed(world, phase):
+    if world.exitcodes and any(c != 0 for c in world.exitcodes):
+        fail(f"phase {phase}: a rank exited with {world.exitcodes}")
+
+
+def phase_dense_distributed(card, tmp):
+    """Phase 19: dense distributed PaLD on p = 4 ranks sharing the card
+    (gloo, host-staged): allgather and ring on ("data",), 2d on (2, 2) at
+    n = 8192 (phase 3's D); the pod stream on (2, 2, 2) with p = 8 and
+    bfloat16 communication at n = 2048; ring at a ragged n = 8190; then
+    one rank on NCCL, ring and allgather at n = 8192 against the gloo
+    world's C.  Returns the focus and cohesion launches of the n = 8192
+    runs, summed over ranks and strategies."""
+    from repro_torch.testing.world import MeshSpec, World
+
+    flat, grid = (MeshSpec((P_DIST,), ("data",)),
+                  MeshSpec((2, 2), ("data", "model")))
+    launches = {"focus": 0, "cohesion": 0}
+    w = World(P_DIST, device="cuda", timeout=WORLD_DEADLINE)
+    with w:
+        for strategy, mesh in (("allgather", flat), ("ring", flat),
+                               ("2d", grid)):
+            t0 = time.perf_counter()
+            outs = w.run(rank_dense, mesh, N_MAIN, strategy,
+                         save=os.path.join(tmp, f"{strategy}.npy"))
+            print(f"phase 19: {strategy} p={P_DIST} mesh {mesh.shape} at "
+                  f"n={N_MAIN}: {time.perf_counter() - t0:.1f} s")
+            _print_ranks(19, strategy, outs, card)
+            for k in launches:
+                launches[k] += sum(o[k] for o in outs)
+        outs = w.run(rank_dense, grid, N_SMALL_DIST, "2d", comm_bf16=True)
+        _print_ranks(19, f"2d bf16 comm n={N_SMALL_DIST} (vs single-device "
+                         "on the bf16-cast D)", outs, card)
+        outs = w.run(rank_dense, flat, N_RAGGED_DIST, "ring")
+        _print_ranks(19, f"ring ragged n={N_RAGGED_DIST}", outs, card)
+        w.run(_drop_inputs)
+    _closed(w, 19)
+    w = World(8, device="cuda", timeout=WORLD_DEADLINE)
+    with w:
+        outs = w.run(rank_dense, MeshSpec((2, 2, 2), ("pod", "data",
+                                                      "model")),
+                     N_SMALL_DIST, "2d", pod_stream=True)
+        _print_ranks(19, f"2d pod stream p=8 (2, 2, 2) n={N_SMALL_DIST}",
+                     outs, card)
+    _closed(w, 19)
+    w = World(1, device="cuda", backend="nccl", timeout=WORLD_DEADLINE)
+    with w:
+        for strategy in ("ring", "allgather"):
+            outs = w.run(rank_dense, MeshSpec((1,), ("data",)), N_MAIN,
+                         strategy,
+                         against=os.path.join(tmp, f"{strategy}.npy"))
+            _print_ranks(19, f"{strategy} one rank on NCCL", outs, card)
+    _closed(w, 19)
+    return launches
+
+
+def rect_bound_ms(pass_, mx, my, mz, clock_mhz):
+    """Least time of a rectangular pass (operands that are not one square
+    matrix, as a shard's are): its bytes (each operand read once, the
+    output written once; cohesion reads W too) over HBM bandwidth, and 3
+    lane instructions for each (x, y, z) triple (focus: min, compare,
+    add; cohesion: the same count per role as :func:`pass_ops`'s 6 per
+    unordered pair; general operands have no symmetry to share) over the
+    FP32 lanes."""
+    if pass_ == "focus":
+        nbytes = 4 * (mx * mz + my * mz + 2 * mx * my)
+    else:
+        nbytes = 4 * (mx * mz + my * mz + 2 * mx * my + mx * mz)
+    ops = 3 * mx * my * mz
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (FP32_LANES * clock_mhz * 1e6)
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def phase_rect_kernels(dev, clock_mhz, card, launches, reps=3):
+    """Phase 20: the focus kernel's rectangular entry and the cohesion
+    kernel at a 1-D shard's shape, DXZ = DXY (2048, 8192) against DYZ
+    (8192, 8192) (the allgather body's calls at n = 8192, p = 4), timed by
+    CUDA events beside their bounds and their plain versions; U bitwise,
+    C within rtol 1e-4 (a sum of up to n terms in another order)."""
+    import torch
+    from repro_torch.core.distributed import _weights_rows
+    from repro_torch.kernels import pald_cohesion, pald_focus
+
+    X, _ = clustered_points(N_MAIN, D_MAIN, SEED)
+    D = distances_on_device(torch.as_tensor(X, device=dev))
+    m = N_MAIN // P_DIST
+    DXZ = D[:m].contiguous()
+    rows = []
+    ms, U = time_ms(lambda: pald_focus.focus_general_cuda(DXZ, D, DXZ), reps)
+    t0 = time.perf_counter()
+    Up = pald_focus.focus_general_torch(DXZ, D, DXZ)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = compare("phase 20: rectangular focus", U, Up, exact=True)
+    del Up
+    W = _weights_rows(U, 0, None)
+    rows.append(("focus", ms, plain_ms, err, "U bitwise"))
+    ms, C = time_ms(lambda: pald_cohesion.cohesion_general_cuda(
+        DXZ, D, DXZ, W), reps)
+    t0 = time.perf_counter()
+    Cp = pald_cohesion.cohesion_general_torch(DXZ, D, DXZ, W)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = compare("phase 20: rectangular cohesion", C, Cp, exact=False,
+                  rtol=RTOL_MAIN)
+    rows.append(("cohesion", ms, plain_ms, err,
+                 f"C within rtol {RTOL_MAIN}"))
+    out = []
+    for pass_, ms, plain_ms, err, held in rows:
+        bound, by = rect_bound_ms(pass_, m, N_MAIN, N_MAIN, clock_mhz)
+        print(f"phase 20: {pass_} rectangular ({m}, {N_MAIN}) x ({N_MAIN}, "
+              f"{N_MAIN}): {ms:.3f} ms (median of {reps}), plain "
+              f"{plain_ms:.1f} ms, bound {bound:.3f} ms ({by}), {held} "
+              f"({card})")
+        out.append({
+            "name": f"{pass_}_general_rect", "route": "cuda",
+            "source": f"src/repro_torch/csrc/pald_{pass_}.cu",
+            "replaces": ("src/repro/kernels/pald_focus.py:55"
+                         if pass_ == "focus" else
+                         "src/repro/kernels/pald_cohesion.py:134"),
+            "entry": ("rectangular (operands not one square matrix)"
+                      if pass_ == "focus" else "a shard's rectangle")
+            + ", phase 19's shard bodies",
+            "launches": launches[pass_], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    return out
+
+
+def phase_features_distributed(card):
+    """Phase 21: ``pald_distributed_from_features`` at n = 8192, d = 64,
+    ring and allgather on p = 4 ranks sharing the card."""
+    from repro_torch.testing.world import MeshSpec, World
+
+    w = World(P_DIST, device="cuda", timeout=WORLD_DEADLINE)
+    with w:
+        for strategy in ("ring", "allgather"):
+            t0 = time.perf_counter()
+            outs = w.run(rank_dense, MeshSpec((P_DIST,), ("data",)), N_MAIN,
+                         strategy, features=True)
+            print(f"phase 21: {strategy} from features p={P_DIST} n={N_MAIN}"
+                  f" d={D_FUSED}: {time.perf_counter() - t0:.1f} s")
+            _print_ranks(21, strategy, outs, card)
+    _closed(w, 21)
+
+
+def _knn_counters():
+    from repro_torch.core import distributed_knn
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    fns = {"topk_block": pald_topk.topk_block_cuda,
+           "values_features": pald_knn.knn_values_from_features_cuda,
+           "values_neighbors": pald_knn.knn_values_from_neighbors_cuda}
+    for f in fns.values():
+        f.launches = 0
+    # the shard bodies take their kernels from distributed_knn._kernels
+    clock = _KernelClock([(distributed_knn, "_kernels")], returns=True)
+    return fns, clock
+
+
+def rank_knn(mesh, strategy, *, facade=False, on_error="raise"):
+    """A rank of phases 22 and 23: ``pald_knn_sharded`` on the k-NN
+    example's mixture (n = 50,000, k = 32, d = 8), or with ``facade``
+    ``pald.from_features(X, method="knn", k=32, mesh=)`` at n = 8175;
+    rank 0 holds the graph and values (C) bitwise single-device."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed, distributed_knn, pald
+    from repro_torch.kernels import ops
+
+    from repro_torch.core.resilience import DegradationWarning
+
+    warnings.simplefilter("ignore", DegradationWarning)  # counted below
+    X = _rank_X("knn", N_FACADE if facade else N_KNN)
+    fns, clock = _knn_counters()
+    distributed.reset_staged_bytes()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with clock:
+        if facade:
+            p = pald.plan(X, kind="features", method="knn", k=K_KNN,
+                          mesh=mesh, on_error=on_error)
+            C = p.execute(X)
+            info = p.explain()
+        else:
+            g, v = distributed_knn.pald_knn_sharded(X, mesh, k=K_KNN,
+                                                    strategy=strategy,
+                                                    on_error=on_error)
+        torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "wall_s": time.perf_counter() - t0,
+           "kernel_ms": clock.ms(), "staged": distributed.staged_bytes(),
+           "launches": {k: f.launches for k, f in fns.items()}}
+    if facade:
+        out["mesh"] = (info["mesh"], info["mesh_axes"], info["strategy"],
+                       info["shard_rows"],
+                       info["comm_estimate"]["per_device_bytes"])
+        out["degradations"] = [e["fallback"] for e in info["degradations"]]
+    if dist.get_rank() == 0:
+        if facade:
+            want = pald.from_features(X, method="knn", k=K_KNN)
+            if not torch.equal(C, want):
+                fail("the mesh facade's C is not bitwise single-device")
+        else:
+            g1, v1 = ops.select_cohere(X, k=K_KNN, normalize=True)
+            for what, a, b in (("indices", g.indices, g1.indices),
+                               ("distances", g.distances, g1.distances),
+                               ("values", v, v1)):
+                if not torch.equal(a, b):
+                    fail(f"{strategy}: sharded {what} not bitwise "
+                         "single-device select_cohere")
+        out["bitwise"] = True
+    return out
+
+
+def _print_knn(phase, tag, outs, card):
+    for o in outs:
+        la = ", ".join(f"{k} {v}" for k, v in o["launches"].items())
+        print(f"phase {phase}: {tag} rank {o['rank']}: {o['wall_s']:.3f} s "
+              f"wall, kernels {o['kernel_ms']:.3f} ms (CUDA events), "
+              f"launches {la}, staged {o['staged']} B"
+              + (", graph and values bitwise single-device"
+                 if o.get("bitwise") else "") + f" ({card})")
+
+
+def phase_knn_distributed(card):
+    """Phase 22: the sharded k-NN pipeline at the k-NN example's size on
+    p = 4 ranks sharing the card, each strategy (2d on (2, 2)), then the
+    facade with ``mesh=``.  Returns the block entry's and the
+    neighbor-row source's launches (summed over ranks)."""
+    from repro_torch.testing.world import MeshSpec, World
+
+    counts = {"topk_block": 0, "values_neighbors": 0, "values_features": 0}
+    w = World(P_DIST, device="cuda", timeout=WORLD_DEADLINE)
+    with w:
+        for strategy, mesh in (("allgather", MeshSpec((P_DIST,), ("data",))),
+                               ("ring", MeshSpec((P_DIST,), ("data",))),
+                               ("2d", MeshSpec((2, 2), ("data", "model")))):
+            t0 = time.perf_counter()
+            outs = w.run(rank_knn, mesh, strategy)
+            print(f"phase 22: {strategy} p={P_DIST} mesh {mesh.shape} "
+                  f"n={N_KNN} k={K_KNN}: {time.perf_counter() - t0:.1f} s")
+            _print_knn(22, strategy, outs, card)
+            for o in outs:
+                for k in counts:
+                    counts[k] += o["launches"][k]
+                if o["launches"]["topk_block"] == 0:
+                    fail(f"phase 22: {strategy}: rank {o['rank']} launched "
+                         "no selection")
+                src = ("values_neighbors" if strategy == "ring"
+                       else "values_features")
+                if o["launches"][src] == 0:
+                    fail(f"phase 22: {strategy}: rank {o['rank']} launched "
+                         f"no {src}")
+        outs = w.run(rank_knn, MeshSpec((2, 2), ("data", "model")), None,
+                     facade=True)
+        _print_knn(22, f"from_features(X, k={K_KNN}, mesh=) n="
+                       f"{N_FACADE // COMM_KNN * COMM_KNN}", outs, card)
+        for o in outs:
+            if o["mesh"][0] != (2, 2) or o["mesh"][2] != "2d":
+                fail(f"phase 22: explain() does not name the mesh: "
+                     f"{o['mesh']}")
+        print(f"phase 22: explain(): mesh {outs[0]['mesh'][0]} axes "
+              f"{outs[0]['mesh'][1]} strategy {outs[0]['mesh'][2]} shard "
+              f"rows {outs[0]['mesh'][3]} comm {outs[0]['mesh'][4]} B/rank")
+    _closed(w, 22)
+    return counts
+
+
+def phase_guard_distributed(card):
+    """Phase 23: a fault at ``distributed_knn.body`` armed in every rank:
+    ``on_error="fallback"`` answers bitwise single-device (the module, and
+    a mesh plan through its ``mesh:single-device`` rung); ``"raise"``
+    raises in every rank; every call within its deadline."""
+    from repro_torch.testing.world import MeshSpec, World, WorldError
+
+    rule = [{"site": "distributed_knn.body"}]
+    mesh = MeshSpec((2, 2), ("data", "model"))
+    w = World(P_DIST, device="cuda", timeout=WORLD_DEADLINE)
+    with w:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            outs = w.run(rank_knn, mesh, "2d", on_error="fallback",
+                         faults=rule, deadline=300)
+        _print_knn(23, "body fault, on_error='fallback'", outs, card)
+        if any(o["launches"]["topk_block"] for o in outs):
+            fail("phase 23: a faulted body still launched the block entry")
+        outs = w.run(rank_knn, mesh, None, facade=True, on_error="fallback",
+                     faults=rule, deadline=300)
+        for o in outs:
+            if o["degradations"] != ["mesh:single-device"]:
+                fail(f"phase 23: rank {o['rank']} degraded "
+                     f"{o['degradations']}")
+        print("phase 23: mesh plan, body fault: every rank rescued by "
+              "mesh:single-device, C bitwise single-device")
+        try:
+            w.run(rank_knn, mesh, "2d", faults=rule, deadline=300)
+        except WorldError as exc:
+            if sorted(exc.errors) != list(range(P_DIST)) or not all(
+                    "injected fault" in e for e in exc.errors.values()):
+                fail(f"phase 23: strict mode: {exc}")
+            print(f"phase 23: on_error='raise': all {P_DIST} ranks raised "
+                  "the injected fault")
+        else:
+            fail("phase 23: strict mode did not raise")
+        outs = w.run(rank_knn, mesh, "2d", deadline=300)
+        _print_knn(23, "after the faults, unfaulted", outs, card)
+    _closed(w, 23)
+
+
+def phase_distributed_kernels(dev, clock_mhz, card, counts, reps=3):
+    """The block entry of the selection and the neighbor-row source of the
+    values kernel at a p = 4 shard's shapes of phase 22 (rows 12,500 of
+    the n = 50,000 mixture against every candidate; the shard's 12,500
+    rows' neighbor rows), each against its plain version, timed by CUDA
+    events beside its bound."""
+    import torch
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    X, _ = make_mixture(N_KNN, COMM_KNN, D_KNN, SEED)
+    Xg = torch.as_tensor(X, device=dev)
+    n, d = Xg.shape
+    m = n // P_DIST
+    rows = Xg[m:2 * m]
+    ms, gk = time_ms(lambda: pald_topk.topk_block_cuda(
+        rows, Xg, K_KNN, row_off=m, col_off=0), reps)
+    t0 = time.perf_counter()
+    gp = pald_topk.topk_block_torch(rows, Xg, K_KNN, row_off=m, col_off=0)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    compare("topk_block indices", gk.indices, gp.indices, exact=True)
+    err = compare("topk_block distances", gk.distances, gp.distances,
+                  exact=True)
+    nbytes = 4 * (m * d + n * d + 2 * m * K_KNN)
+    ops_ = m * n * (2 * d + 4) + m * n
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / (FP32_LANES * clock_mhz * 1e6)
+    sel = {"name": "topk_block", "route": "cuda",
+           "source": "src/repro_torch/csrc/pald_topk.cu",
+           "replaces": "src/repro/kernels/pald_topk.py:181",
+           "entry": "block (rows against a candidate block, global "
+                    "indices), phase 22's shard bodies",
+           "launches": counts["topk_block"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_b, t_o),
+           "bound_by": "operations" if t_o >= t_b else "bytes",
+           "library_ms": None}
+    print(f"phase 22: topk_block ({m} rows x {n} candidates, k={K_KNN}): "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{sel['bound_ms']:.3f} ms ({sel['bound_by']}), bitwise ({card})")
+    dn, idx = gk.distances, gk.indices
+    Xn = Xg[idx.long()].contiguous()
+    ms, vk = time_ms(lambda: pald_knn.knn_values_from_neighbors_cuda(
+        Xn, dn, idx, row_off=m), reps)
+    t0 = time.perf_counter()
+    vp = pald_knn.knn_values_from_neighbors_torch(Xn, dn, idx, row_off=m)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = compare("knn_values_neighbors", vk, vp, exact=False)
+    vf = pald_knn.knn_values_from_features_cuda(Xg, dn, idx, row_off=m)
+    compare("neighbor rows vs features source", vk, vf, exact=True)
+    k = K_KNN
+    nbytes = 4 * (m * k * d + 2 * m * k + m * (k + 1))
+    ops_ = m * (k * (k - 1) // 2 * (2 * d + 4) + 7 * k * (k + 1))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / (FP32_LANES * clock_mhz * 1e6)
+    val = {"name": "knn_values_neighbors", "route": "cuda",
+           "source": "src/repro_torch/csrc/pald_knn.cu",
+           "replaces": "src/repro/kernels/pald_knn.py:74",
+           "entry": "features source fed each row's (k, d) neighbor rows, "
+                    "phase 22's ring bodies",
+           "launches": counts["values_neighbors"], "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_b, t_o),
+           "bound_by": "operations" if t_o >= t_b else "bytes",
+           "library_ms": None}
+    print(f"phase 22: knn_values_neighbors ({m} rows, k={k}, d={d}): "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{val['bound_ms']:.4f} ms ({val['bound_by']}), bitwise the "
+          f"features source with the row offset ({card})")
+    return [sel, val]
+
+
 def main() -> int:
     import torch
 
@@ -2157,6 +2767,10 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available; this script runs only on "
               "the card", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 3
     sys.stdout.reconfigure(line_buffering=True)  # a cut run keeps its log
     # the run's own tuning cache: every phase plans on a cold cache, and
     # phase 18 tunes into it; removed at the end
@@ -2249,6 +2863,27 @@ def run_phases() -> int:
     t0 = time.perf_counter()
     phase_tuned(dev, card)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        rect_launches = phase_dense_distributed(card, tmp)
+        print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    kernels += phase_rect_kernels(dev, clock_mhz, card, rect_launches)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_features_distributed(card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = phase_knn_distributed(card)
+    kernels += phase_distributed_kernels(dev, clock_mhz, card, counts)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_guard_distributed(card)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

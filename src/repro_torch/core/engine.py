@@ -45,9 +45,11 @@ Device rule: ``device`` defaults to ``"cuda"``; the CPU is used only when
 the caller passes ``device="cpu"``.  Without a GPU the default raises; it
 never carries on on the CPU.
 
-Knobs of the reference that later slices of the port bring (ROADMAP.md,
-queue 1) raise ``NotImplementedError`` naming their item; none is
-silently dropped.
+``mesh=`` / ``strategy=`` shard the fused select->cohere k-NN pipeline
+over a ``DeviceMesh`` (``core/distributed_knn.py``), as in the reference:
+only ``kind="features"`` with ``method="knn"`` takes a mesh.
+``plan_local`` is the plan of the rectangular shard bodies of
+``core/distributed.py`` (``PaldPlan.focus_general`` / ``cohesion_general``).
 """
 from __future__ import annotations
 
@@ -66,6 +68,7 @@ from .weights import (DEFAULT_TIES, WeightFunctional, registered_weights,
 __all__ = [
     "PaldPlan",
     "plan",
+    "plan_local",
     "register_executor",
     "get_executor",
     "available_executors",
@@ -86,13 +89,6 @@ SCHEDULES = ("dense", "tri")
 # methods whose executors take an impl= knob; the plain blocked paths have
 # exactly one implementation, so an explicit impl request there is an error
 _IMPL_METHODS = ("kernel", "fused", "knn")
-
-# where each unported knob of the reference lands (ROADMAP.md, queue 1)
-_SLICE = {
-    "mesh": "mesh= / strategy= are the distributed slice (ROADMAP.md queue "
-            "1, item 10)",
-}
-
 
 def resolve_device(device) -> torch.device:
     """The plan's device.  A CUDA device without a GPU raises: the port
@@ -284,6 +280,11 @@ class PaldPlan:
     #                                  prefilter width (>= n: direct)
     select_source: str = "n/a"       # selection tiles' provenance
     on_error: str = "raise"       # "raise" | "fallback" (degradation chain)
+    # mesh-sharded k-NN (features kind, core/distributed_knn.py): the
+    # DeviceMesh the fused select->cohere pipeline shards over and the
+    # resolved strategy ('allgather' / 'ring' / '2d'); None: one device
+    mesh: Any = None
+    strategy: str | None = None
     # degradation events appended by core/resilience under
     # on_error="fallback", surfaced by explain(); init=False keeps the
     # frozen plan replace()-safe: derived plans start with a fresh log
@@ -315,6 +316,42 @@ class PaldPlan:
         fn = get_executor(self.kind, self.method, self.schedule)
         return run_batched(fn, x, self, self.batch)
 
+    # -- distributed shard-body primitives ---------------------------------
+    # The shard bodies of core/distributed.py call the rectangular kernel
+    # forms per step through the plan, so the resolution stays in one place
+    def focus_general(self, DXZ, DYZ, DXY) -> torch.Tensor:
+        """``ops.focus_general`` with the plan's tiles, impl and weight
+        functional; under ``on_error="fallback"`` through
+        ``resilience.guarded_general``."""
+        from repro_torch.kernels import ops as _kops
+
+        def call(impl):
+            return _kops.focus_general(DXZ, DYZ, DXY, block=self.block,
+                                       block_z=self.block_z, impl=impl,
+                                       ties=self.weight)
+
+        if self.on_error == "fallback":
+            return _res.guarded_general(self, "focus_general", call)
+        return call(self.impl)
+
+    def cohesion_general(self, DXZ, DYZ, DXY, W, *, xwins=None,
+                         xw_offsets=None) -> torch.Tensor:
+        """``ops.cohesion_general`` as :meth:`focus_general` calls
+        ``ops.focus_general``; ``xw_offsets`` = (the global row of DXZ's
+        first row, the global index of DXY's first column) for the index
+        tiebreak, or an explicit (mx, my) ``xwins``."""
+        from repro_torch.kernels import ops as _kops
+
+        def call(impl):
+            return _kops.cohesion_general(DXZ, DYZ, DXY, W, block=self.block,
+                                          block_z=self.block_z, impl=impl,
+                                          ties=self.weight, xwins=xwins,
+                                          xw_offsets=xw_offsets)
+
+        if self.on_error == "fallback":
+            return _res.guarded_general(self, "cohesion_general", call)
+        return call(self.impl)
+
     @property
     def padded_n(self) -> int:
         """Per-item extent after the engine-level pad to a block multiple
@@ -323,8 +360,35 @@ class PaldPlan:
             return self.n
         return -(-self.n // self.block) * self.block
 
+    def _shard_rows(self) -> int | None:
+        """Per-shard padded row count of a mesh plan (None off the mesh)."""
+        if self.mesh is None:
+            return None
+        from . import distributed_knn as _dknn
+
+        p = int(np.prod(self.mesh.mesh.shape))
+        _, _, m = _dknn.resolve_shard_shapes(self.n, p=p,
+                                             chunk=self.select_block or 1)
+        return m // p
+
+    def _comm_estimate(self) -> dict | None:
+        """Per-rank communication model of a mesh plan (None off the
+        mesh)."""
+        if self.mesh is None:
+            return None
+        from . import distributed_knn as _dknn
+
+        shape = tuple(self.mesh.mesh.shape)
+        p = int(np.prod(shape))
+        pr = int(np.prod(shape[:-1])) if len(shape) >= 2 else 1
+        return _dknn.comm_estimate(
+            self.strategy or "auto", n=self.n, d=self.d or 1, k=self.k or 1,
+            p=p, pr=pr, pc=shape[-1])
+
     def explain(self) -> dict[str, Any]:
-        """The resolved plan as a plain dict (the debuggability surface)."""
+        """The resolved plan as a plain dict (the debuggability surface);
+        the mesh report ``mesh`` (shape) / ``mesh_axes`` / ``strategy`` /
+        ``shard_rows`` / ``comm_estimate`` is None off the mesh."""
         fn = get_executor(self.kind, self.method, self.schedule)
         return {
             "kind": self.kind,
@@ -354,6 +418,13 @@ class PaldPlan:
             "select_block": self.select_block,
             "select_tile": self.select_tile,
             "select_source": self.select_source,
+            "mesh": (tuple(self.mesh.mesh.shape)
+                     if self.mesh is not None else None),
+            "mesh_axes": (tuple(self.mesh.mesh_dim_names)
+                          if self.mesh is not None else None),
+            "strategy": self.strategy,
+            "shard_rows": self._shard_rows(),
+            "comm_estimate": self._comm_estimate(),
             "method_source": self.method_source,
             "block_source": self.block_source,
             "executor": f"{fn.__module__}.{fn.__qualname__}",
@@ -533,13 +604,17 @@ def plan(
     the cell's degradation chain (``core/resilience``), and records each
     degradation in ``explain()["degradations"]``.  ``select="chunked"`` (k-NN) is the
     chain's terminal selection rung, row-chunked stable sorts; on a
-    distance matrix it is the only ``select`` value.
+    distance matrix it is the only ``select`` value.  ``mesh=`` (a
+    ``DeviceMesh``) / ``strategy=`` shard the features k-NN cell over the
+    mesh's ranks (``core/distributed_knn.py``; 'allgather', 'ring' or
+    '2d', 'auto'/None picking '2d' on a mesh of >= 2 dimensions, else
+    'ring'); the result is bitwise the single-device one, and ``explain()``
+    reports the mesh shape, per-shard rows and a per-rank comm estimate.
 
     Raises:
         RuntimeError: ``device="cuda"`` without a GPU.
-        ValueError: contradictory or unknown knobs.
-        NotImplementedError: a knob of a later slice of the port (the
-            message names the ROADMAP.md slice).
+        ValueError: contradictory or unknown knobs (a mesh off the
+            features k-NN cell among them).
     """
     dev = resolve_device(device)
     weight = _resolve_weight_knob(ties, weight)
@@ -554,8 +629,6 @@ def plan(
                          f"{_res.ON_ERROR_MODES}): 'raise' propagates the "
                          "first executor failure, 'fallback' walks the "
                          "degradation chain")
-    if mesh is not None or strategy is not None:
-        raise NotImplementedError(_SLICE["mesh"])
     # the tuning cache's backend: a record of another card (or of the CPU)
     # never steers this plan
     backend = _tuner.backend_of(dev)
@@ -652,6 +725,40 @@ def plan(
             "by a stable sort of its rows, and only the row-chunked rung "
             "select='chunked' applies to it")
 
+    # -- mesh sharding (features knn only) ----------------------------------
+    if strategy is not None and mesh is None:
+        raise ValueError(
+            f"strategy={strategy!r} configures the mesh-sharded knn "
+            "pipeline; pass mesh= (a torch.distributed DeviceMesh) "
+            "alongside it")
+    if mesh is not None:
+        from . import distributed_knn as _dknn
+
+        if kind != "features" or method != "knn":
+            raise ValueError(
+                "mesh= shards the fused select->cohere knn pipeline and "
+                f"needs kind='features' with method='knn' (got kind={kind!r}"
+                f", method={method!r}); drop mesh=, or pass k= to request "
+                "the knn method on feature input")
+        if batch is not None:
+            raise ValueError(
+                "mesh= plans run one item at a time (the device mesh is the "
+                "parallel axis); drop batch=")
+        if strategy is not None and strategy not in _dknn.STRATEGIES:
+            raise ValueError(
+                f"unknown strategy {strategy!r} (expected one of "
+                f"{_dknn.STRATEGIES})")
+        axes = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if not axes:
+            raise ValueError("mesh= takes a DeviceMesh with named "
+                             f"dimensions, got {type(mesh).__name__}")
+        if strategy in (None, "auto"):
+            strategy = "2d" if len(axes) >= 2 else "ring"
+        if strategy == "2d" and len(axes) < 2:
+            raise ValueError(
+                "strategy='2d' needs a mesh with >= 2 axes (row x column "
+                f"split), got axes={axes}; use 'ring' or 'allgather'")
+
     # -- impl --------------------------------------------------------------
     if method in _IMPL_METHODS:
         from repro_torch.kernels.ops import IMPLS, default_impl
@@ -721,7 +828,9 @@ def plan(
             if sb == "auto" or st == "auto":
                 rb, rt, sel_source = _tuner.resolve_blocks_ex(
                     n, "pald_topk", d=d, k=k, impl=(select or impl),
-                    backend=backend)
+                    backend=backend,
+                    p=(int(np.prod(mesh.mesh.shape)) if mesh is not None
+                       else None))
                 sb = rb if sb == "auto" else sb
                 st = rt if st == "auto" else st
             sb = max(min(int(sb), max(n, 1)), 1)
@@ -729,7 +838,9 @@ def plan(
         return PaldPlan(block=block, block_z=None, z_chunk=None,
                         block_source=block_source, k=k, select=select,
                         select_block=sb, select_tile=st,
-                        select_source=sel_source, **common)
+                        select_source=sel_source, mesh=mesh,
+                        strategy=strategy if mesh is not None else None,
+                        **common)
     if method == "fused":
         # one authority for the fused tiles, shared with ops.pald_fused;
         # the kernels' tiles are fixed, these set the plain versions'
@@ -751,6 +862,50 @@ def plan(
     return PaldPlan(block=int(block),
                     block_z=None if block_z is None else int(block_z),
                     z_chunk=None, block_source=block_source, **common)
+
+
+def plan_local(
+    n: int,
+    *,
+    impl: str | None = None,
+    ties: str | None = None,
+    weight=None,
+    block: int | str = "auto",
+    block_z: int | str = "auto",
+    on_error: str = "raise",
+    device="cuda",
+) -> PaldPlan:
+    """Plan for the rectangular per-rank bodies of ``core/distributed``.
+
+    ``n`` is the per-rank row extent the tiles are keyed on (the
+    ``cohesion`` pass of the tuning cache).  The shard bodies consume the
+    plan through ``plan.focus_general`` / ``plan.cohesion_general``;
+    ``impl=None`` takes the device's kernels (the CUDA kernels on the card,
+    the plain versions on the CPU).
+    """
+    from repro_torch.kernels.ops import IMPLS, default_impl
+
+    dev = resolve_device(device)
+    weight = _resolve_weight_knob(ties, weight)
+    if on_error not in _res.ON_ERROR_MODES:
+        raise ValueError(f"unknown on_error {on_error!r} (expected one of "
+                         f"{_res.ON_ERROR_MODES})")
+    impl = impl or default_impl(dev)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
+    n = max(int(n), 1)
+    block_source = "explicit"
+    if block == "auto" or block_z == "auto":
+        rb, rbz, block_source = _tuner.resolve_blocks_ex(
+            n, "cohesion", impl=impl, backend=_tuner.backend_of(dev))
+        block = rb if block == "auto" else block
+        block_z = rbz if block_z == "auto" else block_z
+    return PaldPlan(
+        kind="distance", method="kernel", schedule="dense", impl=impl,
+        block=int(block), block_z=int(block_z), z_chunk=None,
+        ties=weight.name, weight=weight, normalize=False, batch=None,
+        check=False, n=n, device=dev, on_error=on_error,
+        method_source="shard-body", block_source=block_source)
 
 
 # ---------------------------------------------------------------------------

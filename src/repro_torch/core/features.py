@@ -31,10 +31,13 @@ Against the reference's they differ by a few ulps (ROADMAP.md, queue 3).
 from __future__ import annotations
 
 import operator
+from typing import Literal
 
 import torch
 
 METRICS = ("sqeuclidean", "euclidean", "cosine", "manhattan")
+
+Metric = Literal["sqeuclidean", "euclidean", "cosine", "manhattan"]
 
 _NORM_EPS = 1e-30  # cosine guard: zero vectors get distance 1, not nan
 

@@ -49,6 +49,7 @@ __all__ = [
     "knn_values_tile",
     "gather_tile_from_distances",
     "gather_tile_from_features",
+    "gather_tile_from_neighbors",
     "scatter_dense",
     "local_depths",
     "universal_threshold",
@@ -211,12 +212,21 @@ def gather_tile_from_features(X: torch.Tensor, idx: torch.Tensor,
     per entry, so entry (a, c) is bitwise ``cdist_reference(X)[idx[a],
     idx[c]]``; the same-index entries (the diagonal) are forced to exactly
     0, as ``cdist_reference``'s diagonal is."""
+    return gather_tile_from_neighbors(X.to(torch.float32)[idx.long()], idx,
+                                      metric)
+
+
+def gather_tile_from_neighbors(Xn: torch.Tensor, idx: torch.Tensor,
+                               metric: str) -> torch.Tensor:
+    """:func:`gather_tile_from_features` from the (b, k, d) neighbor rows
+    themselves (``Xn[i, a]`` the features of ``idx[i, a]``), as a shard
+    that holds only the rows it gathered computes it; the same bits."""
     idx = idx.long()
     b, k = idx.shape
-    Xn = X.to(torch.float32)[idx]                                 # (b, k, d)
+    Xn = Xn.to(torch.float32)
     if k == 0:
-        return torch.zeros((b, 0, 0), dtype=torch.float32, device=X.device)
-    acc = torch.zeros((b, k, k), dtype=torch.float32, device=X.device)
+        return torch.zeros((b, 0, 0), dtype=torch.float32, device=Xn.device)
+    acc = torch.zeros((b, k, k), dtype=torch.float32, device=Xn.device)
     for f in range(Xn.shape[2]):
         acc = dist_step(acc, Xn[:, :, None, f], Xn[:, None, :, f], metric)
     if metric == "manhattan":

@@ -35,6 +35,8 @@ boundary and returns float32 on the plan's device.
 """
 from __future__ import annotations
 
+from typing import Literal
+
 import torch
 
 from .engine import PaldPlan, pad_distance_matrix  # noqa: F401
@@ -47,6 +49,9 @@ from .weights import (  # noqa: F401
     registered_weights,
     validate_ties,
 )
+
+Method = Literal["auto", "dense", "pairwise", "triplet", "kernel"]
+Ties = Literal["drop", "split", "ignore"]
 
 __all__ = ["cohesion", "from_features", "plan", "local_depths", "pad_distance_matrix",
            "PaldPlan", "WeightFunctional", "register_weight",
@@ -226,8 +231,16 @@ def from_features(
         select_tile: the plain selection's tile-min prefilter width (>= n
             sorts whole rows; bitwise the same graph either way;
             "auto"/None: the same cache pass, cold n).
-        mesh, strategy: knobs of the distributed slice; they raise
-            ``NotImplementedError``.
+        mesh: a ``torch.distributed`` ``DeviceMesh``
+            (``launch.mesh.make_test_mesh``) to shard the fused
+            select->cohere k-NN pipeline across (``method="knn"`` only):
+            every rank of its world calls with the same X, rows of X are
+            sharded over all mesh dimensions, feature blocks move by
+            ``strategy``, and the result stays bitwise the single-device
+            one (``core/distributed_knn.py``).
+        strategy: mesh comm pattern: 'allgather', 'ring', or '2d'
+            ('auto'/None picks '2d' on a mesh of >= 2 dimensions, 'ring'
+            otherwise); requires ``mesh=``.
         on_error: "raise" (default) or "fallback" (see ``cohesion``; the
             k-NN cells end on ``select="chunked"``).
         device: "cuda" (default; raises without a GPU) or "cpu" (the

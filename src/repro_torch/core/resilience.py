@@ -47,6 +47,13 @@ fails to build or load, a wrapper's ``ValueError`` or
 ``NotImplementedError``, an OOM at ``batch=1``) ends in
 ``FallbackExhausted`` chained from it.
 
+A mesh-sharded k-NN plan (``mesh=``) walks ``mesh:single-device`` first:
+the single-device fused select->cohere pipeline on the rank's own device,
+bitwise the sharded answer by construction (the kernels run; it is kept on
+the card too).  ``guarded_general`` guards the rectangular kernel calls of
+the distributed shard bodies (``PaldPlan.focus_general`` /
+``cohesion_general``) the same way, over the impls only.
+
 The FAULT POINTS at the bottom are named call sites threaded through the
 engine, the kernel entry points and the feature front-end; each is a
 no-op until ``repro_torch.testing.faults`` arms a ``FaultRule``.
@@ -79,6 +86,7 @@ __all__ = [
     "chain_for",
     "register_chain",
     "execute_plan",
+    "guarded_general",
     "warn_once",
     "reset_warnings",
 ]
@@ -224,8 +232,9 @@ def _impl_step(impl: str) -> Step:
     def run(x, plan, batch):
         fault_point("resilience.step", step=f"impl:{impl}", kind=plan.kind,
                     method=plan.method, schedule=plan.schedule, impl=impl)
-        return _dispatch_derived(dataclasses.replace(plan, impl=impl), x,
-                                 batch)
+        return _dispatch_derived(
+            dataclasses.replace(plan, impl=impl, mesh=None, strategy=None),
+            x, batch)
 
     return Step(f"impl:{impl}", run)
 
@@ -255,10 +264,27 @@ def _select_step() -> Step:
     def run(x, plan, batch):
         fault_point("resilience.step", step="select:chunked", kind=plan.kind,
                     method=plan.method, schedule=plan.schedule, impl="torch")
-        derived = dataclasses.replace(plan, impl="torch", select="chunked")
+        derived = dataclasses.replace(plan, impl="torch", select="chunked",
+                                      mesh=None, strategy=None)
         return _dispatch_derived(derived, x, batch)
 
     return Step("select:chunked", run)
+
+
+def _mesh_off_step() -> Step:
+    """First rung of a mesh-sharded k-NN plan: the single-device fused
+    select->cohere pipeline, same impl and tiles, on the rank's device.
+    The sharded bodies are bitwise the single-device kernels by
+    construction, so dropping the mesh costs locality and time, never
+    values."""
+    def run(x, plan, batch):
+        fault_point("resilience.step", step="mesh:single-device",
+                    kind=plan.kind, method=plan.method,
+                    schedule=plan.schedule, impl=plan.impl)
+        derived = dataclasses.replace(plan, mesh=None, strategy=None)
+        return _dispatch_derived(derived, x, batch)
+
+    return Step("mesh:single-device", run)
 
 
 def _reference_step() -> Step:
@@ -328,12 +354,20 @@ def _default_chain(plan) -> list:
     steps = _full_chain(plan)
     if plan.device.type != "cuda":
         return steps
-    return [s if s.label == "impl:cuda" else _kept_off_card(s.label)
+    return [s if s.label in _ON_CARD else _kept_off_card(s.label)
             for s in steps]
+
+
+# the rungs that keep the kernels on the card
+_ON_CARD = ("impl:cuda", "mesh:single-device")
 
 
 def _full_chain(plan) -> list:
     steps: list[Step] = []
+    if getattr(plan, "mesh", None) is not None:
+        # a failed mesh cell rescues onto one device first: same impl,
+        # same tiles, the same answer, no collectives in the way
+        steps.append(_mesh_off_step())
     if plan.method in ("kernel", "fused", "knn"):
         for impl in IMPL_ORDER:
             if impl == plan.impl:
@@ -474,13 +508,76 @@ def execute_plan(plan, x):
                 raise _exhausted(cell, original, attempts,
                                  _STICKY_NOTE) from original
             continue
+        extra = {}
+        if getattr(plan, "mesh", None) is not None:
+            # which mesh cell failed: explain()["degradations"] pins the
+            # rescue to a (mesh shape, strategy) pair
+            extra["mesh"] = tuple(plan.mesh.mesh.shape)
+            extra["strategy"] = plan.strategy
         plan._events.append(_event(
             cell=cell, cause="executor-failure", error=_describe(original),
-            fallback=step.label, retries=len(attempts)))
+            fallback=step.label, retries=len(attempts), **extra))
         warn_once(("fallback", cell, step.label),
                   f"PaLD {cell}: primary executor failed "
                   f"({_describe(original)}); degraded to {step.label}: "
                   "results keep identical ties/normalize semantics")
+        return result
+    raise _exhausted(cell, original, attempts) from original
+
+
+# ---------------------------------------------------------------------------
+# guarded rectangular primitives (the distributed shard-body consumer)
+# ---------------------------------------------------------------------------
+def guarded_general(plan, what: str, call: Callable[[str], Any]):
+    """Impl-degradation guard of ``plan.focus_general`` /
+    ``cohesion_general`` (``what``): ``call(impl)`` with the plan's impl,
+    then with each other impl of ``IMPL_ORDER`` (``cuda`` only on a card
+    plan).  On the card the ``impl:torch`` rung is unavailable (it would
+    run plain torch there), so a failure of the kernels ends in
+    ``FallbackExhausted``, as the single-device chains do; a sticky CUDA
+    error stops the walk.  The reference oracle is not in this chain: a
+    shard body's rectangular call has no square D to hand it.  Each rescue
+    appends an event (cause ``<what>-failure``) to the plan.
+
+    A rank's failure is its own: the distributed entry points that need
+    their ranks to agree (``core/distributed_knn.py``) check for a failure
+    on any rank after the body, so no rank waits in a collective for a
+    peer that gave up.
+    """
+    cell = (plan.kind, plan.method, plan.schedule)
+    try:
+        return call(plan.impl)
+    except Exception as exc:  # noqa: BLE001 - the guard's whole job
+        _forget_frames(exc)
+        original = exc
+    attempts: list[tuple[str, BaseException]] = [(f"impl:{plan.impl}",
+                                                  original)]
+    if is_sticky(original):
+        raise _exhausted(cell, original, attempts, _STICKY_NOTE) from original
+    for impl in IMPL_ORDER:
+        if impl == plan.impl:
+            continue
+        if impl == "cuda" and plan.device.type != "cuda":
+            continue
+        try:
+            if plan.device.type == "cuda" and impl != "cuda":
+                raise FallbackUnavailable(
+                    f"impl:{impl} would leave the CUDA kernels; a plan on "
+                    "the card keeps them")
+            result = call(impl)
+        except Exception as step_exc:  # noqa: BLE001
+            _forget_frames(step_exc)
+            attempts.append((f"impl:{impl}", step_exc))
+            if is_sticky(step_exc):
+                raise _exhausted(cell, original, attempts,
+                                 _STICKY_NOTE) from original
+            continue
+        plan._events.append(_event(
+            cell=cell, cause=f"{what}-failure", error=_describe(original),
+            fallback=f"impl:{impl}", retries=len(attempts)))
+        warn_once((what, cell, impl),
+                  f"PaLD shard body {what}: impl {plan.impl!r} failed "
+                  f"({_describe(original)}); degraded to impl={impl!r}")
         return result
     raise _exhausted(cell, original, attempts) from original
 

@@ -29,6 +29,11 @@
 //     (the same-index entries, the diagonal, exactly 0);
 //   - pald_knn_values_distances_f32: D (n, n) and idx, D[idx_j, idx_m]
 //     read straight, as gather_tile_from_distances gathers it.
+// The features entry also takes the global index of the first row (a
+// shard's rows are a slice of the graph: the index tiebreak compares
+// global indices), and, in place of X, an (n, k, d) block of each row's
+// neighbor feature rows (a ring shard holds no whole X,
+// repro_torch/core/distributed_knn.py); the same rows give the same bits.
 // Neither of the last two writes any (n, k, k) array: what the main path
 // moves is X's rows (through L2), dn, idx and the (n, k+1) output.  What
 // bounds them on the H100: operations, the tile's k (k-1) / 2 distances
@@ -115,11 +120,12 @@ __device__ __forceinline__ RowSmem load_row(float* base, const float* dn,
   return r;
 }
 
-// Passes 1 and 2 of row x with g(j, m) = get(j, m); writes out[x].
+// Passes 1 and 2 of row x (global index gx, which the index tiebreak
+// compares) with g(j, m) = get(j, m); writes out[x].
 template <class F, class Get>
 __device__ __forceinline__ void values_passes(const Get& get,
                                               const RowSmem& r, int64_t x,
-                                              int k, int lane,
+                                              int64_t gx, int k, int lane,
                                               const Params& p, float* out) {
   const float* sd = r.sd;
   float* sw = r.sw;
@@ -139,7 +145,7 @@ __device__ __forceinline__ void values_passes(const Get& get,
   float part = 0.f;
   for (int j = lane; j < k; j += 32) {
     const float dxy = sd[j];
-    const bool ow = x > si[j];
+    const bool ow = gx > si[j];
     part = __fadd_rn(part, __fmul_rn(KnnSupport<F>::eval(0.f, dxy, dxy, ow, p),
                                      sw[j]));
   }
@@ -155,7 +161,7 @@ __device__ __forceinline__ void values_passes(const Get& get,
     float total = 0.f, acc = 0.f;
     for (int j = 0; j < k; ++j) {
       const float t =
-          KnnSupport<F>::eval(dxz, get(j, m), sd[j], x > si[j], p);
+          KnnSupport<F>::eval(dxz, get(j, m), sd[j], gx > si[j], p);
       acc = __fadd_rn(acc, __fmul_rn(t, sw[j]));
       if ((j & 31) == 31) {
         total = __fadd_rn(total, acc);
@@ -180,7 +186,7 @@ knn_cube_kernel(const float* __restrict__ dn, const float* __restrict__ g,
   const float* gx = g + x * static_cast<int64_t>(k) * k;
   values_passes<F>(
       [&](int j, int m) { return gx[static_cast<int64_t>(j) * k + m]; }, r,
-      x, k, lane, p, out);
+      x, x, k, lane, p, out);
 }
 
 // source 2: D (ldd columns), D[idx_j, idx_m]
@@ -199,7 +205,7 @@ knn_dist_kernel(const float* __restrict__ dn, const float* __restrict__ D,
       [&](int j, int m) {
         return __ldg(D + static_cast<int64_t>(si[j]) * ldd + si[m]);
       },
-      r, x, k, lane, p, out);
+      r, x, x, k, lane, p, out);
 }
 
 // the tile's pitch: odd, so a column of 32 consecutive rows hits 32 banks
@@ -233,15 +239,18 @@ __device__ __forceinline__ float metric_dist(int metric, const float* fa,
   }
 }
 
-// source 3: the neighbors' feature rows.  Shared memory a warp (floats):
-// dn, W, idx, norms (4k), then the tile (kTile: k * tile_pitch(k)), then
-// the staged rows (fpitch > 0: k * fpitch; 0: read from X).
+// source 3: the neighbors' feature rows, X[idx_j] (nbr: X is the (n, k, d)
+// block of each row's neighbor rows, row j of x's at (x k + j) d).  Shared
+// memory a warp (floats): dn, W, idx, norms (4k), then the tile (kTile:
+// k * tile_pitch(k)), then the staged rows (fpitch > 0: k * fpitch; 0:
+// read from X).  Row x's global index is row_off + x.
 template <bool kTile, class F>
 __global__ void __launch_bounds__(kThreads)
 knn_feat_kernel(const float* __restrict__ dn, const float* __restrict__ X,
                 int64_t d, const int* __restrict__ idx,
                 float* __restrict__ out, int64_t n, int k, int metric,
-                int fpitch, int wstride, Params p) {
+                int fpitch, int wstride, int64_t row_off, bool nbr,
+                Params p) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
@@ -252,16 +261,19 @@ knn_feat_kernel(const float* __restrict__ dn, const float* __restrict__ X,
   float* snrm = base + 3 * k;
   float* tile = snrm + k;
   float* sf = tile + (kTile ? k * tile_pitch(k) : 0);
+  auto src = [&](int j) -> const float* {
+    return X + (nbr ? x * k + j : static_cast<int64_t>(si[j])) * d;
+  };
   if (fpitch > 0) {
     const int dd = static_cast<int>(d);  // k d <= kStageBytes / 4 here
     for (int e = lane; e < k * dd; e += 32) {
       const int j = e / dd, f = e - j * dd;
-      sf[j * fpitch + f] = X[static_cast<int64_t>(si[j]) * d + f];
+      sf[j * fpitch + f] = src(j)[f];
     }
     __syncwarp();
   }
   auto feats = [&](int j) -> const float* {
-    return fpitch > 0 ? sf + j * fpitch : X + static_cast<int64_t>(si[j]) * d;
+    return fpitch > 0 ? sf + j * fpitch : src(j);
   };
   // the neighbors' norms, each a loop over its features in order (the
   // row-norm pre-pass's steps; manhattan has none)
@@ -295,10 +307,10 @@ knn_feat_kernel(const float* __restrict__ dn, const float* __restrict__ X,
       }
     }
     __syncwarp();
-    values_passes<F>([&](int j, int m) { return tile[j * tp + m]; }, r, x, k,
-                     lane, p, out);
+    values_passes<F>([&](int j, int m) { return tile[j * tp + m]; }, r, x,
+                     row_off + x, k, lane, p, out);
   } else {
-    values_passes<F>(dist, r, x, k, lane, p, out);
+    values_passes<F>(dist, r, x, row_off + x, k, lane, p, out);
   }
 }
 
@@ -375,6 +387,8 @@ struct FeatLaunch {
   float* out;
   int64_t n;
   int k, metric;
+  int64_t row_off;
+  bool nbr;
   Params p;
   cudaStream_t stream;
 
@@ -390,7 +404,7 @@ struct FeatLaunch {
     if (st != 0) return st;
     kern<<<row_blocks(n), kThreads, smem, stream>>>(dn, X, d, idx, out, n, k,
                                                      metric, fpitch, wstride,
-                                                     p);
+                                                     row_off, nbr, p);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -418,20 +432,23 @@ extern "C" int pald_knn_values_f32(const float* dn, const float* g,
                       static_cast<cudaStream_t>(stream)});
 }
 
-// The same with the distances computed from the neighbors' rows of X (n,
+// The same with the distances computed from the neighbors' rows of X (m,
 // d) float32 for `metric` (0 sqeuclidean, 1 euclidean, 2 cosine, 3
-// manhattan), bitwise gather_tile_from_features's.
+// manhattan), bitwise gather_tile_from_features's; with nbr != 0, X is
+// the (n, k, d) block of each row's neighbor rows instead.  Row x of the
+// graph has global index row_off + x (>= 0).
 extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             int64_t d, const int* idx,
                                             float* out, int64_t n, int k,
-                                            int metric, int wid, float p0,
+                                            int metric, int64_t row_off,
+                                            int nbr, int wid, float p0,
                                             float p1, void* stream) {
-  if (bad_shape(n, k) || d < 0 || metric < pald::kSqEuclidean ||
-      metric > pald::kManhattan)
+  if (bad_shape(n, k) || d < 0 || row_off < 0 ||
+      metric < pald::kSqEuclidean || metric > pald::kManhattan)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
-      wid, FeatLaunch{dn, X, d, idx, out, n, k, metric, {p0, p1},
-                      static_cast<cudaStream_t>(stream)});
+      wid, FeatLaunch{dn, X, d, idx, out, n, k, metric, row_off, nbr != 0,
+                      {p0, p1}, static_cast<cudaStream_t>(stream)});
 }
 
 // The same with the distances read from D (rows of ldd float32),

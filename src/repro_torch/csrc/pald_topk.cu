@@ -55,6 +55,15 @@
 // square has a root above that float, so it cannot enter the list, and the
 // root of every pair that can is the plain version's.
 
+// The block entry (pald_topk_block_f32) runs the same kernel over rows
+// [0, m) of one matrix against the w candidates of another, each with the
+// global index of its first row: self is excluded by global index, and the
+// lists hold global indices, (+inf, INT32_MAX) past the real candidates.
+// A shard of a distributed run scores its rows against the candidate
+// blocks it holds this way (repro_torch/core/distributed_knn.py) and
+// merges the partial lists on the same (value, index) key, so its graph is
+// bitwise the full call's: a distance depends only on its two rows.
+//
 // Contract (the plain version is kernels/pald_topk.py::topk_select_torch):
 //   - every distance is pald_dist.cuh's, bitwise cdist_reference's;
 //   - candidates compare on the composite key (value, index), a total order
@@ -270,11 +279,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* x,
 }
 
 // kRegs: k <= 32, each warp keeps its rows' lists in registers
+// Rows [0, m) of xr (global index rg0 + row) against the w candidates of
+// xc (global index cg0 + col); nr, nc their norm terms.  The full call
+// passes X as both, n as m and w, and 0 as both offsets.
 template <int M, int TR, bool kRegs>
 __global__ void __launch_bounds__(kThreads, kRegs ? 4 : 2)
-topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
-            float* __restrict__ out_v, int* __restrict__ out_i, int64_t n,
-            int64_t d, int k, bool vec) {
+topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
+            const float* __restrict__ nr, const float* __restrict__ nc,
+            float* __restrict__ out_v, int* __restrict__ out_i, int64_t m,
+            int64_t w, int64_t rg0, int64_t cg0, int64_t d, int k,
+            bool vec) {
   constexpr int R = kWarps * TR;
   // euclidean: squared distances, the root taken for the survivors only
   constexpr bool kLazyRoot = M == pald::kEuclidean;
@@ -297,13 +311,15 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
   float* sv = bv + 2 * kCand;                    // and sorted
   int* sidx = reinterpret_cast<int*>(bv + 3 * kCand);
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * R;
-  const int chunks = static_cast<int>((n + kCand - 1) / kCand);
+  const int chunks = static_cast<int>((w + kCand - 1) / kCand);
   const int slots = chunks * L.parts;
-  // the chunks in turn from the one holding the block's first row: in
-  // data whose near neighbors lie near in index, the lists fill with near
-  // candidates first and the later chunks insert little.  The lists do
-  // not depend on the order.
-  const int first = static_cast<int>(r0 / kCand);
+  // the chunks in turn from the one holding the block's first row (the
+  // first chunk when the candidates do not hold it): in data whose near
+  // neighbors lie near in index, the lists fill with near candidates first
+  // and the later chunks insert little.  The lists do not depend on the
+  // order.
+  const int64_t own = rg0 + r0 - cg0;
+  const int first = own >= 0 && own < w ? static_cast<int>(own / kCand) : 0;
   const float inf = __int_as_float(0x7f800000);
 
   // the warp's rows: thresholds, norms, lists (a list of k <= 32 lives
@@ -314,13 +330,13 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
     lv_all[warp * TR * lk + e] = inf;
     li_all[warp * TR * lk + e] = kSentinel;
   }
-  if (lane < TR) {  // a row past n: a bound no pair meets
+  if (lane < TR) {  // a row past m: a bound no pair meets
     const int64_t row = r0 + warp * TR + lane;
-    const bool live = row < n;
+    const bool live = row < m;
     tv[warp * TR + lane] = live ? inf : -inf;
     ti[warp * TR + lane] = kSentinel;
     tb[warp * TR + lane] = live ? inf : -inf;
-    tn[warp * TR + lane] = (Dist<M>::kNorms && live) ? norms[row] : 0.f;
+    tn[warp * TR + lane] = (Dist<M>::kNorms && live) ? nr[row] : 0.f;
   }
   __syncwarp();
 
@@ -348,26 +364,26 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       locate(t, fp, c0);
       const int f0 = fp * kMaxFeat;
       const Pieces& P = fp == L.parts - 1 ? tail : full;
-      stage_rows(s, x, c0, kCand, n, d, f0, L.pitch, vec, P);
+      stage_rows(s, xc, c0, kCand, w, d, f0, L.pitch, vec, P);
       if (L.parts > 1)
-        stage_rows(s + kCand * L.pitch + kCand, x, r0, R, n, d, f0, L.pitch,
+        stage_rows(s + kCand * L.pitch + kCand, xr, r0, R, m, d, f0, L.pitch,
                    vec, P);
       if (Dist<M>::kNorms && fp == L.parts - 1) {
         float* sn = s + kCand * L.pitch;
         for (int p = tid; p < kCand / 4; p += kThreads) {
           const int64_t col = c0 + 4 * p;  // c0 % 4 == 0
-          if (col + 4 <= n) {
-            cp_async16(sn + 4 * p, norms + col);
+          if (col + 4 <= w) {  // the scratch is 16-byte aligned
+            cp_async16(sn + 4 * p, nc + col);
           } else {
             for (int q = 0; q < 4; ++q)
-              if (col + q < n) cp_async4(sn + 4 * p + q, norms + col + q);
+              if (col + q < w) cp_async4(sn + 4 * p + q, nc + col + q);
           }
         }
       }
     }
     cp_async_commit();
   };
-  if (L.parts == 1) stage_rows(srows, x, r0, R, n, d, 0, L.pitch, vec, full);
+  if (L.parts == 1) stage_rows(srows, xr, r0, R, m, d, 0, L.pitch, vec, full);
   for (int t = 0; t < kStages - 1; ++t) issue(t);
 
   float acc[TR][4] = {};
@@ -447,6 +463,7 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       if (hit >> a & 1) {
         const int lr = warp * TR + a;
         const int64_t row = r0 + lr;
+        const int64_t grow = rg0 + row;
         float tva = tv[lr];
         int tia = ti[lr];
         const float tba = tb[lr];
@@ -460,22 +477,22 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int64_t col = c0 + lane + 32 * j;
+          const int gcol = static_cast<int>(cg0 + col);
           float v = acc[a][j];
           if constexpr (kSquares) v = v < 0.f ? 0.f : v;  // nan passes
-          bool keep = row < n && col < n && col != row;
+          bool keep = row < m && col < w && cg0 + col != grow;
           if constexpr (kLazyRoot) {
             keep = keep && v <= tba;
             if (keep) v = __fsqrt_rn(v);
           }
-          keep = keep && key_less(v, static_cast<int>(col), tva, tia);
+          keep = keep && key_less(v, gcol, tva, tia);
           unsigned mask = __ballot_sync(0xffffffffu, keep);
           if constexpr (kRegs) {
             while (mask) {
               const int b = __ffs(mask) - 1;
               mask &= mask - 1;
               const float cv = __shfl_sync(0xffffffffu, v, b);
-              const int cidx =
-                  __shfl_sync(0xffffffffu, static_cast<int>(col), b);
+              const int cidx = __shfl_sync(0xffffffffu, gcol, b);
               if (!key_less(cv, cidx, tva, tia)) continue;
               insert_reg(rv, ri, k, cv, cidx, lane, tva, tia);
             }
@@ -483,7 +500,7 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
             if (keep) {
               const int at = cnt + __popc(mask & ((1u << lane) - 1));
               bv[at] = v;
-              bi[at] = static_cast<int>(col);
+              bi[at] = gcol;
             }
             cnt += __popc(mask);
           }
@@ -517,7 +534,7 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
   for (int a = 0; a < TR; ++a) {
     const int lr = warp * TR + a;
     const int64_t row = r0 + lr;
-    if (row >= n) continue;
+    if (row >= m) continue;
     for (int e = lane; e < k; e += 32) {
       out_v[row * k + e] = lv_all[lr * lk + e];
       out_i[row * k + e] = li_all[lr * lk + e];
@@ -525,48 +542,57 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ norms,
   }
 }
 
+// the selection's operands: rows xr (m) against candidates xc (w), their
+// norm scratch buffers, the outputs, the global offsets
+struct Operands {
+  const float* xr;
+  const float* xc;
+  float* nr;
+  float* nc;
+  float* out_v;
+  int* out_i;
+  int64_t m, w, rg0, cg0, d;
+  int k;
+  bool vec;
+};
+
 template <int M, int TR, bool kRegs>
-int launch_rows(const float* x, const float* norms, float* out_v, int* out_i,
-                int64_t n, int64_t d, int k, bool vec, cudaStream_t stream) {
+int launch_rows(const Operands& o, cudaStream_t stream) {
   constexpr int R = kWarps * TR;
-  const size_t smem = Layout(d, R).bytes(R, k);
+  const size_t smem = Layout(o.d, R).bytes(R, o.k);
   cudaError_t err = cudaFuncSetAttribute(
       topk_kernel<M, TR, kRegs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((n + R - 1) / R);
+  const unsigned grid = static_cast<unsigned>((o.m + R - 1) / R);
   topk_kernel<M, TR, kRegs><<<grid, kThreads, smem, stream>>>(
-      x, norms, out_v, out_i, n, d, k, vec);
+      o.xr, o.xc, o.nr, o.nc, o.out_v, o.out_i, o.m, o.w, o.rg0, o.cg0, o.d,
+      o.k, o.vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 struct TopkPerMetric {
-  const float* x;
-  float* norms;
-  float* out_v;
-  int* out_i;
-  int64_t n, d;
-  int k;
-  bool vec;
+  Operands o;
   cudaStream_t stream;
 
+  // the norm pre-pass (once when the rows are the candidates), then the
+  // selection
   template <int M>
   int operator()() const {
-    const int status = pald::launch_row_norms<M>(x, norms, n, d, stream);
+    int status = pald::launch_row_norms<M>(o.xc, o.nc, o.w, o.d, stream);
+    if (status == 0 && o.nr != o.nc)
+      status = pald::launch_row_norms<M>(o.xr, o.nr, o.m, o.d, stream);
     if (status != 0) return status;
-    if (k <= 32)
-      return launch_rows<M, warp_rows(32), true>(x, norms, out_v, out_i, n, d,
-                                                 k, vec, stream);
-    if (k <= 128)
-      return launch_rows<M, warp_rows(128), false>(
-          x, norms, out_v, out_i, n, d, k, vec, stream);
-    if (k <= 256)
-      return launch_rows<M, warp_rows(256), false>(
-          x, norms, out_v, out_i, n, d, k, vec, stream);
-    return launch_rows<M, warp_rows(kMaxK), false>(
-        x, norms, out_v, out_i, n, d, k, vec, stream);
+    if (o.k <= 32) return launch_rows<M, warp_rows(32), true>(o, stream);
+    if (o.k <= 128) return launch_rows<M, warp_rows(128), false>(o, stream);
+    if (o.k <= 256) return launch_rows<M, warp_rows(256), false>(o, stream);
+    return launch_rows<M, warp_rows(kMaxK), false>(o, stream);
   }
 };
+
+bool aligned16(const float* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 }  // namespace
 
@@ -583,10 +609,35 @@ extern "C" int pald_topk_f32(const float* x, float* norms, float* out_v,
   if (n < 2 || d < 0 || k < 1 || k > kMaxK || k > n - 1 ||
       n > static_cast<int64_t>(kSentinel))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec = d % 4 == 0 && aligned16(x);
+  const Operands o{x, x, norms, norms, out_v, out_i, n, n, 0, 0, d, k, vec};
   return pald::dispatch_metric(
-      metric, TopkPerMetric{x, norms, out_v, out_i, n, d, k, vec,
-                            static_cast<cudaStream_t>(stream)});
+      metric, TopkPerMetric{o, static_cast<cudaStream_t>(stream)});
+}
+
+// The block entry: for each of the m rows of xr (m, d) (global index
+// row_off + row), its k nearest among the w rows of xc (w, d) (global
+// index col_off + col) other than itself (by global index), as
+// (distance, global index) pairs into out_v / out_i (m, k), ascending on
+// the same key; where fewer than k candidates remain, the rest are
+// (+inf, INT32_MAX).  norms_r (m,) and norms_c (w,) are two 16-byte
+// aligned float32 scratch buffers.  Needs m, w >= 1, 1 <= k <= 1024, and every global index below
+// 2^31 - 1.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int pald_topk_block_f32(const float* xr, const float* xc,
+                                   float* norms_r, float* norms_c,
+                                   float* out_v, int* out_i, int64_t m,
+                                   int64_t w, int64_t row_off,
+                                   int64_t col_off, int64_t d, int k,
+                                   int metric, void* stream) {
+  const int64_t top = static_cast<int64_t>(kSentinel);
+  if (m < 1 || w < 1 || d < 0 || k < 1 || k > kMaxK || row_off < 0 ||
+      col_off < 0 || row_off + m > top || col_off + w > top)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = d % 4 == 0 && aligned16(xr) && aligned16(xc);
+  const Operands o{xr, xc, norms_r, norms_c, out_v, out_i, m, w,
+                   row_off, col_off, d, k, vec};
+  return pald::dispatch_metric(
+      metric, TopkPerMetric{o, static_cast<cudaStream_t>(stream)});
 }
 
 // The dynamic shared memory of a selection block at (k, d), in bytes, as

@@ -57,12 +57,15 @@ SIGNATURES = {
                             (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
     "pald_topk_f32": ("pald_topk",
                       (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)),
+    "pald_topk_block_f32": ("pald_topk",
+                            (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                             _I64, _I32, _I32, _P)),
     "pald_knn_values_f32": ("pald_knn",
                             (_P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
                              _P)),
     "pald_knn_values_features_f32": ("pald_knn",
                                      (_P, _P, _I64, _P, _P, _I64, _I32, _I32,
-                                      _I32, _F32, _F32, _P)),
+                                      _I64, _I32, _I32, _F32, _F32, _P)),
     "pald_knn_values_distances_f32": ("pald_knn",
                                       (_P, _P, _I64, _P, _P, _I64, _I32,
                                        _I32, _F32, _F32, _P)),

@@ -709,7 +709,8 @@ def _exec_knn_distance(D, plan):
 @_engine.register_executor("features", "knn", "dense")
 def _exec_knn_features(X, plan):
     """Selection streamed from features straight into the values kernel
-    (``select_cohere``); no (n, n) intermediate before the final scatter."""
+    (``select_cohere``); no (n, n) intermediate before the final scatter.
+    A mesh plan runs the sharded pipeline (``core/distributed_knn.py``)."""
     X = _f32(X)
     n = X.shape[0]
     if plan.k >= n - 1:
@@ -717,6 +718,18 @@ def _exec_knn_features(X, plan):
 
         return _knn_dense_fallback(cdist_reference(X, metric=plan.metric),
                                    plan)
+    if plan.mesh is not None:
+        from repro_torch.core import distributed_knn as _dknn
+
+        graph, vals = _dknn.pald_knn_sharded(
+            X, plan.mesh, k=plan.k, metric=plan.metric,
+            strategy=plan.strategy or "auto", normalize=False,
+            weight=plan.weight, block=plan.select_block or "auto",
+            tile=plan.select_tile if plan.select_tile is not None
+            else "auto", on_error="raise", impl=plan.impl,
+            device=plan.device)
+        C = _knn.scatter_dense(graph, vals)
+        return C / max(n - 1, 1) if plan.normalize else C
     graph, vals = select_cohere(
         X, k=plan.k, metric=plan.metric, block=plan.select_block,
         tile=plan.select_tile, cohere_block=plan.block, impl=plan.impl,

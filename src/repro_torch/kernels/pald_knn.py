@@ -22,6 +22,14 @@ On the same g the three give bitwise the same values (one kernel body, the
 same sums in the same order).  The last two write no (n, k, k) array.  The
 source note in the ``.cu`` file has the details.
 
+For a shard of a distributed run (``core/distributed_knn.py``) the features
+source takes ``row_off``, the global index of its first row (the index
+tiebreak of ``needs_index_tiebreak`` functionals compares global indices),
+and :func:`knn_values_from_neighbors_cuda` is the same entry fed an
+(n, k, d) block of each row's neighbor feature rows in place of X (a ring
+shard never holds X whole); either gives the single-device values
+bitwise.
+
 Each wrapper dispatches on the tensors' device: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain version (:func:`knn_values_torch`,
 ``knn_values_tile`` over row chunks, each chunk's tiles gathered by the
@@ -32,7 +40,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.knn import (gather_tile_from_distances,
-                                  gather_tile_from_features, knn_values_tile)
+                                  gather_tile_from_features,
+                                  gather_tile_from_neighbors, knn_values_tile)
 from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
 
 from . import _build
@@ -42,6 +51,8 @@ from .pald_topk import MAX_K
 
 __all__ = ["knn_values_cuda", "knn_values_torch",
            "knn_values_from_features_cuda", "knn_values_from_features_torch",
+           "knn_values_from_neighbors_cuda",
+           "knn_values_from_neighbors_torch",
            "knn_values_from_distances_cuda",
            "knn_values_from_distances_torch", "check_indices", "tile_layout",
            "smem_per_cta"]
@@ -99,11 +110,12 @@ def knn_values_torch(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
 def knn_values_from_features_torch(X: torch.Tensor, dn: torch.Tensor,
                                    idx: torch.Tensor, *,
                                    metric: str = "euclidean",
-                                   ties=DEFAULT_TIES,
-                                   block: int = 128) -> torch.Tensor:
+                                   ties=DEFAULT_TIES, block: int = 128,
+                                   row_off: int = 0) -> torch.Tensor:
     """Plain version of the features source (any device): row chunks of
     ``block``, each chunk's tiles gathered from X, then
-    :func:`knn_values_torch`; never more than a (block, k, k) tile."""
+    :func:`knn_values_torch`; never more than a (block, k, k) tile.
+    ``row_off``: the global index of the graph's first row."""
     metric_id(metric)
     n, k = dn.shape
     out = torch.empty((n, k + 1), dtype=torch.float32, device=dn.device)
@@ -111,7 +123,26 @@ def knn_values_from_features_torch(X: torch.Tensor, dn: torch.Tensor,
         e = min(s + block, n)
         g = gather_tile_from_features(X, idx[s:e], metric)
         out[s:e] = knn_values_torch(dn[s:e], g, idx[s:e], ties=ties,
-                                    block=block, row_off=s)
+                                    block=block, row_off=row_off + s)
+    return out
+
+
+def knn_values_from_neighbors_torch(Xn: torch.Tensor, dn: torch.Tensor,
+                                    idx: torch.Tensor, *,
+                                    metric: str = "euclidean",
+                                    ties=DEFAULT_TIES, block: int = 128,
+                                    row_off: int = 0) -> torch.Tensor:
+    """Plain version of the neighbor-block source (any device): as
+    :func:`knn_values_from_features_torch`, each row's tile computed from
+    its own (k, d) rows of ``Xn`` (n, k, d) instead of X's rows at idx."""
+    metric_id(metric)
+    n, k = dn.shape
+    out = torch.empty((n, k + 1), dtype=torch.float32, device=dn.device)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        g = gather_tile_from_neighbors(Xn[s:e], idx[s:e], metric)
+        out[s:e] = knn_values_torch(dn[s:e], g, idx[s:e], ties=ties,
+                                    block=block, row_off=row_off + s)
     return out
 
 
@@ -161,12 +192,39 @@ def _check_k(who: str, k: int) -> None:
                          f"range 1..{MAX_K} (ROADMAP.md queue 3)")
 
 
+def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
+    """Launch the features entry: X (m, d), or with ``nbr`` the (n, k, d)
+    neighbor-row block."""
+    mid = metric_id(metric)
+    wid, p0, p1 = kernel_spec(ties)
+    dev = dn.device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
+    n, k = dn.shape
+    shape = (n, k, X.shape[-1]) if nbr else tuple(X.shape)
+    check_operands(who, dev, X=(X, shape, torch.float32),
+                   dn=(dn, (n, k), torch.float32),
+                   idx=(idx, (n, k), torch.int32))
+    _check_k(who, k)
+    if row_off < 0:
+        raise ValueError(f"{who}: row_off={row_off} < 0")
+    out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    return _launch("pald_knn_values_features_f32",
+                   (dn.data_ptr(), X.data_ptr(), shape[-1], idx.data_ptr(),
+                    out.data_ptr(), n, k, mid, row_off, int(nbr), wid, p0,
+                    p1), out, counter)
+
+
 def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
                                   idx: torch.Tensor, *,
                                   metric: str = "euclidean",
-                                  ties=DEFAULT_TIES) -> torch.Tensor:
+                                  ties=DEFAULT_TIES,
+                                  row_off: int = 0) -> torch.Tensor:
     """(n, k+1) values with each row's tile computed from X in the kernel,
     for CUDA tensors; :func:`knn_values_from_features_torch` for CPU ones.
+    ``row_off``: the global index of the graph's first row (a shard's).
 
     CUDA operands must be contiguous (X, dn float32; idx int32) on one
     device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
@@ -177,27 +235,31 @@ def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
     """
     if dn.device.type == "cpu":
         return knn_values_from_features_torch(X, dn, idx, metric=metric,
-                                              ties=ties)
-    mid = metric_id(metric)
-    wid, p0, p1 = kernel_spec(ties)
-    dev = dn.device
-    if dev.type != "cuda":
-        raise ValueError(f"knn_values_from_features_cuda: unsupported "
-                         f"device {dev}")
-    n, k = dn.shape
-    m, d = X.shape
-    check_operands("knn_values_from_features_cuda", dev,
-                   X=(X, (m, d), torch.float32),
-                   dn=(dn, (n, k), torch.float32),
-                   idx=(idx, (n, k), torch.int32))
-    _check_k("knn_values_from_features_cuda", k)
-    out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    return _launch("pald_knn_values_features_f32",
-                   (dn.data_ptr(), X.data_ptr(), d, idx.data_ptr(),
-                    out.data_ptr(), n, k, mid, wid, p0, p1), out,
-                   knn_values_from_features_cuda)
+                                              ties=ties, row_off=row_off)
+    return _features_source("knn_values_from_features_cuda", X, dn, idx,
+                            metric, ties, row_off, False,
+                            knn_values_from_features_cuda)
+
+
+def knn_values_from_neighbors_cuda(Xn: torch.Tensor, dn: torch.Tensor,
+                                   idx: torch.Tensor, *,
+                                   metric: str = "euclidean",
+                                   ties=DEFAULT_TIES,
+                                   row_off: int = 0) -> torch.Tensor:
+    """(n, k+1) values from ``Xn`` (n, k, d), row x's neighbor feature
+    rows (``Xn[x, j]`` the features of ``idx[x, j]``), through the
+    features entry of the kernel for CUDA tensors and
+    :func:`knn_values_from_neighbors_torch` for CPU ones; bitwise
+    :func:`knn_values_from_features_cuda` on the X those rows came from.
+    Reads no row at an index, so idx needs no range check.  Operands and
+    checks otherwise as :func:`knn_values_from_features_cuda`'s; each
+    launch adds one to ``.launches`` and ``.grid_launches``."""
+    if dn.device.type == "cpu":
+        return knn_values_from_neighbors_torch(Xn, dn, idx, metric=metric,
+                                               ties=ties, row_off=row_off)
+    return _features_source("knn_values_from_neighbors_cuda", Xn, dn, idx,
+                            metric, ties, row_off, True,
+                            knn_values_from_neighbors_cuda)
 
 
 def knn_values_from_distances_cuda(D: torch.Tensor, dn: torch.Tensor,
@@ -262,6 +324,6 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
 
 
 for _f in (knn_values_cuda, knn_values_from_features_cuda,
-           knn_values_from_distances_cuda):
+           knn_values_from_distances_cuda, knn_values_from_neighbors_cuda):
     _f.launches = 0
     _f.grid_launches = 0

@@ -19,21 +19,33 @@ launches the kernel (or raises), a CPU X takes :func:`topk_select_torch`:
 first k (or, with ``tile=``, the reference's tile-min prefilter, bitwise
 the same).  Self is excluded as the kernel excludes it: it sorts after every
 real candidate, even one at +inf distance.
+
+:func:`topk_block_cuda` is the kernel's block entry: rows of one matrix
+against the candidate rows of another, each with the global index of its
+first row, self excluded by global index, the (m, k) lists padded with
+(+inf, ``INT32_MAX``) where fewer than k candidates remain.  A shard of a
+distributed run (``core/distributed_knn.py``) scores its rows against each
+candidate block it holds and merges the partial lists exactly on the
+(value, index) key (:func:`merge_pairs`), so its graph is bitwise the
+full call's.  Its plain version is :func:`topk_block_torch`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.features import masked_dist_tile
+from repro_torch.core.features import dist_tile, masked_dist_tile
 from repro_torch.core.knn import NeighborGraph, check_k, empty_graph
 
 from . import _build
 from .pald_focus import check_operands
 from .pald_fused import metric_id, norm_grids
 
-__all__ = ["topk_select_cuda", "topk_select_torch", "MAX_K", "smem_per_cta"]
+__all__ = ["topk_select_cuda", "topk_select_torch", "topk_block_cuda",
+           "topk_block_torch", "merge_pairs", "MAX_K", "SENTINEL",
+           "smem_per_cta"]
 
 MAX_K = 1024  # the largest k the kernel takes (csrc/pald_topk.cu: kMaxK)
+SENTINEL = 2 ** 31 - 1  # the index of an empty list entry (+inf, SENTINEL)
 _CAND, _STAGES, _MAX_FEAT = 128, 2, 64  # csrc/pald_topk.cu
 
 
@@ -177,3 +189,111 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
 
 topk_select_cuda.launches = 0
 topk_select_cuda.grid_launches = 0
+
+
+def merge_pairs(v: torch.Tensor, i: torch.Tensor,
+                k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first k of (value, index) pairs along the last axis, ascending
+    by value and then index: a stable sort by index, then a stable sort by
+    value (the reference's two-key ``lax.sort`` in
+    ``repro/core/distributed_knn.py::_merge_pairs``).  Real candidates
+    carry distinct indices, so the order is total and merging partial
+    lists in any grouping gives the same first k."""
+    o = torch.sort(i, dim=-1, stable=True)[1]
+    v, i = torch.gather(v, -1, o), torch.gather(i, -1, o)
+    o = torch.sort(v, dim=-1, stable=True)[1][..., :k]
+    return torch.gather(v, -1, o), torch.gather(i, -1, o)
+
+
+def _sentinels(m: int, k: int, device) -> NeighborGraph:
+    return NeighborGraph(
+        torch.full((m, k), SENTINEL, dtype=torch.int32, device=device),
+        torch.full((m, k), float("inf"), dtype=torch.float32, device=device))
+
+
+def topk_block_torch(Xr: torch.Tensor, Xc: torch.Tensor, k: int, *,
+                     metric: str = "euclidean", row_off: int = 0,
+                     col_off: int = 0, block: int = 1024) -> NeighborGraph:
+    """Plain version of the block entry (any device), ``block`` rows per
+    slab: each row of ``Xr`` (global index ``row_off + row``) against the
+    rows of ``Xc`` (global index ``col_off + col``), self excluded by
+    global index; (m, k) (distance, global index) lists ascending by
+    (distance, index), padded with (+inf, :data:`SENTINEL`)."""
+    metric_id(metric)
+    Xr, Xc = Xr.to(torch.float32), Xc.to(torch.float32)
+    m, w = Xr.shape[0], Xc.shape[0]
+    if m == 0 or w == 0 or k <= 0:
+        return _sentinels(m, max(k, 0), Xr.device)
+    cols = col_off + torch.arange(w, device=Xr.device, dtype=torch.int64)
+    dist, idx = [], []
+    for s in range(0, m, block):
+        slab = dist_tile(Xr[s:s + block], Xc, metric)
+        rows = row_off + s + torch.arange(slab.shape[0], device=Xr.device)
+        ids = cols.expand(slab.shape[0], w).to(torch.int32)
+        self_ = rows[:, None] == cols[None, :]
+        slab = torch.where(self_, float("inf"), slab)
+        ids = torch.where(self_, SENTINEL, ids)
+        dv, di = merge_pairs(slab, ids, k)
+        dist.append(dv)
+        idx.append(di)
+    graph = NeighborGraph(torch.cat(idx), torch.cat(dist))
+    if w < k:  # fewer candidates than k: the rest are empty entries
+        pad = _sentinels(m, k - w, Xr.device)
+        graph = NeighborGraph(torch.cat([graph.indices, pad.indices], 1),
+                              torch.cat([graph.distances, pad.distances], 1))
+    return graph
+
+
+def topk_block_cuda(Xr: torch.Tensor, Xc: torch.Tensor, k: int, *,
+                    metric: str = "euclidean", row_off: int = 0,
+                    col_off: int = 0) -> NeighborGraph:
+    """The block entry of the selection kernel for CUDA tensors, through
+    :func:`topk_block_torch` for CPU ones: each row of ``Xr`` (m, d),
+    global index ``row_off + row``, against the rows of ``Xc`` (w, d),
+    global index ``col_off + col``; (m, k) lists as the plain version's.
+
+    CUDA operands must be contiguous float32 on one device, k in
+    1..:data:`MAX_K`, every global index below :data:`SENTINEL`; anything
+    else raises.  With no candidate (w = 0) the lists are all empty
+    entries and nothing is launched.  Each launch adds one to
+    ``topk_block_cuda.launches`` and its grids (the row norms of Xr and of
+    Xc, then the selection) to ``.grid_launches``.
+    """
+    if Xr.device.type == "cpu":
+        return topk_block_torch(Xr, Xc, k, metric=metric, row_off=row_off,
+                                col_off=col_off)
+    mid = metric_id(metric)
+    dev = Xr.device
+    if dev.type != "cuda":
+        raise ValueError(f"topk_block_cuda: unsupported device {dev}")
+    (m, d), w = Xr.shape, Xc.shape[0]
+    check_operands("topk_block_cuda", dev, Xr=(Xr, (m, d), torch.float32),
+                   Xc=(Xc, (w, d), torch.float32))
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"topk_block_cuda: k={k} outside the kernel's "
+                         f"range 1..{MAX_K} (ROADMAP.md queue 3)")
+    if (row_off < 0 or col_off < 0 or row_off + m > SENTINEL
+            or col_off + w > SENTINEL):
+        raise ValueError(f"topk_block_cuda: global indices [{row_off}, "
+                         f"{row_off + m}) / [{col_off}, {col_off + w}) "
+                         "outside 0..2^31-2")
+    if m == 0 or w == 0:
+        return _sentinels(m, k, dev)
+    norms_r = torch.empty((m,), dtype=torch.float32, device=dev)
+    norms_c = torch.empty((w,), dtype=torch.float32, device=dev)
+    dist = torch.empty((m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    fn = _build.load("pald_topk_block_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(Xr.data_ptr(), Xc.data_ptr(), norms_r.data_ptr(),
+                    norms_c.data_ptr(), dist.data_ptr(), idx.data_ptr(), m,
+                    w, row_off, col_off, d, k, mid, stream)
+    _build.check(status, "pald_topk_block_f32")
+    topk_block_cuda.launches += 1
+    topk_block_cuda.grid_launches += 2 * norm_grids(metric) + 1
+    return NeighborGraph(idx, dist)
+
+
+topk_block_cuda.launches = 0
+topk_block_cuda.grid_launches = 0

@@ -1,0 +1,3 @@
+"""Launch helpers of the port (counterpart of ``repro.launch``): device
+meshes over ``torch.distributed`` (``mesh.py``), the analytic cost model of
+distributed PaLD (``dryrun_pald.py``) and the self-test (``selftest.py``)."""

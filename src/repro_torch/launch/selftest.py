@@ -1,0 +1,112 @@
+"""Self-test of the port: PaLD on the device end to end, one rank and a
+world of four (counterpart of the PaLD checks of ``repro.launch.selftest``).
+
+    PYTHONPATH=src python -m repro_torch.launch.selftest            # the card
+    PYTHONPATH=src python -m repro_torch.launch.selftest --device cpu
+
+Checks, each against the numpy reference oracle (``core.reference``):
+
+- the PaLD core: ``pald.cohesion`` by the four methods (dense, pairwise,
+  triplet, kernel) on one device;
+- distributed PaLD: ``core.distributed.pald_distributed`` with the ring
+  strategy in a local world of four ranks sharing the device
+  (``testing.world``, gloo), and the sharded k-NN pipeline
+  (``core.distributed_knn.pald_knn_sharded``) bitwise the single-device
+  ``select_cohere``.
+
+On the card the kernels run in every rank.  Exit code 0 = healthy.  The
+reference's language-model, checkpoint and lowering checks belong to the
+part of the JAX package the port has not taken up (ROADMAP.md queue 1,
+item 12).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+__all__ = ["main"]
+
+P_WORLD = 4
+
+
+def _distances(n: int, seed: int) -> np.ndarray:
+    X = np.random.default_rng(seed).normal(size=(n, 4))
+    return np.sqrt(((X[:, None] - X[None]) ** 2).sum(-1))
+
+
+def _pald_core(device: str) -> None:
+    from repro_torch.core import pald, reference
+
+    D = _distances(40, 0)
+    Cref = reference.pald_pairwise_reference(D, ties="ignore",
+                                             normalize=True)
+    for m in ("dense", "pairwise", "triplet", "kernel"):
+        C = pald.cohesion(D, method=m, block=16, ties="ignore",
+                          device=device).cpu().numpy()
+        assert np.allclose(C, Cref, atol=1e-5), m
+
+
+def _pald_distributed(device: str) -> None:
+    import torch
+
+    from repro_torch.core import reference
+    from repro_torch.kernels import ops
+    from repro_torch.testing.world import MeshSpec, World
+
+    D = _distances(48, 1)
+    Cref = reference.pald_pairwise_reference(D, ties="ignore",
+                                             normalize=True)
+    X = np.random.default_rng(2).integers(0, 4, (50, 4)).astype(np.float32)
+    g1, v1 = ops.select_cohere(torch.as_tensor(X, device=device), k=7,
+                               normalize=True)
+    mesh = MeshSpec((P_WORLD,), ("data",))
+    with World(P_WORLD, device=device, timeout=300.0) as w:
+        for C in w.run("repro_torch.core.distributed:pald_distributed", D,
+                       mesh, strategy="ring", ties="ignore", device=device):
+            assert np.allclose(C, Cref, atol=1e-5), "ring"
+        for g, v in w.run(
+                "repro_torch.core.distributed_knn:pald_knn_sharded", X,
+                mesh, k=7, strategy="ring", device=device):
+            assert np.array_equal(g.indices, g1.indices.cpu().numpy())
+            assert np.array_equal(v, v1.cpu().numpy()), "sharded knn"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.selftest")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    t0 = time.time()
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("[selftest] no CUDA GPU available; pass --device cpu",
+              file=sys.stderr)
+        return 2
+    failures = []
+
+    def check(name, fn):
+        t = time.time()
+        try:
+            fn(args.device)
+            print(f"  ok   {name} ({time.time() - t:.1f}s)")
+        except Exception as e:  # noqa: BLE001 - reported, and exit code 1
+            failures.append(name)
+            print(f"  FAIL {name}: {type(e).__name__}: {e}")
+
+    where = (torch.cuda.get_device_name(0) if args.device == "cuda"
+             else "cpu")
+    print(f"[selftest] device: {where}, torch {torch.__version__}")
+    check("pald core (4 methods vs reference)", _pald_core)
+    check(f"pald distributed (ring, {P_WORLD} ranks; sharded knn bitwise)",
+          _pald_distributed)
+    print(f"[selftest] "
+          f"{'FAILED: ' + ', '.join(failures) if failures else 'all healthy'}"
+          f" ({time.time() - t0:.1f}s)")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

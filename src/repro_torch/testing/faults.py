@@ -28,9 +28,19 @@ size as ``batch=``), ``ops.focus_general`` / ``ops.cohesion_general`` /
 ``ops.pald_tri`` / ``ops.pald_fused`` / ``ops.knn_values`` /
 ``ops.topk_select`` / ``ops.select_cohere`` (the kernel entry points, with
 the *resolved* ``impl=``, "cuda" or "torch"), ``features.cdist`` (the
-materialize-D front-end) and ``resilience.step`` (each rung).  The cache
-helpers act on the port's tuning cache (``repro_torch.tuning.autotune``,
-``$REPRO_TORCH_TUNE_CACHE``).
+materialize-D front-end), ``resilience.step`` (each rung), and the sharded
+k-NN pipeline's ``distributed_knn.dispatch`` (before any collective, with
+``strategy=``, ``p=``, ``k=``, ``metric=``) and ``distributed_knn.body``
+(the shard bodies, with ``strategy=``, ``p=`` and the mesh shape as
+``mesh=``).  The cache helpers act on the port's tuning cache
+(``repro_torch.tuning.autotune``, ``$REPRO_TORCH_TUNE_CACHE``).
+
+A rule armed here lives in this process only.  The ranks of a
+distributed run are processes of their own: a rule reaches them as the
+keyword dictionary of :func:`failing` (``site``, ``match``, ``nth``,
+``times``, and an exception class as ``exc``), handed to
+``testing.world.World.run(..., faults=[...])``, which arms it inside every
+rank for the call.
 """
 from __future__ import annotations
 

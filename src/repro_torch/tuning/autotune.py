@@ -440,9 +440,17 @@ def _synthetic_inputs(n: int, seed: int = 0, with_weights: bool = False,
 
 
 def _runner(pass_: str, D, W, X, block: int, block_z: int, impl: str,
-            ties="drop", k: int | None = None):
+            ties="drop", k: int | None = None, mesh=None):
     from repro_torch.core import engine
     from repro_torch.kernels import ops
+    if mesh is not None:
+        # the mesh cell: the sharded select->cohere itself on a p-rank row
+        # shard, block and tile meaning what pald_knn_sharded reads them as
+        from repro_torch.core import distributed_knn as dknn
+
+        return dknn.pald_knn_sharded(X, mesh, k=k or 16, block=block,
+                                     tile=block_z, impl=impl,
+                                     device=X.device)[1]
     if pass_ in ("pald", "pald_tri"):
         # what a plan runs: the engine's +inf pad to a multiple of block,
         # then the pipeline (kernels/ops.py::_kernel_exec); on the CUDA
@@ -478,8 +486,25 @@ def _runner(pass_: str, D, W, X, block: int, block_z: int, impl: str,
     raise ValueError(f"unknown pass {pass_!r} (expected one of {PASSES})")
 
 
-_DISTRIBUTED = ("p > 1 (a mesh cell) is the distributed slice (ROADMAP.md "
-                "queue 1, item 10)")
+def _mesh_cell(p: int, pass_: str):
+    """The (p,) ("data",) mesh of a p > 1 selection cell, over the current
+    world (every rank calls ``tune``)."""
+    import torch.distributed as dist
+
+    if pass_ != "pald_topk":
+        raise ValueError(
+            f"p= (mesh device count) only keys the selection pass "
+            f"(pald_topk), not {pass_!r}")
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != p:
+        raise RuntimeError(
+            f"tuning the p={p} mesh cell needs a torch.distributed world "
+            f"of {p} ranks, every rank calling tune(); have {have} "
+            f"(`python -m repro_torch.tuning.hillclimb topk --p {p}` starts "
+            "a local one)")
+    from repro_torch.launch.mesh import make_test_mesh
+
+    return make_test_mesh((p,), ("data",))
 
 
 def tune(
@@ -509,7 +534,12 @@ def tune(
     (default 8), ``pald_knn`` on ``k`` (default 16, no z axis),
     ``pald_topk`` on ``k`` and ``d`` with its own default grid (row slabs
     against the prefilter's tile, a tile >= n being direct); a non-default
-    ``ties`` has its own cell.  On ``impl="cuda"`` the kernels' tiles are
+    ``ties`` has its own cell.  With ``p`` > 1 the cell is the mesh cell
+    (``pald_topk`` only; key ``pald_topk:k<k>:d<d>:p<p>``): every rank of a
+    world of p ranks calls ``tune``, the candidates time the sharded
+    select->cohere (``core/distributed_knn.py``) on a (p,) mesh, the
+    ranks agree on the time budget, and rank 0 saves the record.  On
+    ``impl="cuda"`` the kernels' tiles are
     fixed: ``pald`` / ``pald_tri`` sweep ``blocks`` (the engine's pad)
     with the default z tile, and every other pass times one candidate,
     the size-aware default (``"fixed_tiles": true`` in the record).  Rows
@@ -521,14 +551,14 @@ def tune(
     "over-budget"}``.  RuntimeError if every candidate failed.
 
     Raises:
-        NotImplementedError: ``p > 1`` (ROADMAP.md queue 1, item 10).
+        ValueError: an unknown pass, or ``p`` > 1 off ``pald_topk``.
+        RuntimeError: ``p`` > 1 outside a world of p ranks.
     """
-    if p is not None and p > 1:
-        raise NotImplementedError(_DISTRIBUTED)
     if pass_ not in PASSES:
         raise ValueError(f"unknown pass {pass_!r} (expected one of {PASSES})")
     from repro_torch.core.engine import resolve_device
 
+    mesh = _mesh_cell(int(p), pass_) if p is not None and p > 1 else None
     dev = resolve_device(device)
     backend = backend or backend_of(dev)
     impl = impl or _default_impl(backend)
@@ -562,12 +592,17 @@ def tune(
             row = {"block": b, "block_z": bz}
             if pass_ in ("pald", "pald_tri"):
                 row["padded_n"] = -(-n // b) * b
+            if mesh is not None:  # every rank runs the same candidates
+                from repro_torch.core.distributed import _any
+
+                over_budget = _any(over_budget, mesh, dev)
             if over_budget:
                 rows.append({**row, "skipped": "over-budget"})
                 continue
             try:
                 t = time_fn(
-                    lambda: _runner(pass_, D, W, X, b, bz, impl, ties, k),
+                    lambda: _runner(pass_, D, W, X, b, bz, impl, ties, k,
+                                    mesh),
                     iters=iters)
             except Exception as exc:  # noqa: BLE001 - one bad candidate
                 rows.append({**row, "failed": True,
@@ -592,6 +627,10 @@ def tune(
     }
     if fixed:
         record["fixed_tiles"] = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        save = save and dist.get_rank() == 0  # one writer for the world
     if save:
         save_entry(backend, impl, n,
                    _pass_key(pass_,
@@ -599,7 +638,8 @@ def tune(
                              else None,
                              None if pass_ == "pald_topk" else ties,
                              k=k if pass_ in ("pald_knn", "pald_topk")
-                             else None),
+                             else None,
+                             p=p if mesh is not None else None),
                    record, path)
     return record
 

@@ -24,13 +24,17 @@ selection's row slab (``--blocks``) against its tile-min prefilter width
     python -m repro_torch.tuning.hillclimb topk \\
         --n 4096 --d 8 --k 32 --impl torch --tiles 32,64,direct
 
+``topk --p P`` (P > 1) tunes the mesh cell ``pald_topk:k<k>:d<d>:p<P>``:
+a local world of P ranks on the device (``testing.world``), each timing
+the sharded select->cohere on a (P,) mesh; rank 0 records the winner.
+
 Every subcommand takes ``--device`` ("cuda" by default, "cpu"), ``--cache``
 (default ``$REPRO_TORCH_TUNE_CACHE``, else
 ``~/.cache/repro_pald_torch/blocktune.json``), ``--iters`` and ``--budget``
 (wall seconds for the sweep).  The records are keyed by the device's name,
 so a cache measured on one card never steers another.  The reference's
-``cell`` subcommand (the LM dry run) and its mesh cells (``--p`` > 1) are
-not ported (ROADMAP.md queue 1, items 12 and 10).
+``cell`` subcommand (the LM dry run) is not ported (ROADMAP.md queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -92,9 +96,12 @@ def run_blocks(args) -> None:
     print(f"# cached under {autotune.cache_path(args.cache)}")
 
 
+def _tune_topk(n: int, **kw) -> dict:
+    """A rank's job of ``topk --p``: ``autotune.tune`` of the mesh cell."""
+    return autotune.tune(n, "pald_topk", **kw)
+
+
 def run_topk(args) -> None:
-    if args.p and args.p > 1:
-        raise SystemExit(f"--p {args.p}: {autotune._DISTRIBUTED}")
     kw = {"d": args.d, "k": args.k}
     if args.blocks:
         kw["blocks"] = _csv_ints(args.blocks)
@@ -103,10 +110,18 @@ def run_topk(args) -> None:
         kw["blocks_z"] = tuple(
             args.n if t.strip() == "direct" else int(t)
             for t in args.tiles.split(",") if t.strip())
-    rec = autotune.tune(
-        args.n, "pald_topk", impl=args.impl, device=args.device,
-        path=args.cache, iters=args.iters, time_budget=args.budget, **kw)
-    print(f"# tuned pald_topk n={args.n} d={args.d} k={args.k} "
+    kw.update(impl=args.impl, device=args.device, path=args.cache,
+              iters=args.iters, time_budget=args.budget)
+    if args.p and args.p > 1:
+        from repro_torch.testing.world import run_world
+
+        kw["p"] = args.p
+        rec = run_world(args.p, "repro_torch.tuning.hillclimb:_tune_topk",
+                        (args.n,), kw, device=args.device)[0]
+    else:
+        rec = autotune.tune(args.n, "pald_topk", **kw)
+    mesh = f" p={args.p}" if args.p and args.p > 1 else ""
+    print(f"# tuned pald_topk n={args.n} d={args.d} k={args.k}{mesh} "
           f"impl={args.impl or 'default'} on "
           f"{autotune.backend_of(args.device)}")
     _print_grid(rec, lambda row: ("direct" if row["block_z"] >= args.n
@@ -182,8 +197,8 @@ def main(argv=None) -> None:
                       help="csv prefilter tiles; >= n or 'direct' sorts "
                            "whole rows")
     topk.add_argument("--p", type=int, default=None,
-                      help="mesh device count; p > 1 is refused (the "
-                           "distributed slice)")
+                      help="mesh device count; p > 1 tunes the mesh cell "
+                           "in a local world of p ranks")
     _common(topk)
 
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)

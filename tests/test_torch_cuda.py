@@ -31,6 +31,8 @@ bitwise its items one at a time, and a batched call's peak memory is its
 chunk's.
 ``chip_smoke.py`` repeats the comparisons at the main paths' full size.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1086,6 +1088,9 @@ def test_cuda_batched_peak_memory_is_the_chunks(cuda_device, schedule,
                          device=cuda_device)
     p = pald.plan(Db, method="kernel", schedule=schedule, batch=batch)
     want = p.execute(Db)  # builds, and allocates the focus counters
+    # garbage of earlier tests (reference cycles holding CUDA tensors)
+    # freed by a collection inside the measured call would lower its peak
+    gc.collect()
     torch.cuda.synchronize(cuda_device)
     base = torch.cuda.memory_allocated(cuda_device)
     torch.cuda.reset_peak_memory_stats(cuda_device)
@@ -1187,3 +1192,100 @@ def test_cuda_tune_methods_records_the_crossover(cuda_device, tmp_path):
         assert autotune.method_for_ex(r["n"], device=cuda_device,
                                       path=cache) == (
             r["method"], f"cache:{name}|-|{r['n']}|method")
+
+
+# ---------------------------------------------------------------------------
+# the distributed slice's entries: the selection's block entry and the
+# values' row offset / neighbor-row source (core/distributed_knn.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 32, 33, 200])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_topk_block_is_the_full_calls_rows(cuda_device, metric, k):
+    """Rows [r0, r0 + m) against candidate blocks, each through the block
+    entry (global indices, self excluded by global index), merged on the
+    (value, index) key: bitwise the full call's rows; each block bitwise
+    the block entry's plain version, (+inf, INT32_MAX) past the real
+    candidates included."""
+    from repro_torch.kernels import pald_topk
+
+    n, d = 601, 5
+    Xg = torch.as_tensor(_knn_features(n, d, seed=k), device=cuda_device)
+    full = pald_topk.topk_select_cuda(Xg, k, metric=metric)
+    for r0, m, cuts in ((0, 601, (0, 601)), (150, 150, (0, 150, 300, 601)),
+                        (433, 168, (0, 5, 128, 433, 601))):
+        rows = Xg[r0:r0 + m]
+        bv = bi = None
+        for c0, c1 in zip(cuts[:-1], cuts[1:]):
+            before = pald_topk.topk_block_cuda.launches
+            gk = pald_topk.topk_block_cuda(rows, Xg[c0:c1].contiguous(), k,
+                                           metric=metric, row_off=r0,
+                                           col_off=c0)
+            assert pald_topk.topk_block_cuda.launches == before + 1
+            gp = pald_topk.topk_block_torch(rows, Xg[c0:c1], k,
+                                            metric=metric, row_off=r0,
+                                            col_off=c0)
+            torch.cuda.synchronize()
+            assert torch.equal(gk.indices, gp.indices)
+            assert torch.equal(gk.distances, gp.distances)
+            if bv is None:
+                bv, bi = gk.distances, gk.indices
+            else:
+                bv, bi = pald_topk.merge_pairs(
+                    torch.cat([bv, gk.distances], 1),
+                    torch.cat([bi, gk.indices], 1), k)
+        assert torch.equal(bi, full.indices[r0:r0 + m])
+        assert torch.equal(bv, full.distances[r0:r0 + m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 32, 100])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_knn_values_row_offset_is_the_full_calls_rows(cuda_device,
+                                                           name, k):
+    """The features source on a slice of the graph's rows, with their
+    global offset (the index tiebreak's), and the neighbor-row source on
+    the rows' own (m, k, d) neighbor features: bitwise the full call's
+    rows, each counting its launch."""
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    n = 301
+    Xg = torch.as_tensor(_knn_features(n, 5, seed=k + 1), device=cuda_device)
+    graph = pald_topk.topk_select_cuda(Xg, k)
+    full = pald_knn.knn_values_from_features_cuda(
+        Xg, graph.distances, graph.indices, ties=name)
+    for r0, m in ((0, 301), (77, 100), (300, 1)):
+        dn = graph.distances[r0:r0 + m]
+        idx = graph.indices[r0:r0 + m]
+        v_off = pald_knn.knn_values_from_features_cuda(
+            Xg, dn, idx, ties=name, row_off=r0)
+        before = pald_knn.knn_values_from_neighbors_cuda.launches
+        Xn = Xg[idx.long()].contiguous()
+        v_nbr = pald_knn.knn_values_from_neighbors_cuda(
+            Xn, dn, idx, ties=name, row_off=r0)
+        assert pald_knn.knn_values_from_neighbors_cuda.launches == before + 1
+        torch.cuda.synchronize()
+        _assert_bitwise("row offset", v_off, full[r0:r0 + m])
+        _assert_bitwise("neighbor rows", v_nbr, full[r0:r0 + m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["allgather", "ring", "2d"])
+def test_cuda_sharded_knn_in_a_world(cuda_device, strategy):
+    """A world of 4 ranks sharing the card (gloo, host-staged): the sharded
+    graph and values bitwise the single-device ``select_cohere`` on the
+    card, in every rank."""
+    from repro_torch.testing.world import MeshSpec, World
+
+    X = _knn_features(1000, 8, seed=5)
+    g1, v1 = ops.select_cohere(torch.as_tensor(X, device=cuda_device), k=16,
+                               normalize=True)
+    shape = (2, 2) if strategy == "2d" else (4,)
+    axes = ("rows", "cols")[:len(shape)]
+    with World(4, device="cuda", timeout=300.0) as w:
+        outs = w.run("repro_torch.core.distributed_knn:pald_knn_sharded", X,
+                     MeshSpec(shape, axes), k=16, strategy=strategy)
+    for g, v in outs:
+        assert np.array_equal(g.indices, g1.indices.cpu().numpy())
+        assert np.array_equal(g.distances, g1.distances.cpu().numpy())
+        assert np.array_equal(v, v1.cpu().numpy())

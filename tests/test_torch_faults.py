@@ -30,8 +30,8 @@ so a failure the OOM halving does not rescue ends in ``FallbackExhausted``
 Beyond them: a chunk of b items is bitwise b single items on every cell
 (``batch=``), and the ``select="chunked"`` rung against the port's own
 ``_top_k_rows`` and the JAX package's chunked rung.  The sharded tests of
-tests/test_faults.py (:339-357, :482-530) and the tuning-cache one come
-with ROADMAP.md queue 1, items 10 and 9.
+tests/test_faults.py (:339-357, :482-530) run in worlds of spawned ranks
+in tests/test_torch_distributed.py and tests/test_torch_distributed_knn.py.
 """
 import dataclasses
 import warnings

@@ -247,9 +247,33 @@ def test_from_features_knob_errors():
     with pytest.raises(ValueError, match="does not match"):
         p.execute(_X(10, d=3))
     # the "auto" tiles resolve as the reference's
-    # (tests/test_torch_tuning.py); the distributed knobs raise
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
-        pald.from_features(X, device="cpu", strategy="ring")
+    # (tests/test_torch_tuning.py); the distributed knobs as the
+    # reference's: strategy= needs a mesh, and a mesh the k-NN method
+    # (tests/test_torch_distributed_knn.py holds the sharded results)
+    for pkg, Xa in ((jpald, jnp.asarray(X)), (pald, X)):
+        kw = {} if pkg is jpald else {"device": "cpu"}
+        with pytest.raises(ValueError, match=r"strategy='ring' configures "
+                                             r"the mesh-sharded knn"):
+            pkg.from_features(Xa, strategy="ring", **kw)
+    from repro.launch import mesh as jmeshlib
+    from repro_torch.testing.world import MeshSpec, World
+
+    jmesh = jmeshlib.make_test_mesh((1,), ("d",))
+    fused_mesh = (r"needs kind='features' with method='knn' \(got "
+                  r"kind='features', method='fused'\)")
+    with pytest.raises(ValueError, match=fused_mesh):
+        jpald.from_features(jnp.asarray(X), mesh=jmesh)
+    with World(1, spawn=False) as w:
+        with pytest.raises(ValueError, match=fused_mesh):
+            w.run(pald.from_features, X, mesh=MeshSpec((1,), ("d",)),
+                  device="cpu")
+        C = w.run(pald.from_features, X, k=3, mesh=MeshSpec((1,), ("d",)),
+                  device="cpu")[0]
+    np.testing.assert_array_equal(
+        C, pald.from_features(X, k=3, device="cpu").numpy())
+    np.testing.assert_allclose(
+        C, np.asarray(jpald.from_features(jnp.asarray(X), k=3, mesh=jmesh)),
+        rtol=1e-5, atol=1e-6)
     # on_error="fallback" runs (tests/test_torch_faults.py holds the guard)
     assert torch.equal(pald.from_features(X, on_error="fallback",
                                           device="cpu"),

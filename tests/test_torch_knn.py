@@ -433,14 +433,37 @@ def test_knn_knobs_raise_value_error(kind, knobs):
         engine.plan(x, kind=kind, device="cpu", **knobs)
 
 
-@pytest.mark.parametrize("knobs,item", [
-    ({"mesh": object()}, "item 10"),
-    ({"strategy": "ring"}, "item 10"),
-])
-def test_knn_unported_knobs_name_their_slice(knobs, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1, "
-                                                  rf"{item}"):
-        engine.plan(_X(10), kind="features", k=3, device="cpu", **knobs)
+@pytest.mark.parametrize("knob", ["mesh", "strategy"])
+def test_knn_unported_knobs_name_their_slice(knob):
+    """The distributed knobs of the k-NN features cell, held to the
+    reference: a one-rank mesh plans the sharded cell with the reference's
+    mesh report (tests/test_torch_distributed_knn.py holds wider meshes
+    and the results); ``strategy=`` alone raises the reference's
+    ``ValueError``."""
+    from repro.core import engine as jengine
+    from repro.launch import mesh as jmeshlib
+    from repro_torch.testing.world import World
+
+    X = _X(10)
+    if knob == "strategy":
+        match = r"strategy='ring' configures the mesh-sharded knn pipeline"
+        with pytest.raises(ValueError, match=match):
+            jengine.plan(jnp.asarray(X), kind="features", k=3,
+                         strategy="ring")
+        with pytest.raises(ValueError, match=match):
+            engine.plan(X, kind="features", k=3, device="cpu",
+                        strategy="ring")
+        return
+    want = jengine.plan(jnp.asarray(X), kind="features", k=3,
+                        mesh=jmeshlib.make_test_mesh((1,), ("rows",)))
+    with World(1, spawn=False):
+        from repro_torch.launch.mesh import make_test_mesh
+
+        got = engine.plan(X, kind="features", k=3, device="cpu",
+                          mesh=make_test_mesh((1,), ("rows",))).explain()
+    for key in ("mesh", "mesh_axes", "strategy", "shard_rows",
+                "comm_estimate", "k", "method"):
+        assert got[key] == want.explain()[key], key
 
 
 def test_knn_registered_cells():

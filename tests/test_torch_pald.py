@@ -7,13 +7,14 @@ committed goldens, and to the O(n^3) numpy oracle: C within rtol 1e-5,
 atol 1e-6 (tests/test_conformance.py), since the two packages sum the same
 terms in another order.  The port's numpy copies (``reference.py``,
 ``analysis.py``) must equal the reference's exactly.  The package imports
-neither JAX nor ``repro``, runs on the CPU only when asked, and raises
-``NotImplementedError`` for every knob of a later slice.
+neither JAX nor ``repro``, runs on the CPU only when asked, and refuses
+the knobs the reference refuses with the reference's errors.
 """
 import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -283,17 +284,29 @@ def test_shape_errors():
         p.execute(np.zeros((6, 6)))
 
 
-@pytest.mark.parametrize("knobs", [
-    {"method": "kernel", "mesh": object()},
-    {"method": "kernel", "strategy": "ring"},
+@pytest.mark.parametrize("knobs,match", [
+    ({"method": "kernel", "mesh": object()},
+     r"mesh= shards the fused select->cohere knn pipeline and needs "
+     r"kind='features' with method='knn' \(got kind='distance', "
+     r"method='kernel'\)"),
+    ({"method": "kernel", "strategy": "ring"},
+     r"strategy='ring' configures the mesh-sharded knn pipeline; pass "
+     r"mesh="),
 ])
-def test_unported_knobs_raise(knobs):
-    """Every knob of a later slice raises and names its ROADMAP.md slice;
-    none is dropped silently.  (The tuning cache's knobs, "auto" tiles
-    and ``select_tile=``, resolve as the reference's:
+def test_unported_knobs_raise(knobs, match):
+    """The distributed knobs on a distance plan raise the reference's
+    ``ValueError``, as its ``engine.plan`` does: a mesh shards only the
+    features k-NN cell, and ``strategy=`` needs a mesh (their positive
+    side: tests/test_torch_distributed_knn.py).  (The tuning cache's
+    knobs resolve as the reference's:
     tests/test_torch_tuning.py::test_auto_knobs_resolve_as_the_reference.)"""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1"):
-        engine.plan(_points_D(8), device="cpu", **knobs)
+    from repro.core import engine as jengine
+
+    D = _points_D(8)
+    with pytest.raises(ValueError, match=match):
+        jengine.plan(jnp.asarray(D), **knobs)
+    with pytest.raises(ValueError, match=match):
+        engine.plan(D, device="cpu", **knobs)
 
 
 @pytest.mark.parametrize("n", [40, 256, 257])
@@ -475,3 +488,41 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                        text=True, timeout=120, cwd=tmp_path,
                        env={**env, "PYTHONPATH": ""})
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def _public_names(path) -> set:
+    """The names a module defines at its top level (functions, classes,
+    assignments; imports excluded) that do not start with "_", plus its
+    ``__all__``."""
+    tree = ast.parse(open(path).read())
+    names, exported = set(), set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                if isinstance(t, ast.Name):
+                    names.add(t.id)
+                    if t.id == "__all__":
+                        exported = set(ast.literal_eval(node.value))
+    return {n for n in names if not n.startswith("_")} | exported
+
+
+_CORE = sorted(p.stem for p in
+               (Path(jpald.__file__).parent).glob("*.py")
+               if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("module", _CORE)
+def test_core_public_names_match_the_reference(module):
+    """Every public name of each ``repro/core`` module (what it defines,
+    and its ``__all__``) exists in the port's module of the same name."""
+    import importlib
+
+    ref = Path(jpald.__file__).parent / f"{module}.py"
+    port = importlib.import_module(f"repro_torch.core.{module}")
+    missing = sorted(n for n in _public_names(ref) if not hasattr(port, n))
+    assert not missing, f"repro_torch.core.{module} lacks {missing}"

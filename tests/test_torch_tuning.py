@@ -298,9 +298,42 @@ def test_tune_methods_time_budget_skips_whole_sizes(tmp_path):
     assert set(autotune.load_cache(p)) == {"cpu|-|12|method"}
 
 
-def test_tune_refuses_a_mesh_cell():
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        autotune.tune(64, "pald_topk", device="cpu", p=4)
+def test_tune_refuses_a_mesh_cell(tmp_path):
+    """``tune(p > 1)``: the mesh cell ``pald_topk:k<k>:d<d>:p<p>``, timed
+    on the sharded select->cohere in a world of p ranks, keyed and
+    resolved as the reference's (its cell runs on 4 forced host devices);
+    the reference's errors off the selection pass and outside such a
+    world."""
+    from repro_torch.testing.world import World
+
+    kw = dict(blocks=(16,), blocks_z=(64,), iters=1, k=5, d=3)
+    jp, pp = str(tmp_path / "ref.json"), str(tmp_path / "port.json")
+    jrec = jtune.tune(64, "pald_topk", impl="jnp", p=4, path=jp, **kw)
+    for tune, extra in ((jtune.tune, {}), (autotune.tune, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="only keys the selection pass"):
+            tune(64, "pald", p=4, **extra)
+    with pytest.raises(RuntimeError, match="needs a torch.distributed world "
+                                           "of 4 ranks"):
+        autotune.tune(64, "pald_topk", device="cpu", p=4, path=pp, **kw)
+    with World(4) as w:
+        recs = w.run(autotune.tune, 64, "pald_topk", impl="torch",
+                     device="cpu", p=4, path=pp, **kw)
+    assert (recs[0]["block"], recs[0]["block_z"]) == (jrec["block"],
+                                                      jrec["block_z"])
+    (jkey,) = jtune.load_cache(jp)
+    assert set(autotune.load_cache(pp)) == {
+        "cpu|torch|64|" + jkey.split("|", 3)[3]} == {
+        "cpu|torch|64|pald_topk:k5:d3:p4"}
+    for resolve, extra in ((jtune.resolve_blocks_ex, {"impl": "jnp",
+                                                      "path": jp}),
+                           (autotune.resolve_blocks_ex,
+                            {"impl": "torch", "path": pp,
+                             "device": "cpu"})):
+        b, bz, src = resolve(64, "pald_topk", d=3, k=5, p=4, **extra)
+        assert (b, bz) == (16, 64) and src.endswith("pald_topk:k5:d3:p4")
+        # a miss on the mesh cell falls back to the single-device cell
+        assert resolve(64, "pald_topk", d=3, k=5, p=2,
+                       **extra)[2] == "default"
 
 
 def test_cuda_impl_collapses_the_axes_the_kernels_ignore(tmp_path):
@@ -720,8 +753,16 @@ def test_hillclimb_blocks_methods_topk(tmp_path, capsys):
     assert "tile=4" in out and "direct" in out
     assert set(autotune.load_cache(cache)) == {
         "cpu|cuda|20|pald", "cpu|-|16|method", "cpu|torch|30|pald_topk:k4:d3"}
-    with pytest.raises(SystemExit, match="item 10"):
-        hillclimb.main(["topk", "--n", "30", "--p", "4"] + common)
+    # the mesh cell: a local world of 4 ranks, keyed as the reference keys
+    # it (jtune._pass_key)
+    hillclimb.main(["topk", "--n", "30", "--k", "4", "--d", "3", "--impl",
+                    "torch", "--blocks", "16", "--tiles", "4", "--p", "4"]
+                   + common)
+    out = capsys.readouterr().out
+    assert "p=4" in out and "tile=4" in out and "<- best" in out
+    mesh_key = jtune._pass_key("pald_topk", 3, k=4, p=4)
+    assert mesh_key == "pald_topk:k4:d3:p4"
+    assert f"cpu|torch|30|{mesh_key}" in autotune.load_cache(cache)
 
 
 def test_hillclimb_runs_as_a_module(tmp_path):
