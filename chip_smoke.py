@@ -169,6 +169,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``mesh:single-device`` rung), ``"raise"`` raising in every rank, the
    world then running on; every call of a world within its deadline, and
    every rank process exiting 0.
+24. the LM serving path (``models/``, ``train/serve_step.py``,
+   ``launch/serve.py``): gemma2-2b at full width and depth (26 layers,
+   d = 2304, vocab 256,000, 2.6e9 parameters) seeded on the card; in
+   float32, the logits of a prefill of 4 x 32 tokens and of 31 greedy
+   decode steps against one cache-free forward over the same positions
+   (rtol 1e-3, atol 1e-3); then served in bfloat16 at the serve driver's
+   defaults (batch 4, prompt 32, 32 tokens, temperature 0.8) five times,
+   the first a warm-up: tokens in the vocabulary, logits finite, prefill
+   ms, decode ms a step, tok/s, peak device memory beside the parameters'
+   and caches' bytes, a profiler window over one decode step (device
+   events, busy share); then each of the ten archs' reduced configs, the
+   same float32 gate (prefill of 2 x 8, 3 decode steps) and a bfloat16
+   serve;
+25. the port's examples as programs (``python -m
+   repro_torch.examples.<name>``) at their defaults: ``quickstart``,
+   ``pald_knn_clusters`` (n = 50,000, and ``--mesh 4 --strategy ring``:
+   four spawned ranks on the card), ``pald_text_analysis`` (n = 2712, one
+   NCCL rank) and ``serve_lm --arch gemma2-2b --full``: each exits 0 with
+   its success line; their output and wall times are printed.
 
 The whole run reads and writes a tuning cache of its own, a fresh
 temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
@@ -1775,7 +1794,8 @@ def profile_window(fn):
     that the profiler also sees but does not record (its schedule's warm-up
     step: without it the trace can miss the window's first kernels):
     (device busy share of the host's window, {kernel name: device ms},
-    window ms), or None when the trace holds no device event."""
+    window ms, device events in the window), or None when the trace holds
+    no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1812,7 +1832,7 @@ def profile_window(fn):
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
     busy += hi - lo
-    return busy / window_us, by_name, window_us / 1e3
+    return busy / window_us, by_name, window_us / 1e3, len(spans)
 
 
 def phase_profile_and_ragged(D, n_ragged=8000, reps=3):
@@ -1830,7 +1850,7 @@ def phase_profile_and_ragged(D, n_ragged=8000, reps=3):
             print(f"phase 15: {sched} n={n}: the profiler recorded no device "
                   f"event; the CUDA-event times of phase 14 stand")
             continue
-        share, by_name, window_ms = got
+        share, by_name, window_ms, _ = got
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         print(f"phase 15: {sched} n={n}: profiler window {window_ms:.3f} ms, "
               f"device busy {share:.4f} (idle {1 - share:.4f}); kernel ms "
@@ -2760,6 +2780,301 @@ def phase_distributed_kernels(dev, clock_mhz, card, counts, reps=3):
     return [sel, val]
 
 
+# phase 24: the LM serving path at the serve driver's defaults
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 32
+# float32 prefill and decode logits against one cache-free forward: the
+# same products summed in other orders (other matmul shapes)
+LM_RTOL = LM_ATOL = 1e-3
+LM_REPS = 5
+# the other archs one card holds at full width and depth, with the path
+# each adds: (arch, batch, prompt, tokens generated).  mamba2's prompt
+# spans two SSD chunks of 256 (the forward over prompt + generated tokens
+# then runs three chunks of 173); granite's batch x prompt fills eight
+# MoE dispatch groups of 128 tokens.
+LM_FULL = (("mamba2-780m", 2, 512, 8),
+           ("granite-moe-1b-a400m", 4, 256, 8))
+
+
+def _lm_inputs(cfg, gen, B, S, dev):
+    """Token ids, or the frontend stub's float32 embeddings for the audio
+    and vlm archs."""
+    import torch
+    from repro_torch.models.model import (audio_frontend_stub,
+                                          vision_frontend_stub)
+
+    if cfg.modality == "text":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=gen, device=dev)}
+    stub = (audio_frontend_stub if cfg.modality == "audio"
+            else vision_frontend_stub)
+    return {"embeds": stub(gen, B, S, cfg.d_model, torch.float32, dev)}
+
+
+def lm_cache_gate(cfg, params, gen, B, S, G, dev):
+    """float32 ``prefill`` and G - 1 ``decode_step``s (greedy tokens; the
+    embedding archs take fresh stub embeddings) against one cache-free
+    ``apply`` over the same inputs, at the same positions: (max |err|,
+    max |logit|); fails beyond LM_RTOL / LM_ATOL."""
+    import torch
+    from repro_torch.models.model import Model
+
+    model = Model(cfg)
+    V = cfg.vocab_size
+    caches = model.init_caches(B, S + G, dtype=torch.float32, device=dev)
+    inp = _lm_inputs(cfg, gen, B, S, dev)
+    key = next(iter(inp))
+    logits, caches = model.prefill(params, inp, caches)
+    steps, fed = [logits], []
+    for i in range(1, G):
+        nxt = (torch.argmax(logits[:, :V], -1)[:, None] if key == "tokens"
+               else _lm_inputs(cfg, gen, B, 1, dev)["embeds"])
+        fed.append(nxt)
+        logits, caches = model.decode_step(params, nxt, caches, S + i - 1)
+        steps.append(logits)
+    with torch.no_grad():
+        full, _ = model.apply(params, {key: torch.cat([inp[key]] + fed, 1)})
+    got = torch.stack(steps, 1)[..., :V]
+    want = full[:, S - 1:, :V]
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
+        fail(f"{cfg.name}: cached prefill/decode logits differ from the "
+             f"cache-free forward by {err!r} (rtol {LM_RTOL}, atol "
+             f"{LM_ATOL})")
+    return err, scale
+
+
+def lm_prompt_gate(cfg, params, gen, B, S, dev):
+    """float32 ``prefill`` against one cache-free ``apply`` over the prompt
+    alone: the same tokens in the same MoE dispatch groups, so the same
+    tokens dropped at the config's capacity.  (max |err|, max |logit|);
+    fails beyond LM_RTOL / LM_ATOL."""
+    import torch
+    from repro_torch.models.model import Model
+
+    model = Model(cfg)
+    V = cfg.vocab_size
+    caches = model.init_caches(B, S + 1, dtype=torch.float32, device=dev)
+    inp = _lm_inputs(cfg, gen, B, S, dev)
+    got, _ = model.prefill(params, inp, caches)
+    with torch.no_grad():
+        full, _ = model.apply(params, inp)
+    got, want = got[:, :V], full[:, -1, :V]
+    err = float((got.double() - want.double()).abs().max())
+    if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
+        fail(f"{cfg.name}: prefill logits differ from the cache-free forward "
+             f"over the prompt by {err!r} (rtol {LM_RTOL}, atol {LM_ATOL})")
+    return err, float(want.abs().max())
+
+
+def _bf16_serve_ok(cfg, tokens, steps):
+    import torch
+
+    if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        fail(f"{cfg.name}: a sampled token outside [0, {cfg.vocab_size})")
+    if not all(bool(torch.isfinite(l[:, :cfg.vocab_size]).all())
+               for l in steps):
+        fail(f"{cfg.name}: non-finite bfloat16 logits")
+
+
+def phase_lm_serve(dev, card, reps=LM_REPS):
+    """Phase 24: gemma2-2b at full width and depth seeded on the card,
+    held in float32 to its cache-free forward, then served in bfloat16
+    (``launch.serve.generate``: the serve steps, batch 4, prompt 32, 32
+    tokens, temperature 0.8) ``reps`` times, the first a warm-up: prefill
+    ms, decode ms a step, tok/s, peak device memory beside the parameters'
+    and caches' bytes, a profiler window over one decode step; then
+    LM_FULL's archs at full width and depth (``phase_lm_full``); then the
+    other seven archs' reduced configs, float32 gate and bfloat16 serve."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, cast_floats
+    from repro_torch.train import serve_step
+
+    cfg = configs.get(LM_ARCH)
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    t0 = time.perf_counter()
+    params = Model(cfg).init(SEED, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"phase 24: {cfg.name}, {cfg.n_layers} layers, d = {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}: {n_params} parameters (config count "
+          f"{cfg.param_count()[0]}), float32, seeded on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    err, scale = lm_cache_gate(cfg, params, gen, B, S, G, dev)
+    print(f"phase 24: float32 prefill of {B} x {S} and {G - 1} greedy decode "
+          f"steps against one cache-free forward over the same {S + G - 1} "
+          f"positions: max |err| {err!r} (logits up to {scale!r}; rtol "
+          f"{LM_RTOL}, atol {LM_ATOL}) in {time.perf_counter() - t0:.1f} s")
+
+    params = cast_floats(params, torch.bfloat16)   # the float32 copy goes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    c_bytes = sum(t.numel() * t.element_size() for c in Model(cfg).init_caches(
+        B, S + G, device=dev) for t in c.values())
+    rows = []
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tokens, steps, t_pre, t_dec = serve.generate(
+            cfg, params, gen, batch=B, prompt_len=S, gen_len=G,
+            temperature=0.8)
+        peak = torch.cuda.max_memory_allocated()
+        _bf16_serve_ok(cfg, tokens, steps)
+        del steps
+        rows.append((t_pre * 1e3, t_dec * 1e3 / (G - 1),
+                     (G - 1) * B / t_dec, peak))
+        print(f"phase 24: bfloat16 serve run {rep}"
+              f"{' (warm-up)' if rep == 0 else ''}: prefill {B} x {S} "
+              f"{rows[-1][0]:.3f} ms, decode {rows[-1][1]:.3f} ms a step "
+              f"({G - 1} steps), {rows[-1][2]:.1f} tok/s; peak device "
+              f"memory {peak} B against parameters {p_bytes} B + caches "
+              f"{c_bytes} B ({peak / (p_bytes + c_bytes):.4f}x); {card}")
+    steady = rows[1:] or rows
+    print(f"phase 24: {cfg.name} bfloat16 serve, median of runs 1-"
+          f"{len(rows) - 1}: prefill "
+          f"{statistics.median(r[0] for r in steady):.3f} ms, decode "
+          f"{statistics.median(r[1] for r in steady):.3f} ms a step, "
+          f"{statistics.median(r[2] for r in steady):.1f} tok/s; weight "
+          f"bytes {p_bytes} over {HBM_BYTES_PER_S:.3g} B/s = "
+          f"{p_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a step at least; "
+          f"{card}")
+
+    model = Model(cfg)
+    caches = model.init_caches(B, S + G, device=dev)
+    pre = serve_step.make_prefill_step(cfg)
+    dec = serve_step.make_decode_step(cfg)
+    logits, caches = pre(params, _lm_inputs(cfg, gen, B, S, dev), caches)
+    tok = torch.argmax(logits, -1)[:, None]
+    got = profile_window(lambda: dec(params, tok, caches, S))
+    if got is None:
+        print("phase 24: the profiler recorded no device event in a decode "
+              "step")
+    else:
+        share, by_name, window_ms, events = got
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"phase 24: profiler window of one decode step {window_ms:.3f} "
+              f"ms, {events} device events, device busy {share:.4f} (idle "
+              f"{1 - share:.4f}); kernel ms by name: "
+              + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top))
+    del params, caches, logits
+    torch.cuda.empty_cache()
+
+    phase_lm_full(dev, card, gen)
+    for arch in configs.ARCHS:
+        if arch == LM_ARCH or arch in {a for a, *_ in LM_FULL}:
+            continue
+        rcfg = reduced(configs.get(arch))
+        rparams = Model(rcfg).init(SEED, dev)
+        err, scale = lm_cache_gate(rcfg, rparams, gen, 2, 8, 4, dev)
+        tokens, steps, _, _ = serve.generate(
+            rcfg, cast_floats(rparams, torch.bfloat16), gen, batch=2,
+            prompt_len=8, gen_len=4, temperature=0.8)
+        _bf16_serve_ok(rcfg, tokens, steps)
+        print(f"phase 24: {rcfg.name}: float32 prefill + 3 decode steps "
+              f"against the cache-free forward max |err| {err!r} (logits up "
+              f"to {scale!r}); bfloat16 serve tokens in range, logits finite")
+
+
+def phase_lm_full(dev, card, gen):
+    """Phase 24, LM_FULL: each arch seeded on the card at full width and
+    depth in float32 and held to its cache-free forward, then served once
+    in bfloat16 (``launch.serve.generate``).  A MoE arch is held twice: at
+    its capacity, prefill against the forward over the prompt alone
+    (``lm_prompt_gate``: the same dispatch groups); prefill and decode
+    against the forward over every position at a capacity that drops no
+    token (``capacity_factor`` = experts / top-k), since the forward's
+    groups hold other tokens than the prefill's and decode's."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, cast_floats
+
+    for arch, B, S, G in LM_FULL:
+        cfg = configs.get(arch)
+        t0 = time.perf_counter()
+        params = Model(cfg).init(SEED, dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        gate_cfg = cfg
+        if cfg.moe is not None:
+            err, scale = lm_prompt_gate(cfg, params, gen, B, S, dev)
+            print(f"phase 24: {cfg.name}: float32 prefill of {B} x {S} at "
+                  f"capacity factor {cfg.moe.capacity_factor} against the "
+                  f"cache-free forward over the prompt: max |err| {err!r} "
+                  f"(logits up to {scale!r})")
+            gate_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        err, scale = lm_cache_gate(gate_cfg, params, gen, B, S, G, dev)
+        print(f"phase 24: {cfg.name}, {cfg.n_layers} layers, d = "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}: {n_params} parameters "
+              f"(config count {cfg.param_count()[0]}); float32 prefill of "
+              f"{B} x {S} and {G - 1} greedy decode steps"
+              + (f" (capacity factor {gate_cfg.moe.capacity_factor})"
+                 if cfg.moe is not None else "")
+              + f" against one cache-free forward over {S + G - 1} "
+              f"positions: max |err| {err!r} (logits up to {scale!r}; rtol "
+              f"{LM_RTOL}, atol {LM_ATOL}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        params = cast_floats(params, torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tokens, steps, t_pre, t_dec = serve.generate(
+            cfg, params, gen, batch=B, prompt_len=S, gen_len=G,
+            temperature=0.8)
+        peak = torch.cuda.max_memory_allocated()
+        _bf16_serve_ok(cfg, tokens, steps)
+        print(f"phase 24: {cfg.name} bfloat16 serve (one run, the first): "
+              f"prefill {B} x {S} {t_pre * 1e3:.3f} ms, decode "
+              f"{t_dec * 1e3 / (G - 1):.3f} ms a step ({G - 1} steps), "
+              f"{(G - 1) * B / t_dec:.1f} tok/s, peak device memory {peak} "
+              f"B; tokens in range, logits finite; {card}")
+        del params, tokens, steps
+        torch.cuda.empty_cache()
+
+
+# phase 25: the port's examples at their defaults, each a program of its own
+EXAMPLES = (
+    ("quickstart", (), "all four methods agree"),
+    ("pald_knn_clusters", (), "no strong tie ever crosses communities"),
+    ("pald_knn_clusters", ("--mesh", "4", "--strategy", "ring"),
+     "no strong tie ever crosses communities"),
+    ("pald_text_analysis", (), "strong ties"),
+    ("serve_lm", ("--arch", "gemma2-2b", "--full"), "[serve] gemma2-2b:"),
+)
+EXAMPLE_TIMEOUT_S = 300.0
+
+
+def phase_examples(card):
+    """Phase 25: ``python -m repro_torch.examples.<name>`` for each of
+    EXAMPLES on the card: exit 0 and its success line; its output and wall
+    time printed."""
+    src = os.path.join(HERE, "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    for name, args, line in EXAMPLES:
+        cmd = [sys.executable, "-m", f"repro_torch.examples.{name}", *args]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                           env=env, timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0 or line not in r.stdout:
+            fail(f"{' '.join(cmd[1:])}: exit {r.returncode}, success line "
+                 f"{line!r} {'found' if line in r.stdout else 'missing'}\n"
+                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        print(f"phase 25: {' '.join(cmd[2:])}: exit 0 in {wall:.1f} s; {card}")
+        for out in r.stdout.strip().splitlines():
+            print(f"phase 25:   {out}")
+
+
 def main() -> int:
     import torch
 
@@ -2884,6 +3199,12 @@ def run_phases() -> int:
     t0 = time.perf_counter()
     phase_guard_distributed(card)
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_lm_serve(dev, card)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_examples(card)
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

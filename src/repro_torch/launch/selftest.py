@@ -1,5 +1,6 @@
 """Self-test of the port: PaLD on the device end to end, one rank and a
-world of four (counterpart of the PaLD checks of ``repro.launch.selftest``).
+world of four, one reduced arch through prefill and decode, and a
+checkpoint round trip (counterpart of ``repro.launch.selftest``).
 
     PYTHONPATH=src python -m repro_torch.launch.selftest            # the card
     PYTHONPATH=src python -m repro_torch.launch.selftest --device cpu
@@ -12,12 +13,16 @@ Checks, each against the numpy reference oracle (``core.reference``):
   strategy in a local world of four ranks sharing the device
   (``testing.world``, gloo), and the sharded k-NN pipeline
   (``core.distributed_knn.pald_knn_sharded``) bitwise the single-device
-  ``select_cohere``.
+  ``select_cohere``;
+- the LM serving path: reduced gemma2-2b (``models/``) through
+  ``prefill`` and one ``decode_step``, finite logits;
+- the checkpointer: ``save`` then ``restore_latest`` (``checkpoint/``).
 
 On the card the kernels run in every rank.  Exit code 0 = healthy.  The
-reference's language-model, checkpoint and lowering checks belong to the
-part of the JAX package the port has not taken up (ROADMAP.md queue 1,
-item 12).
+reference's ``lm_cycle`` also takes a train step, and it lowers one
+production cell abstractly: the train step waits for the training slice
+(ROADMAP.md queue 1, item 12b), the lowering for the XLA tooling's
+counterpart, which measures on the card instead of lowering (item 12c).
 """
 from __future__ import annotations
 
@@ -74,6 +79,41 @@ def _pald_distributed(device: str) -> None:
             assert np.array_equal(v, v1.cpu().numpy()), "sharded knn"
 
 
+def _lm_serve(device: str) -> None:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+
+    cfg = reduced(configs.get("gemma2-2b"))
+    model = Model(cfg)
+    params = model.init(0, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                         device=device)
+    caches = model.init_caches(2, 20, device=device)
+    lg, caches = model.prefill(params, {"tokens": toks}, caches)
+    lg, caches = model.decode_step(
+        params, torch.argmax(lg[..., :cfg.vocab_size], -1)[:, None], caches,
+        16)
+    assert bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+
+
+def _checkpoint(device: str) -> None:
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpointer
+
+    t = {"a": torch.arange(4.0, device=device)}
+    with tempfile.TemporaryDirectory() as d:
+        checkpointer.save(d, 1, t)
+        r, at = checkpointer.restore_latest(d, t, device=device)
+        assert at == 1 and torch.equal(r["a"], t["a"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.selftest")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -102,6 +142,8 @@ def main(argv=None) -> int:
     check("pald core (4 methods vs reference)", _pald_core)
     check(f"pald distributed (ring, {P_WORLD} ranks; sharded knn bitwise)",
           _pald_distributed)
+    check("lm prefill+decode (gemma2 reduced)", _lm_serve)
+    check("checkpoint save/restore", _checkpoint)
     print(f"[selftest] "
           f"{'FAILED: ' + ', '.join(failures) if failures else 'all healthy'}"
           f" ({time.time() - t0:.1f}s)")

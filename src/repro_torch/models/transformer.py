@@ -1,0 +1,193 @@
+"""Generic decoder-only model covering all assigned architectures
+(counterpart of ``repro.models.transformer``).
+
+The layer stack is ``n_repeats`` repetitions of a static ``pattern`` of
+sublayers (attn/mamba mixer + dense/moe ffn).  Each pattern position's
+parameters are stacked over the repeats on axis 0, as in the reference's
+param tree, and a Python loop over the repeats replaces its
+``lax.scan``.  The module tree carries the reference's names, so a
+``state_dict`` key is the reference's flattened key with "." for "/"
+(``blocks.0.mixer.wq``; ``models/convert.py``, ``checkpoint/``).  The
+reference's rematerialization and sharding hooks concern training and
+GSPMD; they are left out.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+from . import layers as L
+from . import mamba2, moe
+
+
+class Sublayer(nn.Module):
+    """One pattern position, stacked over the repeats: ``norm``, ``mixer``,
+    ``post_norm`` (sandwich norms), and ``ffn_norm``, ``ffn``,
+    ``ffn_post_norm`` unless the position has no FFN."""
+
+    def __init__(self, cfg: ModelConfig, spec, gen, device=None):
+        super().__init__()
+        R, d = cfg.n_repeats, cfg.d_model
+        self.norm = L.RMSNorm(d, R, device)
+        if spec.mixer == "attn":
+            self.mixer = L.Attention(cfg, R, gen, device)
+        else:
+            self.mixer = mamba2.Mamba2(cfg, R, gen, device)
+        if cfg.use_post_norm:
+            self.post_norm = L.RMSNorm(d, R, device)
+        if spec.ffn != "none":
+            self.ffn_norm = L.RMSNorm(d, R, device)
+            if spec.ffn == "dense":
+                self.ffn = L.MLP(d, cfg.d_ff, R, gen, device)
+            else:
+                self.ffn = moe.MoE(d, cfg.moe, R, gen, device)
+            if cfg.use_post_norm:
+                self.ffn_post_norm = L.RMSNorm(d, R, device)
+
+
+class Transformer(nn.Module):
+    """The whole parameter tree: ``embed``, ``lm_head`` (untied heads
+    only), ``final_norm`` and ``blocks`` (one ``Sublayer`` per pattern
+    position).  ``gen=None`` leaves the weights uninitialized (a module to
+    load a state_dict into)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, gen, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = L.Embedding(cfg.padded_vocab, cfg.d_model, gen,
+                                       device)
+        self.final_norm = L.RMSNorm(cfg.d_model, None, device)
+        self.blocks = nn.ModuleList(Sublayer(cfg, spec, gen, device)
+                                    for spec in cfg.pattern)
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
+    """float32 parameters drawn from ``gen`` (on ``device``, which must be
+    ``gen``'s device) with the reference's distributions."""
+    return Transformer(cfg, gen, device)
+
+
+def _apply_sublayer(p: Sublayer, r: int, cfg: ModelConfig, spec, x, *,
+                    positions, start, cache, q_chunk):
+    h = L.rmsnorm(p.norm.scale[r], x, cfg.norm_eps, f32=cfg.norm_f32)
+    if spec.mixer == "attn":
+        h = L.attention_apply(p.mixer, r, cfg, h, positions=positions,
+                              start=start, window=spec.window,
+                              kv_cache=cache, q_chunk=q_chunk)
+    else:
+        h = mamba2.mamba_apply(p.mixer, r, cfg, h, state=cache)
+    if cfg.use_post_norm:
+        h = L.rmsnorm(p.post_norm.scale[r], h, cfg.norm_eps,
+                      f32=cfg.norm_f32)
+    x = x + h
+    aux = None
+    if spec.ffn != "none":
+        h = L.rmsnorm(p.ffn_norm.scale[r], x, cfg.norm_eps, f32=cfg.norm_f32)
+        if spec.ffn == "dense":
+            h = L.mlp_apply(p.ffn, r, h, cfg.act)
+        else:
+            h, aux = moe.moe_apply(p.ffn, r, h, cfg.moe, cfg.act)
+        if cfg.use_post_norm:
+            h = L.rmsnorm(p.ffn_post_norm.scale[r], h, cfg.norm_eps,
+                          f32=cfg.norm_f32)
+        x = x + h
+    return x, aux
+
+
+def forward(
+    params: Transformer,
+    cfg: ModelConfig,
+    *,
+    tokens: Optional[torch.Tensor] = None,   # (B, S) integer ids
+    embeds: Optional[torch.Tensor] = None,   # (B, S, d) for audio/vlm stubs
+    positions=None,
+    caches=None,
+    q_chunk: int = 512,
+    last_only: bool = False,
+):
+    """Returns (logits (B, S, V), caches, aux loss (a float32 scalar)).
+
+    ``positions``: None (0, 1, ..., S-1), an int (the first position of S
+    contiguous ones, known on the host: the decode step's), or an (S,)
+    tensor.  ``caches`` (``init_caches``) are updated in place and
+    returned.  ``last_only`` applies the LM head to the final position
+    only (prefill).
+    """
+    x = params.embed.embedding[tokens] if embeds is None else embeds
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    S = x.shape[1]
+    start = None
+    if positions is None or isinstance(positions, int):
+        start = positions or 0
+        positions = torch.arange(start, start + S, device=x.device)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_repeats):
+        for i, spec in enumerate(cfg.pattern):
+            cache = (None if caches is None
+                     else {k: v[r] for k, v in caches[i].items()})
+            x, a = _apply_sublayer(params.blocks[i], r, cfg, spec, x,
+                                   positions=positions, start=start,
+                                   cache=cache, q_chunk=q_chunk)
+            if a is not None:
+                aux = aux + a
+
+    if last_only:
+        x = x[:, -1:]
+    x = L.rmsnorm(params.final_norm.scale, x, cfg.norm_eps, f32=cfg.norm_f32)
+    head = (params.embed if cfg.tie_embeddings else params.lm_head).embedding
+    logits = torch.einsum("bsd,vd->bsv", x, head)
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # mask the table-padding rows
+        logits[..., cfg.vocab_size:] = L.NEG_INF
+    return logits, caches, aux
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device=None):
+    """Per pattern position, a dict of caches stacked over the repeats.
+
+    Sliding-window attention layers get a circular cache of ``window``
+    slots (bounding long-context memory); global layers get ``max_len``
+    slots.  ``pos`` is each repeat's next position (int32).
+    """
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    R = cfg.n_repeats
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    caches = []
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            Sc = min(spec.window, max_len) if spec.window else max_len
+            caches.append({
+                "k": zeros((R, batch, Sc, kvh, hd)),
+                "v": zeros((R, batch, Sc, kvh, hd)),
+                "pos": zeros((R,), torch.int32),
+            })
+        else:
+            m = cfg.mamba
+            d_in = m.expand * cfg.d_model
+            H = d_in // m.head_dim
+            gn = m.n_groups * m.d_state
+            K = m.conv_width
+            caches.append({
+                "conv_x": zeros((R, batch, K - 1, d_in)),
+                "conv_B": zeros((R, batch, K - 1, gn)),
+                "conv_C": zeros((R, batch, K - 1, gn)),
+                "ssm": zeros((R, batch, H, m.head_dim, m.d_state),
+                             torch.float32),
+            })
+    return tuple(caches)

@@ -33,8 +33,9 @@ Every subcommand takes ``--device`` ("cuda" by default, "cpu"), ``--cache``
 ``~/.cache/repro_pald_torch/blocktune.json``), ``--iters`` and ``--budget``
 (wall seconds for the sweep).  The records are keyed by the device's name,
 so a cache measured on one card never steers another.  The reference's
-``cell`` subcommand (the LM dry run) is not ported (ROADMAP.md queue 1,
-item 12).
+``cell`` subcommand (the LM dry run) waits for the XLA tooling's
+counterpart, which measures on the card instead of lowering (ROADMAP.md
+queue 1, item 12c).
 """
 from __future__ import annotations
 
