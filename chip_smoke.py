@@ -186,8 +186,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    repro_torch.examples.<name>``) at their defaults: ``quickstart``,
    ``pald_knn_clusters`` (n = 50,000, and ``--mesh 4 --strategy ring``:
    four spawned ranks on the card), ``pald_text_analysis`` (n = 2712, one
-   NCCL rank) and ``serve_lm --arch gemma2-2b --full``: each exits 0 with
-   its success line; their output and wall times are printed.
+   NCCL rank), ``serve_lm --arch gemma2-2b --full`` and ``train_lm``
+   (llama-100m, 300 steps of 8 x 256 tokens, checkpoints, then the text
+   analysis of the trained embedding table: the focus kernel's
+   rectangular entry and the cohesion kernel on one NCCL rank): each
+   exits 0 with its success line; their output and wall times are
+   printed (``train_lm`` in a fresh checkpoint directory, and its log must
+   show steps 0 and 299);
+26. training on one device (``optim/``, ``train/train_step.py``,
+   ``data/``, ``launch/train.py``): gemma2-2b at full width and depth
+   (float32 master weights, AdamW, bfloat16 compute, ``remat="full"``)
+   through ``launch.train.run`` at the driver's defaults (batch 8 x seq
+   128, SyntheticTokens seed 0) for 5 steps: step ms (median of steps
+   2-5), tok/s, peak device memory against the 18 B a weight the state
+   holds, a profiler window over one step (busy share, device events,
+   matmul kernels' share), forward + backward and AdamW timed apart;
+   loss and grad norm finite at every step; the float32 gradients of
+   remat "nothing" (within 2^-8 of each leaf's largest) and of four
+   microbatches (within 2^-5) against remat "full" in one, the peak
+   memory of each; one step in four microbatches against one (loss within
+   rtol 1e-5, grad norm within rtol 1e-2, weights within 4 lr); the loss
+   falling over 5 steps on one repeated batch; then mamba2-780m (batch 2
+   x seq 512: two SSD chunks) and granite-moe-1b-a400m (batch 4 x 256) at
+   full width and depth, two steps each through ``launch.train.run``,
+   every gradient and weight finite (the reference's SSD gradients are
+   nan at mamba2's init), step ms and peak memory.
 
 The whole run reads and writes a tuning cache of its own, a fresh
 temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
@@ -3042,37 +3065,308 @@ def phase_lm_full(dev, card, gen):
 
 
 # phase 25: the port's examples at their defaults, each a program of its own
+# with the lines its output must hold; FRESH_DIR stands for a new empty
+# directory (train_lm restores the latest checkpoint it finds in its
+# --ckpt-dir, so a used one would train nothing)
+FRESH_DIR = object()
 EXAMPLES = (
-    ("quickstart", (), "all four methods agree"),
-    ("pald_knn_clusters", (), "no strong tie ever crosses communities"),
+    ("quickstart", (), ("all four methods agree",)),
+    ("pald_knn_clusters", (), ("no strong tie ever crosses communities",)),
     ("pald_knn_clusters", ("--mesh", "4", "--strategy", "ring"),
-     "no strong tie ever crosses communities"),
-    ("pald_text_analysis", (), "strong ties"),
-    ("serve_lm", ("--arch", "gemma2-2b", "--full"), "[serve] gemma2-2b:"),
+     ("no strong tie ever crosses communities",)),
+    ("pald_text_analysis", (), ("strong ties",)),
+    ("serve_lm", ("--arch", "gemma2-2b", "--full"), ("[serve] gemma2-2b:",)),
+    ("train_lm", ("--ckpt-dir", FRESH_DIR), ("step     0", "step   299",
+                                             "strong ties")),
 )
 EXAMPLE_TIMEOUT_S = 300.0
 
 
 def phase_examples(card):
     """Phase 25: ``python -m repro_torch.examples.<name>`` for each of
-    EXAMPLES on the card: exit 0 and its success line; its output and wall
+    EXAMPLES on the card: exit 0 and each of its lines; its output and wall
     time printed."""
     src = os.path.join(HERE, "src")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    for name, args, line in EXAMPLES:
-        cmd = [sys.executable, "-m", f"repro_torch.examples.{name}", *args]
+    for name, args, lines in EXAMPLES:
+        fresh = tempfile.mkdtemp(prefix="chip_smoke_example_")
+        cmd = [sys.executable, "-m", f"repro_torch.examples.{name}",
+               *(fresh if a is FRESH_DIR else a for a in args)]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
-                           env=env, timeout=EXAMPLE_TIMEOUT_S)
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                               env=env, timeout=EXAMPLE_TIMEOUT_S)
+        finally:
+            shutil.rmtree(fresh, ignore_errors=True)
         wall = time.perf_counter() - t0
-        if r.returncode != 0 or line not in r.stdout:
-            fail(f"{' '.join(cmd[1:])}: exit {r.returncode}, success line "
-                 f"{line!r} {'found' if line in r.stdout else 'missing'}\n"
-                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        missing = [line for line in lines if line not in r.stdout]
+        if r.returncode != 0 or missing:
+            fail(f"{' '.join(cmd[1:])}: exit {r.returncode}, lines missing "
+                 f"{missing!r}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
         print(f"phase 25: {' '.join(cmd[2:])}: exit 0 in {wall:.1f} s; {card}")
         for out in r.stdout.strip().splitlines():
             print(f"phase 25:   {out}")
+
+
+# phase 26: training on one device at launch.train's defaults
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 5
+TRAIN_LR = 3e-4
+# the state's fixed bytes a weight: float32 master, m, v and gradient, and
+# the bfloat16 compute copy
+TRAIN_BYTES_PER_WEIGHT = 4 + 4 + 4 + 4 + 2
+# remat "full" against "nothing": the same ops recomputed; a leaf's
+# gradients within one bfloat16 rounding (2^-8) of its largest
+REMAT_TOL = 2.0 ** -8
+# four microbatches against one (tests/test_train.py:45-58): the loss
+# within rtol 1e-5, the weights within 4 lr after one AdamW step (a step
+# moves a weight by about lr whatever its gradient, so this gate cannot
+# see the gradients); the grad norm within rtol 1e-2, and each leaf's
+# float32 gradients within 2^-5 of its largest: each microbatch's bfloat16
+# products round apart, while a sum that kept one microbatch or missed the
+# division is off by the order of a leaf's largest gradient
+MICRO_LOSS_RTOL = 1e-5
+MICRO_ATOL = 4 * TRAIN_LR
+MICRO_NORM_RTOL = 1e-2
+MICRO_GRAD_TOL = 2.0 ** -5
+# the other archs trained at full width and depth: (arch, batch, seq);
+# mamba2's sequence spans two SSD chunks of 256
+TRAIN_FULL = (("mamba2-780m", 2, 512), ("granite-moe-1b-a400m", 4, 256))
+
+
+def _finite_metrics(tag, m):
+    """A step's loss and grad norm finite; the grad norm is the root of the
+    sum of every gradient's squares, so it is finite only when every
+    gradient is."""
+    if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
+        fail(f"{tag}: loss {m['loss']!r}, grad norm {m['grad_norm']!r}")
+
+
+def _host_metrics(m):
+    return {k: float(v) for k, v in m.items()}
+
+
+def _is_matmul(kernel_name: str) -> bool:
+    """cuBLAS / CUTLASS matrix-multiply kernels, by their names."""
+    return any(s in kernel_name.lower() for s in (
+        "gemm", "nvjet", "cutlass", "xmma", "cublas"))
+
+
+def phase_train(dev, card):
+    """Phase 26: gemma2-2b trained at full width and depth on the card
+    through ``launch.train.run`` at the driver's defaults (batch 8 x seq
+    128, SyntheticTokens seed 0, lr 3e-4, warmup 20, ``remat="full"`` from
+    its config, one microbatch) for TRAIN_STEPS steps: step ms (median of
+    steps 2-5), tok/s, peak device memory against the state's fixed bytes,
+    a profiler window over one step, the forward + backward and the AdamW
+    update timed apart (the update against its bytes); the gates: loss and
+    grad norm finite at every step, the float32 gradients of remat
+    "nothing" (within REMAT_TOL) and of four microbatches (within
+    MICRO_GRAD_TOL) against remat "full" in one, with the peak memory of
+    each, one step in four microbatches against one (loss, grad norm,
+    weights), and the loss falling over 5 steps on one repeated batch
+    (warmup 0); then TRAIN_FULL's archs, two steps each at full width and
+    depth."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+
+    cfg = configs.get(TRAIN_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, records = train.run(cfg, steps=TRAIN_STEPS, batch=B, seq=S,
+                               lr=TRAIN_LR, seed=SEED, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    fixed = TRAIN_BYTES_PER_WEIGHT * n_params
+    for r in records:
+        _finite_metrics(f"{cfg.name} step {r['step']}", r)
+        print(f"phase 26: {cfg.name} step {r['step']}: loss {r['loss']!r}, "
+              f"grad norm {r['grad_norm']!r}, lr {r['lr']!r}, "
+              f"{r['seconds'] * 1e3:.3f} ms")
+    step_s = statistics.median(r["seconds"] for r in records[1:])
+    print(f"phase 26: {cfg.name}, {cfg.n_layers} layers, d = {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}: {n_params} parameters, float32 master "
+          f"weights, AdamW, bfloat16 compute, remat {cfg.remat!r}, batch "
+          f"{B} x seq {S}: step {step_s * 1e3:.3f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}), {B * S / step_s:.1f} tok/s; peak device memory "
+          f"{peak} B against the fixed {TRAIN_BYTES_PER_WEIGHT} B a weight = "
+          f"{fixed} B ({peak / fixed:.4f}x); {card}")
+
+    opt = adamw.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=20,
+                            total_steps=TRAIN_STEPS)
+    data = SyntheticTokens(cfg.vocab_size, S, B, seed=SEED, device=dev)
+    step_fn = ts.make_train_step(cfg, opt)
+    nxt = data.batch_at(TRAIN_STEPS)
+    got = profile_window(lambda: step_fn(state, nxt))
+    if got is None:
+        print("phase 26: the profiler recorded no device event in a train "
+              "step")
+    else:
+        share, by_name, window_ms, events = got
+        mm = sum(v for k, v in by_name.items() if _is_matmul(k))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"phase 26: profiler window of one train step {window_ms:.3f} "
+              f"ms, {events} device events, device busy {share:.4f} (idle "
+              f"{1 - share:.4f}); device ms {sum(by_name.values()):.3f}, of "
+              f"which matmul kernels {mm:.3f}; kernel ms by name: "
+              + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top) + f"; {card}")
+
+    # the step in two halves, each ending in a synchronize: the forward and
+    # backward, then the optimizer against its bytes (p, g, m, v read once,
+    # p, m, v written once)
+    loss_fn = ts.make_loss_fn(cfg)
+    named = dict(state["params"].named_parameters())
+    halves = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts.backward(loss_fn, state["params"], nxt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw.apply(opt, named, {k: p.grad for k, p in named.items()},
+                    state["opt"], state["step"])
+        torch.cuda.synchronize()
+        halves.append((t1 - t0, time.perf_counter() - t1))
+    for p in named.values():
+        p.grad = None
+    bwd_s = statistics.median(h[0] for h in halves)
+    opt_s = statistics.median(h[1] for h in halves)
+    opt_bytes = 28 * n_params
+    print(f"phase 26: {cfg.name} forward + backward {bwd_s * 1e3:.3f} ms, "
+          f"AdamW {opt_s * 1e3:.3f} ms (medians of 3) against its "
+          f"{opt_bytes} B over {HBM_BYTES_PER_S:.3g} B/s = "
+          f"{opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; {card}")
+
+    # the float32 gradients on batch 0 under remat "full" in one
+    # microbatch, then each other way held to them leaf by leaf as it is
+    # made: four microbatches, and remat "nothing"
+    batch = data.batch_at(0)
+    params = state["params"]
+    peaks = {}
+    ref = None
+    for remat, micro, tol in (("full", 1, None), ("full", 4, MICRO_GRAD_TOL),
+                              ("nothing", 1, REMAT_TOL)):
+        loss_fn = ts.make_loss_fn(dataclasses.replace(cfg, remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts.backward(loss_fn, params, batch, micro)
+        torch.cuda.synchronize()
+        peaks[remat, micro] = torch.cuda.max_memory_allocated()
+        got = [p.grad for p in params.parameters()]
+        for p in params.parameters():
+            p.grad = None
+        if ref is None:
+            ref = got
+            continue
+        worst, bitwise = 0.0, True
+        for (name, _), a, b in zip(params.named_parameters(), got, ref):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            bitwise &= bool(torch.equal(a, b))
+            worst = max(worst, err / scale if scale else err)
+            if not torch.isfinite(a).all() or err > tol * scale:
+                fail(f"{cfg.name}: {name}'s gradient under remat {remat!r} "
+                     f"in {micro} microbatch(es) differs from remat 'full' in "
+                     f"one by {err!r} (its largest {scale!r}, tolerance "
+                     f"{tol} of it)")
+        del got
+        print(f"phase 26: {cfg.name} float32 gradients on batch 0, remat "
+              f"{remat!r} in {micro} microbatch(es) against remat 'full' in "
+              f"one: largest difference {worst!r} of a leaf's largest "
+              f"gradient (tolerance {tol}){', bitwise' if bitwise else ''}; "
+              f"peak device memory of the backward {peaks[remat, micro]} B "
+              f"(remat 'full' in one: {peaks['full', 1]} B); {card}")
+    del state, params, ref, named
+    torch.cuda.empty_cache()
+
+    opt = adamw.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=0,
+                            total_steps=TRAIN_STEPS)
+    state = ts.init_state(cfg, SEED, dev)
+    state, m4 = ts.make_train_step(cfg, opt, microbatches=4)(state, batch)
+    m4, p4 = _host_metrics(m4), state["params"]
+    del state
+    torch.cuda.empty_cache()
+    state = ts.init_state(cfg, SEED, dev)
+    step1 = ts.make_train_step(cfg, opt)
+    state, m1 = step1(state, batch)
+    m1 = _host_metrics(m1)
+    _finite_metrics(f"{cfg.name} microbatches=4", m4)
+    rel = abs(m4["loss"] - m1["loss"]) / abs(m1["loss"])
+    gn_rel = abs(m4["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+        state["params"].parameters(), p4.parameters()))
+    print(f"phase 26: {cfg.name} one step, 4 microbatches of {B // 4} against "
+          f"one of {B}: loss {m4['loss']!r} against {m1['loss']!r} (rel "
+          f"{rel!r}, tolerance {MICRO_LOSS_RTOL}), grad norm "
+          f"{m4['grad_norm']!r} against {m1['grad_norm']!r} (rel {gn_rel!r}, "
+          f"tolerance {MICRO_NORM_RTOL}), weights apart by at most {diff!r} "
+          f"(tolerance {MICRO_ATOL} = 4 lr)")
+    if rel > MICRO_LOSS_RTOL or gn_rel > MICRO_NORM_RTOL or diff > MICRO_ATOL:
+        fail(f"{cfg.name}: 4 microbatches against 1: loss rel {rel!r}, "
+             f"grad norm rel {gn_rel!r}, weights {diff!r}")
+    del p4
+    losses = [m1["loss"]]
+    for _ in range(TRAIN_STEPS - 1):
+        state, m = step1(state, batch)
+        m = _host_metrics(m)
+        _finite_metrics(f"{cfg.name} repeated batch", m)
+        losses.append(m["loss"])
+    print(f"phase 26: {cfg.name} {TRAIN_STEPS} steps on batch 0 repeated "
+          f"(warmup 0, lr {TRAIN_LR}): losses {losses!r}")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: the loss did not fall over {TRAIN_STEPS} steps on "
+             f"one batch: {losses!r}")
+    del state
+    torch.cuda.empty_cache()
+    phase_train_full(dev, card)
+
+
+def phase_train_full(dev, card):
+    """Phase 26, TRAIN_FULL: each arch seeded on the card at full width and
+    depth and trained two steps (the first a warm-up) through
+    ``launch.train.run``: loss and grad norm finite at both (every gradient
+    finite), every weight finite after, the second step's ms and the peak
+    device memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    for arch, B, S in TRAIN_FULL:
+        cfg = configs.get(arch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state, records = train.run(cfg, steps=2, batch=B, seq=S, lr=TRAIN_LR,
+                                   warmup=0, seed=SEED, device=dev)
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        for r in records:
+            _finite_metrics(f"{cfg.name} step {r['step']}", r)
+        if not all(bool(torch.isfinite(p).all())
+                   for p in state["params"].parameters()):
+            fail(f"{cfg.name}: a weight is not finite after two steps")
+        first, last = records
+        print(f"phase 26: {cfg.name}, {cfg.n_layers} layers, d = "
+              f"{cfg.d_model}: {n_params} parameters, batch {B} x seq {S}, "
+              f"remat {cfg.remat!r}: two steps, losses finite (last "
+              f"{last['loss']!r}), grad norms finite (last "
+              f"{last['grad_norm']!r}), weights finite; step "
+              f"{last['seconds'] * 1e3:.3f} ms (the first "
+              f"{first['seconds'] * 1e3:.3f} ms), "
+              f"{B * S / last['seconds']:.1f} tok/s, peak device memory "
+              f"{peak} B ({held} B held before the init) against the fixed "
+              f"{TRAIN_BYTES_PER_WEIGHT * n_params} B; {card}")
+        del state
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3205,6 +3499,9 @@ def run_phases() -> int:
     t0 = time.perf_counter()
     phase_examples(card)
     print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train(dev, card)
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

@@ -8,12 +8,15 @@ repeating ``pattern`` of ``LayerSpec`` entries; the port's model
 repeats with the pattern inside the loop, each pattern position's
 parameters stacked over the repeats.
 
-The reference's fields that steer only its mesh partitioner, its
-compiler's lowering and its training loop (``sharding_profile``,
-``remat``, ``scan_unroll``, ``probe_unroll``, ``moe_shard_constraints``,
-``attn_seq_proj``, ``batch_shard_constraint``, ``train_microbatches``)
-are left out: nothing in the port reads them.  Those that training needs
-come back with the training slice.
+The reference's fields that steer only its mesh partitioner and its
+compiler's lowering (``sharding_profile``, ``scan_unroll``,
+``probe_unroll``, ``moe_shard_constraints``, ``attn_seq_proj``,
+``batch_shard_constraint``) are left out: nothing in the port reads them.
+``sharding_profile`` comes back with the sharded training (ROADMAP.md
+queue 1, item 12b).  The model reads ``remat`` under autograd.  The
+reference's ``train_microbatches`` is read only by its dry run, whose
+counterpart is item 12c, and comes back with it (``launch.train`` takes
+``--microbatches``, default 1, as the reference's driver does).
 
 Shapes (the assigned input-shape set) are in ``SHAPES``; each (arch x shape)
 cell resolves via ``runnable()`` -- pure-full-attention archs skip long_500k
@@ -82,6 +85,10 @@ class ModelConfig:
     scale_embed: bool = False               # gemma2 sqrt(d) embedding scale
     act: Literal["silu", "gelu"] = "silu"
     modality: Modality = "text"
+    # what the backward pass recomputes of each repeat of the pattern:
+    # nothing (every activation saved), everything but the weight products
+    # ("dots"), or everything ("full")
+    remat: Literal["nothing", "dots", "full"] = "full"
     # rmsnorm with a full float32 upcast (True) or bfloat16 with float32
     # statistics (False)
     norm_f32: bool = True
@@ -191,6 +198,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=256,
+        remat="nothing",
     )
     if cfg.moe is not None:
         small["moe"] = MoEConfig(

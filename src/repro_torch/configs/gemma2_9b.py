@@ -22,5 +22,6 @@ CONFIG = ModelConfig(
     use_post_norm=True,
     scale_embed=True,
     act="gelu",
+    remat="full",
     subquadratic=True,
 )

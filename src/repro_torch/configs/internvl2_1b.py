@@ -19,5 +19,6 @@ CONFIG = ModelConfig(
     rope_theta=1000000.0,
     tie_embeddings=True,
     modality="vlm",
+    remat="full",
     subquadratic=False,
 )

@@ -15,5 +15,6 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="dense"),),
     rope_theta=500000.0,
     tie_embeddings=True,
+    remat="full",
     subquadratic=False,
 )

@@ -17,5 +17,6 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="dense"),),
     act="gelu",
     modality="audio",
+    remat="full",
     subquadratic=False,
 )

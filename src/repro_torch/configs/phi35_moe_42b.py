@@ -16,5 +16,6 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="moe"),),
     moe=MoEConfig(n_experts=16, top_k=2, d_ff=6400),
     rope_theta=10000.0,
+    remat="full",
     subquadratic=False,
 )

@@ -15,5 +15,6 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="dense"),),
     qkv_bias=True,
     rope_theta=1000000.0,
+    remat="full",
     subquadratic=False,
 )

@@ -1,6 +1,6 @@
 """Self-test of the port: PaLD on the device end to end, one rank and a
-world of four, one reduced arch through prefill and decode, and a
-checkpoint round trip (counterpart of ``repro.launch.selftest``).
+world of four, one reduced arch through a train step, prefill and decode,
+and a checkpoint round trip (counterpart of ``repro.launch.selftest``).
 
     PYTHONPATH=src python -m repro_torch.launch.selftest            # the card
     PYTHONPATH=src python -m repro_torch.launch.selftest --device cpu
@@ -14,15 +14,16 @@ Checks, each against the numpy reference oracle (``core.reference``):
   (``testing.world``, gloo), and the sharded k-NN pipeline
   (``core.distributed_knn.pald_knn_sharded``) bitwise the single-device
   ``select_cohere``;
-- the LM serving path: reduced gemma2-2b (``models/``) through
-  ``prefill`` and one ``decode_step``, finite logits;
+- the LM path: reduced gemma2-2b (``models/``) through one train step
+  (``train.train_step``: bfloat16 compute, AdamW; finite loss), then the
+  trained parameters through ``prefill`` and one ``decode_step``, finite
+  logits;
 - the checkpointer: ``save`` then ``restore_latest`` (``checkpoint/``).
 
 On the card the kernels run in every rank.  Exit code 0 = healthy.  The
-reference's ``lm_cycle`` also takes a train step, and it lowers one
-production cell abstractly: the train step waits for the training slice
-(ROADMAP.md queue 1, item 12b), the lowering for the XLA tooling's
-counterpart, which measures on the card instead of lowering (item 12c).
+reference also lowers one production cell abstractly: that waits for the
+XLA tooling's counterpart, which measures on the card instead of lowering
+(ROADMAP.md queue 1, item 12c).
 """
 from __future__ import annotations
 
@@ -79,19 +80,23 @@ def _pald_distributed(device: str) -> None:
             assert np.array_equal(v, v1.cpu().numpy()), "sharded knn"
 
 
-def _lm_serve(device: str) -> None:
+def _lm_cycle(device: str) -> None:
     import torch
 
     from repro_torch import configs
     from repro_torch.configs.base import reduced
     from repro_torch.models.model import Model
+    from repro_torch.train.train_step import init_state, make_train_step
 
     cfg = reduced(configs.get("gemma2-2b"))
     model = Model(cfg)
-    params = model.init(0, device)
+    state = init_state(cfg, 0, device)
     gen = torch.Generator(device=device).manual_seed(0)
     toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
                          device=device)
+    state, m = make_train_step(cfg)(state, {"tokens": toks, "labels": toks})
+    assert bool(torch.isfinite(m["loss"])), "train step loss"
+    params = state["params"]
     caches = model.init_caches(2, 20, device=device)
     lg, caches = model.prefill(params, {"tokens": toks}, caches)
     lg, caches = model.decode_step(
@@ -142,7 +147,7 @@ def main(argv=None) -> int:
     check("pald core (4 methods vs reference)", _pald_core)
     check(f"pald distributed (ring, {P_WORLD} ranks; sharded knn bitwise)",
           _pald_distributed)
-    check("lm prefill+decode (gemma2 reduced)", _lm_serve)
+    check("lm train+prefill+decode (gemma2 reduced)", _lm_cycle)
     check("checkpoint save/restore", _checkpoint)
     print(f"[selftest] "
           f"{'FAILED: ' + ', '.join(failures) if failures else 'all healthy'}"

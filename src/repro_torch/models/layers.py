@@ -17,11 +17,13 @@ are left out.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -2.0e38
 
@@ -32,9 +34,9 @@ def normal(shape, scale: float, gen: torch.Generator, device) -> torch.Tensor:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A weight without a gradient: the port serves; training (ROADMAP.md
-    queue 1, item 12b) will ask for gradients."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable weight.  Serving records no graph all the same:
+    ``Model.prefill`` / ``decode_step`` run under ``torch.no_grad()``."""
+    return nn.Parameter(t)
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +217,14 @@ def attention_apply(p: Attention, r: int, cfg, x: torch.Tensor, *,
                        cfg.attn_logit_softcap, cfg.attn_out_f32)
 
     if S > q_chunk and S % q_chunk == 0:
-        out = torch.cat([q_block(q[:, i:i + q_chunk],
-                                 positions[i:i + q_chunk])
+        # under autograd each chunk's scores are recomputed in the backward
+        # pass, as the reference's jax.checkpoint of the chunk does: saved,
+        # every chunk's (B, H, q_chunk, S) scores would be held at once
+        block = q_block
+        if torch.is_grad_enabled():
+            block = functools.partial(checkpoint, q_block,
+                                      use_reentrant=False)
+        out = torch.cat([block(q[:, i:i + q_chunk], positions[i:i + q_chunk])
                          for i in range(0, S, q_chunk)], dim=1)
     else:
         out = q_block(q, positions)

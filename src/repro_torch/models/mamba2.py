@@ -4,8 +4,10 @@
 The chunked SSD for prefill and full sequences (the reference's
 ``lax.scan`` over chunks is a loop over chunks here), and the O(1)-state
 single-step recurrence for decode.  The SSD runs in float32 whatever the
-activations' dtype, as in the reference.  The jamba hybrid uses this same
-block (DESIGN.md §9: Mamba-1 -> Mamba2 substitution).
+activations' dtype, as in the reference.  Its intra-chunk decay matrix is
+masked before the exponential, so its gradients stay finite where the
+reference's turn to nan (ROADMAP.md queue 3).  The jamba hybrid uses this
+same block (DESIGN.md §9: Mamba-1 -> Mamba2 substitution).
 """
 from __future__ import annotations
 
@@ -91,7 +93,13 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0: Optional[torch.Tensor]):
     # intra-chunk (diagonal) term
     seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]         # (B,nc,Qi,Qj,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
-    M = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exponential: above the diagonal seg is a positive
+    # sum of |dt A| that overflows exp to inf within a chunk, and a where
+    # after the exp would send 0 * inf = nan back through it (the
+    # reference's where(tri, exp(seg), 0) does); exp(-inf) = 0 gives the
+    # same forward values
+    M = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                              float("-inf")))
     CB = torch.einsum("bcihn,bcjhn->bcijh", Cr, Br)             # (B,nc,Q,Q,H)
     xdt = xr * dtr[..., None]
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", CB * M, xdt)
@@ -140,8 +148,9 @@ def _ssd_steps(xh, dt, A, Bm, Cm, h: Optional[torch.Tensor]):
 def mamba_apply(p: Mamba2, r: int, cfg, x: torch.Tensor, *,
                 state: Optional[dict] = None) -> torch.Tensor:
     """Repeat ``r``.  x: (B, L, d).  ``state``: {"conv_x", "conv_B",
-    "conv_C", "ssm"} views of the stacked caches, updated in place, or
-    None."""
+    "conv_C", "ssm"} views of the stacked caches, updated in place (a
+    serving path, under ``torch.no_grad()``), or None (training and
+    scoring)."""
     m = cfg.mamba
     B, L, d = x.shape
     d_in = m.expand * d

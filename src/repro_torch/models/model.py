@@ -24,7 +24,12 @@ def cast_floats(tree, dtype):
     dtype is passed through, not copied).  A ``Transformer`` gives a new
     module of the cast parameters, or itself when every floating
     parameter already has ``dtype``; dictionaries, lists and tuples are
-    mapped."""
+    mapped.
+
+    The cast is for serving: the new module's parameters are detached
+    copies that take no gradient.  Training casts inside its loss with
+    ``transformer.unbound(params, dtype)``, through which gradients reach
+    the float32 parameters (``train.train_step.make_loss_fn``)."""
     def c(x):
         if isinstance(x, torch.Tensor) and x.is_floating_point():
             return x.to(dtype)
@@ -38,7 +43,7 @@ def cast_floats(tree, dtype):
             new = transformer.Transformer(tree.cfg)
         new.load_state_dict({k: c(v) for k, v in tree.state_dict().items()},
                             assign=True)
-        return new
+        return new.requires_grad_(False)
     if isinstance(tree, dict):
         return {k: cast_floats(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -65,8 +70,10 @@ class Model:
 
     # -- full-sequence forward (train / scoring) ----------------------------
     def apply(self, params, batch: dict, *, q_chunk: int = 512):
-        """batch: {"tokens": (B, S)} or {"embeds": (B, S, d)}.
-        Returns (logits (B, S, V), aux loss)."""
+        """batch: {"tokens": (B, S)} or {"embeds": (B, S, d)}; ``params``:
+        a ``Transformer`` or its ``transformer.unbound`` tree.  Returns
+        (logits (B, S, V), aux loss).  Under autograd it records the
+        graph, with each repeat rematerialized as ``cfg.remat`` says."""
         logits, _, aux = transformer.forward(
             params, self.cfg, tokens=batch.get("tokens"),
             embeds=batch.get("embeds"), q_chunk=q_chunk)

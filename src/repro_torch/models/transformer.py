@@ -7,16 +7,26 @@ parameters are stacked over the repeats on axis 0, as in the reference's
 param tree, and a Python loop over the repeats replaces its
 ``lax.scan``.  The module tree carries the reference's names, so a
 ``state_dict`` key is the reference's flattened key with "." for "/"
-(``blocks.0.mixer.wq``; ``models/convert.py``, ``checkpoint/``).  The
-reference's rematerialization and sharding hooks concern training and
-GSPMD; they are left out.
+(``blocks.0.mixer.wq``; ``models/convert.py``, ``checkpoint/``).
+
+Under autograd each repeat's body is rematerialized as ``cfg.remat``
+says, as the reference's ``jax.checkpoint`` of its scan body: "full"
+recomputes the whole body in the backward pass, "dots" saves the weight
+products and recomputes the rest (JAX's
+``checkpoint_dots_with_no_batch_dims``), "nothing" saves every
+activation.  Training reads the parameters through ``unbound``.  The
+reference's sharding hooks concern GSPMD and are left out.
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 
@@ -74,6 +84,54 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
     return Transformer(cfg, gen, device)
 
 
+def unbound(params: Transformer, dtype: Optional[torch.dtype] = None):
+    """``params`` as a tree of namespaces under the module's names, each
+    leaf cast to ``dtype`` (None: as it is) and every block leaf split
+    over the repeats (``unbind(0)``).  ``forward`` reads it as it reads
+    the module (``blocks[i].mixer.wq[r]``), and gradients flow through
+    the cast to the module's parameters.  Indexing a stacked leaf would
+    give each repeat's gradient a zero tensor of the whole stack in the
+    backward pass; ``unbind`` stacks the repeats' gradients once."""
+    def tree(module, split):
+        ns = SimpleNamespace()
+        for name, p in module.named_parameters(recurse=False):
+            p = p if dtype is None else p.to(dtype)
+            setattr(ns, name, p.unbind(0) if split else p)
+        for name, child in module.named_children():
+            setattr(ns, name, tree(child, split))
+        return ns
+
+    out = SimpleNamespace(blocks=[tree(b, True) for b in params.blocks])
+    for name, child in params.named_children():
+        if name != "blocks":
+            setattr(out, name, tree(child, False))
+    return out
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the products without a batch dimension (the
+    weight products: ``mm``, or ``bmm`` over a batch of one, as einsum
+    lowers them), recompute everything else."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematerialized(body, remat: str):
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_weight_products))
+    if remat == "nothing":
+        return body
+    raise ValueError(f"remat must be 'nothing', 'dots' or 'full', got "
+                     f"{remat!r}")
+
+
 def _apply_sublayer(p: Sublayer, r: int, cfg: ModelConfig, spec, x, *,
                     positions, start, cache, q_chunk):
     h = L.rmsnorm(p.norm.scale[r], x, cfg.norm_eps, f32=cfg.norm_f32)
@@ -113,6 +171,7 @@ def forward(
     last_only: bool = False,
 ):
     """Returns (logits (B, S, V), caches, aux loss (a float32 scalar)).
+    ``params``: a ``Transformer`` or its ``unbound`` tree.
 
     ``positions``: None (0, 1, ..., S-1), an int (the first position of S
     contiguous ones, known on the host: the decode step's), or an (S,)
@@ -129,8 +188,7 @@ def forward(
         start = positions or 0
         positions = torch.arange(start, start + S, device=x.device)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.n_repeats):
+    def repeat(r, x, aux):
         for i, spec in enumerate(cfg.pattern):
             cache = (None if caches is None
                      else {k: v[r] for k, v in caches[i].items()})
@@ -139,6 +197,13 @@ def forward(
                                    cache=cache, q_chunk=q_chunk)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    if torch.is_grad_enabled() and caches is None:
+        repeat = _rematerialized(repeat, cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_repeats):
+        x, aux = repeat(r, x, aux)
 
     if last_only:
         x = x[:, -1:]
@@ -149,7 +214,8 @@ def forward(
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
     if cfg.padded_vocab != cfg.vocab_size:
-        # mask the table-padding rows
+        # mask the table-padding rows (under autograd the filled columns
+        # pass no gradient back, as the reference's where)
         logits[..., cfg.vocab_size:] = L.NEG_INF
     return logits, caches, aux
 

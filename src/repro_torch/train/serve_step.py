@@ -6,7 +6,7 @@ casts the parameters it is given with ``cast_floats``, which hands
 parameters already in bfloat16 back as they are: the caller casts once
 (``launch.serve`` does), and no step copies the weights.  The reference's
 ``cache_shardings`` (GSPMD placement of the caches over a mesh) waits for
-the training and sharding slice (ROADMAP.md queue 1, item 12b).
+the sharded training (ROADMAP.md queue 1, item 12b).
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """The port's examples (repro_torch.examples) run as programs on the CPU
 (``--device cpu``), each to the success line its reference counterpart's
 test checks (tests/test_examples.py); the text analysis also reads a
-checkpoint the JAX package wrote.  Without ``--device cpu`` every example
+checkpoint the JAX package wrote, and ``train_lm`` (at a few small steps)
+ends in the text analysis of its trained table.  The self-test's LM check
+takes its train step.  Without ``--device cpu`` every example
 asks for the card, and on a machine without one it fails instead of
 carrying on on the CPU.
 """
@@ -83,8 +85,29 @@ def test_serve_lm_smoke(tmp_path):
     _ok(r, "3 decode steps")
 
 
+def test_train_lm_small(tmp_path):
+    """Training through the launcher, its final checkpoint, then the text
+    analysis of the trained embedding table."""
+    r = _run(["train_lm", "--steps", "4", "--batch", "2", "--seq", "32",
+              "--max-tokens", "256", "--ckpt-dir", str(tmp_path / "ck"),
+              "--device", "cpu"], tmp_path)
+    _ok(r, "[train_lm] llama-100m: 63.6M params")
+    _ok(r, "  step     3 loss")
+    _ok(r, "[pald-text] n=256 embedding_dim=512")
+    _ok(r, "strong ties")
+
+
+def test_selftest_lm_cycle_takes_a_train_step():
+    """The self-test's LM check: a train step of reduced gemma2-2b, then
+    prefill and decode on the trained parameters."""
+    from repro_torch.launch import selftest
+
+    selftest._lm_cycle("cpu")
+
+
 @pytest.mark.parametrize("example", ["quickstart", "pald_knn_clusters",
-                                     "pald_text_analysis", "serve_lm"])
+                                     "pald_text_analysis", "serve_lm",
+                                     "train_lm"])
 def test_examples_default_to_the_card(example, tmp_path):
     """Without --device cpu an example asks for the card; with no GPU it
     fails (on a machine with one it runs there)."""
