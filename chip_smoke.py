@@ -210,7 +210,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    x seq 512: two SSD chunks) and granite-moe-1b-a400m (batch 4 x 256) at
    full width and depth, two steps each through ``launch.train.run``,
    every gradient and weight finite (the reference's SSD gradients are
-   nan at mamba2's init), step ms and peak memory.
+   nan at mamba2's init), step ms and peak memory;
+27. training sharded over a mesh (``sharding/``, ``train/train_step.py``
+   with ``mesh=``, the sharded checkpoints, ``runtime/elastic.py``,
+   ``launch/train.py --mesh``): (a) gemma2-2b at full width, its depth
+   cut to 4 layers (2 repeats of its local/global pattern), ``fsdp``,
+   batch 8 x seq 128 of SyntheticTokens seed 0, ``remat="full"``: one
+   step on one device in 1 and in 2 microbatches, its loss, grad norm,
+   float32 gradients and updated weights kept on the host, the card
+   freed; (b) the same step from the same weights on a (2, 2) mesh over
+   (data, model) in a gloo world of 4 ranks on the card: each rank's
+   state bytes exactly the layout's (about a quarter of 12 B a weight),
+   the loss within rtol 1e-6 and every gradient block within 2^-8 of its
+   leaf's largest of the 2-microbatch step (each data rank's rows are one
+   microbatch's), and against the 1-microbatch step the loss within rtol
+   1e-5, the grad norm within rtol 1e-2, the gradients within 2^-5, the
+   weights within 4 lr; 3 more steps on the repeated batch, losses finite
+   and falling; per rank the step ms (median), the bytes staged through
+   the host a step and the peak device memory against state + gathered
+   bfloat16 + the largest float32 leaf; a sharded save at step 3 and the
+   uninterrupted step 4; (c) zero3 on (2, 2, 2) in a world of 8 on reduced
+   gemma2-2b: every initial block bitwise the single-device weights' at
+   the rank's position, one step held by (b)'s gates (against 4
+   microbatches); (d) the checkpoint of (b) resumed in a world of 2 on
+   ``choose_mesh(2, target_model=2)``: every restored block bitwise the
+   saved leaf's slice, step 4 finite and within rtol 1e-3 of (b)'s; (e)
+   ``python -m repro_torch.launch.train --arch llama3.2-3b --smoke --mesh
+   2x2 --steps 6`` in a fresh ``--ckpt-dir``, exit 0, and a restart to 8
+   steps continuing from step 5; (f) one NCCL rank on a (1, 1) mesh: (a)'s
+   step bitwise (every gradient and weight's bytes, the loss, the grad
+   norm).
 
 The whole run reads and writes a tuning cache of its own, a fresh
 temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
@@ -231,6 +260,7 @@ before they end, and fail when a rank exits otherwise than cleanly.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -3369,6 +3399,476 @@ def phase_train_full(dev, card):
         torch.cuda.empty_cache()
 
 
+# phase 27: training sharded over a mesh.  gemma2-2b at full width, its
+# depth cut to 4 layers (2 repeats of the local/global pattern), on a
+# (2, 2) mesh over (data, model) of ranks sharing the card
+SHARD_ARCH, SHARD_LAYERS = "gemma2-2b", 4
+SHARD_MESH = ((2, 2), ("data", "model"))
+ZERO3_MESH = ((2, 2, 2), ("pod", "data", "model"))
+SHARD_MORE_STEPS = 3        # on the repeated batch, after the gated step
+# against the single-device step in as many microbatches as data ranks
+# (the same rows per matmul): the loss within rtol 1e-6, each gradient
+# block within one bfloat16 rounding of its leaf's largest; against one
+# microbatch, phase 26's gates (MICRO_*)
+SHARD_LOSS_RTOL = 1e-6
+SHARD_GRAD_TOL = 2.0 ** -8
+# step 4 resumed on (1, 2) against the uninterrupted (2, 2) world's: one
+# data rank runs the rows of two
+RESUME_LOSS_RTOL = 1e-3
+SHARD_DRIVER_TIMEOUT_S = 300.0
+
+
+def _shard_cfg(reduced_cfg=False, profile=None):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+
+    cfg = configs.get(SHARD_ARCH)
+    cfg = (reduced(cfg) if reduced_cfg
+           else dataclasses.replace(cfg, n_layers=SHARD_LAYERS))
+    return dataclasses.replace(cfg, sharding_profile=profile or
+                               cfg.sharding_profile)
+
+
+def _shard_opt():
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=0,
+                             total_steps=TRAIN_STEPS)
+
+
+def _save_leaves(directory, leaves) -> None:
+    """Each tensor of ``leaves`` ({name: tensor}) as ``<name>.npy``."""
+    os.makedirs(directory, exist_ok=True)
+    for n, t in leaves.items():
+        np.save(os.path.join(directory, f"{n}.npy"), t.detach().cpu().numpy())
+
+
+def shard_single(cfg, dev, micro, B, S, ref_dir, save_init=False):
+    """Phase 27 (a) on one device from the seeded weights, on batch 0:
+    for each count in ``micro`` the loss and float32 gradients, then one
+    step in one microbatch.  Writes the gradients (``g<count>/``), the
+    step's weights (``step/``) and with ``save_init`` the seeded weights
+    (``init/``) under ``ref_dir``, one ``.npy`` a leaf, where the ranks
+    read their blocks; returns the losses, each leaf's largest |gradient|
+    and the step's metrics.  The card is freed."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train import train_step as ts
+
+    state = ts.init_state(cfg, SEED, dev)
+    params = state["params"]
+    named = dict(params.named_parameters())
+    if save_init:
+        _save_leaves(os.path.join(ref_dir, "init"), named)
+    batch = SyntheticTokens(cfg.vocab_size, S, B, seed=SEED,
+                            device=dev).batch_at(0)
+    out = {"n": sum(p.numel() for p in named.values()), "loss": {},
+           "scale": {}}
+    loss_fn = ts.make_loss_fn(cfg)
+    for mb in micro:
+        loss, _ = ts.backward(loss_fn, params, batch, mb)
+        grads = {n: p.grad for n, p in named.items()}
+        _save_leaves(os.path.join(ref_dir, f"g{mb}"), grads)
+        out["loss"][mb] = float(loss)
+        out["scale"][mb] = {n: float(g.abs().max()) for n, g in grads.items()}
+        del grads
+        for p in params.parameters():
+            p.grad = None
+    state, m = ts.make_train_step(cfg, _shard_opt())(state, batch)
+    out["metrics"] = _host_metrics(m)
+    _save_leaves(os.path.join(ref_dir, "step"),
+                 dict(state["params"].named_parameters()))
+    del state, params, named
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _block_slices(shape, sizes, coord, spec):
+    """The index of the block of an array of ``shape`` under ``spec`` at
+    mesh coordinates ``coord`` (``sizes``: {dimension: size}, in the mesh's
+    order)."""
+    index = []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        q, i = 1, 0
+        for a in sizes:
+            if a in names:
+                q, i = q * sizes[a], i * sizes[a] + int(coord[a])
+        index.append(slice(i * (n // q), (i + 1) * (n // q)))
+    return tuple(index)
+
+
+def _rank_compare(blocks, ref_dir, layout, mesh):
+    """In a rank: each block of ``blocks`` ({name: tensor}) against the
+    block at this rank's mesh position of the leaf ``<name>.npy`` under
+    ``ref_dir`` (memory-mapped: only that block is read).  Returns
+    ({name: max |difference|}, every block bitwise?)."""
+    import torch
+    from repro_torch.launch.mesh import mesh_shape
+
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    errs, bitwise = {}, True
+    for n, t in blocks.items():
+        arr = np.load(os.path.join(ref_dir, f"{n}.npy"), mmap_mode="r")
+        want = torch.from_numpy(np.array(
+            arr[_block_slices(arr.shape, sizes, coord, layout[n])])).to(
+                t.device)
+        if want.shape != t.shape:
+            raise AssertionError(f"{n}: block {tuple(t.shape)}, the "
+                                 f"layout's {tuple(want.shape)}")
+        errs[n] = float((t - want).abs().max()) if t.numel() else 0.0
+        bitwise &= bool(torch.equal(t, want))
+    return errs, bitwise
+
+
+def rank_shard(mesh, cfg, B, S, ref_dir, micro, more_steps=0,
+               ckpt_dir=None, check_init=False):
+    """Phase 27 in a rank: from the seeded weights (with ``check_init``
+    its blocks held to (a)'s), the sharded backward on batch 0 (its
+    gradient blocks held to (a)'s in ``micro`` microbatches and in one)
+    and the step (its weights held to (a)'s 1-microbatch step's);
+    ``more_steps`` more on the repeated batch, timed (host clock to a
+    synchronize) with the bytes staged a step; the peak device memory;
+    with ``ckpt_dir`` a sharded save after them and one more step (the
+    uninterrupted step to resume against)."""
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as ts
+
+    dev = _rank_device()
+    torch.cuda.reset_peak_memory_stats(dev)
+    layout = ts.param_layout(cfg, mesh)
+    state = ts.init_state(cfg, SEED, dev, mesh=mesh)
+    out = {"rank": torch.distributed.get_rank(),
+           "state_bytes": sum(t.numel() * t.element_size() for t in
+                              checkpointer._flatten(state).values())}
+    if check_init:
+        out["init"] = _rank_compare(state["params"],
+                                    os.path.join(ref_dir, "init"), layout,
+                                    mesh)
+    bspec = partition.batch_pspec(mesh, B)
+    rows = SyntheticTokens(cfg.vocab_size, S, B, seed=SEED, device=dev,
+                           mesh=mesh, batch_spec=bspec).batch_at(0)
+    grads, _ = ts.sharded_backward(ts.make_loss_fn(cfg), cfg,
+                                   state["params"], rows, mesh,
+                                   batch_spec=bspec)
+    for mb in (micro, 1):
+        out[f"g{mb}"] = _rank_compare(grads, os.path.join(ref_dir, f"g{mb}"),
+                                      layout, mesh)
+    del grads
+    step = ts.make_train_step(cfg, _shard_opt(), mesh=mesh, batch_spec=bspec)
+    state, m = step(state, rows)
+    out["metrics"] = [_host_metrics(m)]
+    out["step"] = _rank_compare(state["params"],
+                                os.path.join(ref_dir, "step"), layout, mesh)
+    secs, staged = [], []
+    for _ in range(more_steps):
+        D.reset_staged_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        m = _host_metrics(m)
+        secs.append(time.perf_counter() - t0)
+        staged.append(D.staged_bytes())
+        out["metrics"].append(m)
+    out["step_s"], out["staged"] = secs, staged
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    if ckpt_dir:
+        t0 = time.perf_counter()
+        checkpointer.save(ckpt_dir, more_steps, state,
+                          elastic.state_shardings(cfg, mesh), mesh)
+        out["save_s"] = time.perf_counter() - t0
+        state, m = step(state, rows)
+        out["next"] = _host_metrics(m)
+    return out
+
+
+def rank_resume(mesh, cfg, B, S, ckpt_dir):
+    """Phase 27 (d) in a rank: the latest checkpoint restored onto this
+    mesh; every restored block against its slice of the saved leaf read
+    with numpy (bitwise), then one step on batch 0."""
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as ts
+
+    dev = _rank_device()
+    t0 = time.perf_counter()
+    state, at, _ = elastic.resume(cfg, ckpt_dir, mesh=mesh, device=dev)
+    load_s = time.perf_counter() - t0
+    path = os.path.join(ckpt_dir, f"step_{at:08d}")
+    manifest = checkpointer.read_manifest(path)
+    specs = checkpointer._flatten(elastic.state_shardings(cfg, mesh))
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    bad = []
+    for key, t in checkpointer._flatten(state).items():
+        arr = np.load(os.path.join(path, manifest["leaves"][key]["file"]),
+                      mmap_mode="r")
+        want = np.array(
+            arr[_block_slices(arr.shape, sizes, coord, specs.get(key, ()))])
+        if not torch.equal(t.cpu(), torch.from_numpy(want)):
+            bad.append(key)
+    bspec = partition.batch_pspec(mesh, B)
+    rows = SyntheticTokens(cfg.vocab_size, S, B, seed=SEED, device=dev,
+                           mesh=mesh, batch_spec=bspec).batch_at(0)
+    state, m = ts.make_train_step(cfg, _shard_opt(), mesh=mesh,
+                                  batch_spec=bspec)(state, rows)
+    return {"rank": torch.distributed.get_rank(), "restored": at,
+            "bad": bad, "leaves": len(manifest["leaves"]), "load_s": load_s,
+            "next": _host_metrics(m)}
+
+
+def _worst(tag, outs, key, tol, scales=None):
+    """The ranks' ``key`` comparisons (``_rank_compare``) within ``tol``
+    (of each leaf's largest |value| with ``scales``): (worst error as a
+    share of the leaf's largest, or absolute; every block bitwise?)."""
+    worst, bitwise = 0.0, True
+    for o in outs:
+        errs, bits = o[key]
+        bitwise &= bits
+        for n, err in errs.items():
+            scale = scales[n] if scales else 1.0
+            if not np.isfinite(err) or err > tol * scale:
+                fail(f"{tag}: rank {o['rank']}'s {n} off by {err!r} (limit "
+                     f"{tol * scale!r})")
+            worst = max(worst, err / scale if scale else err)
+    return worst, bitwise
+
+
+def _hold_step(tag, outs, single, micro, card):
+    """(b)'s gates for a world's first sharded step (``outs``: the ranks'
+    ``rank_shard`` results) against the single-device step (``single``:
+    ``shard_single`` in 1 and ``micro`` microbatches)."""
+    m = outs[0]["metrics"][0]
+    if any(o["metrics"][0] != m for o in outs):
+        fail(f"{tag}: the ranks' metrics differ: "
+             f"{[o['metrics'][0] for o in outs]}")
+    _finite_metrics(tag, m)
+    many, one = single["loss"][micro], single["loss"][1]
+    rel_many = abs(m["loss"] - many) / abs(many)
+    rel_one = abs(m["loss"] - one) / abs(one)
+    gn = single["metrics"]["grad_norm"]
+    gn_rel = abs(m["grad_norm"] - gn) / gn
+    g_many, bit_many = _worst(f"{tag} gradients vs {micro} microbatches",
+                              outs, f"g{micro}", SHARD_GRAD_TOL,
+                              single["scale"][micro])
+    g_one, _ = _worst(f"{tag} gradients vs 1 microbatch", outs, "g1",
+                      MICRO_GRAD_TOL, single["scale"][1])
+    w_err, _ = _worst(f"{tag} weights vs 1 microbatch", outs, "step",
+                      MICRO_ATOL)
+    print(f"phase 27: {tag}: loss {m['loss']!r} against {micro} "
+          f"microbatches' {many!r} (rel {rel_many!r}, tolerance "
+          f"{SHARD_LOSS_RTOL}) and one's {one!r} (rel {rel_one!r}, "
+          f"tolerance {MICRO_LOSS_RTOL}); grad norm {m['grad_norm']!r} "
+          f"against one's {gn!r} (rel {gn_rel!r}, tolerance "
+          f"{MICRO_NORM_RTOL}); float32 gradient blocks within {g_many!r} of "
+          f"a leaf's largest of {micro} microbatches' (tolerance "
+          f"{SHARD_GRAD_TOL}{', bitwise' if bit_many else ''}) and "
+          f"{g_one!r} of one's (tolerance {MICRO_GRAD_TOL}); weights within "
+          f"{w_err!r} of one microbatch's step (tolerance {MICRO_ATOL} = 4 "
+          f"lr); {card}")
+    if (rel_many > SHARD_LOSS_RTOL or rel_one > MICRO_LOSS_RTOL
+            or gn_rel > MICRO_NORM_RTOL):
+        fail(f"{tag}: loss rel {rel_many!r} / {rel_one!r}, grad norm rel "
+             f"{gn_rel!r}")
+
+
+def _layout_bytes(layout, shapes, mesh, per_weight=12) -> int:
+    """A rank's bytes of the state under ``layout`` on ``mesh`` ((shape,
+    axes)): ``per_weight`` bytes (float32 master, m and v) a weight of its
+    blocks, and the 4-byte step counter."""
+    sizes = dict(zip(mesh[1], mesh[0]))
+    total = 4
+    for k, spec in layout.items():
+        q = math.prod(sizes[a] for e in spec if e for a in
+                      ((e,) if isinstance(e, str) else e))
+        total += per_weight * math.prod(shapes[k]) // q
+    return total
+
+
+def phase_sharded_train(dev, card):
+    """Phase 27 (module docstring): (a) one device, (b) the (2, 2) world,
+    (c) zero3 on (2, 2, 2), (d) the elastic resume, (e) the driver, (f)
+    one NCCL rank."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import transformer
+    from repro_torch.runtime import elastic
+    from repro_torch.testing.world import World
+    from repro_torch.train import train_step as ts
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    cfg = _shard_cfg()
+    mesh = MeshSpec(*SHARD_MESH)
+    p = math.prod(mesh.shape)
+    q_data = dict(zip(mesh.axes, mesh.shape))["data"]
+    layout = ts.param_layout(cfg, mesh)
+    with torch.device("meta"):
+        shapes = {k: tuple(t.shape) for k, t in
+                  transformer.Transformer(cfg).named_parameters()}
+    n = sum(math.prod(s) for s in shapes.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    ref, ckpt = os.path.join(tmp, "ref"), os.path.join(tmp, "ckpt")
+    try:
+        # (a) one device; the card freed before the world starts
+        t0 = time.perf_counter()
+        single = shard_single(cfg, dev, (1, q_data), B, S, ref)
+        print(f"phase 27: (a) {cfg.name} at full width, {cfg.n_layers} of "
+              f"its {configs.get(SHARD_ARCH).n_layers} layers (d = "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}): {n} parameters, "
+              f"{cfg.sharding_profile}, batch {B} x seq {S}, remat "
+              f"{cfg.remat!r}: one device, loss in 1 / {q_data} microbatches"
+              f" {single['loss'][1]!r} / {single['loss'][q_data]!r}, the "
+              f"1-microbatch step's grad norm "
+              f"{single['metrics']['grad_norm']!r}; gradients and weights "
+              f"written for the ranks; {time.perf_counter() - t0:.1f} s; "
+              f"device memory held after: {torch.cuda.memory_allocated()} B")
+
+        # (b) the (2, 2) world: the gated step, 3 more, a save, step 4
+        t0 = time.perf_counter()
+        w = World(p, device="cuda", timeout=WORLD_DEADLINE)
+        with w:
+            t_up = time.perf_counter() - t0
+            outs = w.run(rank_shard, mesh, cfg, B, S, ref, q_data,
+                         SHARD_MORE_STEPS, ckpt)
+        _closed(w, 27)
+        print(f"phase 27: (b) {p} ranks on mesh {mesh.shape} over "
+              f"{mesh.axes} (gloo, staged through the host): world up in "
+              f"{t_up:.1f} s, {time.perf_counter() - t0:.1f} s in all")
+        _hold_step("(b) (2, 2)", outs, single, q_data, card)
+        losses = [m["loss"] for m in outs[0]["metrics"]]
+        for m in outs[0]["metrics"]:
+            _finite_metrics("(b) repeated batch", m)
+        print(f"phase 27: (b) {len(losses)} steps on batch 0 repeated "
+              f"(warmup 0, lr {TRAIN_LR}): losses {losses!r}")
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            fail(f"(b): the loss did not fall on a repeated batch: "
+                 f"{losses!r}")
+        want = _layout_bytes(layout, shapes, SHARD_MESH)
+        terms = want + 2 * n + 4 * max(math.prod(s) for s in shapes.values())
+        for o in outs:
+            if o["state_bytes"] != want:
+                fail(f"(b): rank {o['rank']} holds {o['state_bytes']} B of "
+                     f"state, the layout {want} B")
+            print(f"phase 27: (b) rank {o['rank']}: state "
+                  f"{o['state_bytes']} B = {o['state_bytes'] / (12 * n):.4f}"
+                  f" of 12 B a weight (the layout's); step "
+                  f"{statistics.median(o['step_s']) * 1e3:.3f} ms (median of "
+                  f"{[round(s * 1e3, 3) for s in o['step_s']]}), staged "
+                  f"{statistics.median(o['staged'])} B a step; peak device "
+                  f"memory {o['peak']} B against state + gathered bfloat16 "
+                  f"+ the largest float32 leaf = {terms} B "
+                  f"({o['peak'] / terms:.4f}x); sharded save "
+                  f"{o['save_s']:.1f} s; {card}")
+        loss4 = outs[0]["next"]["loss"]
+        _finite_metrics("(b) step 4", outs[0]["next"])
+
+        # (f) one NCCL rank on (1, 1): (a)'s step bitwise
+        nmesh = MeshSpec((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        w = World(1, device="cuda", backend="nccl", timeout=WORLD_DEADLINE)
+        with w:
+            o = w.run(rank_shard, nmesh, cfg, B, S, ref, 1)[0]
+        _closed(w, 27)
+        same = o["metrics"][0] == single["metrics"]
+        print(f"phase 27: (f) one NCCL rank on (1, 1): every gradient "
+              f"bitwise (a)'s: {o['g1'][1]}, every weight after the step "
+              f"bitwise: {o['step'][1]}; loss {o['metrics'][0]['loss']!r} "
+              f"against {single['metrics']['loss']!r}, grad norm "
+              f"{o['metrics'][0]['grad_norm']!r} against "
+              f"{single['metrics']['grad_norm']!r}; "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
+        if not (o["g1"][1] and o["step"][1] and same):
+            fail(f"(f): not bitwise the single-device step: gradients "
+                 f"{o['g1'][1]}, weights {o['step'][1]}, metrics "
+                 f"{o['metrics'][0]} against {single['metrics']}")
+        shutil.rmtree(ref, ignore_errors=True)
+
+        # (c) zero3 on (2, 2, 2), reduced gemma2-2b
+        zcfg = _shard_cfg(reduced_cfg=True, profile="zero3")
+        zmesh = MeshSpec(*ZERO3_MESH)
+        zq = math.prod(zmesh.shape[:2])
+        zsingle = shard_single(zcfg, dev, (1, zq), B, S, ref, save_init=True)
+        t0 = time.perf_counter()
+        w = World(math.prod(zmesh.shape), device="cuda",
+                  timeout=WORLD_DEADLINE)
+        with w:
+            zouts = w.run(rank_shard, zmesh, zcfg, B, S, ref, zq,
+                          check_init=True)
+        _closed(w, 27)
+        _worst("(c) initial blocks", zouts, "init", 0.0)
+        print(f"phase 27: (c) {zcfg.name} zero3 on {zmesh.shape} over "
+              f"{zmesh.axes}, world of {math.prod(zmesh.shape)}: every "
+              f"initial block bitwise the single-device weights' at its "
+              f"mesh position; {time.perf_counter() - t0:.1f} s")
+        _hold_step("(c) zero3 (2, 2, 2)", zouts, zsingle, zq, card)
+        shutil.rmtree(ref, ignore_errors=True)
+
+        # (d) resume the (b) checkpoint on choose_mesh(2, target_model=2)
+        rmesh = elastic.choose_mesh(2, target_model=2)
+        t0 = time.perf_counter()
+        w = World(math.prod(rmesh.shape), device="cuda",
+                  timeout=WORLD_DEADLINE)
+        with w:
+            routs = w.run(rank_resume, rmesh, cfg, B, S, ckpt)
+        _closed(w, 27)
+        for o in routs:
+            _finite_metrics("(d) resumed step 4", o["next"])
+            if o["restored"] != SHARD_MORE_STEPS or o["bad"]:
+                fail(f"(d): rank {o['rank']} restored step {o['restored']}, "
+                     f"blocks not bitwise: {o['bad']}")
+        rel = abs(routs[0]["next"]["loss"] - loss4) / abs(loss4)
+        print(f"phase 27: (d) step {SHARD_MORE_STEPS} resumed on "
+              f"choose_mesh(2, target_model=2) = {rmesh.shape} over "
+              f"{rmesh.axes}: {routs[0]['leaves']} leaves, every block "
+              f"bitwise its slice of the saved leaf (restore "
+              f"{max(o['load_s'] for o in routs):.1f} s); step 4 loss "
+              f"{routs[0]['next']['loss']!r} against the uninterrupted "
+              f"world's {loss4!r} (rel {rel!r}, tolerance "
+              f"{RESUME_LOSS_RTOL}); {time.perf_counter() - t0:.1f} s")
+        if rel > RESUME_LOSS_RTOL:
+            fail(f"(d): resumed step 4 loss rel {rel!r}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        # (e) the driver in a fresh --ckpt-dir, then a restart
+        fresh = os.path.join(tmp, "driver")
+        src = os.path.join(HERE, "src")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            x for x in (src, os.environ.get("PYTHONPATH")) if x))
+        for steps, line in ((6, "mesh={'data': 2, 'model': 2}"),
+                            (8, "restored step 5")):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", "llama3.2-3b", "--smoke", "--mesh", "2x2",
+                   "--steps", str(steps), "--ckpt-dir", fresh]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                               env=env, timeout=SHARD_DRIVER_TIMEOUT_S)
+            if r.returncode != 0 or line not in r.stdout:
+                fail(f"(e) {' '.join(cmd[2:])}: exit {r.returncode}, "
+                     f"{line!r} missing\n{r.stdout[-3000:]}\n"
+                     f"{r.stderr[-3000:]}")
+            print(f"phase 27: (e) {' '.join(cmd[2:-1])} DIR: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for line in r.stdout.strip().splitlines():
+                print(f"phase 27:   {line}")
+
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 def main() -> int:
     import torch
 
@@ -3502,6 +4002,9 @@ def run_phases() -> int:
     t0 = time.perf_counter()
     phase_train(dev, card)
     print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sharded_train(dev, card)
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

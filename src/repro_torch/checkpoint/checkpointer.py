@@ -28,6 +28,16 @@ Device: ``restore``, ``restore_latest`` and ``read_leaf`` put the leaves
 on the card unless the caller passes ``device="cpu"``, and raise without
 a GPU (``core.engine.resolve_device``), as every entry point of the port
 does.
+
+Sharded trees (the sharded train state, ``train.train_step``): given
+``shardings`` (a tree of ``PartitionSpec``s mirroring the tree; a leaf it
+does not name is whole on every rank) and ``mesh`` (a ``DeviceMesh``,
+every rank calling), ``save`` gathers each leaf to the mesh's first rank,
+which writes the same mesh-free layout as a single-device save while the
+others wait; ``restore`` has each rank read only its own blocks of each
+``.npy`` leaf (``np.load(mmap_mode="r")``), so a checkpoint written from
+any mesh restores onto any other (elastic resume) and host memory holds
+a block at a time.
 """
 from __future__ import annotations
 
@@ -41,6 +51,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as D
+
 __all__ = ["SEP", "save", "available_steps", "read_manifest", "read_leaf", "restore",
            "restore_latest", "prune", "AsyncCheckpointer"]
 
@@ -49,6 +61,8 @@ _BF16 = "bfloat16"
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
+    if isinstance(tree, D.PartitionSpec):   # a leaf of a shardings tree
+        return {prefix: tree}
     if isinstance(tree, torch.nn.Module):
         tree = tree.state_dict()
     if isinstance(tree, Mapping):
@@ -86,15 +100,16 @@ def _write_leaf(path: str, leaf) -> tuple[list, str]:
     return list(arr.shape), str(arr.dtype)
 
 
-def save(directory: str, step: int, tree: Any) -> str:
-    """Blocking atomic save. Returns the final checkpoint path."""
+def _write(directory: str, step: int, flat) -> str:
+    """Write the leaves of ``flat`` ({key: leaf}, an iterable of pairs)
+    atomically; the final checkpoint path."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for key, leaf in _flatten(tree).items():
+    for key, leaf in flat:
         fname = key.replace(SEP, "__") + ".npy"
         shape, dtype = _write_leaf(os.path.join(tmp, fname), leaf)
         manifest["leaves"][key] = {"file": fname, "shape": shape,
@@ -105,6 +120,50 @@ def save(directory: str, step: int, tree: Any) -> str:
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def _gathered(tree: Any, shardings: Any, mesh):
+    """(key, the global leaf) on the mesh's first rank, leaf by leaf, as
+    the ranks gather it; (key, None) on the others."""
+    specs = _flatten(shardings) if shardings is not None else {}
+    for key, leaf in _flatten(tree).items():
+        spec = specs.get(key, D.P())
+        yield key, D._gather_root(leaf, mesh, spec)
+
+
+def _is_root(mesh) -> bool:
+    group = D._group(mesh, D._names(mesh))
+    return torch.distributed.get_rank() == \
+        torch.distributed.get_process_group_ranks(group)[0]
+
+
+def _device_of(tree) -> torch.device:
+    for leaf in _flatten(tree).values():
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def save(directory: str, step: int, tree: Any, shardings: Any = None,
+         mesh=None) -> Optional[str]:
+    """Blocking atomic save.  Returns the final checkpoint path.  With a
+    ``mesh``, ``tree`` holds this rank's blocks under ``shardings`` and
+    every rank calls: the first rank writes the global leaves, and every
+    rank returns when the checkpoint is complete (or raises, every rank,
+    when the write failed)."""
+    if mesh is None:
+        return _write(directory, step, _flatten(tree).items())
+    root = _is_root(mesh)
+
+    def body():
+        leaves = _gathered(tree, shardings, mesh)
+        if root:
+            return _write(directory, step, leaves)
+        for _ in leaves:
+            pass
+        return os.path.join(directory, f"step_{step:08d}")
+
+    return D._agreed(mesh, _device_of(tree), body)
 
 
 def available_steps(directory: str) -> list[int]:
@@ -124,33 +183,43 @@ def read_manifest(path: str) -> dict:
 
 
 def read_leaf(path: str, key: str, device="cuda",
-              manifest: Optional[dict] = None) -> torch.Tensor:
-    """One leaf of the checkpoint at ``path`` as a tensor on ``device``."""
+              manifest: Optional[dict] = None, mesh=None,
+              spec=None) -> torch.Tensor:
+    """One leaf of the checkpoint at ``path`` as a tensor on ``device``;
+    with ``mesh`` and ``spec``, this rank's block of it (read from the
+    memory-mapped file: the rest is never loaded)."""
     from repro_torch.core.engine import resolve_device
 
     dev = resolve_device(device)
     meta = (manifest or read_manifest(path))["leaves"][key]
-    arr = np.require(np.load(os.path.join(path, meta["file"])),
-                     requirements=["C", "W"])
+    # with a mesh, a copy-on-write map: only the block is read
+    arr = np.load(os.path.join(path, meta["file"]),
+                  mmap_mode="c" if mesh is not None else None)
+    if list(arr.shape) != list(meta["shape"]):
+        raise ValueError(f"{path}: leaf {key!r} has shape {arr.shape}, "
+                         f"the manifest says {meta['shape']}")
     if meta["dtype"] == _BF16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    if list(t.shape) != list(meta["shape"]):
-        raise ValueError(f"{path}: leaf {key!r} has shape {tuple(t.shape)}, "
-                         f"the manifest says {meta['shape']}")
+    if mesh is not None:
+        t = D._block(t, mesh, spec or (), f"{path}: leaf {key!r}").clone()
     return t.to(dev)
 
 
-def restore(path: str, template: Any, device="cuda") -> Any:
+def restore(path: str, template: Any, device="cuda", shardings: Any = None,
+            mesh=None) -> Any:
     """Restore into the structure of ``template``: a tree of dictionaries,
     lists and tuples (its leaves only name the keys) or a ``state_dict``,
     whose dotted names are the keys' paths.  Every leaf lands on
-    ``device``."""
+    ``device``.  With a ``mesh``: each leaf is this rank's block under
+    ``shardings`` (a tree of ``PartitionSpec``s mirroring the template;
+    a leaf it does not name is read whole)."""
     from repro_torch.core.engine import resolve_device
 
     device = resolve_device(device)
     manifest = read_manifest(path)
+    specs = _flatten(shardings) if shardings is not None else {}
 
     def build(node, prefix):
         if isinstance(node, Mapping):
@@ -162,12 +231,14 @@ def restore(path: str, template: Any, device="cuda") -> Any:
             vals = [build(v, f"{prefix}{SEP}{i}" if prefix else str(i))
                     for i, v in enumerate(node)]
             return type(node)(vals)
-        return read_leaf(path, prefix, device, manifest)
+        return read_leaf(path, prefix, device, manifest, mesh,
+                         specs.get(prefix))
 
     return build(template, "")
 
 
-def restore_latest(directory: str, template: Any, device="cuda"):
+def restore_latest(directory: str, template: Any, device="cuda",
+                   shardings: Any = None, mesh=None):
     from repro_torch.core.engine import resolve_device
 
     device = resolve_device(device)
@@ -176,7 +247,7 @@ def restore_latest(directory: str, template: Any, device="cuda"):
         return None, -1
     step = steps[-1]
     path = os.path.join(directory, f"step_{step:08d}")
-    return restore(path, template, device), step
+    return restore(path, template, device, shardings, mesh), step
 
 
 def prune(directory: str, keep: int = 3) -> None:
@@ -186,24 +257,36 @@ def prune(directory: str, keep: int = 3) -> None:
 
 class AsyncCheckpointer:
     """Snapshot to host memory, then write on a background thread: the
-    caller waits only for the device-to-host copy."""
+    caller waits only for the device-to-host copy.  With a ``mesh`` (every
+    rank calling ``save`` and ``wait``): the snapshot is the gather of the
+    blocks to the mesh's first rank, which alone writes and prunes, and
+    ``wait`` returns on every rank once its write is done."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.directory = directory
         self.keep = keep
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            torch.distributed.barrier(
+                group=D._group(self.mesh, D._names(self.mesh)))
 
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, shardings: Any = None) -> None:
         self.wait()
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        if self.mesh is None:
+            host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        else:
+            host = dict(_gathered(tree, shardings, self.mesh))
+            if not _is_root(self.mesh):
+                return
 
         def work():
-            save(self.directory, step, host)
+            _write(self.directory, step, host.items())
             prune(self.directory, self.keep)
 
         self._thread = threading.Thread(target=work, daemon=True)

@@ -8,12 +8,13 @@ repeating ``pattern`` of ``LayerSpec`` entries; the port's model
 repeats with the pattern inside the loop, each pattern position's
 parameters stacked over the repeats.
 
-The reference's fields that steer only its mesh partitioner and its
-compiler's lowering (``sharding_profile``, ``scan_unroll``,
+``sharding_profile`` (dp, fsdp or zero3) says how the sharded training
+lays the parameters and AdamW moments over a device mesh
+(``repro_torch.sharding.partition``).  The reference's fields that steer
+only its compiler's placement and lowering (``scan_unroll``,
 ``probe_unroll``, ``moe_shard_constraints``, ``attn_seq_proj``,
 ``batch_shard_constraint``) are left out: nothing in the port reads them.
-``sharding_profile`` comes back with the sharded training (ROADMAP.md
-queue 1, item 12b).  The model reads ``remat`` under autograd.  The
+The model reads ``remat`` under autograd.  The
 reference's ``train_microbatches`` is read only by its dry run, whose
 counterpart is item 12c, and comes back with it (``launch.train`` takes
 ``--microbatches``, default 1, as the reference's driver does).
@@ -85,6 +86,9 @@ class ModelConfig:
     scale_embed: bool = False               # gemma2 sqrt(d) embedding scale
     act: Literal["silu", "gelu"] = "silu"
     modality: Modality = "text"
+    # how the sharded training lays the parameters over a mesh
+    # (repro_torch.sharding.partition)
+    sharding_profile: Literal["dp", "fsdp", "zero3"] = "fsdp"
     # what the backward pass recomputes of each repeat of the pattern:
     # nothing (every activation saved), everything but the weight products
     # ("dots"), or everything ("full")
@@ -198,6 +202,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=256,
+        sharding_profile="dp",
         remat="nothing",
     )
     if cfg.moe is not None:

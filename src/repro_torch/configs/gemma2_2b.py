@@ -26,6 +26,7 @@ CONFIG = ModelConfig(
     use_post_norm=True,
     scale_embed=True,
     act="gelu",
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=True,  # half the stack is sliding-window
 )

@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     use_post_norm=True,
     scale_embed=True,
     act="gelu",
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=True,
 )

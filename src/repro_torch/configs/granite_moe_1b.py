@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     # combine einsums rival the expert FLOPs at the default 512 groups
     moe=MoEConfig(n_experts=32, top_k=8, d_ff=512, group_tokens=128),
     tie_embeddings=True,
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=False,
 )

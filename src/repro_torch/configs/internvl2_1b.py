@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     rope_theta=1000000.0,
     tie_embeddings=True,
     modality="vlm",
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=False,
 )

@@ -29,6 +29,7 @@ CONFIG = ModelConfig(
     mamba=MambaConfig(d_state=128, head_dim=64, n_groups=8, conv_width=4,
                       chunk=256, expand=2),
     rope_theta=10000.0,
+    sharding_profile="zero3",   # 398B params: ZeRO-3 over all data axes
     remat="full",
     subquadratic=True,  # hybrid: 63/72 layers are SSM; 9 attn layers KV-shard
 )

@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="dense"),),
     rope_theta=500000.0,
     tie_embeddings=True,
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=False,
 )

@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     mamba=MambaConfig(d_state=128, head_dim=64, n_groups=1, conv_width=4,
                       chunk=256, expand=2),
     tie_embeddings=True,
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=True,  # SSM: O(1) decode state -> long_500k runs
 )

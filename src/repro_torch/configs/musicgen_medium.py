@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="dense"),),
     act="gelu",
     modality="audio",
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=False,
 )

@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="moe"),),
     moe=MoEConfig(n_experts=16, top_k=2, d_ff=6400),
     rope_theta=10000.0,
+    sharding_profile="zero3",   # 42B total params: shard everything
     remat="full",
     subquadratic=False,
 )

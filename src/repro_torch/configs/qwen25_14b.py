@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     pattern=(LayerSpec(mixer="attn", ffn="dense"),),
     qkv_bias=True,
     rope_theta=1000000.0,
+    sharding_profile="fsdp",
     remat="full",
     subquadratic=False,
 )

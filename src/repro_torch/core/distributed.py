@@ -79,10 +79,13 @@ TIMEOUT_S = float(os.environ.get("REPRO_TORCH_DIST_TIMEOUT", "300"))
 class PartitionSpec(tuple):
     """How a global array is split over a mesh, one entry per array
     dimension: None (whole), a mesh dimension's name, or a tuple of names
-    (split over their row-major product), as ``jax.sharding.PartitionSpec``."""
+    (split over their row-major product), as ``jax.sharding.PartitionSpec``;
+    a tuple of one name is that name, as there."""
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
 
 
 P = PartitionSpec
@@ -271,6 +274,150 @@ def _global(x: torch.Tensor, mesh, spec) -> torch.Tensor:
         if axes:
             x = _all_gather(x, mesh, axes, dim=dim)
     return x
+
+
+# ---------------------------------------------------------------------------
+# exact blocks (the sharded training's layouts): a dimension splits only
+# when its size divides the product of its mesh dimensions, as
+# ``jax.device_put(x, NamedSharding(mesh, spec))`` requires
+# ---------------------------------------------------------------------------
+def _spec_axes(spec) -> set:
+    return {a for entry in spec for a in _entry_axes(entry)}
+
+
+def _check_divides(shape, mesh, spec, what="array") -> None:
+    if len(spec) > len(shape):
+        raise ValueError(f"{what}: spec {tuple(spec)} has more entries than "
+                         f"its {len(shape)} dimensions")
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        q = _axis_size(mesh, axes) if axes else 1
+        if shape[dim] % q:
+            raise ValueError(
+                f"{what} of shape {tuple(shape)}: spec {tuple(spec)} implies "
+                f"that the global size of its dimension {dim} should be "
+                f"divisible by {q}, but it is equal to {shape[dim]}")
+
+
+def _coord(mesh) -> dict:
+    """This rank's coordinates, {mesh dimension name: index}."""
+    return dict(zip(_names(mesh), mesh.get_coordinate()))
+
+
+def _block(x: torch.Tensor, mesh, spec, what="array") -> torch.Tensor:
+    """This rank's block of the global ``x`` under ``spec`` (a view), the
+    block ``jax.device_put`` gives the device at the same row-major mesh
+    position; raises where a dimension does not divide, as it does."""
+    _check_divides(x.shape, mesh, spec, what)
+    return _block_at(x, mesh, spec, _coord(mesh))
+
+
+def _is_owner(mesh, spec) -> bool:
+    """True on one rank of each set of ranks that hold the same block
+    under ``spec``: the one at coordinate 0 on every mesh dimension the
+    spec does not name."""
+    named = _spec_axes(spec)
+    return all(c == 0 for a, c in _coord(mesh).items() if a not in named)
+
+
+def _gather_full(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The global array from every rank's block under ``spec``, on every
+    rank: one all-gather a split dimension, staged through the host once
+    under gloo."""
+    dims = [(d, _entry_axes(e)) for d, e in enumerate(spec) if _entry_axes(e)]
+    if not dims:
+        return x
+    staged = _staged(x, _group(mesh, dims[0][1]))
+    w = _to_wire(x, staged)
+    for d, axes in dims:
+        group = _group(mesh, axes)
+        parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, w.contiguous(), group=group)
+        w = torch.cat(parts, dim=d)
+    return _from_wire(w, x, staged)
+
+
+def _block_at(x: torch.Tensor, mesh, spec, coord: dict) -> torch.Tensor:
+    """The block of the global ``x`` under ``spec`` that the rank at mesh
+    coordinates ``coord`` ({dimension name: index}) holds (a view)."""
+    sizes = _sizes(mesh)
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes:
+            i = 0
+            for a in _in_order(mesh, axes):
+                i = i * sizes[a] + int(coord[a])
+            m = x.shape[dim] // _axis_size(mesh, axes)
+            x = x.narrow(dim, i * m, m)
+    return x
+
+
+def _sum_block(g: torch.Tensor, mesh, axes, spec,
+               dtype=torch.float32) -> torch.Tensor:
+    """This rank's block under ``spec`` of the sum, in ``dtype``, of the
+    global ``g`` of every rank along ``axes`` (none: ``g`` itself), a new
+    tensor.  One all-to-all: each rank sends every peer along ``axes``
+    that peer's block of its ``g`` (bfloat16 as its bytes), and adds the
+    blocks it receives in ``dtype`` in rank order, as a sum of microbatch
+    gradients accumulates.  Under gloo the blocks travel and are summed on
+    the host, and only this rank's sum goes back to the card."""
+    _check_divides(g.shape, mesh, spec)
+    me = _coord(mesh)
+    axes = _in_order(mesh, axes) if axes else ()
+    if not axes:
+        return _block_at(g, mesh, spec, me).to(dtype, copy=True)
+    import numpy as np
+
+    sizes = _sizes(mesh)
+    group = _group(mesh, axes)
+    chunks = []
+    for j in range(_axis_size(mesh, axes)):   # group ranks: row-major
+        peer = dict(me, **dict(zip(axes, np.unravel_index(
+            j, tuple(sizes[a] for a in axes)))))
+        chunks.append(_block_at(g, mesh, spec, peer))
+    send = torch.stack(chunks)
+    staged = _staged(send, group)
+    w = _to_wire(send, staged)
+    recv = torch.empty_like(w)
+    dist.all_to_all_single(recv, w, group=group)
+    parts = _from_wire(recv, send, False)
+    total = parts[0].to(dtype, copy=True)
+    for part in parts[1:]:
+        total.add_(part.to(dtype))
+    if staged:
+        _STAGED[0] += total.numel() * total.element_size()
+        total = total.to(g.device)
+    return total
+
+
+def _gather_root(x: torch.Tensor, mesh, spec):
+    """Rank 0 of ``mesh``: the global array (on the host) whose block under
+    ``spec`` each rank holds; the other ranks: None.  One gather over the
+    whole mesh; a block that several ranks hold is taken once."""
+    import numpy as np
+
+    group = _group(mesh, _names(mesh))
+    root = dist.get_process_group_ranks(group)[0]
+    me = dist.get_rank() == root
+    if not _spec_axes(spec):                  # every rank holds it whole
+        return x.detach().cpu() if me else None
+    nccl = dist.get_backend(group) == "nccl"
+    w = x.contiguous() if nccl else _to_wire(x, x.is_cuda)
+    parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+    dist.gather(w, parts if me else None, dst=root, group=group)
+    if not me:
+        return None
+    sizes = _sizes(mesh)
+    shape = list(x.shape)
+    for dim, entry in enumerate(spec):
+        if _entry_axes(entry):
+            shape[dim] *= _axis_size(mesh, _entry_axes(entry))
+    full = torch.empty(shape, dtype=x.dtype)
+    for pos, part in enumerate(parts):
+        coord = dict(zip(sizes, np.unravel_index(pos, tuple(sizes.values()))))
+        if not any(coord[a] for a in sizes if a not in _spec_axes(spec)):
+            _block_at(full, mesh, spec, coord).copy_(_from_wire(part, x, False))
+    return full
 
 
 def shard_map_compat(body, *, mesh, in_specs, out_specs):

@@ -6,9 +6,13 @@ exact same stream from its restored step: the restart-exactness property
 the checkpointing layer relies on (no data-loader state to snapshot).  The
 rows are drawn on the host by the reference's numpy generators, so a batch
 holds the same token ids in both packages, and land on ``device`` as
-int64 tensors.  The reference's ``mesh=`` / ``batch_spec=`` (each host
-building only its shard of a sharded batch) come with the sharded
-training (ROADMAP.md queue 1, item 12b).
+int64 tensors.
+
+With ``mesh=`` (a ``DeviceMesh``) and ``batch_spec=`` (the batch's
+``PartitionSpec``, ``sharding.partition.batch_pspec``) each rank builds
+only its own rows of the global batch: the rows of the reference's
+addressable shard at the same mesh position (``jax.make_array_from_callback``
+builds each shard from the same rows), for the sharded train step.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ class SyntheticTokens:
     """Zipf-ish synthetic LM tokens with next-token labels."""
 
     def __init__(self, vocab_size: int, seq_len: int, global_batch: int, *,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None, batch_spec=None):
+        from repro_torch.core import distributed as D
         from repro_torch.core.engine import resolve_device
 
         self.vocab = vocab_size
@@ -30,6 +35,12 @@ class SyntheticTokens:
         self.batch = global_batch
         self.seed = seed
         self.device = resolve_device(device)
+        self.rows = (0, global_batch)
+        if mesh is not None:
+            spec = batch_spec if batch_spec is not None else D.P(None)
+            rows = D._block(torch.arange(global_batch), mesh, spec[:1],
+                            "the batch")
+            self.rows = (int(rows[0]), int(rows[-1]) + 1)
 
     def _host_batch(self, step: int, lo: int, hi: int) -> np.ndarray:
         """Rows [lo, hi) of the global batch at ``step`` (deterministic):
@@ -46,8 +57,8 @@ class SyntheticTokens:
 
     def batch_at(self, step: int) -> dict:
         """{"tokens": (B, S), "labels": (B, S)}: the labels are the tokens
-        shifted by one."""
-        arr = torch.from_numpy(self._host_batch(step, 0, self.batch)).long()
+        shifted by one; with a mesh, B is this rank's rows only."""
+        arr = torch.from_numpy(self._host_batch(step, *self.rows)).long()
         arr = arr.to(self.device)
         return {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
 

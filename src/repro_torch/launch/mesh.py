@@ -22,14 +22,31 @@ Axis roles (as in the reference):
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch.distributed as dist
 
-__all__ = ["SINGLE_POD", "MULTI_POD", "make_production_mesh",
-           "make_test_mesh", "mesh_device_type"]
+__all__ = ["SINGLE_POD", "MULTI_POD", "MeshSpec", "mesh_shape",
+           "make_production_mesh", "make_test_mesh", "mesh_device_type"]
 
 SINGLE_POD = (16, 16)
 MULTI_POD = (2, 16, 16)
+
+
+class MeshSpec(NamedTuple):
+    """A mesh's shape and dimension names without a world: what the
+    layout functions (``sharding.partition``) read, and what a rank of a
+    ``testing.world.World`` turns into its ``DeviceMesh``."""
+    shape: tuple
+    axes: tuple
+
+
+def mesh_shape(mesh) -> dict:
+    """{dimension name: size} of a ``DeviceMesh`` or a :class:`MeshSpec`,
+    in the mesh's order (the counterpart of ``jax.sharding.Mesh.shape``)."""
+    if isinstance(mesh, MeshSpec):
+        return dict(zip(mesh.axes, (int(s) for s in mesh.shape)))
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
 def mesh_device_type() -> str:

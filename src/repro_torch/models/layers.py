@@ -45,6 +45,10 @@ def param(t: torch.Tensor) -> nn.Parameter:
 class RMSNorm(nn.Module):
     """``scale``: (repeats, d), or (d,) when ``repeats`` is None."""
 
+    # each parameter's logical axes (the reference's spec tree, without the
+    # stacked "layers" axis; ``transformer.logical_specs``)
+    SPECS = {"scale": ("embed_nosplit",)}
+
     def __init__(self, d: int, repeats: Optional[int], device=None):
         super().__init__()
         shape = (d,) if repeats is None else (repeats, d)
@@ -67,6 +71,8 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float,
 
 class Embedding(nn.Module):
     """``embedding``: (vocab, d), N(0, 0.02^2)."""
+
+    SPECS = {"embedding": ("vocab", "embed")}
 
     def __init__(self, vocab: int, d: int, gen: Optional[torch.Generator],
                  device=None):
@@ -97,6 +103,14 @@ class Attention(nn.Module):
     """Explicit 3-D head layout: ``wq`` (R, d, H, hd), ``wk`` / ``wv``
     (R, d, KV, hd), ``wo`` (R, H, hd, d); with ``qkv_bias`` also ``bq``
     (R, H, hd), ``bk`` / ``bv`` (R, KV, hd), zero at init."""
+
+    SPECS = {"wq": ("embed", "q_heads", None),
+             "wk": ("embed", "kv_heads", None),
+             "wv": ("embed", "kv_heads", None),
+             "wo": ("q_heads", None, "embed"),
+             "bq": ("q_heads", None),
+             "bk": ("kv_heads", None),
+             "bv": ("kv_heads", None)}
 
     def __init__(self, cfg, repeats: int, gen: Optional[torch.Generator],
                  device=None):
@@ -237,6 +251,9 @@ def attention_apply(p: Attention, r: int, cfg, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
     """``w_gate`` / ``w_up`` (R, d, ff), ``w_down`` (R, ff, d)."""
+
+    SPECS = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+             "w_down": ("ff", "embed")}
 
     def __init__(self, d: int, ff: int, repeats: int,
                  gen: Optional[torch.Generator], device=None):

@@ -27,6 +27,20 @@ class Mamba2(nn.Module):
     ``dt_bias`` (R, H); the gated norm's ``norm`` (R, d_in); ``out``
     (R, d_in, d)."""
 
+    SPECS = {"in_z": ("embed", "mamba_inner"),
+             "in_x": ("embed", "mamba_inner"),
+             "in_B": ("embed", None),
+             "in_C": ("embed", None),
+             "in_dt": ("embed", "mamba_heads"),
+             "conv_x": (None, "mamba_inner"),
+             "conv_B": (None, None),
+             "conv_C": (None, None),
+             "A_log": ("mamba_heads",),
+             "D": ("mamba_heads",),
+             "dt_bias": ("mamba_heads",),
+             "norm": ("mamba_inner",),
+             "out": ("mamba_inner", "embed")}
+
     def __init__(self, cfg, repeats: int, gen: Optional[torch.Generator],
                  device=None):
         super().__init__()

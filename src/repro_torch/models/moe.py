@@ -26,6 +26,11 @@ class MoE(nn.Module):
     """``router`` (R, d, E), ``w_gate`` / ``w_up`` (R, E, d, ff),
     ``w_down`` (R, E, ff, d)."""
 
+    SPECS = {"router": ("embed_nosplit", None),
+             "w_gate": ("experts", "embed", None),
+             "w_up": ("experts", "embed", None),
+             "w_down": ("experts", None, "embed")}
+
     def __init__(self, d: int, moe_cfg, repeats: int,
                  gen: Optional[torch.Generator], device=None):
         super().__init__()

@@ -15,7 +15,9 @@ recomputes the whole body in the backward pass, "dots" saves the weight
 products and recomputes the rest (JAX's
 ``checkpoint_dots_with_no_batch_dims``), "nothing" saves every
 activation.  Training reads the parameters through ``unbound``.  The
-reference's sharding hooks concern GSPMD and are left out.
+reference's sharding hooks concern GSPMD and are left out;
+``logical_specs`` gives its spec tree, which the sharded training lays
+over a mesh (``sharding.partition``).
 """
 from __future__ import annotations
 
@@ -82,6 +84,22 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
     """float32 parameters drawn from ``gen`` (on ``device``, which must be
     ``gen``'s device) with the reference's distributions."""
     return Transformer(cfg, gen, device)
+
+
+def logical_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """{``state_dict`` name: logical axes}: the reference's spec tree
+    (``repro.models.transformer.init``), each block leaf with the stacked
+    ``"layers"`` axis first."""
+    with torch.device("meta"):
+        params = Transformer(cfg)
+    out = {}
+    for mname, module in params.named_modules():
+        for pname, _ in module.named_parameters(recurse=False):
+            spec = type(module).SPECS[pname]
+            if mname.startswith("blocks."):
+                spec = ("layers",) + spec
+            out[f"{mname}.{pname}" if mname else pname] = spec
+    return out
 
 
 def unbound(params: Transformer, dtype: Optional[torch.dtype] = None):

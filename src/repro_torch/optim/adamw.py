@@ -63,13 +63,15 @@ def global_norm(leaves) -> torch.Tensor:
 @torch.no_grad()
 def apply(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
           grads: Mapping[str, torch.Tensor], opt_state: dict,
-          step: torch.Tensor) -> dict:
+          step: torch.Tensor, grad_norm: torch.Tensor | None = None) -> dict:
     """One update of ``params``, ``opt_state["m"]`` and ``opt_state["v"]``
     in place (float32 leaves keyed alike) from ``grads``, which it
     overwrites: the gradients are scratch once read.  ``step`` is the
-    0-d step counter (not advanced here).  Returns the metrics
+    0-d step counter (not advanced here).  ``grad_norm``: the global
+    gradient norm to clip by (the sharded step's, taken over every
+    rank's shards); None takes it over ``grads``.  Returns the metrics
     {"grad_norm", "lr"} as 0-d float32 tensors."""
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values()) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     t = step.to(torch.float32) + 1.0

@@ -39,16 +39,12 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, NamedTuple
+from typing import Any
+
+from repro_torch.launch.mesh import MeshSpec
 
 __all__ = ["MeshSpec", "World", "WorldError", "run_world", "execute_plan",
            "explain_plan", "on_rank"]
-
-
-class MeshSpec(NamedTuple):
-    """A mesh to build inside each rank: its shape and dimension names."""
-    shape: tuple
-    axes: tuple
 
 
 class WorldError(RuntimeError):

@@ -1,5 +1,5 @@
 """Train-step factory: loss, gradients, AdamW update (counterpart of
-``repro.train.train_step``, on one device).
+``repro.train.train_step``), on one device or sharded over a mesh.
 
 Mixed precision as in the reference: float32 master parameters, a bfloat16
 compute copy made inside the loss (``transformer.unbound(params,
@@ -17,9 +17,43 @@ donates its state to the jitted step to the same end).  Flattened by the
 checkpointer it gives the reference's keys (``params/<key>``,
 ``opt/m/<key>``, ``opt/v/<key>``, ``step``), so each package restores the
 other's training checkpoints (``load_state``); ``state_from_reference`` /
-``state_to_reference`` carry a state across as numpy arrays.  The
-reference's logical sharding specs belong to the sharded training
-(ROADMAP.md queue 1, item 12b).
+``state_to_reference`` carry a state across as numpy arrays.
+
+Sharded over a mesh (``mesh=``: a ``DeviceMesh`` over a
+``torch.distributed`` world, one rank a device)
+-----------------------------------------------------------------
+The layout is the reference's: each rank holds, for every leaf of
+``params``, ``opt.m`` and ``opt.v``, the block that its ``NamedSharding``
+(``sharding.partition.param_shardings`` of ``logical_specs(cfg)`` under
+``cfg.sharding_profile``) puts on the device at the same row-major mesh
+position; a dimension that does not divide its mesh dimensions raises, as
+``jax.device_put`` does.  The sharded state is ``{"params": {name:
+block}, "opt": {"m": {name: block}, "v": {name: block}}, "step": 0-d
+int32}``, every block a plain float32 tensor on the rank's device
+(``init_state(..., mesh=)``, ``shard_state``; ``gather_state`` makes the
+single-device state again).  The batch is split over the data axes of
+``batch_spec`` (``partition.batch_pspec``); each rank is handed its own
+rows (``data.pipeline.SyntheticTokens(..., mesh=)``).  A step:
+
+1. casts each float32 block to bfloat16 and all-gathers the leaf whole;
+2. runs the single-device loss (``make_loss_fn``: the ``unbound`` path,
+   ``cfg.remat``, microbatches) on the rank's rows, the gathered bfloat16
+   leaves standing where the cast leaves stand on one device;
+3. sums each bfloat16 gradient over the batch's mesh dimensions in
+   float32, leaf by leaf: each rank sends each peer that peer's block and
+   adds the blocks it receives in rank order (as microbatch gradients
+   accumulate on one device), frees the leaf before the next one, then
+   divides by the number of row slices;
+4. takes the global grad norm over the blocks, each block counted on one
+   rank of those that hold it;
+5. runs AdamW on the rank's blocks in place.
+
+Compute along ``model`` (and any dimension that does not split the batch)
+is replicated: those ranks run the same rows and nothing sums over them;
+the reference's tensor-parallel splits of heads and ff are compiler
+placement, not function.  Metrics are global and the same on every rank.
+Collectives go through ``core.distributed``'s helpers (staged through
+the host under gloo), and a failure in one rank raises in every rank.
 """
 from __future__ import annotations
 
@@ -30,14 +64,17 @@ import torch
 
 from repro_torch.checkpoint import checkpointer
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as D
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
+from repro_torch.sharding import partition
 
 __all__ = ["cross_entropy", "make_loss_fn", "init_state", "backward",
            "make_train_step", "load_state", "state_from_reference",
-           "state_to_reference"]
+           "state_to_reference", "param_layout", "shard_state",
+           "gather_state", "sharded_backward"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -69,14 +106,131 @@ def make_loss_fn(cfg: ModelConfig, *, q_chunk: int = 512):
     return loss_fn
 
 
-def init_state(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_state(cfg: ModelConfig, seed: int = 0, device="cuda",
+               mesh=None) -> dict:
     """float32 parameters drawn from ``seed`` (``Model.init``), zero AdamW
-    moments and step 0, on ``device``."""
+    moments and step 0, on ``device``.  With ``mesh``: this rank's blocks
+    of that state (the whole parameters are drawn, then freed)."""
     params = Model(cfg).init(seed, device)
     dev = params.embed.embedding.device
-    return {"params": params,
-            "opt": adamw.init(dict(params.named_parameters())),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if mesh is None:
+        return {"params": params,
+                "opt": adamw.init(dict(params.named_parameters())),
+                "step": step}
+    local = _blocks(dict(params.named_parameters()),
+                    param_layout(cfg, mesh), mesh)
+    del params
+    return {"params": local, "opt": adamw.init(local), "step": step}
+
+
+def param_layout(cfg: ModelConfig, mesh) -> dict:
+    """{parameter name: PartitionSpec}: where ``cfg.sharding_profile`` lays
+    each parameter (and its moments) over ``mesh`` (a ``DeviceMesh`` or a
+    ``MeshSpec``), the reference's ``param_shardings`` entry for entry."""
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape) for n, p in
+                  transformer.Transformer(cfg).named_parameters()}
+    return partition.param_shardings(transformer.logical_specs(cfg),
+                                     cfg.sharding_profile, mesh, shapes)
+
+
+def _blocks(leaves: Mapping[str, torch.Tensor], layout: Mapping, mesh) -> dict:
+    """Each leaf's block on this rank, a tensor of its own."""
+    return {n: D._block(t.detach(), mesh, layout[n], n).clone(
+        memory_format=torch.contiguous_format) for n, t in leaves.items()}
+
+
+def shard_state(state: dict, mesh, cfg: ModelConfig) -> dict:
+    """This rank's blocks of a single-device train state (copies)."""
+    layout = param_layout(cfg, mesh)
+    return {"params": _blocks(dict(state["params"].named_parameters()),
+                              layout, mesh),
+            "opt": {m: _blocks(state["opt"][m], layout, mesh)
+                    for m in ("m", "v")},
+            "step": state["step"].detach().clone()}
+
+
+def _module(cfg: ModelConfig, leaves: Mapping[str, torch.Tensor]):
+    """A ``Transformer`` whose parameters are ``leaves`` themselves."""
+    with torch.device("meta"):
+        module = transformer.Transformer(cfg)
+    module.load_state_dict(dict(leaves), assign=True)
+    return module
+
+
+@torch.no_grad()
+def gather_state(state: dict, mesh, cfg: ModelConfig) -> dict:
+    """The single-device train state from every rank's blocks, on every
+    rank (collective: every rank calls it)."""
+    layout = param_layout(cfg, mesh)
+
+    def whole(blocks):
+        return {n: D._gather_full(t, mesh, layout[n])
+                for n, t in blocks.items()}
+
+    return {"params": _module(cfg, whole(state["params"])),
+            "opt": {m: whole(state["opt"][m]) for m in ("m", "v")},
+            "step": state["step"].clone()}
+
+
+def sharded_backward(loss_fn, cfg: ModelConfig, params: Mapping[str,
+                     torch.Tensor], batch: dict, mesh, *, batch_spec,
+                     microbatches: int = 1, dtype=torch.bfloat16):
+    """Steps 1-3 of a sharded step (module docstring): this rank's blocks
+    of the float32 gradient of ``loss_fn`` over the global batch (the
+    rank's rows in ``batch``, the global batch split over ``batch_spec``'s
+    first entry, ``partition.batch_pspec``; each rank's rows in
+    ``microbatches`` slices), and the global (loss, aux), detached.
+    ``params``: this rank's blocks."""
+    layout = param_layout(cfg, mesh)
+    axes = D._entry_axes(batch_spec[0]) if len(batch_spec) else ()
+    rows = next(iter(batch.values())).shape[0]
+    if microbatches < 1 or rows % microbatches:
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{microbatches} microbatches")
+    with torch.no_grad():
+        module = _module(cfg, {n: D._gather_full(t.to(dtype), mesh,
+                                                 layout[n])
+                               for n, t in params.items()})
+    slices = {k: v.chunk(microbatches, dim=0) for k, v in batch.items()}
+    grads: dict = {}
+    loss = aux = 0.0
+    for i in range(microbatches):
+        tot, (l, a) = loss_fn(module, {k: v[i] for k, v in slices.items()})
+        tot.backward()
+        loss, aux = loss + l.detach(), aux + a.detach()
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                p.grad = None
+                blk = D._sum_block(g, mesh, axes, layout[n])
+                del g
+                grads[n] = blk if n not in grads else grads[n].add_(blk)
+    del module
+    q = microbatches * (D._axis_size(mesh, axes) if axes else 1)
+    with torch.no_grad():
+        la = D._sum_block(torch.stack([torch.as_tensor(loss).float(),
+                                       torch.as_tensor(aux).float()]),
+                          mesh, axes, D.P(None))
+        if q > 1:
+            for g in grads.values():
+                g.div_(q)
+            la = la / q
+    return grads, (la[0], la[1])
+
+
+def _sharded_norm(grads: Mapping[str, torch.Tensor], layout, mesh):
+    """The global L2 norm of the gradient blocks: each leaf's sum of
+    squares taken on one rank of those that hold a block (zero on the
+    others), summed over the mesh.  On one rank it is ``adamw.global_norm``
+    bit for bit (the same sums in the same order)."""
+    sq = torch.stack([
+        torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+        if D._is_owner(mesh, layout[n])
+        else torch.zeros((), dtype=torch.float32, device=g.device)
+        for n, g in grads.items()]).sum()
+    return torch.sqrt(D._sum_block(sq, mesh, D._names(mesh), D.P()))
 
 
 def backward(loss_fn, params: torch.nn.Module, batch: dict,
@@ -109,11 +263,21 @@ def backward(loss_fn, params: torch.nn.Module, batch: dict,
 
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(), *,
-                    microbatches: int = 1, q_chunk: int = 512):
+                    microbatches: int = 1, q_chunk: int = 512, mesh=None,
+                    batch_spec=None):
     """``train_step(state, batch) -> (state, metrics)``: one AdamW step of
     ``state`` in place; metrics {"loss", "aux", "grad_norm", "lr"} are 0-d
-    float32 tensors on the state's device."""
+    float32 tensors on the state's device.  With ``mesh``: the sharded
+    step of a sharded state on this rank's rows of the batch, the global
+    batch split over ``batch_spec`` (``partition.batch_pspec``), every
+    rank calling it (module docstring)."""
     loss_fn = make_loss_fn(cfg, q_chunk=q_chunk)
+    if mesh is not None:
+        if batch_spec is None:
+            raise ValueError("a sharded step needs the batch's "
+                             "batch_spec (partition.batch_pspec)")
+        return _sharded_step(cfg, opt_cfg, loss_fn, mesh, batch_spec,
+                             microbatches)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
@@ -126,6 +290,26 @@ def make_train_step(cfg: ModelConfig,
             p.grad = None
         state["step"].add_(1)
         return state, {"loss": loss, "aux": aux, **metrics}
+
+    return train_step
+
+
+def _sharded_step(cfg, opt_cfg, loss_fn, mesh, batch_spec, microbatches):
+    layout = param_layout(cfg, mesh)
+
+    def body(state, batch):
+        grads, (loss, aux) = sharded_backward(
+            loss_fn, cfg, state["params"], batch, mesh,
+            batch_spec=batch_spec, microbatches=microbatches)
+        gnorm = _sharded_norm(grads, layout, mesh)
+        metrics = adamw.apply(opt_cfg, state["params"], grads, state["opt"],
+                              state["step"], grad_norm=gnorm)
+        state["step"].add_(1)
+        return state, {"loss": loss, "aux": aux, **metrics}
+
+    def train_step(state: dict, batch: dict):
+        dev = state["step"].device
+        return D._agreed(mesh, dev, lambda: body(state, batch))
 
     return train_step
 

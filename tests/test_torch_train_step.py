@@ -33,8 +33,10 @@ where a sign flips; the grad norm within rtol 1e-3, seen 1.4e-4; and the
 float32 gradients of a float32 loss leaf by leaf within 1e-5 of the
 leaf's largest, seen 5.3e-7: a step that kept one microbatch's gradient
 or left out the division is off by 0.6-3 of it), restart from a
-checkpoint bitwise, the launcher's smoke with a restart; and ``--mesh``
-other than 1 refused.
+checkpoint bitwise, the launcher's smoke with a restart; and ``--mesh``:
+every value the reference's launcher accepts names the reference's mesh,
+and ``--mesh 2x2`` trains (tests/test_torch_train_sharded.py holds the
+sharded training to the reference).
 """
 import dataclasses
 import functools
@@ -317,7 +319,23 @@ def test_train_cli_embeds_stub(tmp_path):
                                      for r in records)
 
 
-def test_train_cli_refuses_a_mesh():
-    with pytest.raises(ValueError, match="item 12b"):
-        train_cli.main(["--arch", "llama3.2-3b", "--smoke", "--mesh", "2x2",
-                        "--device", "cpu"])
+def test_train_cli_trains_on_a_mesh(capfd):
+    """Every ``--mesh`` the reference's launcher builds names the same
+    mesh here (no value is refused); ``--mesh 2x2`` trains on a local
+    world of 4 ranks."""
+    from repro.launch import train as jtrain_cli
+
+    for spec in ("1", "4", "8", "2x2", "4x2", "2x2x2", "1x1"):
+        mine = train_cli.build_mesh(spec)
+        ref = jtrain_cli.build_mesh(spec)
+        assert dict(zip(mine.axes, mine.shape)) == dict(ref.shape), spec
+    assert train_cli.build_mesh("production") == ((16, 16),
+                                                  ("data", "model"))
+    assert train_cli.build_mesh("production-multipod") == (
+        (2, 16, 16), ("pod", "data", "model"))
+    records = train_cli.main(["--arch", "llama3.2-3b", "--smoke", "--mesh",
+                              "2x2", "--steps", "2", "--batch", "4",
+                              "--seq", "16", "--device", "cpu"])
+    assert [r["step"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["loss"]) for r in records)
+    assert "mesh={'data': 2, 'model': 2}" in capfd.readouterr().out
