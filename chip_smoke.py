@@ -240,6 +240,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    steps continuing from step 5; (f) one NCCL rank on a (1, 1) mesh: (a)'s
    step bitwise (every gradient and weight's bytes, the loss, the grad
    norm).
+28. the dry run (``launch/dryrun.py``, ``specs.py``, ``cost_analysis.py``,
+   ``dryrun_pald.py``): (a) granite-moe train_4k, gemma2-2b prefill_32k
+   and decode_32k at the single pod's per-rank shapes (16, 2 and 8 rows),
+   each counted on meta and measured on the card at full depth (CUDA
+   events; ``max_memory_allocated`` within 2x of the meta estimate, the
+   ratio printed), gemma2-2b decode_32k also by its 1- and 2-repeat
+   probes (each probe's peak within 2x of its estimate; the
+   extrapolation's error against full depth printed); (b) the dense PaLD
+   cells at n = 102,400 on (16, 16): allgather, ring and 2d, one rank's
+   arrays at their post-collective shapes and its kernels timed through
+   the rectangular entries (a loop's trip times its trips) beside the
+   counted bound, the launch counters up and no plain version run in the
+   timed calls, the peak within 2x of the estimate; then the first 16
+   rows of each call's U and C, at its full y and z (allgather's D 102,400
+   x 102,400 of y and z, past 2^31 elements), against the plain versions
+   on the same operands: U bitwise, C within rtol 1e-4, atol 1e-6; (c) ``hillclimb cell --set
+   remat=dots`` on meta against (a)'s decode cell saved as the baseline;
+   (d) the self-test's counted production cell (full internvl2-1b); every
+   cell's JSON "ok".
 
 The whole run reads and writes a tuning cache of its own, a fresh
 temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
@@ -250,7 +269,8 @@ The line before the last is one JSON object with the kernels' numbers
 (``launches``: wrapper calls on the main path; ``grid_launches``: the grids
 those calls issued; ``blocks``, for the focus kernels: the thread blocks
 of those grids, counted by the kernel on the card; ``bound_ms``: the function's least work, shared by the
-dense, tri and fused kernels of one pass, see :func:`pass_ops`); the
+dense, tri and fused kernels of one pass, see :func:`pass_ops`;
+``dryrun_launches``, on the rectangular rows: phase 28's launches); the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
 exits 2 before printing any result, and 3 when it is run alone (no
 ``src/repro_torch`` beside it); any failed check raises (exit 1).  A
@@ -259,6 +279,7 @@ before they end, and fail when a rank exits otherwise than cleanly.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3869,6 +3890,163 @@ def phase_sharded_train(dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+# phase 28: the dry run at the single pod's per-rank shapes
+DRYRUN_CELLS = (("granite-moe-1b-a400m", "train_4k"),
+                ("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"))
+DRYRUN_PROBED = ("gemma2-2b", "decode_32k")
+DRYRUN_PALD_N = 102400           # the reference's dryrun_pald default
+DRYRUN_PALD = ("allgather", "ring", "2d")
+DRYRUN_STRIP_ROWS = 16           # rows of U and C held to the plain versions
+PEAK_RATIO_MAX = 2.0             # measured peak against the meta estimate
+
+
+def _ratio_ok(tag, peak, estimate):
+    ratio = peak / estimate
+    print(f"phase 28: {tag}: peak {peak} B, meta estimate {estimate} B, "
+          f"ratio {ratio:.4f}")
+    if not 1.0 / PEAK_RATIO_MAX <= ratio <= PEAK_RATIO_MAX:
+        fail(f"{tag}: measured peak {peak} B is not within "
+             f"{PEAK_RATIO_MAX}x of the meta estimate {estimate} B")
+
+
+def phase_dryrun(dev, card, clock_mhz):
+    """Phase 28 (module docstring); returns the dense cells' launches of
+    the rectangular focus and cohesion entries."""
+    import torch
+    from repro_torch.kernels import ops, pald_cohesion, pald_focus
+    from repro_torch.launch import dryrun, dryrun_pald, selftest
+    from repro_torch.tuning import hillclimb
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    launches = {"focus": 0, "cohesion": 0}
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            cell = dryrun.run_cell(arch, shape, False, device=dev, reps=1,
+                                   probe=(arch, shape) == DRYRUN_PROBED,
+                                   verbose=False)
+            tag = dryrun.cell_tag(arch, shape, False)
+            with open(os.path.join(out, tag + ".json"), "w") as f:
+                json.dump(cell, f, indent=1)
+            if cell["status"] != "ok":
+                fail(f"{tag}: status {cell['status']!r}")
+            m, ma = cell["measured"], cell["memory_analysis"]
+            if not (m.get("fits") and m.get("depth") == "full"):
+                fail(f"{tag}: expected to fit the card at full depth: {m}")
+            print(f"phase 28: {tag}: {cell['rows_per_rank']} rows a rank, "
+                  f"{cell['microbatches']} microbatch(es); counted "
+                  f"{cell['flops_per_rank']:.4g} flops, "
+                  f"{cell['bytes_per_rank']:.4g} B accessed, arguments "
+                  f"{ma['argument_size_in_bytes']} B + temporaries "
+                  f"{ma['temp_size_in_bytes']} B in {cell['count_s']} s; "
+                  f"roofline {cell['roofline']['bottleneck']} "
+                  f"{cell['roofline']['bound_s'] * 1e3:.3f} ms; step "
+                  f"{m['step_ms']:.3f} ms (median of {len(m['step_ms_reps'])},"
+                  f" {m['step_ms_reps']}) ({card}; "
+                  f"{time.perf_counter() - t0:.1f} s)")
+            _ratio_ok(tag, m["peak_bytes"], m["peak_estimate_bytes"])
+            if (arch, shape) == DRYRUN_PROBED:
+                pr = m["probes"]
+                for r, peak, est in zip((1, 2), pr["probe_peak_bytes"],
+                                        pr["probe_peak_estimate_bytes"]):
+                    _ratio_ok(f"{tag} at {r} repeat(s)", peak, est)
+                print(f"phase 28: {tag}: probes {pr['probe_step_ms']} ms at "
+                      f"1 and 2 repeats, {pr['per_repeat_ms']:.3f} ms a "
+                      f"repeat, extrapolated to {pr['repeats']}: "
+                      f"{pr['step_ms']:.3f} ms against {m['step_ms']:.3f} "
+                      f"ms measured at full depth: error "
+                      f"{100 * m['probe_error']:+.2f} %")
+
+        @contextlib.contextmanager
+        def no_plain():
+            """The plain versions fail if called: around the timed kernel
+            calls only, so the strip checks after them may run them."""
+            def plain_called(*a, **k):
+                fail("a plain torch version ran in the dense dry-run cells")
+
+            patched = [(ops, "focus_general_torch"),
+                       (ops, "cohesion_general_torch"),
+                       (pald_focus, "focus_general_torch"),
+                       (pald_cohesion, "cohesion_general_torch")]
+            saved = [getattr(mod, a) for mod, a in patched]
+            for mod, a in patched:
+                setattr(mod, a, plain_called)
+            try:
+                yield
+            finally:
+                for (mod, a), fn in zip(patched, saved):
+                    setattr(mod, a, fn)
+
+        for strategy in DRYRUN_PALD:
+            t0 = time.perf_counter()
+            cell = dryrun_pald.run_cell(DRYRUN_PALD_N, False, strategy,
+                                        device=dev, reps=1,
+                                        check_rows=DRYRUN_STRIP_ROWS,
+                                        guard=no_plain, verbose=False)
+            if cell["status"] != "ok":
+                fail(f"pald {strategy}: status {cell['status']!r}")
+            m, terms = cell["measured"], cell["roofline"]
+            if min(m["launches"].values()) < 1:
+                fail(f"pald {strategy}: a kernel was not launched "
+                     f"({m['launches']})")
+            for k in launches:
+                launches[k] += m["launches"][k]
+            st = m["strip"]
+            (fx, fy, fz), (cx, cy, cz) = (cell["kernel_calls"]["focus"],
+                                          cell["kernel_calls"]["cohesion"])
+            print(f"phase 28: pald {strategy}: the first {st['rows']} rows "
+                  f"against the plain versions on the same operands: U "
+                  f"({st['rows']} of {fx}) x {fy} x {fz} max |err| "
+                  f"{st['focus_max_abs_err']!r} (bitwise: "
+                  f"{st['focus_bitwise']}), C ({st['rows']} of {cx}) x {cy} "
+                  f"x {cz} max |err| {st['cohesion_max_abs_err']!r} (rtol "
+                  f"{st['rtol']}, atol {st['atol']}: {st['cohesion_within']})")
+            if not (st["focus_bitwise"] and st["cohesion_within"]):
+                fail(f"pald {strategy}: the kernels disagree with the plain "
+                     f"versions on the strip: {st}")
+            fb, fby = rect_bound_ms("focus", fx, fy, fz, clock_mhz)
+            cb, cby = rect_bound_ms("cohesion", cx, cy, cz, clock_mhz)
+            print(f"phase 28: pald {strategy}: a trip's kernels against "
+                  f"their own bounds: focus {m['focus_ms']:.3f} / "
+                  f"{fb:.3f} ms ({fby}), cohesion {m['cohesion_ms']:.3f}"
+                  f" / {cb:.3f} ms ({cby})")
+            print(f"phase 28: pald n={DRYRUN_PALD_N} {strategy} on "
+                  f"16x16: a rank's block {cell['block']}, kernels "
+                  f"{m['kernel_ms']:.2f} ms = {m['trips']} trip(s) x "
+                  f"(focus {m['focus_ms']:.3f} + cohesion "
+                  f"{m['cohesion_ms']:.3f}) ms, counted bound "
+                  f"{terms['bound_s'] * 1e3:.2f} ms ({terms['bottleneck']}"
+                  f"; compute {terms['compute_s'] * 1e3:.2f} ms at "
+                  f"{dryrun_pald.PEAK_OPS:.3g} op/s, collectives "
+                  f"{terms['collective_s'] * 1e3:.2f} ms), launches "
+                  f"{m['launches']} ({card}; "
+                  f"{time.perf_counter() - t0:.1f} s)")
+            _ratio_ok(f"pald {strategy}", m["peak_bytes"],
+                      m["peak_estimate_bytes"])
+
+        t0 = time.perf_counter()
+        base = dryrun.cell_tag(*DRYRUN_PROBED, False)
+        hillclimb.main(["cell", "--arch", DRYRUN_PROBED[0], "--shape",
+                        DRYRUN_PROBED[1], "--mesh", "single", "--device",
+                        "meta", "--baseline-dir", out, "--set", "remat=dots",
+                        "--save", "dots"])
+        with open(os.path.join(out, base + "__dots.json")) as f:
+            climbed = json.load(f)
+        if climbed["status"] != "ok" or climbed["overrides"] != {
+                "remat": "dots"}:
+            fail(f"hillclimb cell: {climbed.get('status')!r}")
+        print(f"phase 28: hillclimb cell --set remat=dots against {base}: "
+              f"ok ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        selftest._counted_cell(str(dev))
+        print(f"phase 28: self-test: counted production cell (full "
+              f"internvl2-1b) ok ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4005,6 +4183,12 @@ def run_phases() -> int:
     t0 = time.perf_counter()
     phase_sharded_train(dev, card)
     print(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = phase_dryrun(dev, card, clock_mhz)
+    for k in kernels:
+        if k["name"] in ("focus_general_rect", "cohesion_general_rect"):
+            k["dryrun_launches"] = dry[k["name"].split("_")[0]]
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

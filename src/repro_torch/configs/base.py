@@ -14,10 +14,10 @@ lays the parameters and AdamW moments over a device mesh
 only its compiler's placement and lowering (``scan_unroll``,
 ``probe_unroll``, ``moe_shard_constraints``, ``attn_seq_proj``,
 ``batch_shard_constraint``) are left out: nothing in the port reads them.
-The model reads ``remat`` under autograd.  The
-reference's ``train_microbatches`` is read only by its dry run, whose
-counterpart is item 12c, and comes back with it (``launch.train`` takes
-``--microbatches``, default 1, as the reference's driver does).
+The model reads ``remat`` under autograd; the dry run
+(``launch.dryrun``) reads ``train_microbatches`` for a train cell
+(``launch.train`` takes ``--microbatches``, default 1, as the reference's
+``launch/train.py`` does).
 
 Shapes (the assigned input-shape set) are in ``SHAPES``; each (arch x shape)
 cell resolves via ``runnable()`` -- pure-full-attention archs skip long_500k
@@ -93,6 +93,9 @@ class ModelConfig:
     # nothing (every activation saved), everything but the weight products
     # ("dots"), or everything ("full")
     remat: Literal["nothing", "dots", "full"] = "full"
+    # default gradient-accumulation microbatches of a train cell in the dry
+    # run (the memory lever: a microbatch's activations are held at once)
+    train_microbatches: int = 1
     # rmsnorm with a full float32 upcast (True) or bfloat16 with float32
     # statistics (False)
     norm_f32: bool = True

@@ -28,5 +28,6 @@ CONFIG = ModelConfig(
     act="gelu",
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=4,
     subquadratic=True,  # half the stack is sliding-window
 )

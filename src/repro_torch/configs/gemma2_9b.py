@@ -24,5 +24,6 @@ CONFIG = ModelConfig(
     act="gelu",
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=4,
     subquadratic=True,
 )

@@ -20,5 +20,6 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=2,
     subquadratic=False,
 )

@@ -31,5 +31,6 @@ CONFIG = ModelConfig(
     rope_theta=10000.0,
     sharding_profile="zero3",   # 398B params: ZeRO-3 over all data axes
     remat="full",
+    train_microbatches=8,
     subquadratic=True,  # hybrid: 63/72 layers are SSM; 9 attn layers KV-shard
 )

@@ -17,5 +17,6 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=4,
     subquadratic=False,
 )

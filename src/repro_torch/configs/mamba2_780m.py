@@ -17,5 +17,6 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=2,
     subquadratic=True,  # SSM: O(1) decode state -> long_500k runs
 )

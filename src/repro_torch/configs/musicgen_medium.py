@@ -19,5 +19,6 @@ CONFIG = ModelConfig(
     modality="audio",
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=2,
     subquadratic=False,
 )

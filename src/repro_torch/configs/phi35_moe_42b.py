@@ -18,5 +18,6 @@ CONFIG = ModelConfig(
     rope_theta=10000.0,
     sharding_profile="zero3",   # 42B total params: shard everything
     remat="full",
+    train_microbatches=4,
     subquadratic=False,
 )

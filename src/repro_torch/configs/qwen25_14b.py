@@ -17,5 +17,6 @@ CONFIG = ModelConfig(
     rope_theta=1000000.0,
     sharding_profile="fsdp",
     remat="full",
+    train_microbatches=2,
     subquadratic=False,
 )

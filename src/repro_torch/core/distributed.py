@@ -41,7 +41,11 @@ are.  Under ``gloo`` (several ranks sharing one card: NCCL refuses two
 ranks on one device) every collective goes through host buffers: a copy to
 the host, the transfer, a copy back; the bytes copied are counted per rank
 (:func:`staged_bytes`).  bfloat16 payloads travel as their bytes (gloo
-has no bfloat16 or int16 transfers).  Every process group this module creates has the finite timeout
+has no bfloat16 or int16 transfers).  Every collective reports its kind
+and its operand and result bytes to the active recorders
+(``launch.cost_analysis.record_collectives``), whatever the backend, so
+the dry run's per-rank counts can be held to what a step puts on the
+wire.  Every process group this module creates has the finite timeout
 :data:`TIMEOUT_S` (``$REPRO_TORCH_DIST_TIMEOUT``), so a rank that fails
 cannot leave its peers blocked for longer.
 
@@ -92,6 +96,22 @@ P = PartitionSpec
 
 _STAGED = [0]      # bytes copied between the card and the host (gloo)
 _GROUPS: dict = {}  # (id(mesh), dims) -> (mesh, group)
+_RECORDERS: list = []  # objects with .add(kind, operand, result, ranks)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _note(kind: str, operand: int, result: int, group) -> None:
+    """Report one collective of this rank to the active recorders: its
+    kind (the reference's names: "all-gather", "all-reduce",
+    "all-to-all", "collective-permute"), the bytes this rank puts in and
+    gets out, and the global ranks of its group."""
+    if _RECORDERS:
+        ranks = dist.get_process_group_ranks(group)
+        for r in _RECORDERS:
+            r.add(kind, operand, result, ranks)
 
 
 def staged_bytes() -> int:
@@ -192,6 +212,7 @@ def _all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     staged = _staged(x, group)
     w = _to_wire(x, staged)
     parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+    _note("all-gather", _nbytes(w), len(parts) * _nbytes(w), group)
     dist.all_gather(parts, w, group=group)
     return _from_wire(torch.cat(parts, dim=dim), x, staged)
 
@@ -212,6 +233,7 @@ class _Shift:
         self.staged = _staged(x, group)
         w = _to_wire(x, self.staged)
         self.buf = torch.empty_like(w)
+        _note("collective-permute", _nbytes(w), _nbytes(w), group)
         self.reqs = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, w, ranks[(me + 1) % q], group),
             dist.P2POp(dist.irecv, self.buf, ranks[(me - 1) % q], group)])
@@ -225,14 +247,25 @@ class _Shift:
         return _from_wire(self.buf, self.like, self.staged)
 
 
+def _all_reduce(x: torch.Tensor, mesh, axes,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``jax.lax.psum(x, axes)`` (``op=MAX``: ``pmax``) as a new tensor:
+    one all-reduce over the ranks along ``axes``; ``x`` on a device the
+    group's backend takes (the host under gloo)."""
+    group = _group(mesh, axes)
+    w = x.detach().clone()
+    _note("all-reduce", _nbytes(w), _nbytes(w), group)
+    dist.all_reduce(w, op=op, group=group)
+    return w
+
+
 def _any(flag: bool, mesh, device) -> bool:
     """True on every rank when ``flag`` is true on any rank of ``mesh``
     (one all-reduce): how the ranks agree that one of them failed."""
     group = _group(mesh, _names(mesh))
     on = device if dist.get_backend(group) == "nccl" else "cpu"
     t = torch.tensor([int(flag)], dtype=torch.int32, device=on)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return bool(t.item())
+    return bool(_all_reduce(t, mesh, _names(mesh), dist.ReduceOp.MAX).item())
 
 
 def _agreed(mesh, dev, fn):
@@ -332,6 +365,7 @@ def _gather_full(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     for d, axes in dims:
         group = _group(mesh, axes)
         parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+        _note("all-gather", _nbytes(w), len(parts) * _nbytes(w), group)
         dist.all_gather(parts, w.contiguous(), group=group)
         w = torch.cat(parts, dim=d)
     return _from_wire(w, x, staged)
@@ -379,6 +413,7 @@ def _sum_block(g: torch.Tensor, mesh, axes, spec,
     staged = _staged(send, group)
     w = _to_wire(send, staged)
     recv = torch.empty_like(w)
+    _note("all-to-all", _nbytes(w), _nbytes(recv), group)
     dist.all_to_all_single(recv, w, group=group)
     parts = _from_wire(recv, send, False)
     total = parts[0].to(dtype, copy=True)
@@ -404,6 +439,10 @@ def _gather_root(x: torch.Tensor, mesh, spec):
     nccl = dist.get_backend(group) == "nccl"
     w = x.contiguous() if nccl else _to_wire(x, x.is_cuda)
     parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+    # a gather to one rank, reported as an all-gather that only the root
+    # receives: the root's result is every block, another rank's its own
+    _note("all-gather", _nbytes(w), _nbytes(w) * (len(parts) if me else 1),
+          group)
     dist.gather(w, parts if me else None, dst=root, group=group)
     if not me:
         return None

@@ -27,7 +27,8 @@ from typing import NamedTuple
 import torch.distributed as dist
 
 __all__ = ["SINGLE_POD", "MULTI_POD", "MeshSpec", "mesh_shape",
-           "make_production_mesh", "make_test_mesh", "mesh_device_type"]
+           "production_spec", "make_production_mesh", "make_test_mesh",
+           "mesh_device_type"]
 
 SINGLE_POD = (16, 16)
 MULTI_POD = (2, 16, 16)
@@ -47,6 +48,14 @@ def mesh_shape(mesh) -> dict:
     if isinstance(mesh, MeshSpec):
         return dict(zip(mesh.axes, (int(s) for s in mesh.shape)))
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def production_spec(multi_pod: bool = False) -> MeshSpec:
+    """The reference's production mesh as a :class:`MeshSpec` (what the
+    dry run lays its cells over, no world needed)."""
+    if multi_pod:
+        return MeshSpec(MULTI_POD, ("pod", "data", "model"))
+    return MeshSpec(SINGLE_POD, ("data", "model"))
 
 
 def mesh_device_type() -> str:
@@ -80,6 +89,4 @@ def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production mesh: (16, 16) over (data, model), or
     (2, 16, 16) over (pod, data, model); needs a world of 256 or 512
     ranks."""
-    shape = MULTI_POD if multi_pod else SINGLE_POD
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_test_mesh(shape, axes)
+    return make_test_mesh(*production_spec(multi_pod))

@@ -1,6 +1,7 @@
 """Self-test of the port: PaLD on the device end to end, one rank and a
 world of four, one reduced arch through a train step, prefill and decode,
-and a checkpoint round trip (counterpart of ``repro.launch.selftest``).
+a checkpoint round trip, and one production cell counted on meta tensors
+(counterpart of ``repro.launch.selftest``).
 
     PYTHONPATH=src python -m repro_torch.launch.selftest            # the card
     PYTHONPATH=src python -m repro_torch.launch.selftest --device cpu
@@ -18,16 +19,19 @@ Checks, each against the numpy reference oracle (``core.reference``):
   (``train.train_step``: bfloat16 compute, AdamW; finite loss), then the
   trained parameters through ``prefill`` and one ``decode_step``, finite
   logits;
-- the checkpointer: ``save`` then ``restore_latest`` (``checkpoint/``).
+- the checkpointer: ``save`` then ``restore_latest`` (``checkpoint/``);
+- the dry run (the counterpart of the reference's abstract lowering of one
+  production cell): full internvl2-1b's per-rank train program at 256 x 8
+  over a (2, 2) ``MeshSpec`` (``launch.specs.cell_step``) counted on meta
+  (``launch.cost_analysis.count``): a finite flop count, and no tensor
+  made off the meta device.
 
-On the card the kernels run in every rank.  Exit code 0 = healthy.  The
-reference also lowers one production cell abstractly: that waits for the
-XLA tooling's counterpart, which measures on the card instead of lowering
-(ROADMAP.md queue 1, item 12c).
+On the card the kernels run in every rank.  Exit code 0 = healthy.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 
@@ -119,6 +123,21 @@ def _checkpoint(device: str) -> None:
         assert at == 1 and torch.equal(r["a"], t["a"])
 
 
+def _counted_cell(device: str) -> None:
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import cost_analysis, specs
+    from repro_torch.launch.mesh import MeshSpec
+
+    cfg = configs.get("internvl2-1b")
+    mesh = MeshSpec((P_WORLD // 2, 2), ("data", "model"))
+    fn, args = specs.cell_step(cfg, ShapeConfig("t", 256, 8, "train"), mesh,
+                               device="meta", q_chunk=128)
+    c = cost_analysis.count(fn, *args)
+    assert math.isfinite(c.flops) and c.flops > 0, c.flops
+    assert not c.off_meta, f"made off meta: {c.off_meta}"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.selftest")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -149,6 +168,7 @@ def main(argv=None) -> int:
           _pald_distributed)
     check("lm train+prefill+decode (gemma2 reduced)", _lm_cycle)
     check("checkpoint save/restore", _checkpoint)
+    check("counted production cell (full internvl2-1b)", _counted_cell)
     print(f"[selftest] "
           f"{'FAILED: ' + ', '.join(failures) if failures else 'all healthy'}"
           f" ({time.time() - t0:.1f}s)")

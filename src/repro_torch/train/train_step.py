@@ -54,10 +54,13 @@ the reference's tensor-parallel splits of heads and ff are compiler
 placement, not function.  Metrics are global and the same on every rank.
 Collectives go through ``core.distributed``'s helpers (staged through
 the host under gloo), and a failure in one rank raises in every rank.
+The step takes them as a :class:`Collectives` (``collectives=``): the dry
+run (``launch.specs.cell_step``) runs this same step as one rank's
+program with local stand-ins for them.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -74,7 +77,8 @@ from repro_torch.sharding import partition
 __all__ = ["cross_entropy", "make_loss_fn", "init_state", "backward",
            "make_train_step", "load_state", "state_from_reference",
            "state_to_reference", "param_layout", "shard_state",
-           "gather_state", "sharded_backward"]
+           "gather_state", "sharded_backward", "Collectives",
+           "COLLECTIVES"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -174,15 +178,35 @@ def gather_state(state: dict, mesh, cfg: ModelConfig) -> dict:
             "step": state["step"].clone()}
 
 
+class Collectives(NamedTuple):
+    """The collectives of a sharded step: ``gather(name, block, mesh,
+    spec)`` the whole leaf ``name`` from every rank's ``block``;
+    ``sum_block(g, mesh, axes, spec)`` this rank's block of the float32
+    sum of ``g`` over the ranks along ``axes``; ``agreed(mesh, device,
+    fn)`` ``fn()``, raising on every rank if it raised on any."""
+    gather: Callable
+    sum_block: Callable
+    agreed: Callable
+
+
+def _gather_leaf(name, block, mesh, spec):
+    return D._gather_full(block, mesh, spec)
+
+
+COLLECTIVES = Collectives(_gather_leaf, D._sum_block, D._agreed)
+
+
 def sharded_backward(loss_fn, cfg: ModelConfig, params: Mapping[str,
                      torch.Tensor], batch: dict, mesh, *, batch_spec,
-                     microbatches: int = 1, dtype=torch.bfloat16):
+                     microbatches: int = 1, dtype=torch.bfloat16,
+                     collectives: Collectives = COLLECTIVES):
     """Steps 1-3 of a sharded step (module docstring): this rank's blocks
     of the float32 gradient of ``loss_fn`` over the global batch (the
     rank's rows in ``batch``, the global batch split over ``batch_spec``'s
     first entry, ``partition.batch_pspec``; each rank's rows in
     ``microbatches`` slices), and the global (loss, aux), detached.
     ``params``: this rank's blocks."""
+    gather, sum_block = collectives.gather, collectives.sum_block
     layout = param_layout(cfg, mesh)
     axes = D._entry_axes(batch_spec[0]) if len(batch_spec) else ()
     rows = next(iter(batch.values())).shape[0]
@@ -190,8 +214,7 @@ def sharded_backward(loss_fn, cfg: ModelConfig, params: Mapping[str,
         raise ValueError(f"a batch of {rows} rows does not split into "
                          f"{microbatches} microbatches")
     with torch.no_grad():
-        module = _module(cfg, {n: D._gather_full(t.to(dtype), mesh,
-                                                 layout[n])
+        module = _module(cfg, {n: gather(n, t.to(dtype), mesh, layout[n])
                                for n, t in params.items()})
     slices = {k: v.chunk(microbatches, dim=0) for k, v in batch.items()}
     grads: dict = {}
@@ -204,15 +227,15 @@ def sharded_backward(loss_fn, cfg: ModelConfig, params: Mapping[str,
             for n, p in module.named_parameters():
                 g = torch.zeros_like(p) if p.grad is None else p.grad
                 p.grad = None
-                blk = D._sum_block(g, mesh, axes, layout[n])
+                blk = sum_block(g, mesh, axes, layout[n])
                 del g
                 grads[n] = blk if n not in grads else grads[n].add_(blk)
     del module
     q = microbatches * (D._axis_size(mesh, axes) if axes else 1)
     with torch.no_grad():
-        la = D._sum_block(torch.stack([torch.as_tensor(loss).float(),
-                                       torch.as_tensor(aux).float()]),
-                          mesh, axes, D.P(None))
+        la = sum_block(torch.stack([torch.as_tensor(loss).float(),
+                                    torch.as_tensor(aux).float()]),
+                       mesh, axes, D.P(None))
         if q > 1:
             for g in grads.values():
                 g.div_(q)
@@ -220,7 +243,8 @@ def sharded_backward(loss_fn, cfg: ModelConfig, params: Mapping[str,
     return grads, (la[0], la[1])
 
 
-def _sharded_norm(grads: Mapping[str, torch.Tensor], layout, mesh):
+def _sharded_norm(grads: Mapping[str, torch.Tensor], layout, mesh,
+                  sum_block=D._sum_block):
     """The global L2 norm of the gradient blocks: each leaf's sum of
     squares taken on one rank of those that hold a block (zero on the
     others), summed over the mesh.  On one rank it is ``adamw.global_norm``
@@ -230,7 +254,7 @@ def _sharded_norm(grads: Mapping[str, torch.Tensor], layout, mesh):
         if D._is_owner(mesh, layout[n])
         else torch.zeros((), dtype=torch.float32, device=g.device)
         for n, g in grads.items()]).sum()
-    return torch.sqrt(D._sum_block(sq, mesh, D._names(mesh), D.P()))
+    return torch.sqrt(sum_block(sq, mesh, D._names(mesh), D.P()))
 
 
 def backward(loss_fn, params: torch.nn.Module, batch: dict,
@@ -264,20 +288,21 @@ def backward(loss_fn, params: torch.nn.Module, batch: dict,
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(), *,
                     microbatches: int = 1, q_chunk: int = 512, mesh=None,
-                    batch_spec=None):
+                    batch_spec=None,
+                    collectives: Collectives = COLLECTIVES):
     """``train_step(state, batch) -> (state, metrics)``: one AdamW step of
     ``state`` in place; metrics {"loss", "aux", "grad_norm", "lr"} are 0-d
     float32 tensors on the state's device.  With ``mesh``: the sharded
     step of a sharded state on this rank's rows of the batch, the global
     batch split over ``batch_spec`` (``partition.batch_pspec``), every
-    rank calling it (module docstring)."""
+    rank calling it (module docstring), through ``collectives``."""
     loss_fn = make_loss_fn(cfg, q_chunk=q_chunk)
     if mesh is not None:
         if batch_spec is None:
             raise ValueError("a sharded step needs the batch's "
                              "batch_spec (partition.batch_pspec)")
         return _sharded_step(cfg, opt_cfg, loss_fn, mesh, batch_spec,
-                             microbatches)
+                             microbatches, collectives)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
@@ -294,14 +319,16 @@ def make_train_step(cfg: ModelConfig,
     return train_step
 
 
-def _sharded_step(cfg, opt_cfg, loss_fn, mesh, batch_spec, microbatches):
+def _sharded_step(cfg, opt_cfg, loss_fn, mesh, batch_spec, microbatches,
+                  collectives):
     layout = param_layout(cfg, mesh)
 
     def body(state, batch):
         grads, (loss, aux) = sharded_backward(
             loss_fn, cfg, state["params"], batch, mesh,
-            batch_spec=batch_spec, microbatches=microbatches)
-        gnorm = _sharded_norm(grads, layout, mesh)
+            batch_spec=batch_spec, microbatches=microbatches,
+            collectives=collectives)
+        gnorm = _sharded_norm(grads, layout, mesh, collectives.sum_block)
         metrics = adamw.apply(opt_cfg, state["params"], grads, state["opt"],
                               state["step"], grad_norm=gnorm)
         state["step"].add_(1)
@@ -309,7 +336,7 @@ def _sharded_step(cfg, opt_cfg, loss_fn, mesh, batch_spec, microbatches):
 
     def train_step(state: dict, batch: dict):
         dev = state["step"].device
-        return D._agreed(mesh, dev, lambda: body(state, batch))
+        return collectives.agreed(mesh, dev, lambda: body(state, batch))
 
     return train_step
 

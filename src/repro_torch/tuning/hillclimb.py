@@ -1,7 +1,18 @@
 """Command line of the port's tuner (counterpart of the reference's
 ``benchmarks/hillclimb.py``): measure on a device and persist the winners
 in the tuning cache that ``block="auto"``, ``select_block`` /
-``select_tile="auto"`` and ``method="auto"`` read.
+``select_tile="auto"`` and ``method="auto"`` read, or climb one LM cell of
+the dry run.
+
+``cell`` (the default when no subcommand is named, as in the reference):
+the dry run of one (arch, shape, mesh) cell (``launch.dryrun.run_cell``)
+with config overrides (``--set field=value``, repeated; ``moe.top_k=2``
+sets a nested field), and the roofline, memory and (measured) step-time
+deltas against the baseline cell's JSON in ``--baseline-dir``;
+``--save NAME`` writes the new cell there as ``<tag>__NAME.json``.
+
+    python -m repro_torch.tuning.hillclimb cell --arch gemma2-2b \\
+        --shape decode_32k --set remat=dots --device meta
 
 ``blocks``: the candidate grid of one (n, pass, impl) cell.  On
 ``--impl cuda`` the kernels' tiles are fixed, so ``pald`` / ``pald_tri``
@@ -32,21 +43,94 @@ Every subcommand takes ``--device`` ("cuda" by default, "cpu"), ``--cache``
 (default ``$REPRO_TORCH_TUNE_CACHE``, else
 ``~/.cache/repro_pald_torch/blocktune.json``), ``--iters`` and ``--budget``
 (wall seconds for the sweep).  The records are keyed by the device's name,
-so a cache measured on one card never steers another.  The reference's
-``cell`` subcommand (the LM dry run) waits for the XLA tooling's
-counterpart, which measures on the card instead of lowering (ROADMAP.md
-queue 1, item 12c).
+so a cache measured on one card never steers another.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import sys
 
 from repro_torch.tuning import autotune
 
 
+SUBCOMMANDS = ("cell", "blocks", "methods", "topk")
+
+
 def _csv_ints(s: str):
     return tuple(int(x) for x in s.split(",") if x)
+
+
+def parse_override(s: str):
+    """``field=value``: True / False, an int, else the string."""
+    k, v = s.split("=", 1)
+    if v in ("True", "False"):
+        return k, v == "True"
+    try:
+        return k, int(v)
+    except ValueError:
+        return k, v
+
+
+def _overridden(cfg, overrides: dict):
+    nested = {k: v for k, v in overrides.items() if "." in k}
+    flat = {k: v for k, v in overrides.items() if "." not in k}
+    for k, v in nested.items():
+        outer, inner = k.split(".", 1)
+        flat[outer] = dataclasses.replace(getattr(cfg, outer), **{inner: v})
+    return dataclasses.replace(cfg, **flat)
+
+
+def _mem_bytes(cell: dict) -> int:
+    m = cell["memory_analysis"]
+    return m.get("temp_size_in_bytes", 0) + m.get("argument_size_in_bytes", 0)
+
+
+def run_cell(args) -> dict:
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    from repro_torch.configs.base import reduced
+
+    overrides = dict(parse_override(s) for s in args.set)
+    cfg = configs.get(args.arch)
+    cfg = _overridden(reduced(cfg) if args.reduced else cfg, overrides)
+    cell = dryrun.run_cell(args.arch, args.shape, args.mesh == "multi",
+                           cfg=cfg, q_chunk=args.q_chunk,
+                           microbatches=args.microbatches,
+                           device=args.device)
+    tag = dryrun.cell_tag(args.arch, args.shape, args.mesh == "multi")
+    base_path = os.path.join(args.baseline_dir, tag + ".json")
+    if os.path.exists(base_path):
+        with open(base_path) as f:
+            base = json.load(f)
+        if base.get("status") == "ok" and cell.get("status") == "ok":
+            print(f"\n=== delta vs baseline {base_path} ===")
+            for k in ("compute_s", "memory_s", "collective_s"):
+                b, n = base["roofline"][k], cell["roofline"][k]
+                print(f"  {k:13s} {b * 1e3:12.2f} -> {n * 1e3:12.2f} ms "
+                      f"({(b - n) / b * 100 if b else 0:+.1f}% less)")
+            bb, nb = _mem_bytes(base), _mem_bytes(cell)
+            print(f"  {'GiB/rank':13s} {bb / 2**30:12.2f} -> "
+                  f"{nb / 2**30:12.2f}")
+            print(f"  {'useful_ratio':13s} {base['useful_flop_ratio']:12.4f}"
+                  f" -> {cell['useful_flop_ratio']:12.4f}")
+            bm, nm = base.get("measured") or {}, cell.get("measured") or {}
+            if bm.get("step_ms") is not None and nm.get("step_ms") is not None:
+                print(f"  {'step_ms':13s} {bm['step_ms']:12.2f} -> "
+                      f"{nm['step_ms']:12.2f} (measured)")
+    else:
+        print(f"# no baseline at {base_path}")
+    if args.save:
+        os.makedirs(args.baseline_dir, exist_ok=True)
+        out = os.path.join(args.baseline_dir, f"{tag}__{args.save}.json")
+        cell["overrides"] = overrides
+        with open(out, "w") as f:
+            json.dump(cell, f, indent=1)
+        print(f"saved {out}")
+    return cell
 
 
 def _print_grid(rec: dict, label) -> None:
@@ -161,6 +245,27 @@ def main(argv=None) -> None:
         description="measure and persist the port's tuning cache")
     sub = ap.add_subparsers(dest="cmd")
 
+    cell = sub.add_parser("cell", help="dry-run one LM cell with config "
+                                       "overrides")
+    cell.add_argument("--arch", required=True)
+    cell.add_argument("--shape", required=True)
+    cell.add_argument("--mesh", choices=["single", "multi"],
+                      default="single")
+    cell.add_argument("--set", action="append", default=[],
+                      help="ModelConfig field override, e.g. remat=dots")
+    cell.add_argument("--microbatches", type=int, default=1)
+    cell.add_argument("--q-chunk", type=int, default=1024)
+    cell.add_argument("--baseline-dir", default="build/dryrun_out")
+    cell.add_argument("--save", default=None,
+                      help="write the new cell's JSON under this tag in "
+                           "--baseline-dir")
+    cell.add_argument("--device", default="cuda",
+                      choices=("cuda", "cpu", "meta"),
+                      help="meta: count only; cuda (default) / cpu: also "
+                           "measure")
+    cell.add_argument("--reduced", action="store_true",
+                      help="the arch's reduced same-family config")
+
     blocks = sub.add_parser("blocks", help="tune one pass's block sizes")
     blocks.add_argument("--n", type=int, required=True)
     blocks.add_argument("--pass", required=True,
@@ -202,8 +307,13 @@ def main(argv=None) -> None:
                            "in a local world of p ranks")
     _common(topk)
 
-    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.cmd == "blocks":
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] not in SUBCOMMANDS + ("-h", "--help"):
+        argv = ["cell"] + argv  # no subcommand: the cell, as the reference
+    args = ap.parse_args(argv)
+    if args.cmd == "cell":
+        run_cell(args)
+    elif args.cmd == "blocks":
         run_blocks(args)
     elif args.cmd == "methods":
         run_methods(args)

@@ -1339,3 +1339,22 @@ def test_cuda_sharded_step_matches_two_microbatches(cuda_device):
         np.testing.assert_allclose(got[f"params/{n.replace('.', '/')}"],
                                    p.detach().cpu().numpy(), rtol=0,
                                    atol=4e-3, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_decode_peak_within_twice_the_estimate(cuda_device):
+    """gemma2-2b decode_32k on the single pod (8 rows a rank, the whole
+    bfloat16 serving copy and the rank's caches: ~21 GB of arguments):
+    measured at full depth on the card, its peak within 2x of the
+    estimate counted on meta."""
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.run_cell("gemma2-2b", "decode_32k", False,
+                           device=cuda_device, reps=1, verbose=False)
+    assert cell["status"] == "ok"
+    m = cell["measured"]
+    assert m["fits"] and m["depth"] == "full" and m["step_ms"] > 0
+    ma = cell["memory_analysis"]
+    est = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+    assert m["peak_estimate_bytes"] == est
+    assert 0.5 <= m["peak_bytes"] / est <= 2.0, (m["peak_bytes"], est)
