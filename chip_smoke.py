@@ -120,7 +120,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and tri, one chunk (one grid a pass, b x the upper tile pairs of focus
    blocks counted on the card) against one item a launch (``batch=1``):
    both times (medians of 3, in turns) beside the card's name and power
-   limit, C bitwise.  Reports only; no speed gate;
+   limit, C bitwise; then ``from_features(Xb, method="fused")`` at the
+   reference's run_batched cells (B, n) = (3, 128), (3, 256), (2, 512)
+   and at (64, 256), (16, 1024), d = 8 and 64, ``from_features(Xb,
+   k=32)`` and ``cohesion(Db, method="knn", k=32)`` at (64, 256) and
+   (16, 1024), and a ragged tie-heavy (5, 201) under split and ignore
+   through each: the wrappers' counts set to 0, one launch of each kernel
+   a chunk, C bitwise the item loop, the two timed in turns; each chunked
+   kernel (fused pair, selection, both values sources) at (64, 256)
+   against its plain version item by item, beside its bound and the item
+   loop (the kernels' ``*_chunk`` rows).  Reports only; no speed gate;
 18. the tuning cache on the card (``repro_torch.tuning``): the measured
    method crossover (``tune_methods`` at n in {64, ..., 1024}: each
    method's ms and the winner per n, and the record n = 8192 resolves
@@ -1962,6 +1971,13 @@ def phase_profile_and_ragged(D, n_ragged=8000, reps=3):
 N_OOM, B_OOM = 4096, 8
 # phase 17: the batched cells, (items, n)
 CHUNK_CELLS = ((64, 256), (16, 1024))
+# the fused chunks: the reference's run_batched cells
+# (benchmarks/bench_variants.py), then the dense cells, each at d = 8 and
+# 64; the k-NN chunks at k = 32, d = 8; the ragged, tie-heavy chunk
+FUSED_CHUNK_CELLS = ((3, 128), (3, 256), (2, 512), (64, 256), (16, 1024))
+FUSED_CHUNK_DS = (8, 64)
+K_CHUNK, D_KNN_CHUNK = 32, 8
+RAGGED_CHUNK = (5, 201)   # n % 4 != 0: unaligned per-item norms
 
 
 def _pipeline_wrappers(sched):
@@ -2119,10 +2135,13 @@ def phase_guard(dev, n=1024):
     torch.cuda.empty_cache()
 
 
-def phase_chunks(dev, card, reps=3):
+def phase_chunks(dev, card, clock_mhz, reps=3):
     """Phase 17: batched chunks.  B small items through the kernel method,
     one item a launch (batch=1) against the whole batch in one chunk (one
-    grid a pass): times (median of ``reps``, in turns) and C bitwise."""
+    grid a pass): times (median of ``reps``, in turns) and C bitwise; then
+    the same for the fused and both k-NN paths (one launch of each kernel a
+    chunk), a ragged tie-heavy chunk through each, and the chunked kernels
+    against their plain versions at B = 64, n = 256 (the kernels' rows)."""
     import torch
     from repro_torch.core import pald
     from repro_torch.kernels import pald_focus
@@ -2157,6 +2176,223 @@ def phase_chunks(dev, card, reps=3):
                   f"{min(t['loop']) / min(t['chunk']):.2f}; C bitwise; "
                   f"{card}")
         del Db
+    launches = phase_chunk_paths(dev, card, reps)
+    return phase_chunk_kernels(dev, card, clock_mhz, launches)
+
+
+def _chunk_wrappers(path):
+    """The CUDA wrappers a chunk of ``path`` launches, once each."""
+    from repro_torch.kernels import pald_fused, pald_knn, pald_topk
+
+    return {"fused": (pald_fused.focus_fused_cuda,
+                      pald_fused.cohesion_fused_cuda),
+            "knn features": (pald_topk.topk_select_cuda,
+                             pald_knn.knn_values_from_features_cuda),
+            "knn distance": (pald_knn.knn_values_from_distances_cuda,)}[path]
+
+
+def _chunk_plans(path, x, **kw):
+    """(chunk, loop) plans of ``path`` on the stack ``x``: the whole batch
+    in one chunk, and one item a launch (batch=1)."""
+    from repro_torch.core import pald
+
+    if path == "fused":
+        kw = dict(kind="features", method="fused", **kw)
+    elif path == "knn features":
+        kw = dict(kind="features", k=K_CHUNK, **kw)
+    else:
+        kw = dict(method="knn", k=K_CHUNK, **kw)
+    return pald.plan(x, **kw), pald.plan(x, batch=1, **kw)
+
+
+def chunk_path(tag, path, x, card, reps=3, time_it=True, **kw):
+    """One chunk of ``path`` on the stack ``x``: the wrappers' counts set to
+    0, the chunk driven once and every kernel of the path launched exactly
+    once (no item loop, no plain version), C bitwise the items one a
+    launch; then chunk and loop timed in turns.  The launches by wrapper
+    name."""
+    import torch
+
+    chunk, loop = _chunk_plans(path, x, **kw)
+    wrappers = _chunk_wrappers(path)
+    for w in wrappers:
+        w.launches = 0
+    C = chunk.execute(x)
+    torch.cuda.synchronize()
+    launched = {w.__name__: w.launches for w in wrappers}
+    if set(launched.values()) != {1}:
+        fail(f"phase 17: {tag}: launches {launched}, not one a kernel")
+    if C.shape != (x.shape[0], x.shape[1], x.shape[1]):
+        fail(f"phase 17: {tag}: C is {tuple(C.shape)}")
+    compare(f"phase 17 {tag}", C, loop.execute(x), True)
+    if not time_it:
+        print(f"phase 17: {tag}: launches {launched}; C bitwise the items "
+              "one a launch")
+        return launched
+    t = {"loop": [], "chunk": []}
+    for which in ("loop", "chunk", "chunk", "loop"):
+        plan_ = loop if which == "loop" else chunk
+        ms, _ = time_ms(lambda: plan_.execute(x), reps)
+        t[which].append(ms)
+    print(f"phase 17: {tag}: one chunk (launches {launched}) {t['chunk']} "
+          f"ms, one item a launch {t['loop']} ms (medians of {reps}, in "
+          f"turns), loop/chunk {min(t['loop']) / min(t['chunk']):.2f}; C "
+          f"bitwise; {card}")
+    return launched
+
+
+def _stack_points(items, n, d, dev, seed):
+    """(items, n, d) clustered points on the card."""
+    import torch
+
+    return torch.as_tensor(np.stack([clustered_points(n, d, seed + i)[0]
+                                     for i in range(items)]), device=dev)
+
+
+def phase_chunk_paths(dev, card, reps=3):
+    """Phase 17, the fused and k-NN paths: ``from_features(Xb,
+    method="fused")`` at the reference's run_batched cells and the dense
+    cells (d = 8 and 64), ``from_features(Xb, k=32)`` and
+    ``cohesion(Db, method="knn", k=32)`` at the dense cells, each chunk
+    against its item loop; then a ragged tie-heavy chunk through each path
+    under split and ignore.  The launches of each wrapper in the chunks of
+    the kernels' rows (B = 64, n = 256; fused at d = 64)."""
+    import torch
+
+    launches = {}
+    for items, n in FUSED_CHUNK_CELLS:
+        for d in FUSED_CHUNK_DS:
+            Xb = _stack_points(items, n, d, dev, SEED + 171)
+            got = chunk_path(f"fused B={items} n={n} d={d}", "fused", Xb,
+                             card, reps)
+            if (items, n, d) == CHUNK_CELLS[0] + (D_FUSED,):
+                launches.update(got)
+            del Xb
+    for items, n in CHUNK_CELLS:
+        Xb = _stack_points(items, n, D_KNN_CHUNK, dev, SEED + 172)
+        got = chunk_path(f"knn features B={items} n={n} k={K_CHUNK} "
+                         f"d={D_KNN_CHUNK}", "knn features", Xb, card, reps)
+        Db = torch.stack([distances_on_device(x) for x in Xb])
+        got.update(chunk_path(f"knn distance B={items} n={n} k={K_CHUNK}",
+                              "knn distance", Db, card, reps))
+        if (items, n) == CHUNK_CELLS[0]:
+            launches.update(got)
+        del Xb, Db
+    items, n = RAGGED_CHUNK
+    rng = np.random.default_rng(SEED + 173)
+    Xb = torch.stack([fused_features(rng, n, 5, dev) for _ in range(items)])
+    Db = torch.stack([distances_on_device(x) for x in Xb])
+    for ties in ("split", "ignore"):
+        for path, x in (("fused", Xb), ("knn features", Xb),
+                        ("knn distance", Db)):
+            chunk_path(f"{path} B={items} n={n} tie-heavy {ties}", path, x,
+                       card, time_it=False, ties=ties)
+    return launches
+
+
+def phase_chunk_kernels(dev, card, clock_mhz, launches, reps=5):
+    """Phase 17, the kernels' rows: each chunked kernel on a chunk of B =
+    64 items at n = 256 (fused at d = 64, k-NN at k = 32, d = 8) against
+    its plain version item by item, timed beside its bound (B times an
+    item's) and the same kernel one item a launch; ``launches``: each
+    wrapper's launches in phase 17's chunk of that cell."""
+    import torch
+    from repro_torch.core import knn as tknn
+    from repro_torch.kernels import pald_fused, pald_knn, pald_topk
+    from repro_torch.kernels.ref import weights_ref
+
+    items, n = CHUNK_CELLS[0]
+    rows = []
+
+    def row(name, wrapper, src, replaces, chunk, plain, err, bound, loop):
+        ms_k, _ = time_ms(chunk, reps)
+        ms_p, _ = time_ms(plain, 1)
+        ms_l, _ = time_ms(loop, reps)
+        b_ms, b_by = bound
+        print(f"phase 17: {name} B={items} n={n}: kernel {ms_k!r} ms a "
+              f"chunk (one item a launch: {ms_l!r} ms), plain {ms_p!r} ms, "
+              f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms_k / b_ms:.3f}, "
+              f"library: none; {card}")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces,
+                     "launches": launches[wrapper.__name__],
+                     "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "chunk": [items, n], "item_loop_ms": ms_l})
+
+    def scaled(bound):
+        return items * bound[0], bound[1]
+
+    d = D_FUSED
+    Xb = _stack_points(items, n, d, dev, SEED + 174)
+    fused = "src/repro_torch/csrc/pald_fused_chunk.cu"
+    f, c = pald_fused.focus_fused_cuda, pald_fused.cohesion_fused_cuda
+    Ub = f(Xb)
+    Up = torch.stack([pald_fused.focus_fused_torch(x, block=256)
+                      for x in Xb])
+    Wb = weights_ref(Ub)
+    Cb = c(Xb, Wb)
+    Cp = torch.stack([pald_fused.cohesion_fused_torch(x, w, block=256)
+                      for x, w in zip(Xb, Wb)])
+    row("focus_fused_chunk", f, fused, "src/repro/kernels/pald_fused.py:71",
+        lambda: f(Xb),
+        lambda: [pald_fused.focus_fused_torch(x, block=256) for x in Xb],
+        compare("phase 17 focus_fused chunk vs plain", Ub, Up, True),
+        scaled(fused_bound_ms("focus", n, d, clock_mhz)),
+        lambda: [f(x) for x in Xb])
+    row("cohesion_fused_chunk", c, fused, "src/repro/kernels/pald_fused.py:144",
+        lambda: c(Xb, Wb),
+        lambda: [pald_fused.cohesion_fused_torch(x, w, block=256)
+                 for x, w in zip(Xb, Wb)],
+        compare("phase 17 cohesion_fused chunk vs plain", Cb, Cp, False),
+        scaled(fused_bound_ms("cohesion", n, d, clock_mhz)),
+        lambda: [c(x, w) for x, w in zip(Xb, Wb)])
+    del Xb, Ub, Up, Wb, Cb, Cp
+
+    k, d = K_CHUNK, D_KNN_CHUNK
+    Xb = _stack_points(items, n, d, dev, SEED + 175)
+    Db = torch.stack([distances_on_device(x) for x in Xb])
+    sel = pald_topk.topk_select_cuda
+    gb = sel(Xb, k)
+    plain = [pald_topk.topk_select_torch(x, k) for x in Xb]
+    compare("phase 17 topk_select chunk vs plain, indices", gb.indices,
+            torch.stack([g.indices for g in plain]), True)
+    row("topk_select_chunk", sel, "src/repro_torch/csrc/pald_topk_chunk.cu",
+        "src/repro/kernels/pald_topk.py:181", lambda: sel(Xb, k),
+        lambda: [pald_topk.topk_select_torch(x, k) for x in Xb],
+        compare("phase 17 topk_select chunk vs plain, distances",
+                gb.distances, torch.stack([g.distances for g in plain]),
+                True),
+        scaled(knn_bound_ms("topk_select", n, k, d, clock_mhz)),
+        lambda: [sel(x, k) for x in Xb])
+    dn, idx = gb.distances, gb.indices
+    vf = pald_knn.knn_values_from_features_cuda
+    row("knn_values_features_chunk", vf,
+        "src/repro_torch/csrc/pald_knn.cu",
+        "src/repro/kernels/pald_knn.py:74", lambda: vf(Xb, dn, idx),
+        lambda: [pald_knn.knn_values_from_features_torch(x, a, i)
+                 for x, a, i in zip(Xb, dn, idx)],
+        compare("phase 17 knn_values features chunk vs plain",
+                vf(Xb, dn, idx),
+                torch.stack([pald_knn.knn_values_from_features_torch(x, a, i)
+                             for x, a, i in zip(Xb, dn, idx)]), False),
+        scaled(knn_bound_ms("knn_values_features", n, k, d, clock_mhz)),
+        lambda: [vf(x, a, i) for x, a, i in zip(Xb, dn, idx)])
+    gd = tknn.knn_from_distances(Db, k)
+    dd, di = gd.distances, gd.indices
+    vd = pald_knn.knn_values_from_distances_cuda
+    row("knn_values_distances_chunk", vd,
+        "src/repro_torch/csrc/pald_knn.cu",
+        "src/repro/kernels/pald_knn.py:74", lambda: vd(Db, dd, di),
+        lambda: [pald_knn.knn_values_from_distances_torch(D, a, i)
+                 for D, a, i in zip(Db, dd, di)],
+        compare("phase 17 knn_values D chunk vs plain", vd(Db, dd, di),
+                torch.stack([pald_knn.knn_values_from_distances_torch(D, a, i)
+                             for D, a, i in zip(Db, dd, di)]), False),
+        scaled(knn_bound_ms("knn_values", n, k, d, clock_mhz)),
+        lambda: [vd(D, a.contiguous(), i.contiguous())
+                 for D, a, i in zip(Db, dd, di)])
+    return rows
 
 
 # phase 18: the method crossover's sizes, and the pad sweep's n and blocks
@@ -4145,7 +4381,7 @@ def run_phases() -> int:
     phase_guard(dev)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_chunks(dev, card)
+    kernels += phase_chunks(dev, card, clock_mhz)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_tuned(dev, card)

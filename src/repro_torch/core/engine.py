@@ -77,6 +77,7 @@ __all__ = [
     "run_chunk",
     "per_item",
     "chunk_or_items",
+    "whole_chunk",
     "resolve_device",
 ]
 
@@ -190,13 +191,21 @@ def per_item(fn, *operands):
     return out
 
 
-def chunk_or_items(fn, Dp: torch.Tensor, impl: str | None) -> torch.Tensor:
-    """``fn`` over a padded (n, n) item or (b, n, n) chunk: a chunk goes
-    whole to the CUDA kernels (one grid a pass), item by item to the plain
-    versions, which take one item (``impl="torch"``, or a CPU tensor)."""
-    if Dp.ndim == 2 or (Dp.device.type == "cuda" and impl != "torch"):
-        return fn(Dp)
-    return per_item(fn, Dp)
+def whole_chunk(x: torch.Tensor, impl: str | None) -> bool:
+    """Whether a (b, ...) chunk goes whole to the CUDA kernels (one launch
+    a kernel): on a CUDA tensor unless ``impl="torch"``.  The plain
+    versions take one item."""
+    return x.device.type == "cuda" and impl != "torch"
+
+
+def chunk_or_items(fn, x: torch.Tensor, impl: str | None) -> torch.Tensor:
+    """``fn`` over one item ((n, n) or (n, d)) or a (b, ...) chunk: a chunk
+    goes whole to the CUDA kernels (:func:`whole_chunk`), item by item to
+    the plain versions, which take one item (``impl="torch"``, or a CPU
+    tensor)."""
+    if x.ndim == 2 or whole_chunk(x, impl):
+        return fn(x)
+    return per_item(fn, x)
 
 
 def run_chunk(fn, xc, plan: "PaldPlan") -> torch.Tensor:

@@ -80,10 +80,11 @@ class NeighborGraph(NamedTuple):
         return self.indices.shape[1]
 
 
-def empty_graph(n: int, device=None) -> NeighborGraph:
-    """The (n, 0) graph of k = 0."""
-    return NeighborGraph(torch.zeros((n, 0), dtype=torch.int32, device=device),
-                         torch.zeros((n, 0), dtype=torch.float32,
+def empty_graph(n: int, device=None, lead: tuple = ()) -> NeighborGraph:
+    """The (n, 0) graph of k = 0 (``lead`` + (n, 0) for a chunk)."""
+    shape = tuple(lead) + (n, 0)
+    return NeighborGraph(torch.zeros(shape, dtype=torch.int32, device=device),
+                         torch.zeros(shape, dtype=torch.float32,
                                      device=device))
 
 
@@ -93,13 +94,14 @@ def check_k(k: int, n: int) -> None:
 
 
 def _top_k_rows(rows: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(distances, int32 indices) of the k smallest entries of each row,
-    ascending by (value, column): a stable sort, so equal values keep the
-    lower column first (the reference's stable ``lax.top_k`` on the negated
-    rows).  ``torch.topk`` is not documented as stable and is not used."""
-    vals, idx = torch.sort(rows, dim=1, stable=True)
+    """(distances, int32 indices) of the k smallest entries of each row
+    (along the last axis), ascending by (value, column): a stable sort, so
+    equal values keep the lower column first (the reference's stable
+    ``lax.top_k`` on the negated rows).  ``torch.topk`` is not documented
+    as stable and is not used."""
+    vals, idx = torch.sort(rows, dim=-1, stable=True)
     # copies: a view would hold the whole sorted slab alive
-    return vals[:, :k].clone(), idx[:, :k].to(torch.int32)
+    return vals[..., :k].clone(), idx[..., :k].to(torch.int32)
 
 
 def knn_from_distances(D: torch.Tensor, k: int, *,
@@ -107,7 +109,10 @@ def knn_from_distances(D: torch.Tensor, k: int, *,
     """Each point's k nearest neighbors from a distance matrix.
 
     Args:
-        D: (n, n) distances with a zero diagonal (cast to float32).
+        D: (n, n) distances with a zero diagonal (cast to float32), or a
+            (b, n, n) chunk of them: each row slab is then the chunk's
+            (b, rows, n) and the graph (b, n, k), bitwise its items' (a
+            stable sort orders each row alone).
         k: ``0 <= k <= n-1``; k = 0 gives the (n, 0) graph.
         row_chunk: rows per sorted slab (bounds the sort's memory; the
             result does not depend on it).
@@ -120,19 +125,19 @@ def knn_from_distances(D: torch.Tensor, k: int, *,
         ValueError: ``k > n-1``.
     """
     D = torch.as_tensor(D).to(torch.float32)
-    n = D.shape[0]
+    n = D.shape[-1]
     check_k(k, n)
     if k <= 0:
-        return empty_graph(n, D.device)
+        return empty_graph(n, D.device, D.shape[:-2])
     dist, idx = [], []
     for s in range(0, n, row_chunk):
-        rows = D[s:s + row_chunk].clone()
-        r = torch.arange(rows.shape[0], device=D.device)
-        rows[r, s + r] = float("inf")
+        rows = D[..., s:s + row_chunk, :].clone()
+        r = torch.arange(rows.shape[-2], device=D.device)
+        rows[..., r, s + r] = float("inf")
         dv, di = _top_k_rows(rows, k)
         dist.append(dv)
         idx.append(di)
-    return NeighborGraph(torch.cat(idx), torch.cat(dist))
+    return NeighborGraph(torch.cat(idx, dim=-2), torch.cat(dist, dim=-2))
 
 
 def knn_from_features(X, k: int, *, metric: str = "euclidean",
@@ -244,13 +249,21 @@ def gather_tile_from_neighbors(Xn: torch.Tensor, idx: torch.Tensor,
 def scatter_dense(graph: NeighborGraph, values: torch.Tensor) -> torch.Tensor:
     """Expand (n, k+1) values to the dense (n, n) C: ``C[x, x] =
     values[x, 0]``, ``C[x, indices[x, j]] = values[x, 1+j]``, exact zeros
-    elsewhere."""
-    n = graph.indices.shape[0]
-    C = torch.zeros((n, n), dtype=torch.float32, device=values.device)
-    rows = torch.arange(n, device=values.device)
-    if graph.k:
-        C[rows[:, None], graph.indices.long()] = values[:, 1:].to(torch.float32)
-    C[rows, rows] = values[:, 0].to(torch.float32)
+    elsewhere.  A chunk's (b, n, k) graph and (b, n, k+1) values give
+    (b, n, n) in one indexed write, bitwise each item's own."""
+    lead = tuple(graph.indices.shape[:-2])
+    n, k = graph.indices.shape[-2:]
+    C = torch.zeros(lead + (n, n), dtype=torch.float32, device=values.device)
+    dev = values.device
+    rows = torch.arange(n, device=dev)
+    # the item index of a chunk's writes, broadcast against (n, k) / (n,)
+    item = torch.arange(lead[0], device=dev) if lead else None
+    if k:
+        at = (item[:, None, None],) if lead else ()
+        C[at + (rows[:, None], graph.indices.long())] = (
+            values[..., 1:].to(torch.float32))
+    at = (item[:, None],) if lead else ()
+    C[at + (rows, rows)] = values[..., 0].to(torch.float32)
     return C
 
 

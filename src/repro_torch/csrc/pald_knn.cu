@@ -39,6 +39,18 @@
 // bounds them on the H100: operations, the tile's k (k-1) / 2 distances
 // (2d + 4 each) and the passes' ~7 k (k+1) per row.
 //
+// A chunk of items (the engine's batch= chunks, the reference's vmap): the
+// features and D entries take `items` graphs of n rows, one after another
+// (dn, idx (items, n, k), the output (items, n, k+1)), each with its own X
+// or D `xstride` / `dstride` elements past the previous item's; blockIdx.y
+// is the item, and every index (and the row offset) stays within its
+// item.  Each item's blocks run exactly what a one-item grid's do, so a
+// chunk's values are bitwise its items' one at a time.  Only the kChunk
+// variants (a chunk of more than one item) take the item, so one item runs
+// code without the item offsets.  A grid holds up to 65535 items
+// (gridDim.y); past that the host issues one grid per 65535.  The cube
+// source and the neighbor-row block take one item.
+//
 // Design of the passes.  One warp per row, four rows per block of 128
 // threads; the row's dn, W and idx sit in shared memory.  Pass 1 walks the
 // pairs j in order: lane l sums the focus terms of m = l, l + 32, ..., a
@@ -68,6 +80,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxK = 1024;
 constexpr int kTileMaxK = 64;          // the k x k tile in shared memory
 constexpr int kStageBytes = 16 << 10;  // neighbor rows staged per warp
+constexpr int64_t kMaxItems = 65535;   // items of one grid (gridDim.y)
 
 // the support of z for the pair (x, y): the functional's own, or for a
 // functional with a share (soft) share * focus on the same triple
@@ -189,13 +202,21 @@ knn_cube_kernel(const float* __restrict__ dn, const float* __restrict__ g,
       x, x, k, lane, p, out);
 }
 
-// source 2: D (ldd columns), D[idx_j, idx_m]
-template <class F>
+// source 2: D (ldd columns), D[idx_j, idx_m]; item y's D dstride elements
+// past the previous item's
+template <class F, bool kChunk>
 __global__ void __launch_bounds__(kThreads)
 knn_dist_kernel(const float* __restrict__ dn, const float* __restrict__ D,
-                int64_t ldd, const int* __restrict__ idx,
+                int64_t ldd, int64_t dstride, const int* __restrict__ idx,
                 float* __restrict__ out, int64_t n, int k, Params p) {
   extern __shared__ __align__(16) float smem[];
+  if constexpr (kChunk) {  // this block's item of the chunk
+    const int64_t item = blockIdx.y;
+    dn += item * n * k;
+    idx += item * n * k;
+    out += item * n * (k + 1);
+    D += item * dstride;
+  }
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
   if (x >= n) return;
@@ -243,15 +264,23 @@ __device__ __forceinline__ float metric_dist(int metric, const float* fa,
 // block of each row's neighbor rows, row j of x's at (x k + j) d).  Shared
 // memory a warp (floats): dn, W, idx, norms (4k), then the tile (kTile:
 // k * tile_pitch(k)), then the staged rows (fpitch > 0: k * fpitch; 0:
-// read from X).  Row x's global index is row_off + x.
-template <bool kTile, class F>
+// read from X).  Row x's global index is row_off + x; item y's X xstride
+// elements past the previous item's.
+template <bool kTile, class F, bool kChunk>
 __global__ void __launch_bounds__(kThreads)
 knn_feat_kernel(const float* __restrict__ dn, const float* __restrict__ X,
-                int64_t d, const int* __restrict__ idx,
+                int64_t d, int64_t xstride, const int* __restrict__ idx,
                 float* __restrict__ out, int64_t n, int k, int metric,
                 int fpitch, int wstride, int64_t row_off, bool nbr,
                 Params p) {
   extern __shared__ __align__(16) float smem[];
+  if constexpr (kChunk) {  // this block's item of the chunk
+    const int64_t item = blockIdx.y;
+    dn += item * n * k;
+    idx += item * n * k;
+    out += item * n * (k + 1);
+    X += item * xstride;
+  }
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int64_t x = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
   if (x >= n) return;
@@ -346,25 +375,44 @@ struct CubeLaunch {
   }
 };
 
+// launch(grid, i0) for each group of up to kMaxItems items of a chunk,
+// starting at item i0: grid (row_blocks(n), the group's items)
+template <class Launch>
+int item_grids(int64_t n, int64_t items, Launch&& launch) {
+  for (int64_t i0 = 0; i0 < items; i0 += kMaxItems) {
+    const int64_t b = items - i0 < kMaxItems ? items - i0 : kMaxItems;
+    launch(dim3(row_blocks(n), static_cast<unsigned>(b)), i0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
 struct DistLaunch {
   const float* dn;
   const float* D;
-  int64_t ldd;
+  int64_t ldd, dstride;
   const int* idx;
   float* out;
   int64_t n;
   int k;
+  int64_t items;
   Params p;
   cudaStream_t stream;
 
   template <class F>
   int operator()() const {
     const size_t smem = size_t(kWarps) * 3 * k * sizeof(float);
-    const int st = set_smem(knn_dist_kernel<F>, smem);
+    const auto kern =
+        items > 1 ? knn_dist_kernel<F, true> : knn_dist_kernel<F, false>;
+    const int st = set_smem(kern, smem);
     if (st != 0) return st;
-    knn_dist_kernel<F><<<row_blocks(n), kThreads, smem, stream>>>(
-        dn, D, ldd, idx, out, n, k, p);
-    return static_cast<int>(cudaGetLastError());
+    return item_grids(n, items, [&](dim3 grid, int64_t i0) {
+      const int64_t e = i0 * n * k;
+      kern<<<grid, kThreads, smem, stream>>>(
+          dn + e, D + i0 * dstride, ldd, dstride, idx + e,
+          out + i0 * n * (k + 1), n, k, p);
+    });
   }
 };
 
@@ -382,13 +430,14 @@ int feat_layout(int k, int64_t d, int* fpitch) {
 struct FeatLaunch {
   const float* dn;
   const float* X;
-  int64_t d;
+  int64_t d, xstride;
   const int* idx;
   float* out;
   int64_t n;
   int k, metric;
   int64_t row_off;
   bool nbr;
+  int64_t items;
   Params p;
   cudaStream_t stream;
 
@@ -398,14 +447,20 @@ struct FeatLaunch {
     int fpitch;
     const int wstride = feat_layout(k, d, &fpitch);
     const size_t smem = size_t(kWarps) * wstride * sizeof(float);
-    const auto kern =
-        tile ? knn_feat_kernel<true, F> : knn_feat_kernel<false, F>;
+    const bool chunk = items > 1;
+    const auto kern = tile ? (chunk ? knn_feat_kernel<true, F, true>
+                                    : knn_feat_kernel<true, F, false>)
+                           : (chunk ? knn_feat_kernel<false, F, true>
+                                    : knn_feat_kernel<false, F, false>);
     const int st = set_smem(kern, smem);
     if (st != 0) return st;
-    kern<<<row_blocks(n), kThreads, smem, stream>>>(dn, X, d, idx, out, n, k,
-                                                     metric, fpitch, wstride,
-                                                     row_off, nbr, p);
-    return static_cast<int>(cudaGetLastError());
+    return item_grids(n, items, [&](dim3 grid, int64_t i0) {
+      const int64_t e = i0 * n * k;
+      kern<<<grid, kThreads, smem, stream>>>(
+          dn + e, X + i0 * xstride, d, xstride, idx + e,
+          out + i0 * n * (k + 1), n, k, metric, fpitch, wstride, row_off,
+          nbr, p);
+    });
   }
 };
 
@@ -436,32 +491,40 @@ extern "C" int pald_knn_values_f32(const float* dn, const float* g,
 // d) float32 for `metric` (0 sqeuclidean, 1 euclidean, 2 cosine, 3
 // manhattan), bitwise gather_tile_from_features's; with nbr != 0, X is
 // the (n, k, d) block of each row's neighbor rows instead.  Row x of the
-// graph has global index row_off + x (>= 0).
+// graph has global index row_off + x (>= 0).  A chunk of `items` graphs
+// (dn, idx (items, n, k), out (items, n, k+1)) reads item i's X at X + i
+// xstride, its indices within it; one grid per 65535 items.
 extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             int64_t d, const int* idx,
                                             float* out, int64_t n, int k,
                                             int metric, int64_t row_off,
-                                            int nbr, int wid, float p0,
-                                            float p1, void* stream) {
-  if (bad_shape(n, k) || d < 0 || row_off < 0 ||
-      metric < pald::kSqEuclidean || metric > pald::kManhattan)
+                                            int nbr, int64_t items,
+                                            int64_t xstride, int wid,
+                                            float p0, float p1,
+                                            void* stream) {
+  if (bad_shape(n, k) || d < 0 || row_off < 0 || items < 1 ||
+      xstride < 0 || metric < pald::kSqEuclidean ||
+      metric > pald::kManhattan)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
-      wid, FeatLaunch{dn, X, d, idx, out, n, k, metric, row_off, nbr != 0,
-                      {p0, p1}, static_cast<cudaStream_t>(stream)});
+      wid, FeatLaunch{dn, X, d, xstride, idx, out, n, k, metric, row_off,
+                      nbr != 0, items, {p0, p1},
+                      static_cast<cudaStream_t>(stream)});
 }
 
 // The same with the distances read from D (rows of ldd float32),
-// D[idx_j, idx_m] as gather_tile_from_distances gathers them.
+// D[idx_j, idx_m] as gather_tile_from_distances gathers them; a chunk of
+// `items` graphs reads item i's D at D + i dstride.
 extern "C" int pald_knn_values_distances_f32(const float* dn, const float* D,
                                              int64_t ldd, const int* idx,
                                              float* out, int64_t n, int k,
+                                             int64_t items, int64_t dstride,
                                              int wid, float p0, float p1,
                                              void* stream) {
-  if (bad_shape(n, k) || ldd < 1)
+  if (bad_shape(n, k) || ldd < 1 || items < 1 || dstride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
-      wid, DistLaunch{dn, D, ldd, idx, out, n, k, {p0, p1},
+      wid, DistLaunch{dn, D, ldd, dstride, idx, out, n, k, items, {p0, p1},
                       static_cast<cudaStream_t>(stream)});
 }
 

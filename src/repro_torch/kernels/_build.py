@@ -25,12 +25,12 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load", "check", "ptxas_report", "CSRC", "BUILD_ROOT"]
+__all__ = ["load", "check", "entry", "ptxas_report", "CSRC", "BUILD_ROOT"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_topk",
-           "pald_knn", "pald_cohesion_tri")
+SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_fused_chunk",
+           "pald_topk", "pald_topk_chunk", "pald_knn", "pald_cohesion_tri")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,10 +53,20 @@ SIGNATURES = {
     "pald_cohesion_fused_f32": ("pald_fused",
                                 (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                  _I32, _I32, _F32, _F32, _I32, _P)),
+    "pald_focus_fused_chunk_f32": ("pald_fused_chunk",
+                                   (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                    _I64, _I32, _I32, _F32, _F32, _P)),
+    "pald_cohesion_fused_chunk_f32": ("pald_fused_chunk",
+                                      (_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                       _I64, _I64, _I32, _I32, _F32, _F32,
+                                       _I32, _P)),
     "pald_dist_fused_f32": ("pald_fused",
                             (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
     "pald_topk_f32": ("pald_topk",
                       (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)),
+    "pald_topk_chunk_f32": ("pald_topk_chunk",
+                            (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32,
+                             _P)),
     "pald_topk_block_f32": ("pald_topk",
                             (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                              _I64, _I32, _I32, _P)),
@@ -65,10 +75,11 @@ SIGNATURES = {
                              _P)),
     "pald_knn_values_features_f32": ("pald_knn",
                                      (_P, _P, _I64, _P, _P, _I64, _I32, _I32,
-                                      _I64, _I32, _I32, _F32, _F32, _P)),
+                                      _I64, _I32, _I64, _I64, _I32, _F32,
+                                      _F32, _P)),
     "pald_knn_values_distances_f32": ("pald_knn",
                                       (_P, _P, _I64, _P, _P, _I64, _I32,
-                                       _I32, _F32, _F32, _P)),
+                                       _I64, _I64, _I32, _F32, _F32, _P)),
     "pald_topk_smem_bytes": ("pald_topk", (_I32, _I64)),
     "pald_knn_smem_bytes": ("pald_knn", (_I32, _I64)),
     "pald_cohesion_tri_f32": ("pald_cohesion_tri",
@@ -143,6 +154,17 @@ def load(symbol: str):
                 fn.restype = ctypes.c_int
                 _loaded[sym] = fn
         return _loaded[symbol]
+
+
+def entry(stem: str, items: int) -> tuple[str, tuple]:
+    """The C entry point of one item (``<stem>_f32``) or, past one item,
+    of a chunk (``<stem>_chunk_f32``), and the chunk's extra argument, the
+    item count.  A chunk entry lives in a library of its own
+    (``csrc/<source>_chunk.cu``): its kernels' item offsets cost
+    registers, so one item runs code without them, and nvcc builds both
+    halves in parallel."""
+    return ((f"{stem}_chunk_f32", (items,)) if items > 1
+            else (f"{stem}_f32", ()))
 
 
 def ptxas_report(source: str) -> list[tuple[str, str]]:

@@ -37,8 +37,11 @@ kernels' panel budget.
 The square pipelines (``focus``, ``cohesion_from_weights``, ``pald``,
 ``pald_tri``) also take a (b, n, n) chunk of items on the card: the CUDA
 kernels run it in one grid per pass (the item on ``blockIdx.z``), bitwise
-the items one at a time.  The plain versions take one item; the kernel
-executors split a chunk for them (``engine.chunk_or_items``).
+the items one at a time.  So do ``pald_fused`` (a (b, n, d) chunk), and
+the k-NN pipeline (``topk_select``, ``knn_values``' kernel route,
+``pald_knn``, ``select_cohere``: a (b, n, d) or (b, n, n) chunk, a (b, n,
+k) graph, one launch of each kernel).  The plain versions take one item;
+the executors split a chunk for them (``engine.chunk_or_items``).
 
 The sparse k-NN pipeline (``core/knn.py`` has the semantics):
 
@@ -342,7 +345,9 @@ def pald_tri(D, *, block=128, block_z=512, normalize: bool = False,
 def pald_fused(X, *, metric: str = "euclidean", block=128, block_z=512,
                normalize: bool = False, impl: str | None = None,
                ties=DEFAULT_TIES) -> torch.Tensor:
-    """Fused features -> cohesion pipeline: X (n, d) -> C (n, n).
+    """Fused features -> cohesion pipeline: X (n, d) -> C (n, n); on the
+    card (``impl="cuda"``) also a (b, n, d) chunk -> C (b, n, n), one launch
+    a pass for the chunk, bitwise its items.
 
     Both passes compute their distances from the feature rows as they go
     (``impl="cuda"``: one (P, n) panel of rows at a time, at most
@@ -363,7 +368,7 @@ def pald_fused(X, *, metric: str = "euclidean", block=128, block_z=512,
     impl = _check_impl(impl or default_impl(X.device))
     fault_point("ops.pald_fused", impl=impl, ties=ties.name)
     X = _f32(X)  # the one boundary cast
-    n, d = X.shape
+    n, d = X.shape[-2:]
     if impl == "torch":
         block, block_z, _ = _tuner.resolve_fused_tiles(
             n, d, block, block_z, impl=impl, ties=ties, device=X.device)
@@ -436,7 +441,7 @@ def knn_values(x, graph: "_knn.NeighborGraph", *, kind: str = "distance",
         ValueError: a neighbor index outside [0, n) (the kernel would
             read outside ``x``).
     """
-    check_indices("knn_values", graph.indices, x.shape[0])
+    check_indices("knn_values", graph.indices, x.shape[-2])
     return _knn_values(x, graph, kind=kind, metric=metric, block=block,
                        impl=impl, ties=ties)
 
@@ -448,9 +453,10 @@ def _knn_values(x, graph, *, kind, metric, block, impl, ties):
     impl = _check_impl(impl or default_impl(x.device))
     fault_point("ops.knn_values", impl=impl, ties=ties.name)
     x = _f32(x)
-    n, k = graph.indices.shape
+    n, k = graph.indices.shape[-2:]
     if k == 0:  # n == 1, or an explicit empty graph: no pairs, no support
-        return torch.zeros((n, 1), dtype=torch.float32, device=x.device)
+        return torch.zeros(graph.indices.shape[:-1] + (1,),
+                           dtype=torch.float32, device=x.device)
     dn = _f32(graph.distances)
     idx = graph.indices.to(torch.int32).contiguous()
     if impl == "torch":
@@ -479,7 +485,9 @@ def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
     ``block`` the values' rows per chunk ("auto": the ``pald_knn:k<k>``
     cache pass), both the plain versions'.  Selection: a stable sort per
     row slab of D (``kind="distance"``) or ``topk_select``
-    (``kind="features"``).
+    (``kind="features"``).  On the card a chunk x (b, n, n) or (b, n, d)
+    runs the selection and the values once each for all b items, a (b, n,
+    k) graph and (b, n, k+1) values.
 
     Returns:
         (graph, values); ``core.knn.scatter_dense`` expands the values to
@@ -488,7 +496,7 @@ def pald_knn(x, *, k: int, kind: str = "distance", metric: str = "euclidean",
     ties = resolve_weight(ties)
     _check_kind(kind)
     x = _f32(x)
-    n = x.shape[0]
+    n = x.shape[-2]
     k = min(int(k), max(n - 1, 0))
     # a caller's graph has its indices checked; one built here does not
     values = knn_values if graph is not None else _knn_values
@@ -531,7 +539,8 @@ def topk_select(X, k: int, *, metric: str = "euclidean",
     self excluded by the reference rung's rule), or None for the device's
     default.  ``block`` / ``tile`` "auto" resolve under the
     ``pald_topk:k<k>:d<d>`` cache pass (cold: 1024 rows, tile n, direct);
-    the kernel reads neither.
+    the kernel reads neither.  On the card ``impl="cuda"`` also takes a
+    (b, n, d) chunk: a (b, n, k) graph from one launch.
 
     Raises:
         ValueError: unknown metric or impl, or ``k > n-1``.
@@ -542,7 +551,7 @@ def topk_select(X, k: int, *, metric: str = "euclidean",
                          f"{SELECTS})")
     fault_point("ops.topk_select", impl=impl, metric=metric)
     X = _f32(X)
-    n, d = X.shape
+    n, d = X.shape[-2:]
     _knn.check_k(k, n)
     if impl == "cuda":
         return topk_select_cuda(X, k, metric=metric)
@@ -614,7 +623,9 @@ def select_cohere(X, *, k: int, metric: str = "euclidean",
     selection's (n,) norms.
 
     Args:
-        X: (n, d) features.
+        X: (n, d) features; on the card with both impls "cuda" also a
+            (b, n, d) chunk (one launch of each kernel, a (b, n, k) graph
+            and (b, n, k+1) values).
         k: neighborhood size, clamped to n-1.
         block / tile: the selection's rows per slab and prefilter tile
             (plain version; see ``topk_select``).
@@ -632,11 +643,12 @@ def select_cohere(X, *, k: int, metric: str = "euclidean",
     sel = select or impl
     fault_point("ops.select_cohere", impl=impl, select=sel, ties=ties.name)
     X = _f32(X)
-    n = X.shape[0]
+    lead, n = tuple(X.shape[:-2]), X.shape[-2]
     k = min(int(k), max(n - 1, 0))
     if k <= 0:
-        return (_knn.empty_graph(n, X.device),
-                torch.zeros((n, 1), dtype=torch.float32, device=X.device))
+        return (_knn.empty_graph(n, X.device, lead),
+                torch.zeros(lead + (n, 1), dtype=torch.float32,
+                            device=X.device))
     graph = topk_select(X, k, metric=metric, impl=sel, block=block,
                         tile=tile)
     vals = _knn_values(X, graph, kind="features", metric=metric,
@@ -648,9 +660,10 @@ def select_cohere(X, *, k: int, metric: str = "euclidean",
 
 # --------------------------------------------------------------------------
 # engine executors: the kernel-pipeline cells of the dispatch registry
-# (repro_torch.core.engine).  Each receives one item, or a (b, n, n) chunk
-# of them (one grid per pass for the chunk), plus the resolved plan;
-# tiles, impl and weight were fixed once at plan() time.
+# (repro_torch.core.engine).  Each receives one item, or a (b, ...) chunk
+# of them (one launch per kernel for the chunk on the card, item by item
+# through the plain versions), plus the resolved plan; tiles, impl and
+# weight were fixed once at plan() time.
 # --------------------------------------------------------------------------
 def _kernel_exec(D, plan, pipeline):
     Dp, n0 = _engine.pad_distance_matrix(D, plan.block)  # f32 boundary cast
@@ -673,11 +686,12 @@ def _exec_kernel_tri(D, plan):
     return _kernel_exec(D, plan, pald_tri)
 
 
-@_engine.register_executor("features", "fused", "dense")
+@_engine.register_executor("features", "fused", "dense", chunks=True)
 def _exec_fused(X, plan):
-    return pald_fused(X, metric=plan.metric, block=plan.block,
-                      block_z=plan.block_z, normalize=plan.normalize,
-                      impl=plan.impl, ties=plan.weight)
+    return _engine.chunk_or_items(
+        lambda x: pald_fused(x, metric=plan.metric, block=plan.block,
+                             block_z=plan.block_z, normalize=plan.normalize,
+                             impl=plan.impl, ties=plan.weight), X, plan.impl)
 
 
 # -- sparse k-NN cells -------------------------------------------------------
@@ -685,15 +699,30 @@ def _exec_fused(X, plan):
 # n-1) neighbor cube would be more work than the dense computation it
 # reproduces: the executors run the exact dense path there, so
 # ``cohesion(D, method="knn", k=n-1)`` is bitwise ``method="dense"``.
-# ``pald_knn`` itself never short-circuits.
+# ``pald_knn`` itself never short-circuits.  A chunk runs whole only where
+# every stage is a kernel (or, for D's selection, a sort of the chunk's
+# rows); the dense path, the mesh, the guard's chunked selection rung and
+# the plain versions take it item by item.
 def _knn_dense_fallback(D, plan):
     return _engine.get_executor("distance", "dense", "dense")(D, plan)
 
 
-@_engine.register_executor("distance", "knn", "dense")
+def _knn_chunk(body, x, plan, whole: bool):
+    """``body`` over one item or a chunk: whole on the card's kernels when
+    every stage takes a chunk (``whole``), else item by item."""
+    return _engine.chunk_or_items(lambda xi: body(xi, plan), x,
+                                  plan.impl if whole else "torch")
+
+
+@_engine.register_executor("distance", "knn", "dense", chunks=True)
 def _exec_knn_distance(D, plan):
     D = _f32(D)
-    n = D.shape[0]
+    return _knn_chunk(_knn_distance, D, plan,
+                      plan.k < D.shape[-1] - 1 and plan.select != "chunked")
+
+
+def _knn_distance(D, plan):
+    n = D.shape[-1]
     if plan.k >= n - 1:
         return _knn_dense_fallback(D, plan)
     graph = None
@@ -706,13 +735,19 @@ def _exec_knn_distance(D, plan):
     return C / max(n - 1, 1) if plan.normalize else C
 
 
-@_engine.register_executor("features", "knn", "dense")
+@_engine.register_executor("features", "knn", "dense", chunks=True)
 def _exec_knn_features(X, plan):
     """Selection streamed from features straight into the values kernel
     (``select_cohere``); no (n, n) intermediate before the final scatter.
     A mesh plan runs the sharded pipeline (``core/distributed_knn.py``)."""
     X = _f32(X)
-    n = X.shape[0]
+    return _knn_chunk(_knn_features, X, plan,
+                      plan.k < X.shape[-2] - 1 and plan.mesh is None
+                      and (plan.select or plan.impl) == "cuda")
+
+
+def _knn_features(X, plan):
+    n = X.shape[-2]
     if plan.k >= n - 1:
         from repro_torch.core.features import cdist_reference
 

@@ -5,7 +5,8 @@ wrappers and their plain torch versions.
     C[x, z] = sum_y support_weight(d(x, z), d(y, z), d(x, y)) * W[x, y]
 
 with the distances d computed from the rows of X (n, d) as the passes go.
-The kernels (``csrc/pald_fused.cu``) replace the TPU kernels
+The kernels (``csrc/pald_fused.cuh``, entries in ``pald_fused.cu`` and,
+for a chunk of items, ``pald_fused_chunk.cu``) replace the TPU kernels
 ``repro/kernels/pald_fused.py::focus_fused_pallas`` and
 ``cohesion_fused_pallas``.  Each pass walks the reduced axis in panels of
 :func:`panel_rows` rows: a panel writer computes the panel's distances
@@ -14,7 +15,7 @@ once (``csrc/pald_dist.cuh``) into a (P, ldp) scratch buffer of at most
 loops (``csrc/pald_tile.cuh``) over the panel's slabs.  So D is never
 whole in device memory past n = 4096; up to there one panel holds all of
 it, and the pipeline's peak is W, C and that panel, about 3 n^2 float32
-buffers (2.25 n^2 from n = 8192 up).  The source note in the ``.cu`` file has the details.
+buffers (2.25 n^2 from n = 8192 up).  The source note in the ``.cuh`` file has the details.
 
 The distances are bitwise those of ``core.features.cdist_reference`` (the
 same operations in the same order), so on the same X the fused U equals
@@ -28,6 +29,13 @@ take :func:`focus_fused_torch` / :func:`cohesion_fused_torch`, the
 counterparts of the reference's ``ops._focus_fused_jnp`` /
 ``_cohesion_fused_jnp``: (block, m) distance slabs fed to the dense plain
 versions, block pair by block pair.
+
+On the card both wrappers also take a (b, n, d) chunk of items (the
+engine's ``batch=`` chunks, the reference's vmap) and run it in one launch,
+the item on ``blockIdx.z`` of every grid: the chunk's U and C are bitwise
+its items' one at a time.  The panel then holds a (P, ldp) slab per item,
+so P shrinks with the chunk (:func:`panel_rows`), which changes no bit.
+The plain versions take one item; the engine splits a chunk for them.
 """
 from __future__ import annotations
 
@@ -38,14 +46,15 @@ from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
 
 from . import _build
 from .pald_cohesion import add_form, cohesion_general_torch
-from .pald_focus import check_operands, focus_general_torch
+from .pald_focus import (MAX_ITEMS, check_operands, focus_general_torch,
+                         item_grids)
 
 __all__ = ["focus_fused_cuda", "cohesion_fused_cuda", "focus_fused_torch",
            "cohesion_fused_torch", "dist_fused_cuda", "metric_id",
            "norm_grids", "panel_rows", "panel_stride", "fused_grids"]
 
 # shared memory of one thread block of the fused passes, in bytes
-# (csrc/pald_fused.cu: a 64-row tile, 32-row slabs, focus's in two buffers,
+# (csrc/pald_fused.cuh: a 64-row tile, 32-row slabs, focus's in two buffers,
 # 16 features staged per step, rows padded by 4 floats); independent of d
 _LD, _CHUNK, _SLAB = 68, 16, 32
 _STAGE = 4 * _CHUNK * 2 * _LD
@@ -73,27 +82,36 @@ def panel_stride(n: int) -> int:
     return -(-int(n) // _TILE) * _TILE
 
 
-def panel_rows(n: int) -> int:
-    """Rows P of the distance panel the fused passes hold at a time: the
-    most that fit ``PANEL_BUDGET`` at the panel's row stride, a multiple of
-    64 (slab boundaries, and so every sum's order, do not depend on P), at
-    least 64 and at most n rounded up to 64.  Not a knob of the facades:
-    the reference has none."""
+def panel_rows(n: int, items: int = 1) -> int:
+    """Rows P of the distance panel the fused passes hold at a time, for
+    each of the ``items`` items of one grid: the most that fit
+    ``PANEL_BUDGET`` at the panel's row stride for all of them (items x P
+    x ldp floats), a multiple of 64 (slab boundaries, and so every sum's
+    order, do not depend on P), at least 64 and at most n rounded up to
+    64.  Not a knob of the facades: the reference has none."""
     ld = max(panel_stride(n), _TILE)
-    p = PANEL_BUDGET // (4 * ld) // _TILE * _TILE
+    p = PANEL_BUDGET // (4 * ld * max(int(items), 1)) // _TILE * _TILE
     return max(_TILE, min(p, ld))
 
 
-def fused_grids(n: int, metric: str, rows: int | None = None) -> int:
-    """Grids one fused pass issues: the row-norm pre-pass (all metrics but
-    manhattan), then a panel writer and a pass per panel."""
-    rows = panel_rows(n) if rows is None else rows
-    return norm_grids(metric) + 2 * -(-int(n) // rows)
+def fused_grids(n: int, metric: str, rows: int | None = None,
+                items: int = 1) -> int:
+    """Grids one fused pass issues for a chunk of ``items`` items: the
+    row-norm pre-pass over all of them (all metrics but manhattan), then,
+    for each grid's group of up to ``MAX_ITEMS`` items, a panel writer and
+    a pass per panel."""
+    rows = panel_rows(n, _grid_items(items)) if rows is None else rows
+    return norm_grids(metric) + item_grids(items) * 2 * -(-int(n) // rows)
 
 
-def _panel(n: int, rows) -> int:
+def _grid_items(items: int) -> int:
+    """Items of one grid: the panel holds a slab for each."""
+    return max(1, min(int(items), MAX_ITEMS))
+
+
+def _panel(n: int, rows, items: int = 1) -> int:
     if rows is None:
-        return panel_rows(n)
+        return panel_rows(n, items)
     rows = int(rows)
     if rows < _TILE or rows % _TILE:
         raise ValueError(f"panel rows must be a positive multiple of "
@@ -117,7 +135,7 @@ def norm_grids(metric: str) -> int:
 
 
 def _n_valid(X, n_valid) -> int:
-    n = X.shape[0]
+    n = X.shape[-2]
     nv = n if n_valid is None else int(n_valid)
     if not 0 <= nv <= n:
         raise ValueError(f"n_valid={nv} out of range for {n} rows")
@@ -187,76 +205,92 @@ def _launch(symbol, X, out, *ptrs_and_args):
 
 
 def _cuda_operands(what, X, n_valid, **more):
+    """(lead, n, d, n_valid, items, norms) of a CUDA X (n, d) or chunk
+    (b, n, d), the other operands checked against ``lead``: () or (b,)."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    n, d = X.shape
-    check_operands(what, dev, X=(X, (n, d), torch.float32), **more)
+    if X.ndim not in (2, 3):
+        raise ValueError(f"{what}: X must be (n, d) or a (b, n, d) chunk, "
+                         f"got shape {tuple(X.shape)}")
+    lead = tuple(X.shape[:-2])
+    n, d = X.shape[-2:]
+    more = {k: (t, lead + shape, dt) for k, (t, shape, dt) in more.items()}
+    check_operands(what, dev, X=(X, lead + (n, d), torch.float32), **more)
     nv = _n_valid(X, n_valid)
-    norms = torch.empty((n,), dtype=torch.float32, device=dev)
-    return n, d, nv, norms
+    items = lead[0] if lead else 1
+    norms = torch.empty((items * n,), dtype=torch.float32, device=dev)
+    return lead, n, d, nv, items, norms
 
 
-def _panel_buffer(n: int, rows: int, dev) -> torch.Tensor:
-    return torch.empty((rows, panel_stride(n)), dtype=torch.float32,
-                       device=dev)
+def _panel_buffer(n: int, rows: int, items: int, dev) -> torch.Tensor:
+    """The (items of a grid, P, ldp) panel; the groups of a chunk past
+    ``MAX_ITEMS`` items reuse it one after another."""
+    return torch.empty((_grid_items(items), rows, panel_stride(n)),
+                       dtype=torch.float32, device=dev)
 
 
 def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
                      ties=DEFAULT_TIES, _panel_rows=None) -> torch.Tensor:
     """U (n, n) from X (n, d) through the CUDA kernel for CUDA tensors,
-    through :func:`focus_fused_torch` for CPU tensors.
+    through :func:`focus_fused_torch` for CPU tensors; on the card a
+    (b, n, d) chunk gives U (b, n, n) from one launch, bitwise its items.
 
     A CUDA X must be contiguous float32 (``ops`` prepares it); anything
     else raises, as does a weight functional without a kernel id.  The
-    call holds one (P, ldp) float32 distance panel (:func:`panel_rows`,
-    :func:`panel_stride`) besides U, freed when it returns; ``_panel_rows``
-    overrides P (a positive multiple of 64) for the card tests: U is
-    bitwise the same for every P.  Each call that launches the kernel adds
-    one to ``focus_fused_cuda.launches``, and the grids it issues
-    (:func:`fused_grids`) to ``.grid_launches``.
+    call holds one (P, ldp) float32 distance panel per item of a grid
+    (:func:`panel_rows`, :func:`panel_stride`) besides U, freed when it
+    returns; ``_panel_rows`` overrides P (a positive multiple of 64) for
+    the card tests: U is bitwise the same for every P.  Each call that
+    launches the kernel adds one to ``focus_fused_cuda.launches``, and the
+    grids it issues (:func:`fused_grids`) to ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return focus_fused_torch(X, metric=metric, n_valid=n_valid, ties=ties)
     wid, p0, p1 = kernel_spec(ties)
     mid = metric_id(metric)
-    n, d, nv, norms = _cuda_operands("focus_fused_cuda", X, n_valid)
-    U = torch.empty((n, n), dtype=torch.float32, device=X.device)
-    if n == 0:
+    lead, n, d, nv, items, norms = _cuda_operands("focus_fused_cuda", X,
+                                                  n_valid)
+    U = torch.empty(lead + (n, n), dtype=torch.float32, device=X.device)
+    if U.numel() == 0:
         return U
-    rows = _panel(n, _panel_rows)
-    panel = _panel_buffer(n, rows, X.device)
-    _launch("pald_focus_fused_f32", X, U, X.data_ptr(), norms.data_ptr(),
-            panel.data_ptr(), U.data_ptr(), n, d, nv, rows, mid, wid, p0, p1)
+    rows = _panel(n, _panel_rows, _grid_items(items))
+    panel = _panel_buffer(n, rows, items, X.device)
+    name, more = _build.entry("pald_focus_fused", items)
+    _launch(name, X, U, X.data_ptr(), norms.data_ptr(), panel.data_ptr(),
+            U.data_ptr(), n, d, nv, rows, *more, mid, wid, p0, p1)
     focus_fused_cuda.launches += 1
-    focus_fused_cuda.grid_launches += fused_grids(n, metric, rows)
+    focus_fused_cuda.grid_launches += fused_grids(n, metric, rows, items)
     return U
 
 
 def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
                         ties=DEFAULT_TIES, _panel_rows=None) -> torch.Tensor:
     """C (n, n) from X (n, d) and W = 1/U (n, n) through the CUDA kernel
-    for CUDA tensors, through :func:`cohesion_fused_torch` for CPU tensors.
-    Same operand rules, panel and counters as :func:`focus_fused_cuda`
+    for CUDA tensors, through :func:`cohesion_fused_torch` for CPU tensors;
+    on the card a (b, n, d) chunk and W (b, n, n) give C (b, n, n) from one
+    launch (``add_form`` decides once for the chunk).  Same operand rules,
+    panel and counters as :func:`focus_fused_cuda`
     (``cohesion_fused_cuda.launches``, ``.grid_launches``)."""
     if X.device.type == "cpu":
         return cohesion_fused_torch(X, W, metric=metric, n_valid=n_valid,
                                     ties=ties)
     wid, p0, p1 = kernel_spec(ties)
     mid = metric_id(metric)
-    n = X.shape[0]
-    n, d, nv, norms = _cuda_operands(
+    n = X.shape[-2]
+    lead, n, d, nv, items, norms = _cuda_operands(
         "cohesion_fused_cuda", X, n_valid, W=(W, (n, n), torch.float32))
-    C = torch.empty((n, n), dtype=torch.float32, device=X.device)
-    if n == 0:
+    C = torch.empty(lead + (n, n), dtype=torch.float32, device=X.device)
+    if C.numel() == 0:
         return C
-    rows = _panel(n, _panel_rows)
-    panel = _panel_buffer(n, rows, X.device)
-    _launch("pald_cohesion_fused_f32", X, C, X.data_ptr(), norms.data_ptr(),
-            panel.data_ptr(), W.data_ptr(), C.data_ptr(), n, d, nv, rows,
-            mid, wid, p0, p1, add_form(wid, W))
+    rows = _panel(n, _panel_rows, _grid_items(items))
+    panel = _panel_buffer(n, rows, items, X.device)
+    name, more = _build.entry("pald_cohesion_fused", items)
+    _launch(name, X, C, X.data_ptr(), norms.data_ptr(), panel.data_ptr(),
+            W.data_ptr(), C.data_ptr(), n, d, nv, rows, *more, mid, wid, p0,
+            p1, add_form(wid, W))
     cohesion_fused_cuda.launches += 1
-    cohesion_fused_cuda.grid_launches += fused_grids(n, metric, rows)
+    cohesion_fused_cuda.grid_launches += fused_grids(n, metric, rows, items)
     return C
 
 
@@ -266,7 +300,10 @@ def dist_fused_cuda(X, *, metric: str = "euclidean",
     out by the passes' panel writer: the probe that holds them bitwise to
     ``cdist_reference``."""
     mid = metric_id(metric)
-    n, d, nv, norms = _cuda_operands("dist_fused_cuda", X, n_valid)
+    if X.ndim != 2:
+        raise ValueError("dist_fused_cuda takes one item X (n, d), got "
+                         f"shape {tuple(X.shape)}")
+    _, n, d, nv, _, norms = _cuda_operands("dist_fused_cuda", X, n_valid)
     D = torch.empty((n, n), dtype=torch.float32, device=X.device)
     if n == 0:
         return D

@@ -34,6 +34,13 @@ Each wrapper dispatches on the tensors' device: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain version (:func:`knn_values_torch`,
 ``knn_values_tile`` over row chunks, each chunk's tiles gathered by the
 plain ``gather_tile_from_*``).
+
+On the card the features and D sources also take a chunk of items (the
+engine's ``batch=`` chunks): X (b, m, d) or D (b, m, m) with a (b, n, k)
+graph, each item's indices its own, in one launch, the item on
+``blockIdx.y``; the (b, n, k+1) values are bitwise its items' one at a
+time.  The cube source, the neighbor-row block and the plain versions take
+one item.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from repro_torch.core.knn import (gather_tile_from_distances,
 from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
 
 from . import _build
-from .pald_focus import check_operands
+from .pald_focus import check_operands, item_grids
 from .pald_fused import metric_id
 from .pald_topk import MAX_K
 
@@ -161,7 +168,7 @@ def knn_values_from_distances_torch(D: torch.Tensor, dn: torch.Tensor,
     return out
 
 
-def _launch(name, fn_args, out, counter):
+def _launch(name, fn_args, out, counter, items=1):
     fn = _build.load(name)
     dev = out.device
     with torch.cuda.device(dev):
@@ -169,8 +176,18 @@ def _launch(name, fn_args, out, counter):
         status = fn(*fn_args, stream)
     _build.check(status, name)
     counter.launches += 1
-    counter.grid_launches += 1
+    counter.grid_launches += item_grids(items)
     return out
+
+
+def _graph_shape(who, dn, nbr=False):
+    """(lead, n, k) of the graph's dn: (n, k), or a (b, n, k) chunk where
+    the entry takes one."""
+    if dn.ndim not in (2, 3) or (nbr and dn.ndim == 3):
+        raise ValueError(f"{who}: dn must be (n, k)"
+                         + ("" if nbr else " or a (b, n, k) chunk")
+                         + f", got shape {tuple(dn.shape)}")
+    return tuple(dn.shape[:-2]), dn.shape[-2], dn.shape[-1]
 
 
 def check_indices(who: str, idx: torch.Tensor, m: int) -> None:
@@ -200,21 +217,23 @@ def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
     dev = dn.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: unsupported device {dev}")
-    n, k = dn.shape
-    shape = (n, k, X.shape[-1]) if nbr else tuple(X.shape)
+    lead, n, k = _graph_shape(who, dn, nbr)
+    shape = lead + ((n, k, X.shape[-1]) if nbr else tuple(X.shape[-2:]))
     check_operands(who, dev, X=(X, shape, torch.float32),
-                   dn=(dn, (n, k), torch.float32),
-                   idx=(idx, (n, k), torch.int32))
+                   dn=(dn, lead + (n, k), torch.float32),
+                   idx=(idx, lead + (n, k), torch.int32))
     _check_k(who, k)
     if row_off < 0:
         raise ValueError(f"{who}: row_off={row_off} < 0")
-    out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
-    if n == 0:
+    out = torch.empty(lead + (n, k + 1), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
         return out
+    items = lead[0] if lead else 1
     return _launch("pald_knn_values_features_f32",
                    (dn.data_ptr(), X.data_ptr(), shape[-1], idx.data_ptr(),
-                    out.data_ptr(), n, k, mid, row_off, int(nbr), wid, p0,
-                    p1), out, counter)
+                    out.data_ptr(), n, k, mid, row_off, int(nbr), items,
+                    X[0].numel() if lead else 0, wid, p0, p1), out, counter,
+                   items)
 
 
 def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
@@ -224,14 +243,17 @@ def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
                                   row_off: int = 0) -> torch.Tensor:
     """(n, k+1) values with each row's tile computed from X in the kernel,
     for CUDA tensors; :func:`knn_values_from_features_torch` for CPU ones.
-    ``row_off``: the global index of the graph's first row (a shard's).
+    ``row_off``: the global index of the graph's first row (a shard's).  On
+    the card X (b, m, d) with dn, idx (b, n, k) is a chunk: (b, n, k+1)
+    values from one launch.
 
     CUDA operands must be contiguous (X, dn float32; idx int32) on one
     device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
     weight functional without a kernel id.  Allocates the output only.
     Every index must lie in [0, n_X): the kernel reads X's rows at them
     unchecked (:func:`check_indices`).  Each launch adds one to
-    ``.launches`` and ``.grid_launches``.
+    ``.launches``, and its grids (one per ``MAX_ITEMS`` items) to
+    ``.grid_launches``.
     """
     if dn.device.type == "cpu":
         return knn_values_from_features_torch(X, dn, idx, metric=metric,
@@ -269,28 +291,29 @@ def knn_values_from_distances_cuda(D: torch.Tensor, dn: torch.Tensor,
     kernel, for CUDA tensors; :func:`knn_values_from_distances_torch` for
     CPU ones.  Operands and counters as
     :func:`knn_values_from_features_cuda`'s (D (m, m) float32; every
-    index in [0, m))."""
+    index in [0, m)); on the card D (b, m, m) with dn, idx (b, n, k) is a
+    chunk, one launch."""
     if dn.device.type == "cpu":
         return knn_values_from_distances_torch(D, dn, idx, ties=ties)
+    who = "knn_values_from_distances_cuda"
     wid, p0, p1 = kernel_spec(ties)
     dev = dn.device
     if dev.type != "cuda":
-        raise ValueError(f"knn_values_from_distances_cuda: unsupported "
-                         f"device {dev}")
-    n, k = dn.shape
-    m = D.shape[0]
-    check_operands("knn_values_from_distances_cuda", dev,
-                   D=(D, (m, m), torch.float32),
-                   dn=(dn, (n, k), torch.float32),
-                   idx=(idx, (n, k), torch.int32))
-    _check_k("knn_values_from_distances_cuda", k)
-    out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
-    if n == 0:
+        raise ValueError(f"{who}: unsupported device {dev}")
+    lead, n, k = _graph_shape(who, dn)
+    m = D.shape[-1]
+    check_operands(who, dev, D=(D, lead + (m, m), torch.float32),
+                   dn=(dn, lead + (n, k), torch.float32),
+                   idx=(idx, lead + (n, k), torch.int32))
+    _check_k(who, k)
+    out = torch.empty(lead + (n, k + 1), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
         return out
+    items = lead[0] if lead else 1
     return _launch("pald_knn_values_distances_f32",
                    (dn.data_ptr(), D.data_ptr(), m, idx.data_ptr(),
-                    out.data_ptr(), n, k, wid, p0, p1), out,
-                   knn_values_from_distances_cuda)
+                    out.data_ptr(), n, k, items, m * m, wid, p0, p1), out,
+                   knn_values_from_distances_cuda, items)
 
 
 def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,

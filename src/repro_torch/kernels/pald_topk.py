@@ -3,14 +3,14 @@ kernel's wrapper and its plain torch version.
 
 For every row x of X (n, d): its k nearest OTHER rows, as (n, k) float32
 distances and (n, k) int32 indices, each row ascending by (distance,
-index), the lower index first on ties.  The kernel (``csrc/pald_topk.cu``)
+index), the lower index first on ties.  The kernel (``csrc/pald_topk.cuh``)
 replaces the TPU kernel ``repro/kernels/pald_topk.py::topk_pallas``: it
 computes each block's distance tiles from the feature rows
 (``csrc/pald_dist.cuh``, bitwise ``cdist_reference``'s) and folds the pairs
 that beat their row's current k-th best into per-row best-lists on the
 composite (value, index) key, so D never exists and the result does not
 depend on the order in which candidates are visited.  Bound by operations
-(n^2 distances and compares); the source note in the ``.cu`` file has the
+(n^2 distances and compares); the source note in the ``.cuh`` file has the
 details.
 
 :func:`topk_select_cuda` dispatches on the tensor's device: a CUDA X
@@ -18,7 +18,11 @@ launches the kernel (or raises), a CPU X takes :func:`topk_select_torch`:
 (block, n) slabs of ``cdist_reference``, self excluded, a stable sort, the
 first k (or, with ``tile=``, the reference's tile-min prefilter, bitwise
 the same).  Self is excluded as the kernel excludes it: it sorts after every
-real candidate, even one at +inf distance.
+real candidate, even one at +inf distance.  On the card the kernel also
+takes a (b, n, d) chunk of items (the engine's ``batch=`` chunks) in one
+launch, the item on ``blockIdx.y``: a (b, n, k) graph whose indices are
+each item's own, bitwise its items one at a time.  The plain version takes
+one item.
 
 :func:`topk_block_cuda` is the kernel's block entry: rows of one matrix
 against the candidate rows of another, each with the global index of its
@@ -37,16 +41,16 @@ from repro_torch.core.features import dist_tile, masked_dist_tile
 from repro_torch.core.knn import NeighborGraph, check_k, empty_graph
 
 from . import _build
-from .pald_focus import check_operands
+from .pald_focus import check_operands, item_grids
 from .pald_fused import metric_id, norm_grids
 
 __all__ = ["topk_select_cuda", "topk_select_torch", "topk_block_cuda",
            "topk_block_torch", "merge_pairs", "MAX_K", "SENTINEL",
            "smem_per_cta"]
 
-MAX_K = 1024  # the largest k the kernel takes (csrc/pald_topk.cu: kMaxK)
+MAX_K = 1024  # the largest k the kernel takes (csrc/pald_topk.cuh: kMaxK)
 SENTINEL = 2 ** 31 - 1  # the index of an empty list entry (+inf, SENTINEL)
-_CAND, _STAGES, _MAX_FEAT = 128, 2, 64  # csrc/pald_topk.cu
+_CAND, _STAGES, _MAX_FEAT = 128, 2, 64  # csrc/pald_topk.cuh
 
 
 def rows_per_block(k: int) -> int:
@@ -62,7 +66,7 @@ def _stage_pitch(f: int) -> int:
 
 def smem_per_cta(k: int, d: int | None = None) -> int:
     """Shared memory of one thread block of the kernel at ``k`` and ``d``,
-    in bytes (csrc/pald_topk.cu ``Layout``: the rows staged once, a ring
+    in bytes (csrc/pald_topk.cuh ``Layout``: the rows staged once, a ring
     of two slots of 128 candidates' features and norms, the rows'
     thresholds and norms, and R best-lists of max(k, 32) (float, int)
     entries, past k = 32 with each warp's two batches of 128);
@@ -151,13 +155,14 @@ def _prefiltered(slab: torch.Tensor, k: int, tile: int):
 def topk_select_cuda(X: torch.Tensor, k: int, *,
                      metric: str = "euclidean") -> NeighborGraph:
     """The k nearest other rows of each row of X through the CUDA kernel
-    for a CUDA X, through :func:`topk_select_torch` for a CPU X.
+    for a CUDA X, through :func:`topk_select_torch` for a CPU X.  On the
+    card a (b, n, d) chunk gives a (b, n, k) graph from one launch.
 
     A CUDA X must be contiguous float32 (``ops`` prepares it), and k at
     most :data:`MAX_K`; anything else raises.  Each call that launches
     the kernel adds one to ``topk_select_cuda.launches``, and the grids it
-    issues (the row-norm pre-pass's, then the selection's) to
-    ``.grid_launches``.
+    issues (the row-norm pre-pass's, then the selection's, one per
+    ``MAX_ITEMS`` items) to ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return topk_select_torch(X, k, metric=metric)
@@ -165,25 +170,34 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"topk_select_cuda: unsupported device {dev}")
-    n, d = X.shape
-    check_operands("topk_select_cuda", dev, X=(X, (n, d), torch.float32))
+    if X.ndim not in (2, 3):
+        raise ValueError("topk_select_cuda: X must be (n, d) or a (b, n, "
+                         f"d) chunk, got shape {tuple(X.shape)}")
+    lead = tuple(X.shape[:-2])
+    n, d = X.shape[-2:]
+    check_operands("topk_select_cuda", dev,
+                   X=(X, lead + (n, d), torch.float32))
     check_k(k, n)
     if k > MAX_K:
         raise ValueError(f"topk_select_cuda: k={k} exceeds the kernel's "
                          f"limit of {MAX_K} neighbors (ROADMAP.md queue 3)")
     if k <= 0:
-        return empty_graph(n, dev)
-    norms = torch.empty((n,), dtype=torch.float32, device=dev)
-    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
-    fn = _build.load("pald_topk_f32")
+        return empty_graph(n, dev, lead)
+    items = lead[0] if lead else 1
+    dist = torch.empty(lead + (n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty(lead + (n, k), dtype=torch.int32, device=dev)
+    if items == 0:
+        return NeighborGraph(idx, dist)
+    norms = torch.empty((items * n,), dtype=torch.float32, device=dev)
+    name, more = _build.entry("pald_topk", items)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(X.data_ptr(), norms.data_ptr(), dist.data_ptr(),
-                    idx.data_ptr(), n, d, k, mid, stream)
-    _build.check(status, "pald_topk_f32")
+        status = _build.load(name)(X.data_ptr(), norms.data_ptr(),
+                                   dist.data_ptr(), idx.data_ptr(), n, d, k,
+                                   *more, mid, stream)
+    _build.check(status, name)
     topk_select_cuda.launches += 1
-    topk_select_cuda.grid_launches += norm_grids(metric) + 1
+    topk_select_cuda.grid_launches += norm_grids(metric) + item_grids(items)
     return NeighborGraph(idx, dist)
 
 

@@ -34,7 +34,9 @@ k-NN kernels' limit, where ``"raise"`` raises the wrapper's ValueError; a
 fault-free fallback plan launches the kernels and records nothing.  A
 (b, n, n) chunk runs the dense and tri kernels in one grid per pass,
 bitwise its items one at a time, and a batched call's peak memory is its
-chunk's.
+chunk's; so do a (b, n, d) chunk through the fused kernels, the
+selection and the k-NN values kernel's features and D sources (one launch
+a chunk, past 65,535 items one grid per 65,535).
 ``chip_smoke.py`` repeats the comparisons at the main paths' full size.
 """
 import gc
@@ -1107,6 +1109,246 @@ def test_cuda_batched_peak_memory_is_the_chunks(cuda_device, schedule,
     lo = 2.25 * b * item
     hi = lo + (B * item if b < B else 0) + (1 << 20)
     assert lo <= peak <= hi, (schedule, batch, peak / item)
+    _assert_bitwise(f"batch={batch}", out, want)
+
+
+# ---------------------------------------------------------------------------
+# chunks through the fused, selection and k-NN values kernels: one launch a
+# chunk, the item on a grid axis, each item bitwise alone
+# ---------------------------------------------------------------------------
+def _chunk_features(b, n, d, seed):
+    return torch.as_tensor(np.stack([_features(n, d, seed=seed + i)
+                                     for i in range(b)]))
+
+
+def _launches(*wrappers):
+    return [(w.launches, w.grid_launches) for w in wrappers]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 130, 200])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_fused_chunk_one_launch_bitwise_items(cuda_device, name, metric,
+                                                   n):
+    """A chunk of b = 5 tie-heavy items through both fused kernels: one
+    launch each (its grids: the norms once, then a panel writer and a pass
+    per panel), U and C bitwise each item alone, at the chunk's panel and
+    at P = 64."""
+    from repro_torch.kernels import pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    b = 5
+    Xb = _chunk_features(b, n, 5, seed=90).to(cuda_device)
+    f, c = pald_fused.focus_fused_cuda, pald_fused.cohesion_fused_cuda
+    before = _launches(f, c)
+    Ub = f(Xb, metric=metric, ties=name)
+    Wb = weights_ref(Ub)
+    Cb = c(Xb, Wb, metric=metric, ties=name)
+    grids = pald_fused.fused_grids(n, metric, items=b)
+    assert _launches(f, c) == [(before[0][0] + 1, before[0][1] + grids),
+                               (before[1][0] + 1, before[1][1] + grids)]
+    for P in (None, 64):
+        _assert_bitwise(f"U P={P}", f(Xb, metric=metric, ties=name,
+                                      _panel_rows=P), Ub)
+        _assert_bitwise(f"C P={P}", c(Xb, Wb, metric=metric, ties=name,
+                                      _panel_rows=P), Cb)
+    for i in range(b):
+        Ui = f(Xb[i], metric=metric, ties=name)
+        _assert_bitwise(f"U item {i}", Ub[i], Ui)
+        _assert_bitwise(f"C item {i}", Cb[i],
+                        c(Xb[i], weights_ref(Ui), metric=metric, ties=name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2, 1), (200, 7), (200, 32), (257, 100)])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_topk_chunk_one_launch_bitwise_items(cuda_device, metric, n, k):
+    """A chunk of b = 5 quantized items with duplicated rows (ties at the
+    k boundary): one launch, each item's graph (indices its own) bitwise
+    the item alone and the plain version's."""
+    from repro_torch.kernels import pald_topk
+
+    b = 5
+    Xb = torch.as_tensor(np.stack([_knn_features(n, 5, seed=30 + i)
+                                   for i in range(b)]), device=cuda_device)
+    sel = pald_topk.topk_select_cuda
+    (l0, g0), = _launches(sel)
+    gb = sel(Xb, k, metric=metric)
+    assert _launches(sel) == [(l0 + 1, g0 + (metric != "manhattan") + 1)]
+    assert gb.indices.shape == (b, n, k) and gb.indices.dtype == torch.int32
+    for i in range(b):
+        gi = sel(Xb[i], k, metric=metric)
+        _assert_bitwise(f"indices item {i}", gb.indices[i], gi.indices)
+        _assert_bitwise(f"distances item {i}", gb.distances[i], gi.distances)
+        gp = pald_topk.topk_select_torch(Xb[i].cpu(), k, metric=metric)
+        _assert_bitwise(f"plain item {i}", gb.indices[i].cpu(), gp.indices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 32, 100])
+@pytest.mark.parametrize("kind,metric", [("features", m) for m in METRICS]
+                         + [("distance", "euclidean")])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_knn_values_chunk_one_launch_bitwise_items(cuda_device, name,
+                                                        kind, metric, k):
+    """A chunk of b = 5 graphs at a ragged n through the features source
+    (every metric) or the D source of the values kernel: one launch, each
+    item's values bitwise the item alone."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn
+
+    b, n = 5, 201
+    Xb = torch.as_tensor(np.stack([_knn_features(n, 5, seed=50 + i)
+                                   for i in range(b)]), device=cuda_device)
+    Db = torch.stack([cdist_reference(x, metric=metric) for x in Xb])
+    g = tknn.knn_from_distances(Db, k)
+    kw = dict(ties=name)
+    if kind == "features":
+        src, x = pald_knn.knn_values_from_features_cuda, Xb
+        kw["metric"] = metric
+    else:
+        src, x = pald_knn.knn_values_from_distances_cuda, Db
+    (l0, g0), = _launches(src)
+    vb = src(x, g.distances, g.indices, **kw)
+    assert _launches(src) == [(l0 + 1, g0 + 1)] and vb.shape == (b, n, k + 1)
+    for i in range(b):
+        _assert_bitwise(f"item {i}", vb[i],
+                        src(x[i], g.distances[i].contiguous(),
+                            g.indices[i].contiguous(), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", ["split", "ignore"])
+def test_cuda_engine_fused_and_knn_chunks_bitwise(cuda_device, ties):
+    """``from_features(Xb, batch=b)`` (fused and k=) and ``cohesion(Db,
+    method="knn", batch=b)`` on the card: every chunk size gives the
+    per-item C bitwise, each kernel launching once a chunk."""
+    from repro_torch.core import pald
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_fused, pald_knn, pald_topk
+
+    B, n = 7, 190
+    Xb = _chunk_features(B, n, 4, seed=100).to(cuda_device)
+    Db = torch.stack([cdist_reference(x) for x in Xb])
+    cases = (
+        (lambda **kw: pald.from_features(Xb, method="fused", ties=ties, **kw),
+         (pald_fused.focus_fused_cuda, pald_fused.cohesion_fused_cuda)),
+        (lambda **kw: pald.from_features(Xb, k=16, ties=ties, **kw),
+         (pald_topk.topk_select_cuda,
+          pald_knn.knn_values_from_features_cuda)),
+        (lambda **kw: pald.cohesion(Db, method="knn", k=16, ties=ties, **kw),
+         (pald_knn.knn_values_from_distances_cuda,)))
+    for run, wrappers in cases:
+        one = run(batch=1)
+        for b in (2, 3, 7, None):
+            before = [w.launches for w in wrappers]
+            out = run(batch=b)
+            assert [w.launches - l0 for w, l0 in zip(wrappers, before)] == \
+                [-(-B // (b or B))] * len(wrappers)
+            _assert_bitwise(f"batch={b}", out, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["drop", "ignore", "kernelized"])
+def test_cuda_fused_chunk_nonfinite_item_keeps_finite_bits(cuda_device,
+                                                           name):
+    """``add_form`` decides once per fused chunk: one item with an
+    infinite W sends the chunk to the multiply form, and the finite items
+    keep the bits of their own (predicated) calls."""
+    from repro_torch.kernels import pald_cohesion, pald_fused
+
+    b, n = 3, 130
+    Xb = _chunk_features(b, n, 3, seed=110).to(cuda_device)
+    W = torch.as_tensor(np.random.default_rng(8).random((b, n, n)),
+                        dtype=torch.float32, device=cuda_device)
+    W[1, 5, 70] = np.inf
+    wid = tw.kernel_spec(name)[0]
+    assert pald_cohesion.add_form(wid, W) == 0
+    assert pald_cohesion.add_form(wid, W[0]) == 1
+    Cb = pald_fused.cohesion_fused_cuda(Xb, W, ties=name)
+    for i in (0, 2):
+        _assert_bitwise(f"finite item {i}", Cb[i],
+                        pald_fused.cohesion_fused_cuda(Xb[i], W[i],
+                                                       ties=name))
+    want = pald_fused.cohesion_fused_cuda(Xb[1], W[1], ties=name)
+    assert not torch.isfinite(want).all()
+    np.testing.assert_array_equal(Cb[1].cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_past_one_grid_of_items(cuda_device):
+    """b = 65,537 items at n = 8 take two grids of items in every kernel;
+    the items at both ends of each grid bitwise alone."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.kernels import pald_fused, pald_knn, pald_topk
+    from repro_torch.kernels.pald_focus import MAX_ITEMS
+    from repro_torch.kernels.ref import weights_ref
+
+    b, n, k = MAX_ITEMS + 2, 8, 3
+    Xb = torch.as_tensor(np.random.default_rng(3).normal(size=(b, n, 2)),
+                         dtype=torch.float32, device=cuda_device)
+    Db = (Xb[:, :, None, :] - Xb[:, None, :, :]).abs().sum(-1).contiguous()
+    Db.diagonal(dim1=1, dim2=2).zero_()
+    f = pald_fused.focus_fused_cuda
+    g0 = f.grid_launches
+    Ub = f(Xb)
+    assert f.grid_launches - g0 == pald_fused.fused_grids(n, "euclidean",
+                                                          items=b)
+    assert pald_fused.fused_grids(n, "euclidean", items=b) == 1 + 2 * 2
+    Cb = pald_fused.cohesion_fused_cuda(Xb, weights_ref(Ub))
+    sel = pald_topk.topk_select_cuda
+    g0 = sel.grid_launches
+    gb = sel(Xb, k)
+    assert sel.grid_launches - g0 == 1 + 2
+    gd = tknn.knn_from_distances(Db, k)
+    vf = pald_knn.knn_values_from_features_cuda(Xb, gb.distances, gb.indices)
+    vd = pald_knn.knn_values_from_distances_cuda(Db, gd.distances,
+                                                 gd.indices)
+    for i in (0, MAX_ITEMS - 1, MAX_ITEMS, b - 1):
+        Ui = f(Xb[i])
+        _assert_bitwise(f"U {i}", Ub[i], Ui)
+        _assert_bitwise(f"C {i}", Cb[i], pald_fused.cohesion_fused_cuda(
+            Xb[i], weights_ref(Ui)))
+        gi = sel(Xb[i], k)
+        _assert_bitwise(f"indices {i}", gb.indices[i], gi.indices)
+        _assert_bitwise(f"features values {i}", vf[i],
+                        pald_knn.knn_values_from_features_cuda(
+                            Xb[i], gi.distances, gi.indices))
+        _assert_bitwise(f"D values {i}", vd[i],
+                        pald_knn.knn_values_from_distances_cuda(
+                            Db[i], gd.distances[i].contiguous(),
+                            gd.indices[i].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, None])
+def test_cuda_fused_batched_peak_memory_is_the_chunks(cuda_device, batch):
+    """A batched fused call holds one chunk's working buffers at a time:
+    its cohesion pass holds W, C and the chunk's panel (one n^2 float32
+    slab an item at n = 512, where P = n), 3 n^2 float32 an item, and at
+    most that plus the whole output when the batch runs in more than one
+    chunk."""
+    from repro_torch.core import pald
+    from repro_torch.kernels import pald_fused
+
+    B, n = 6, 512
+    assert pald_fused.panel_rows(n, B) == n
+    Xb = _chunk_features(B, n, 8, seed=120).to(cuda_device)
+    p = pald.plan(Xb, kind="features", method="fused", batch=batch)
+    want = p.execute(Xb)
+    gc.collect()
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out = p.execute(Xb)
+    torch.cuda.synchronize(cuda_device)
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    b, item = (batch or B), 4 * n * n
+    lo = 3 * b * item
+    hi = lo + (B * item if b < B else 0) + (1 << 20)
+    assert lo <= peak <= hi, (batch, peak / item)
     _assert_bitwise(f"batch={batch}", out, want)
 
 

@@ -560,11 +560,12 @@ def test_chunks_bitwise_single_items(cell, b):
 
 
 def test_chunk_executors_take_chunks():
-    """The kernel cells (and triplet, and the materializing features
-    cells) run a chunk as one; the others item by item."""
+    """The kernel cells (and triplet, the fused and k-NN cells, and the
+    materializing features cells) run a chunk as one; the others item by
+    item."""
     chunked = {c for c in CELLS if engine.get_executor(*c).chunks}
     assert chunked == {c for c in CELLS
-                       if c[1] in ("kernel", "triplet")
+                       if c[1] in ("kernel", "triplet", "fused", "knn")
                        or (c[0] == "features" and c[1] in (
                            "dense", "pairwise"))}
 
