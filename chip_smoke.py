@@ -1468,14 +1468,20 @@ def knn_bound_ms(kernel, n, k, d, clock_mhz):
     (d(x, y) and d(y, x) are bitwise equal), so 2d + 4 instructions for
     each of the n (n-1) / 2 unordered pairs, plus one compare for each of
     the n^2 (row, candidate) visits.  Values from the cube: g, dn, idx and
-    the (n, k+1) output; n k (k+1) 7 instructions.  The stage "gather +
-    values" (the features source): X, dn, idx and the output; each row's
-    k (k-1) / 2 tile distances at 2d + 4 and the same 7 k (k+1)."""
+    the (n, k+1) output; n k (k+1) 7 instructions.  Values from D (the D
+    source): the entries of the (n, n) D that the rows' neighbor tiles
+    hold, at most n k^2 and at most all n^2 of D, with dn, idx and the
+    output; the same 7 n k (k+1).  The stage "gather + values" (the
+    features source): X, dn, idx and the output; each row's k (k-1) / 2
+    tile distances at 2d + 4 and the same 7 k (k+1)."""
     if kernel == "topk_select":
         nbytes = 4 * (n * d + 2 * n * k)
         ops = n * (n - 1) // 2 * (2 * d + 4) + n * n
     elif kernel == "knn_values":
         nbytes = 4 * (n * k * k + 2 * n * k + n * (k + 1))
+        ops = 7 * n * k * (k + 1)
+    elif kernel == "knn_values_distances":
+        nbytes = 4 * (min(n * k * k, n * n) + 2 * n * k + n * (k + 1))
         ops = 7 * n * k * (k + 1)
     else:
         nbytes = 4 * (n * d + 2 * n * k + n * (k + 1))
@@ -2389,7 +2395,7 @@ def phase_chunk_kernels(dev, card, clock_mhz, launches, reps=5):
         compare("phase 17 knn_values D chunk vs plain", vd(Db, dd, di),
                 torch.stack([pald_knn.knn_values_from_distances_torch(D, a, i)
                              for D, a, i in zip(Db, dd, di)]), False),
-        scaled(knn_bound_ms("knn_values", n, k, d, clock_mhz)),
+        scaled(knn_bound_ms("knn_values_distances", n, k, d, clock_mhz)),
         lambda: [vd(D, a.contiguous(), i.contiguous())
                  for D, a, i in zip(Db, dd, di)])
     return rows
