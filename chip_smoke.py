@@ -268,6 +268,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    remat=dots`` on meta against (a)'s decode cell saved as the baseline;
    (d) the self-test's counted production cell (full internvl2-1b); every
    cell's JSON "ok".
+29. user-registered weight functionals compiled into the kernels
+   (``kernels/_functor.py``, the user libraries of ``kernels/_build.py``):
+   ``harsh`` (drop's callables under a new name, no kernel id), clones of
+   ignore and soft, and a smooth functional with ``exp`` and a share,
+   traced before phase 2 and built by nvcc in a thread beside phases 2-28
+   (harsh's six sources first: one functional's nvcc seconds; then the
+   other eighteen at once); each user path driven with the wrappers'
+   counts set to 0 and every plain version failing if called, each
+   kernel launched: the clones' C bitwise the built-ins' through
+   ``cohesion(D, method="kernel")`` at n = 8192 on phase 3's D (dense and
+   tri; harsh, the ignore clone, the soft clone dense), the ignore clone
+   at n = 8000, ``from_features(X)`` at n = 8192, d = 64 (harsh),
+   ``select_cohere(X, k=32)`` on phase 10's mixture (harsh and the soft
+   clone, graph and values bitwise, a 64-row slab against the plain
+   versions), ``cohesion(D, method="knn", k=32)`` at n = 8192 (harsh) and
+   phase 17's chunk cells (harsh, one launch of each kernel a chunk); the
+   clones' kernels timed in turns against the built-ins' at n = 8192 (and
+   the k-NN sources at their main-path sizes) beside the card's name and
+   power limit; the smooth functional within rtol 1e-5, atol 1e-6 of its
+   plain versions on a 16-row slab at n = 8192 and whole at n = 1024
+   (dense, tri, fused, both k-NN paths); a functional with an op outside
+   the compiler's table raising ``NotImplementedError`` on the card,
+   naming the op, and ``FallbackExhausted`` under ``on_error="fallback"``;
+   ``explain()`` naming harsh's compiled key and its libraries.
 
 The whole run reads and writes a tuning cache of its own, a fresh
 temporary file (``$REPRO_TORCH_TUNE_CACHE``) removed at the end, so a
@@ -279,8 +303,12 @@ The line before the last is one JSON object with the kernels' numbers
 those calls issued; ``blocks``, for the focus kernels: the thread blocks
 of those grids, counted by the kernel on the card; ``bound_ms``: the function's least work, shared by the
 dense, tri and fused kernels of one pass, see :func:`pass_ops`;
-``dryrun_launches``, on the rectangular rows: phase 28's launches); the
-last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
+``dryrun_launches``, on the rectangular rows: phase 28's launches; the
+rows named ``<kernel>[<functional>]``: phase 29's user functors, each with
+its compiled ``key``, the built-in's time in the same turns
+(``builtin_ms``) and where its plain time was measured (``plain_from``:
+an earlier phase's plain version of the same callables on the same
+inputs, or this phase)); the last line is ``{"ok": true, "device": {...}}``.  Without a GPU the script
 exits 2 before printing any result, and 3 when it is run alone (no
 ``src/repro_torch`` beside it); any failed check raises (exit 1).  A
 passing run exits 0.  The phases that start worlds of ranks stop them
@@ -1329,6 +1357,7 @@ def knn_slab_check(tag, Xg, graph, vals, r0, k, ties="drop"):
           f"{atol!r}); against a float64 sum of "
           f"the same terms max relative error kernel {rel['kernel']!r}, "
           f"plain {rel['plain']!r}")
+    return err
 
 
 def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
@@ -4289,6 +4318,498 @@ def phase_dryrun(dev, card, clock_mhz):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 29: user-registered weight functionals compiled into the kernels
+# ---------------------------------------------------------------------------
+N_USER_WHOLE = 1024    # the smooth functional held whole
+USER_SLAB = 16         # rows of the smooth functional's U and C at n = 8192
+RAGGED_USER = 8000     # the ignore clone at a ragged n
+# the plain versions that no phase-29 path may run, by kernels module
+PLAIN_VERSIONS = {
+    "pald_focus": ("focus_general_torch",),
+    "pald_cohesion": ("cohesion_general_torch",),
+    "pald_focus_tri": ("focus_tri_torch",),
+    "pald_cohesion_tri": ("cohesion_tri_torch",),
+    "pald_fused": ("focus_fused_torch", "cohesion_fused_torch"),
+    "pald_knn": ("knn_values_torch", "knn_values_from_features_torch",
+                 "knn_values_from_distances_torch",
+                 "knn_values_from_neighbors_torch"),
+    "pald_topk": ("topk_select_torch",)}
+
+
+_USERS = {}
+
+
+def user_functionals():
+    """Phase 29's functionals, one instance each for the run: clones of
+    drop (``harsh``, the reference's own test functional), ignore and
+    soft (their callables under a new name, no kernel id), and a smooth
+    functional with ``exp``, a ``share`` and exact zeros on +inf."""
+    if _USERS:
+        return _USERS
+    import torch
+    from repro_torch.core import weights as tw
+
+    def clone(base, name):
+        w = tw.resolve_weight(base)
+        return tw.WeightFunctional(
+            name, w.focus, w.support, share=w.share,
+            needs_index_tiebreak=w.needs_index_tiebreak,
+            conserves_mass=w.conserves_mass, is_strict=w.is_strict)
+
+    def focus(dxz, dyz, dxy):
+        d = dxy - torch.minimum(dxz, dyz)
+        f = 1.0 - torch.exp(-torch.maximum(d, torch.zeros_like(d)) * 3.0)
+        return torch.where(torch.isnan(d), 0.0, f)
+
+    def share(own, other):
+        return torch.clamp(0.5 + (other - own) * 2.0, 0.0, 1.0)
+
+    def support(own, other, pair, own_wins=None):
+        res = share(own, other) * focus(own, other, pair)
+        return torch.where(torch.isnan(res), 0.0, res)
+
+    _USERS.update(drop=clone("drop", "harsh"),
+                  ignore=clone("ignore", "ignore-clone"),
+                  soft=clone("soft", "soft-clone"),
+                  smooth=tw.WeightFunctional("smooth-exp", focus, support,
+                                             share=share))
+    return _USERS
+
+
+class UserBuild:
+    """Phase 29's kernel libraries, built by nvcc in a thread from phase 1
+    on, beside the phases that run on the card: harsh's six sources first
+    (one functional's nvcc seconds), then the other three functionals'
+    eighteen at once.  The functionals are traced here, in the calling
+    thread."""
+
+    def __init__(self):
+        import threading
+        from repro_torch.core import weights as tw
+
+        self.functors = {k: tw.kernel_spec(w).functor
+                         for k, w in user_functionals().items()}
+        self.result, self.error = {}, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        from repro_torch.kernels import _build
+
+        try:
+            t0 = time.perf_counter()
+            one = _build.build_user(self.functors["drop"])
+            t1 = time.perf_counter()
+            rest = _build.build_user(*(f for k, f in self.functors.items()
+                                       if k != "drop"))
+            self.result = dict(one=one, one_s=t1 - t0, rest=rest,
+                               rest_s=time.perf_counter() - t1)
+        except BaseException as e:  # noqa: BLE001 - raised again in join
+            self.error = e
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+@contextlib.contextmanager
+def no_plain_versions(tag):
+    """Every plain version in PLAIN_VERSIONS (and its name in ``ops``)
+    fails if called."""
+    import importlib
+
+    from repro_torch.kernels import ops
+
+    def plain_called(*a, **k):
+        fail(f"{tag}: a plain torch version ran")
+
+    patched = []
+    for mod_name, names in PLAIN_VERSIONS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        for name in names:
+            for m in (mod, ops):
+                if hasattr(m, name):
+                    patched.append((m, name, getattr(m, name)))
+    for m, name, _ in patched:
+        setattr(m, name, plain_called)
+    try:
+        yield
+    finally:
+        for m, name, f in patched:
+            setattr(m, name, f)
+
+
+def user_path(tag, run, wrappers, once=False):
+    """Drive ``run`` with the wrappers' counts set to 0 and every plain
+    version failing; fails unless each wrapper launched (exactly once
+    with ``once``).  Returns (the result, {wrapper: launches})."""
+    import torch
+
+    for w in wrappers:
+        w.launches = 0
+    with no_plain_versions(f"phase 29 {tag}"):
+        out = run()
+        torch.cuda.synchronize()
+    launched = {w.__name__: w.launches for w in wrappers}
+    if min(launched.values()) < 1 or (once and set(launched.values())
+                                      != {1}):
+        fail(f"phase 29: {tag}: launches {launched}")
+    return out, launched
+
+
+def user_slab(tag, C, D, w, rows, rtol, atol, U=None):
+    """Rows r0:r0+rows of U (when given) and of C (normalized) against the
+    plain versions through the rectangular forms with global offsets;
+    returns (U's max |err|, C's max |err|)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    n = D.shape[0]
+    r0 = min(3001, n - rows)
+    sl = D[r0:r0 + rows]
+    Up = ops.focus_general(sl, D, sl, impl="torch", ties=w)
+    err_u = None
+    if U is not None:
+        err_u = compare(f"phase 29 {tag} U rows {r0}:{r0 + rows}",
+                        U[r0:r0 + rows], Up, False, rtol=rtol, atol=atol)
+    zero = Up == 0
+    Wp = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, Up))
+    diag = torch.arange(rows, device=D.device)
+    Wp[diag, r0 + diag] = 0.0
+    offs = (r0, 0) if w.needs_index_tiebreak else None
+    Cp = ops.cohesion_general(sl, D, sl, Wp, impl="torch", ties=w,
+                              xw_offsets=offs) / (n - 1)
+    err_c = compare(f"phase 29 {tag} C rows {r0}:{r0 + rows}",
+                    C[r0:r0 + rows], Cp, False, rtol=rtol, atol=atol)
+    print(f"phase 29: {tag}: rows {r0}:{r0 + rows} against the plain "
+          f"versions: U max |err| {err_u!r}, C max |err| {err_c!r} (rtol "
+          f"{rtol}, atol {atol})")
+    return err_u, err_c
+
+
+def in_turns(tag, user_fn, builtin_fn, reps=2):
+    """The user functional's kernel and the built-in's, timed in turns
+    (user, built-in, built-in, user; CUDA events, median of ``reps`` after
+    a warm-up); bitwise the same output.  Returns (user ms, built-in ms),
+    the faster of each pair."""
+    t = {"user": [], "builtin": []}
+    outs = {}
+    for which in ("user", "builtin", "builtin", "user"):
+        ms, out = time_ms(user_fn if which == "user" else builtin_fn, reps)
+        t[which].append(ms)
+        outs[which] = out
+    compare(f"phase 29 {tag} timed", outs["user"], outs["builtin"], True)
+    del outs
+    print(f"phase 29: {tag}: user functor {t['user']} ms, built-in "
+          f"{t['builtin']} ms (in turns), user/built-in "
+          f"{min(t['user']) / min(t['builtin']):.3f}")
+    return min(t["user"]), min(t["builtin"])
+
+
+def phase_user_functionals(dev, card, clock_mhz, build, kernels):
+    """Phase 29 (module docstring); returns the user functors' rows of the
+    kernels' JSON."""
+    import torch
+    from repro_torch.core import knn as tknn
+    from repro_torch.core import pald, resilience
+    from repro_torch.core import weights as tw
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import _build, ops, pald_fused, pald_knn
+    from repro_torch.kernels.ref import weights_ref
+
+    res = build.join()
+    users = user_functionals()
+    fun = build.functors
+    for part, secs in (("harsh's six sources", res["one"]),
+                       ("the other three functionals' sources at once",
+                        res["rest"])):
+        for (key, src), t in sorted(secs.items(), key=lambda kv: kv[1]):
+            print(f"phase 29: nvcc {src}.cu for {key} {t:.1f} s")
+        wall = res["one_s"] if secs is res["one"] else res["rest_s"]
+        print(f"phase 29: {part}: {len(secs)} built in {wall:.1f} s wall "
+              "(beside phases 2-28 on the card)")
+    for k, f in fun.items():
+        print(f"phase 29: {users[k].name}: functor {f.struct}, libraries "
+              f"{_build.user_status(f.key)}")
+    plain = {r["name"]: r["plain_ms"] for r in kernels}
+    rows = []
+
+    def row(name, base, source, replaces, launches, err, ms, builtin_ms,
+            plain_ms, plain_from, bound):
+        b_ms, b_by = bound
+        rows.append({"name": f"{name}[{users[base].name}]", "route": "cuda",
+                     "source": source, "replaces": replaces,
+                     "functor": "src/repro_torch/kernels/_functor.py",
+                     "key": fun[base].key, "launches": launches,
+                     "max_abs_err": err, "ms": ms, "builtin_ms": builtin_ms,
+                     "plain_ms": plain_ms, "plain_from": plain_from,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        print(f"phase 29: {rows[-1]['name']}: {ms!r} ms (built-in "
+              f"{builtin_ms!r}), plain {plain_ms!r} ms ({plain_from}), "
+              f"bound {b_ms!r} ms ({b_by}), launches {launches}; {card}")
+
+    # dense and tri at n = 8192 on phase 3's D
+    X, _ = clustered_points(N_MAIN, D_MAIN, SEED)
+    D = distances_on_device(torch.as_tensor(X, device=dev))
+    n = D.shape[0]
+    dense_launches = {}
+    for base in ("drop", "ignore", "soft"):
+        w = users[base]
+        for sched in (("dense", "tri") if base != "soft" else ("dense",)):
+            C, launched = user_path(
+                f"{w.name} {sched} n={n}",
+                lambda: pald.cohesion(D, method="kernel", schedule=sched,
+                                      weight=w), _pipeline_wrappers(sched))
+            compare(f"phase 29 {w.name} {sched} n={n}", C,
+                    pald.cohesion(D, method="kernel", schedule=sched,
+                                  weight=base), True)
+            print(f"phase 29: cohesion(D, method='kernel', schedule="
+                  f"{sched!r}, weight={w.name}) n={n}: launches {launched}; "
+                  f"C bitwise {base}'s")
+            dense_launches[(base, sched)] = launched
+            if base == "ignore" and sched == "dense":
+                err_u, err_c = user_slab(f"{w.name} dense", C, D, w, SLAB,
+                                         RTOL_MAIN, ATOL,
+                                         U=ops.focus(D, impl="cuda", ties=w))
+            del C
+    times = {}
+    for base in ("drop", "ignore", "soft"):
+        w = users[base]
+        f_ms = in_turns(f"focus {w.name} n={n}",
+                        lambda: ops.focus(D, impl="cuda", ties=w),
+                        lambda: ops.focus(D, impl="cuda", ties=base))
+        W = weights_ref(ops.focus(D, impl="cuda", ties=base))
+        c_ms = in_turns(f"cohesion {w.name} n={n}",
+                        lambda: ops.cohesion_from_weights(D, W, impl="cuda",
+                                                          ties=w),
+                        lambda: ops.cohesion_from_weights(D, W, impl="cuda",
+                                                          ties=base))
+        times[base] = (f_ms, c_ms)
+        if base == "ignore":
+            t_ms = in_turns(f"cohesion_tri {w.name} n={n}",
+                            lambda: ops.cohesion_from_weights(
+                                D, W, impl="cuda", schedule="tri", ties=w),
+                            lambda: ops.cohesion_from_weights(
+                                D, W, impl="cuda", schedule="tri",
+                                ties=base))
+        del W
+    lq = dense_launches[("ignore", "dense")]
+    row("focus_general", "ignore", "src/repro_torch/csrc/pald_focus.cu",
+        "src/repro/kernels/pald_focus.py:55", lq["focus_general_cuda"],
+        err_u, *times["ignore"][0], plain["focus_general"],
+        "phase 4: ignore's callables on the same D",
+        bound_ms("focus", n, clock_mhz))
+    row("cohesion_general", "ignore", "src/repro_torch/csrc/pald_cohesion.cu",
+        "src/repro/kernels/pald_cohesion.py:134",
+        lq["cohesion_general_cuda"], err_c, *times["ignore"][1],
+        plain["cohesion_general"], "phase 4: ignore's callables on the same D",
+        bound_ms("cohesion", n, clock_mhz))
+    row("cohesion_tri", "ignore", "src/repro_torch/csrc/pald_cohesion_tri.cu",
+        "src/repro/kernels/pald_cohesion_tri.py:121",
+        dense_launches[("ignore", "tri")]["cohesion_tri_cuda"], err_c,
+        *t_ms, plain["cohesion_tri"],
+        "phase 14: ignore's callables on the same D",
+        bound_ms("cohesion", n, clock_mhz))
+
+    # the ignore clone at a ragged n (the engine pads it)
+    Dr = D[:RAGGED_USER, :RAGGED_USER].contiguous()
+    w = users["ignore"]
+    C, launched = user_path(f"{w.name} n={RAGGED_USER}",
+                            lambda: pald.cohesion(Dr, method="kernel",
+                                                  weight=w),
+                            _pipeline_wrappers("dense"))
+    compare(f"phase 29 {w.name} n={RAGGED_USER}", C,
+            pald.cohesion(Dr, method="kernel", weight="ignore"), True)
+    print(f"phase 29: {w.name} n={RAGGED_USER}: launches {launched}; C "
+          "bitwise ignore's")
+    del C, Dr
+
+    # the smooth functional: a 16-row slab at n = 8192, whole at n = 1024
+    w = users["smooth"]
+    C, launched = user_path(f"{w.name} n={n}",
+                            lambda: pald.cohesion(D, method="kernel",
+                                                  weight=w),
+                            _pipeline_wrappers("dense"))
+    user_slab(f"{w.name} n={n}", C, D, w, USER_SLAB, RTOL, ATOL,
+              U=ops.focus(D, impl="cuda", ties=w))
+    print(f"phase 29: {w.name} n={n}: launches {launched}")
+    del C
+    Xs, _ = clustered_points(N_USER_WHOLE, D_MAIN, SEED + 29)
+    Xs = torch.as_tensor(Xs, device=dev)
+    Ds = distances_on_device(Xs)
+    for tag, run, wrappers in (
+            ("dense", lambda **kw: pald.cohesion(Ds, method="kernel", **kw),
+             _pipeline_wrappers("dense")),
+            ("tri", lambda **kw: pald.cohesion(Ds, method="kernel",
+                                               schedule="tri", **kw),
+             _pipeline_wrappers("tri")),
+            ("fused", lambda **kw: pald.from_features(Xs, method="fused",
+                                                      **kw),
+             _chunk_wrappers("fused")),
+            ("knn features", lambda **kw: pald.from_features(
+                Xs, k=K_KNN, **kw), _chunk_wrappers("knn features")),
+            ("knn distance", lambda **kw: pald.cohesion(
+                Ds, method="knn", k=K_KNN, **kw),
+             _chunk_wrappers("knn distance"))):
+        C, launched = user_path(f"{w.name} {tag} n={N_USER_WHOLE}",
+                                lambda: run(weight=w), wrappers)
+        err = compare(f"phase 29 {w.name} {tag} n={N_USER_WHOLE}", C,
+                      run(weight=w, impl="torch"), False)
+        print(f"phase 29: {w.name} {tag} n={N_USER_WHOLE}: launches "
+              f"{launched}; C max |err| {err!r} against the plain versions "
+              f"(rtol {RTOL}, atol {ATOL})")
+
+    # the fused path at n = 8192, d = 64 (phase 7's X) with harsh
+    X, _ = clustered_points(N_MAIN, D_FUSED, SEED)
+    Xg = torch.as_tensor(X, device=dev)
+    w = users["drop"]
+    C, lf = user_path(f"{w.name} fused n={n} d={D_FUSED}",
+                      lambda: pald.from_features(Xg, weight=w),
+                      _chunk_wrappers("fused"))
+    compare(f"phase 29 {w.name} fused n={n}", C,
+            pald.from_features(Xg, weight="drop"), True)
+    err_fu, err_fc = user_slab(f"{w.name} fused", C, cdist_reference(Xg), w,
+                               SLAB, RTOL_MAIN, ATOL,
+                               U=pald_fused.focus_fused_cuda(Xg, ties=w))
+    del C
+    f_ms = in_turns(f"focus_fused {w.name} n={n} d={D_FUSED}",
+                    lambda: pald_fused.focus_fused_cuda(Xg, ties=w),
+                    lambda: pald_fused.focus_fused_cuda(Xg, ties="drop"))
+    W = weights_ref(pald_fused.focus_fused_cuda(Xg, ties="drop"))
+    c_ms = in_turns(f"cohesion_fused {w.name} n={n} d={D_FUSED}",
+                    lambda: pald_fused.cohesion_fused_cuda(Xg, W, ties=w),
+                    lambda: pald_fused.cohesion_fused_cuda(Xg, W,
+                                                           ties="drop"))
+    del W
+    for name, ms, err in (("focus", f_ms, err_fu), ("cohesion", c_ms, err_fc)):
+        row(f"{name}_fused", "drop", "src/repro_torch/csrc/pald_fused.cu",
+            {"focus": "src/repro/kernels/pald_fused.py:71",
+             "cohesion": "src/repro/kernels/pald_fused.py:144"}[name],
+            lf[f"{name}_fused_cuda"], err, *ms, plain[f"{name}_fused"],
+            "phase 8: drop's callables on the same X",
+            fused_bound_ms(name, n, D_FUSED, clock_mhz))
+    del Xg
+
+    # k-NN: select_cohere at n = 50,000, k = 32 (phase 10's mixture) with
+    # harsh and the soft clone; the D source at n = 8192 with harsh
+    Xk, _ = make_mixture(N_KNN, COMM_KNN, D_KNN, SEED)
+    Xk = torch.as_tensor(Xk, device=dev)
+    nk = Xk.shape[0]
+    for base in ("drop", "soft"):
+        w = users[base]
+        (graph, vals), launched = user_path(
+            f"select_cohere {w.name} n={nk}",
+            lambda: ops.select_cohere(Xk, k=K_KNN, ties=w, normalize=True),
+            _chunk_wrappers("knn features"))
+        gb, vb = ops.select_cohere(Xk, k=K_KNN, ties=base, normalize=True)
+        compare(f"phase 29 select_cohere {w.name} indices", graph.indices,
+                gb.indices, True)
+        compare(f"phase 29 select_cohere {w.name} values", vals, vb, True)
+        err = knn_slab_check(f"phase 29 select_cohere {w.name}", Xk, graph,
+                             vals, 30001, K_KNN, ties=w)
+        dn, idx = graph.distances, graph.indices
+        ms = in_turns(f"knn_values_features {w.name} n={nk} k={K_KNN}",
+                      lambda: pald_knn.knn_values_from_features_cuda(
+                          Xk, dn, idx, ties=w),
+                      lambda: pald_knn.knn_values_from_features_cuda(
+                          Xk, dn, idx, ties=base), reps=5)
+        plain_ms, _ = time_ms(lambda: pald_knn.knn_values_from_features_torch(
+            Xk, dn, idx, ties=w, block=4096), 1)
+        row("knn_values_features", base, "src/repro_torch/csrc/pald_knn.cu",
+            "src/repro/kernels/pald_knn.py:74",
+            launched["knn_values_from_features_cuda"], err, *ms, plain_ms,
+            "this phase, the same inputs",
+            knn_bound_ms("knn_values_features", nk, K_KNN, D_KNN, clock_mhz))
+        del graph, vals, gb, vb
+    del Xk
+    w = users["drop"]
+    C, launched = user_path(f"{w.name} knn D n={n}",
+                            lambda: pald.cohesion(D, method="knn", k=K_KNN,
+                                                  weight=w),
+                            _chunk_wrappers("knn distance"))
+    compare(f"phase 29 {w.name} knn D n={n}", C,
+            pald.cohesion(D, method="knn", k=K_KNN, weight="drop"), True)
+    del C
+    g = tknn.knn_from_distances(D, K_KNN)
+    vk = pald_knn.knn_values_from_distances_cuda(D, g.distances, g.indices,
+                                                 ties=w)
+    vp = pald_knn.knn_values_from_distances_torch(D, g.distances, g.indices,
+                                                  ties=w)
+    err = compare(f"phase 29 knn D {w.name} vs plain", vk, vp, False)
+    ms = in_turns(f"knn_values_distances {w.name} n={n} k={K_KNN}",
+                  lambda: pald_knn.knn_values_from_distances_cuda(
+                      D, g.distances, g.indices, ties=w),
+                  lambda: pald_knn.knn_values_from_distances_cuda(
+                      D, g.distances, g.indices, ties="drop"), reps=5)
+    plain_ms, _ = time_ms(lambda: pald_knn.knn_values_from_distances_torch(
+        D, g.distances, g.indices, ties=w, block=4096), 1)
+    row("knn_values_distances", "drop", "src/repro_torch/csrc/pald_knn.cu",
+        "src/repro/kernels/pald_knn.py:74",
+        launched["knn_values_from_distances_cuda"], err, *ms, plain_ms,
+        "this phase, the same inputs",
+        knn_bound_ms("knn_values_distances", n, K_KNN, D_KNN, clock_mhz))
+    del D, g, vk, vp
+
+    # phase 17's chunk cells with harsh: one launch of each kernel a chunk
+    items, nc = CHUNK_CELLS[0]
+    Db = _stack_distances(items, nc, dev, SEED + 290)
+    Xb = _stack_points(items, nc, D_KNN_CHUNK, dev, SEED + 291)
+    X3 = _stack_points(3, 128, D_MAIN, dev, SEED + 292)
+    for tag, run, wrappers in (
+            ("dense", lambda **kw: pald.cohesion(Db, method="kernel", **kw),
+             _pipeline_wrappers("dense")),
+            ("tri", lambda **kw: pald.cohesion(Db, method="kernel",
+                                               schedule="tri", **kw),
+             _pipeline_wrappers("tri")),
+            ("fused", lambda **kw: pald.from_features(Xb, method="fused",
+                                                      **kw),
+             _chunk_wrappers("fused")),
+            ("fused B=3 n=128", lambda **kw: pald.from_features(
+                X3, method="fused", **kw), _chunk_wrappers("fused")),
+            ("knn features", lambda **kw: pald.from_features(
+                Xb, k=K_CHUNK, **kw), _chunk_wrappers("knn features")),
+            ("knn distance", lambda **kw: pald.cohesion(
+                Db, method="knn", k=K_CHUNK, **kw),
+             _chunk_wrappers("knn distance"))):
+        C, launched = user_path(f"{w.name} chunk {tag}",
+                                lambda: run(weight=w), wrappers, once=True)
+        compare(f"phase 29 {w.name} chunk {tag}", C, run(weight="drop"),
+                True)
+        print(f"phase 29: {w.name} chunk {tag} (B={C.shape[0]}, "
+              f"n={C.shape[1]}): launches {launched}; C bitwise drop's")
+    del Db, Xb, X3
+
+    # what does not compile raises on the card, naming the op
+    bad = tw.WeightFunctional("cosine-focus",
+                              lambda a, b, c: torch.cos(a - c),
+                              tw.DROP.support)
+    try:
+        pald.cohesion(Ds, method="kernel", weight=bad)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        fail("phase 29: an untraceable functional ran on the card")
+    if "aten.cos" not in msg:
+        fail(f"phase 29: the raise does not name the op: {msg}")
+    try:
+        pald.cohesion(Ds, method="kernel", weight=bad, on_error="fallback")
+    except resilience.FallbackExhausted as e:
+        cause = type(e.__cause__).__name__
+    else:
+        fail("phase 29: the guard ran an untraceable functional")
+    print(f"phase 29: an untraceable functional on the card: "
+          f"NotImplementedError ({msg[:160]}...); under on_error='fallback'"
+          f": FallbackExhausted (from {cause})")
+    info = pald.plan(Ds, method="kernel", weight=users["drop"]).explain()
+    print(f"phase 29: explain()['weight_kernel'] of harsh: "
+          f"{info['weight_kernel']}")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4336,6 +4857,8 @@ def run_phases() -> int:
     for source in ("pald_focus", "pald_cohesion", "pald_cohesion_tri"):
         for kernel, resources in _build.ptxas_report(source):
             print(f"phase 1: ptxas {source}: {kernel}: {resources}")
+    # phase 29's libraries: nvcc in a thread beside phases 2-28
+    user_build = UserBuild()
 
     t0 = time.perf_counter()
     phase_kernels_vs_plain(dev)
@@ -4431,6 +4954,10 @@ def run_phases() -> int:
         if k["name"] in ("focus_general_rect", "cohesion_general_rect"):
             k["dryrun_launches"] = dry[k["name"].split("_")[0]]
     print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += phase_user_functionals(dev, card, clock_mhz, user_build,
+                                      kernels)
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           f"build included")
 

@@ -19,7 +19,9 @@
     their callables.
 
 ``PaldPlan.explain()``
-    The resolved knobs as a plain dict.
+    The resolved knobs as a plain dict (``weight_kernel``: the functor the
+    CUDA kernels run, a user functional's compiled key and whether its
+    libraries were built or reused).
 
 Two kinds of input: ``"distance"`` (an (n, n) matrix, ``pald.cohesion``)
 and ``"features"`` ((n, d) vectors, ``pald.from_features``).  On a
@@ -62,6 +64,7 @@ import torch
 from repro_torch.tuning import autotune as _tuner
 
 from . import resilience as _res
+from . import weights as _weights
 from .weights import (DEFAULT_TIES, WeightFunctional, registered_weights,
                       resolve_weight, validate_ties)
 
@@ -412,6 +415,10 @@ class PaldPlan:
             "weight": self.weight.name if self.weight else self.ties,
             "weight_properties": (self.weight.properties()
                                   if self.weight else None),
+            # the functor the CUDA kernels run: a built-in's id, or a user
+            # functional's compiled key and its libraries built / reused
+            "weight_kernel": (_weights.kernel_info(self.weight)
+                              if self.weight else None),
             "metric": self.metric,
             "normalize": self.normalize,
             "batch": self.batch,

@@ -13,8 +13,15 @@ The CUDA kernels cannot call a Python callable.  Each built-in family
 therefore also carries a ``kernel_id`` and float ``kernel_params``: the
 kernels (``csrc/pald_weights.cuh``) specialize on the id as a C++ functor
 template and take the parameters as runtime floats.  A user-registered
-functional has no id: it runs on the plain torch paths, and the CUDA
-wrappers raise ``NotImplementedError`` for it.
+functional has no id: :func:`kernel_spec` traces its callables and emits
+them as a C++ functor (``kernels/_functor.py``), which the CUDA wrappers
+build into kernel libraries of its own at first use
+(``kernels/_build.py``) and launch under ``KERNEL_USER``, as the
+reference traces a functional into its Pallas bodies.  Its closure
+constants are baked into the functor, so each distinct set of them is one
+build.  A callable that uses an op outside the compiler's table, or
+branches on a tensor's value, raises ``NotImplementedError`` on the card
+(the plain torch paths take any callable).
 
 Declared properties (same meaning as in the reference):
 
@@ -40,12 +47,15 @@ __all__ = [
     "TIE_MODES", "DEFAULT_TIES", "WeightFunctional", "register_weight",
     "registered_weights", "resolve_weight", "validate_ties",
     "focus_weight", "support_weight", "index_xwins", "kernel_spec",
+    "KernelSpec", "KERNEL_USER", "kernel_info",
     "soft_threshold", "kernelized", "DROP", "SPLIT", "IGNORE",
 ]
 
 # kernel ids of the built-in families: the switch in csrc/pald_focus.cu and
 # csrc/pald_cohesion.cu maps each onto its functor in csrc/pald_weights.cuh
 KERNEL_DROP, KERNEL_SPLIT, KERNEL_IGNORE, KERNEL_SOFT, KERNEL_KERNELIZED = range(5)
+# the id of a user functional's generated functor (its own libraries)
+KERNEL_USER = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,21 +136,60 @@ def validate_ties(ties) -> str:
     return ties
 
 
-def kernel_spec(weight) -> tuple[int, float, float]:
+class KernelSpec(tuple):
+    """(kernel id, p0, p1) of a functional for the CUDA kernels, and
+    ``functor``: None for a built-in family, else the user functional's
+    ``kernels._functor.CompiledFunctor`` (whose libraries the wrappers
+    load); ``key`` is its compiled key."""
+
+    def __new__(cls, wid: int, p0: float, p1: float, functor=None):
+        self = super().__new__(cls, (wid, p0, p1))
+        self.functor = functor
+        return self
+
+    @property
+    def key(self) -> str | None:
+        return None if self.functor is None else self.functor.key
+
+
+def kernel_spec(weight) -> KernelSpec:
     """(kernel id, p0, p1) of a functional for the CUDA kernels.
 
-    Raises ``NotImplementedError`` for a functional without a kernel id
-    (a user-registered Python callable cannot run inside a CUDA kernel).
+    A built-in family gives its id and parameters.  A functional without
+    a kernel id gives ``KERNEL_USER`` and its compiled functor (traced and
+    emitted once per instance, ``kernels/_functor.py``); an op outside the
+    compiler's table, or a branch on a tensor's value, raises
+    ``NotImplementedError`` naming the functional and the op.
     """
     w = resolve_weight(weight)
     if w.kernel_id is None:
-        raise NotImplementedError(
-            f"weight functional {w.name!r} has no CUDA kernel: only the "
-            "built-in families (drop, split, ignore, soft@tau, "
-            "kernelized@gamma) run on the GPU kernels; run it with "
-            "device='cpu' or impl='torch' (ROADMAP.md section 3)")
+        from repro_torch.kernels._functor import compile_functional
+
+        return KernelSpec(KERNEL_USER, 0.0, 0.0, compile_functional(w))
     p = tuple(float(v) for v in w.kernel_params) + (0.0, 0.0)
-    return w.kernel_id, p[0], p[1]
+    return KernelSpec(w.kernel_id, p[0], p[1])
+
+
+def kernel_info(weight) -> dict:
+    """What the CUDA kernels run for a functional (``plan.explain()``): a
+    built-in's id; or a user functional's ``KERNEL_USER``, compiled key and
+    whether this process built its libraries or found them built
+    (``library``: "built", "reused" or "not built yet", ``sources`` each
+    source's); or, for one that does not compile, why (``error``)."""
+    w = resolve_weight(weight)
+    if w.kernel_id is not None:
+        return {"functor": "builtin", "id": w.kernel_id}
+    try:
+        spec = kernel_spec(w)
+    except NotImplementedError as e:
+        return {"functor": None, "error": str(e)}
+    from repro_torch.kernels import _build
+
+    status = _build.user_status(spec.key)
+    library = ("built" if "built" in status.values()
+               else "reused" if status else "not built yet")
+    return {"functor": "compiled", "id": KERNEL_USER, "key": spec.key,
+            "library": library, "sources": status}
 
 
 # ---------------------------------------------------------------------------

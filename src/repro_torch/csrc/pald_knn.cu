@@ -11,8 +11,9 @@
 // TPU kernel repro/kernels/pald_knn.py::knn_values_pallas on the real k
 // (no lane padding); the plain version is
 // repro_torch/core/knn.py::knn_values_tile.  For a functional with a share
-// (soft) the support is share(own, other) * focus(own, other, pair), the
-// plain version's reuse of its focus cube, recomputed here.
+// (soft, or a user functional that declares one) the support is
+// share(own, other) * focus(own, other, pair), the plain version's reuse of
+// its focus cube, recomputed here.
 //
 // One kernel body (values_passes), three sources of g, one entry each:
 //   - pald_knn_values_f32: a gathered (n, k, k) cube in device memory, the
@@ -83,25 +84,19 @@ constexpr int kStageBytes = 16 << 10;  // neighbor rows staged per warp
 constexpr int64_t kMaxItems = 65535;   // items of one grid (gridDim.y)
 
 // the support of z for the pair (x, y): the functional's own, or for a
-// functional with a share (soft) share * focus on the same triple
+// functional with a share (F::kHasShare: soft, a user functional that
+// declares one) share * focus on the same triple, the plain version's
+// reuse of its focus cube
 template <class F>
 struct KnnSupport {
   __device__ __forceinline__ static float eval(float own, float other,
                                                float pair, bool own_wins,
                                                const Params& p) {
-    return F::support(own, other, pair, own_wins, p);
-  }
-};
-
-template <>
-struct KnnSupport<pald::Soft> {
-  __device__ __forceinline__ static float eval(float own, float other,
-                                               float pair, bool,
-                                               const Params& p) {
-    // clip(0.5 + (other - own) / (4 tau), 0, 1): soft's share
-    const float share = pald::clip(
-        __fadd_rn(0.5f, __fmul_rn(__fsub_rn(other, own), p.p1)), 0.f, 1.f);
-    return __fmul_rn(share, pald::Soft::focus(own, other, pair, p));
+    if constexpr (F::kHasShare)
+      return __fmul_rn(F::share(own, other, p),
+                       F::focus(own, other, pair, p));
+    else
+      return F::support(own, other, pair, own_wins, p);
   }
 };
 

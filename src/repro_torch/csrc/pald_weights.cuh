@@ -1,4 +1,7 @@
 // Weight functionals of PaLD as C++ functors, one per built-in family.
+// A user-registered functional gets a functor of the same shape, generated
+// from its traced callables (repro_torch/kernels/_functor.py) and compiled
+// into libraries of its own (dispatch_weight's kUser).
 //
 // Counterpart of repro_torch/core/weights.py (and repro/core/weights.py):
 // each functor repeats the torch/jnp expressions of its family for one
@@ -11,6 +14,9 @@
 // `&` and `|`: with `&&` / `||` nvcc predicated each comparison on the last
 // and packed the 16 booleans of a thread's outputs into bit masks (seen in
 // the SASS of the `ignore` cohesion loop).
+//
+// kHasShare: the family declares share(own, other), with support = share *
+// focus on the same triple (soft); the k-NN kernel reuses its focus so.
 //
 // Predicated forms.  Drop, ignore and kernelized also give `add`, which
 // adds the family's term under a predicate instead of multiplying W by a
@@ -48,6 +54,10 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? __fadd_rn(a, b) : fminf(a, b);
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __fadd_rn(a, b) : fmaxf(a, b);
 }
 
 // smoothstep sigmoid 0.5 + x*(0.5 - |x|/8) on clip(x, -2, 2)
@@ -104,6 +114,7 @@ __device__ __forceinline__ float focus_strict(float dxz, float dyz, float dxy) {
 struct Drop {
   static constexpr bool kTiebreak = false;
   static constexpr bool kPredicated = true;
+  static constexpr bool kHasShare = false;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params&) {
     return focus_strict(a, b, t);
@@ -124,6 +135,7 @@ struct Drop {
 struct Split {
   static constexpr bool kTiebreak = false;
   static constexpr bool kPredicated = false;
+  static constexpr bool kHasShare = false;
   // strict ? 1 : (eq ? 0.5 : 0); when neither operand is below t, one of
   // them equals t exactly when their minimum does
   __device__ __forceinline__ static float focus(float a, float b, float t,
@@ -143,6 +155,7 @@ struct Split {
 struct Ignore {
   static constexpr bool kTiebreak = true;
   static constexpr bool kPredicated = true;
+  static constexpr bool kHasShare = false;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params&) {
     return focus_strict(a, b, t);
@@ -165,9 +178,17 @@ struct Ignore {
 struct Soft {
   static constexpr bool kTiebreak = false;
   static constexpr bool kPredicated = false;
+  static constexpr bool kHasShare = true;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params& p) {
     return safe_unit(__fsub_rn(t, nan_min(a, b)), p.p0, 0.f);
+  }
+  // clip(0.5 + (other - own) / (4 tau), 0, 1); support is share * focus
+  // on any input where the product is not nan (the k-NN kernel's reuse)
+  __device__ __forceinline__ static float share(float own, float other,
+                                                const Params& p) {
+    return clip(__fadd_rn(0.5f, __fmul_rn(__fsub_rn(other, own), p.p1)), 0.f,
+                1.f);
   }
   __device__ __forceinline__ static float support(float own, float other,
                                                   float pair, bool,
@@ -184,6 +205,7 @@ struct Soft {
 struct Kernelized {
   static constexpr bool kTiebreak = false;
   static constexpr bool kPredicated = true;
+  static constexpr bool kHasShare = false;
   __device__ __forceinline__ static float focus(float a, float b, float t,
                                                 const Params&) {
     return focus_strict(a, b, t);
@@ -205,14 +227,23 @@ struct Kernelized {
   }
 };
 
-// kernel ids, as in repro_torch/core/weights.py
+// kernel ids, as in repro_torch/core/weights.py; kUser: the functor that
+// repro_torch/kernels/_functor.py generated from a user-registered
+// functional
 enum WeightId : int { kDrop = 0, kSplit = 1, kIgnore = 2, kSoft = 3,
-                      kKernelized = 4 };
+                      kKernelized = 4, kUser = 5 };
 
 // Call f.template operator()<Functor>() for the functor of id; returns
-// cudaErrorInvalidValue for an unknown id.
+// cudaErrorInvalidValue for an unknown id.  A user library (a translation
+// unit built with -include of the generated header and
+// -DPALD_USER_WEIGHT=<its struct>, kernels/_build.py) instantiates the
+// kernels for that functor alone, under kUser.
 template <class Launch>
 int dispatch_weight(int id, Launch&& f) {
+#ifdef PALD_USER_WEIGHT
+  return id == kUser ? f.template operator()<PALD_USER_WEIGHT>()
+                     : static_cast<int>(cudaErrorInvalidValue);
+#else
   switch (id) {
     case kDrop: return f.template operator()<Drop>();
     case kSplit: return f.template operator()<Split>();
@@ -221,6 +252,7 @@ int dispatch_weight(int id, Launch&& f) {
     case kKernelized: return f.template operator()<Kernelized>();
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 }  // namespace pald

@@ -7,6 +7,18 @@ needed in a process.  The libraries go to ``build/kernels/<hash>/`` at the
 root of the checkout (git-ignored), keyed by a hash of every source and the
 flags, so an edited source rebuilds and an unchanged one is reused.
 
+A user-registered weight functional (``core.weights.kernel_spec``) runs in
+libraries of its own: ``kernels/_functor.py`` emits its C++ functor, and
+each source that takes a weight (:data:`WEIGHT_SOURCES`) is compiled with
+``-include`` of that header and ``-DPALD_USER_WEIGHT=<struct>``, which
+instantiates the kernels for that functor alone
+(``csrc/pald_weights.cuh``: ``dispatch_weight``'s ``kUser``).  They go to
+``build/kernels/<hash>/w_<key>/``, ``key`` the functor's hash, and are
+built lazily: only the source whose entry is called (:func:`build_user`
+builds several at once).  An unchanged functional's libraries are reused
+across processes; :func:`user_status` says which were built and which
+reused.  A failed build raises with nvcc's log.
+
 No ``--use_fast_math``: it would change division and flush denormals, and
 the kernels are held to the plain torch versions.  ``-Xptxas -v``: each
 library's build log (``lib<name>.log`` beside it, :func:`ptxas_report`)
@@ -23,14 +35,21 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
-__all__ = ["load", "check", "entry", "ptxas_report", "CSRC", "BUILD_ROOT"]
+__all__ = ["load", "check", "entry", "ptxas_report", "build_user",
+           "user_status", "user_dir", "CSRC", "BUILD_ROOT",
+           "WEIGHT_SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_fused_chunk",
            "pald_topk", "pald_topk_chunk", "pald_knn", "pald_cohesion_tri")
+# the sources whose entries take a weight functional: a user functional's
+# libraries are these, built with its functor
+WEIGHT_SOURCES = ("pald_focus", "pald_cohesion", "pald_fused",
+                  "pald_fused_chunk", "pald_knn", "pald_cohesion_tri")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +108,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _loaded: dict = {}
+_user_loaded: dict = {}   # (functor key, symbol) -> entry point
+_user_status: dict = {}   # functor key -> {source: "built" | "reused"}
 
 
 def _nvcc() -> str:
@@ -110,38 +131,108 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _start(lib: Path, name: str, extra=()):
+    """Start nvcc on ``csrc/<name>.cu`` for ``lib``: into a private name
+    first (a concurrent process sees either no library or a complete
+    one), its log into a file.  Returns the job."""
+    nvcc = _nvcc()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    log = open(f"{tmp}.log", "w+")
+    cmd = [nvcc, *FLAGS, *extra, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return lib, tmp, log, proc, time.perf_counter()
+
+
+def _finish(jobs) -> dict:
+    """Wait for the jobs; move each library into place and keep its log
+    (``lib<name>.log``).  Returns {library: seconds}; raises with the
+    failed jobs' logs."""
+    secs, errors = {}, []
+    pending = list(jobs)
+    while pending:
+        for job in list(pending):
+            lib, tmp, log, proc, t0 = job
+            if proc.poll() is None:
+                continue
+            pending.remove(job)
+            secs[lib] = time.perf_counter() - t0
+            log.seek(0)
+            text = log.read()
+            log.close()
+            os.unlink(log.name)
+            if proc.returncode == 0:
+                lib.with_suffix(".log").write_text(text)
+                os.replace(tmp, lib)
+            else:
+                os.unlink(tmp)
+                errors.append(f"{lib}:\n{text}")
+        if pending:
+            time.sleep(0.05)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return secs
+
+
 def _build_all(out: Path) -> None:
     """Compile every source that has no library yet, all nvcc at once."""
     out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = []
-    for name in SOURCES:
-        lib = out / f"lib{name}.so"
-        if lib.exists():
-            continue
-        # write to a private name first: a concurrent process sees either
-        # no library or a complete one
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
-        os.close(fd)
-        cmd = [nvcc, *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        jobs.append((lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    errors = []
-    for lib, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode == 0:
-            lib.with_suffix(".log").write_text(log)
-            os.replace(tmp, lib)
-        else:
-            os.unlink(tmp)
-            errors.append(f"{lib.name}:\n{log}")
-    if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    _finish([_start(out / f"lib{name}.so", name) for name in SOURCES
+             if not (out / f"lib{name}.so").exists()])
 
 
-def load(symbol: str):
+def user_dir(key: str) -> Path:
+    """Where the libraries of the functor ``key`` live."""
+    return BUILD_ROOT / _digest() / f"w_{key}"
+
+
+def build_user(*functors, sources=WEIGHT_SOURCES) -> dict:
+    """Compile ``sources`` for each compiled functor
+    (``_functor.CompiledFunctor``) that has no library of them yet, all
+    nvcc at once; returns {(key, source): nvcc seconds} of those built.
+    Holds no lock while nvcc runs."""
+    jobs, names = [], {}
+    for f in functors:
+        out = user_dir(f.key)
+        out.mkdir(parents=True, exist_ok=True)
+        hdr = out / "user_weight.cuh"
+        if not hdr.exists():  # its content is fixed by the key
+            fd, tmp = tempfile.mkstemp(suffix=".cuh", dir=out)
+            with os.fdopen(fd, "w") as fh:
+                fh.write(f.header())
+            os.replace(tmp, hdr)
+        status = _user_status.setdefault(f.key, {})
+        for name in sources:
+            if name not in WEIGHT_SOURCES:
+                raise ValueError(f"{name} takes no weight functional")
+            lib = out / f"lib{name}.so"
+            if lib.exists():
+                status.setdefault(name, "reused")
+                continue
+            extra = ("-I", str(CSRC), "-include", str(hdr),
+                     f"-DPALD_USER_WEIGHT={f.struct}")
+            jobs.append(_start(lib, name, extra))
+            names[lib] = (f.key, name)
+    secs = _finish(jobs)
+    for lib, (key, name) in names.items():
+        _user_status[key][name] = "built"
+    return {names[lib]: t for lib, t in secs.items()}
+
+
+def user_status(key: str) -> dict:
+    """{source: "built" | "reused"} of the functor ``key``'s libraries
+    that this process built or found built."""
+    return dict(_user_status.get(key, {}))
+
+
+def load(symbol: str, functor=None):
     """The C entry point ``symbol``, building all sources on the first
-    call of the process."""
+    call of the process; with ``functor`` (a user functional's
+    ``_functor.CompiledFunctor``), the entry of that functor's library,
+    built at first use (only that source)."""
+    if functor is not None:
+        return _load_user(symbol, functor)
     with _lock:
         if not _loaded:
             out = BUILD_ROOT / _digest()
@@ -156,6 +247,21 @@ def load(symbol: str):
         return _loaded[symbol]
 
 
+def _load_user(symbol: str, functor):
+    got = _user_loaded.get((functor.key, symbol))
+    if got is not None:
+        return got
+    src, argtypes = SIGNATURES[symbol]
+    build_user(functor, sources=(src,))
+    with _lock:
+        fn = getattr(ctypes.CDLL(str(user_dir(functor.key) / f"lib{src}.so")),
+                     symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _user_loaded[(functor.key, symbol)] = fn
+    return fn
+
+
 def entry(stem: str, items: int) -> tuple[str, tuple]:
     """The C entry point of one item (``<stem>_f32``) or, past one item,
     of a chunk (``<stem>_chunk_f32``), and the chunk's extra argument, the
@@ -167,12 +273,14 @@ def entry(stem: str, items: int) -> tuple[str, tuple]:
             else (f"{stem}_f32", ()))
 
 
-def ptxas_report(source: str) -> list[tuple[str, str]]:
+def ptxas_report(source: str,
+                 key: str | None = None) -> list[tuple[str, str]]:
     """(function, resources) for each kernel of ``csrc/<source>.cu`` and
     each device function compiled out of line, from the build log of the
-    loaded libraries: ptxas's registers, spill stores and loads, and shared
-    memory of each."""
-    log = (BUILD_ROOT / _digest() / f"lib{source}.log").read_text()
+    loaded libraries (``key``: of that user functor's library): ptxas's
+    registers, spill stores and loads, and shared memory of each."""
+    out_dir = BUILD_ROOT / _digest() if key is None else user_dir(key)
+    log = (out_dir / f"lib{source}.log").read_text()
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:

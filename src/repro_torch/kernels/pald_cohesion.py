@@ -111,7 +111,7 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
 
     CUDA operands must be contiguous float32 (``xwins``: bool) on one
     device (``ops`` prepares them); anything else raises, as does a weight
-    functional without a kernel id.  W is checked for non-finite entries
+    functional that does not compile.  W is checked for non-finite entries
     (:func:`add_form`).  Operands with a leading item axis, (b, mx, mz),
     (b, my, mz), (b, mx, my) (W and ``xwins`` too), are a chunk: one grid
     for all b, C (b, mx, mz).  Each launch adds one to
@@ -125,7 +125,8 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
     if dev.type != "cuda":
         raise ValueError(f"cohesion_general_cuda: unsupported device {dev}")
     wfun = resolve_weight(ties)
-    wid, p0, p1 = kernel_spec(wfun)
+    spec = kernel_spec(wfun)
+    wid, p0, p1 = spec
     _require_tiebreak(wfun, xwins, xw_offsets)
     lead = tuple(DXZ.shape[:1]) if DXZ.ndim == 3 else ()
     mx, mz = DXZ.shape[-2:]
@@ -147,7 +148,7 @@ def cohesion_general_cuda(DXZ, DYZ, DXY, W, xwins=None, *, ties=DEFAULT_TIES,
     if C.numel() == 0:
         return C
     items = lead[0] if lead else 1
-    fn = _build.load("pald_cohesion_f32")
+    fn = _build.load("pald_cohesion_f32", spec.functor)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(),

@@ -81,7 +81,7 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
     D and W must be contiguous float32 (n, n) tensors, or (b, n, n)
     chunks, on one device (``ops`` prepares them); anything else raises,
-    as does a weight functional without a kernel id.  W is checked for
+    as does a weight functional that does not compile.  W is checked for
     non-finite entries (``pald_cohesion.add_form``, once for a chunk).
     Besides C the call allocates nothing.  Each call adds one to
     ``cohesion_tri_cuda.launches`` and to ``.grid_launches`` (one grid,
@@ -92,7 +92,8 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
         return cohesion_tri_torch(D, W, ties=ties)
     if dev.type != "cuda":
         raise ValueError(f"cohesion_tri_cuda: unsupported device {dev}")
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
+    wid, p0, p1 = spec
     lead, n = (tuple(D.shape[:1]) if D.ndim == 3 else ()), D.shape[-1]
     f32 = torch.float32
     check_operands("cohesion_tri_cuda", dev, D=(D, lead + (n, n), f32),
@@ -101,7 +102,7 @@ def cohesion_tri_cuda(D, W, *, ties=DEFAULT_TIES) -> torch.Tensor:
     if C.numel() == 0:
         return C
     items = lead[0] if lead else 1
-    fn = _build.load("pald_cohesion_tri_f32")
+    fn = _build.load("pald_cohesion_tri_f32", spec.functor)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(D.data_ptr(), W.data_ptr(), C.data_ptr(), n, items, wid,

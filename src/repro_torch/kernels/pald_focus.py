@@ -135,16 +135,18 @@ def reset_tile_counts() -> None:
         c.zero_()
 
 
-def launch_square(D, U, wid: int, p0: float, p1: float) -> None:
+def launch_square(D, U, spec) -> None:
     """U (n, n) from one square CUDA D, or U (b, n, n) from a chunk of b,
     through the kernel's square entry (the upper tile pairs of each item,
     all items in one grid; the dense and the tri wrappers), weight family
-    ``kernel_spec(ties)``.  Raises on a CUDA error."""
+    ``spec = kernel_spec(ties)`` (a user functional's: its own library).
+    Raises on a CUDA error."""
     dev = D.device
     items = D.shape[0] if D.ndim == 3 else 1
+    wid, p0, p1 = spec
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = _build.load("pald_focus_square_f32")(
+        status = _build.load("pald_focus_square_f32", spec.functor)(
             D.data_ptr(), U.data_ptr(), D.shape[-1], items,
             _counts(dev).data_ptr(), wid, p0, p1, stream)
     _build.check(status, "pald_focus_square_f32")
@@ -156,7 +158,7 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
     CUDA operands must be contiguous float32 on one device (``ops``
     prepares them); anything else raises, as does a weight functional
-    without a kernel id.  Three operands that are one square (n, n)
+    that does not compile.  Three operands that are one square (n, n)
     tensor take the kernel's square entry (upper tile pairs), and so do
     three that are one (b, n, n) chunk: one grid for its b items, U
     (b, n, n).  Each launch adds one to ``focus_general_cuda.launches``
@@ -168,9 +170,9 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
         return focus_general_torch(DXZ, DYZ, DXY, ties=ties)
     if dev.type != "cuda":
         raise ValueError(f"focus_general_cuda: unsupported device {dev}")
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
     if DXZ.ndim == 3:
-        return _focus_chunk_cuda(DXZ, DYZ, DXY, ties, wid, p0, p1)
+        return _focus_chunk_cuda(DXZ, DYZ, DXY, spec)
     mx, mz = DXZ.shape
     my = DYZ.shape[0]
     f32 = torch.float32
@@ -183,11 +185,12 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     square = (mx == my == mz
               and DXZ.data_ptr() == DYZ.data_ptr() == DXY.data_ptr())
     if square:
-        launch_square(DXZ, U, wid, p0, p1)
+        launch_square(DXZ, U, spec)
     else:
+        wid, p0, p1 = spec
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            status = _build.load("pald_focus_f32")(
+            status = _build.load("pald_focus_f32", spec.functor)(
                 DXZ.data_ptr(), DYZ.data_ptr(), DXY.data_ptr(), U.data_ptr(),
                 mx, my, mz, _counts(dev).data_ptr(), wid, p0, p1, stream)
         _build.check(status, "pald_focus_f32")
@@ -196,7 +199,7 @@ def focus_general_cuda(DXZ, DYZ, DXY, *, ties=DEFAULT_TIES) -> torch.Tensor:
     return U
 
 
-def _focus_chunk_cuda(DXZ, DYZ, DXY, ties, wid, p0, p1) -> torch.Tensor:
+def _focus_chunk_cuda(DXZ, DYZ, DXY, spec) -> torch.Tensor:
     """A (b, n, n) chunk: one square grid; the three operands must be
     one tensor (the rectangular entry takes one item)."""
     if not (DXZ.data_ptr() == DYZ.data_ptr() == DXY.data_ptr()
@@ -213,7 +216,7 @@ def _focus_chunk_cuda(DXZ, DYZ, DXY, ties, wid, p0, p1) -> torch.Tensor:
     U = torch.empty((b, n, n), dtype=torch.float32, device=dev)
     if b == 0 or n == 0:
         return U
-    launch_square(DXZ, U, wid, p0, p1)
+    launch_square(DXZ, U, spec)
     focus_general_cuda.launches += 1
     focus_general_cuda.grid_launches += item_grids(b)
     return U

@@ -74,7 +74,7 @@ def focus_tri_cuda(D, *, ties=DEFAULT_TIES) -> torch.Tensor:
 
     D must be a contiguous float32 (n, n) tensor, or a (b, n, n) chunk
     (``ops`` prepares it); anything else raises, as does a weight
-    functional without a kernel id.  D must be symmetric (see the module
+    functional that does not compile.  D must be symmetric (see the module
     notes).  Each launch adds one to ``focus_tri_cuda.launches`` (and to
     ``.grid_launches``: one grid for a whole chunk); the kernel counts its
     nb (nb + 1) / 2 thread blocks per item (:func:`pald_focus.tile_counts`).
@@ -84,14 +84,14 @@ def focus_tri_cuda(D, *, ties=DEFAULT_TIES) -> torch.Tensor:
         return focus_tri_torch(D, ties=ties)
     if dev.type != "cuda":
         raise ValueError(f"focus_tri_cuda: unsupported device {dev}")
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
     lead, n = (tuple(D.shape[:1]) if D.ndim == 3 else ()), D.shape[-1]
     check_operands("focus_tri_cuda", dev, D=(D, lead + (n, n),
                                              torch.float32))
     U = torch.empty(lead + (n, n), dtype=torch.float32, device=dev)
     if U.numel() == 0:
         return U
-    launch_square(D, U, wid, p0, p1)
+    launch_square(D, U, spec)
     focus_tri_cuda.launches += 1
     focus_tri_cuda.grid_launches += item_grids(D.shape[0] if lead else 1)
     return U

@@ -194,8 +194,8 @@ def cohesion_fused_torch(X, W, *, metric: str = "euclidean", n_valid=None,
     return C
 
 
-def _launch(symbol, X, out, *ptrs_and_args):
-    fn = _build.load(symbol)
+def _launch(symbol, functor, X, out, *ptrs_and_args):
+    fn = _build.load(symbol, functor)
     dev = X.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -237,7 +237,7 @@ def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
     (b, n, d) chunk gives U (b, n, n) from one launch, bitwise its items.
 
     A CUDA X must be contiguous float32 (``ops`` prepares it); anything
-    else raises, as does a weight functional without a kernel id.  The
+    else raises, as does a weight functional that does not compile.  The
     call holds one (P, ldp) float32 distance panel per item of a grid
     (:func:`panel_rows`, :func:`panel_stride`) besides U, freed when it
     returns; ``_panel_rows`` overrides P (a positive multiple of 64) for
@@ -247,7 +247,8 @@ def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
     """
     if X.device.type == "cpu":
         return focus_fused_torch(X, metric=metric, n_valid=n_valid, ties=ties)
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
+    wid, p0, p1 = spec
     mid = metric_id(metric)
     lead, n, d, nv, items, norms = _cuda_operands("focus_fused_cuda", X,
                                                   n_valid)
@@ -257,8 +258,9 @@ def focus_fused_cuda(X, *, metric: str = "euclidean", n_valid=None,
     rows = _panel(n, _panel_rows, _grid_items(items))
     panel = _panel_buffer(n, rows, items, X.device)
     name, more = _build.entry("pald_focus_fused", items)
-    _launch(name, X, U, X.data_ptr(), norms.data_ptr(), panel.data_ptr(),
-            U.data_ptr(), n, d, nv, rows, *more, mid, wid, p0, p1)
+    _launch(name, spec.functor, X, U, X.data_ptr(), norms.data_ptr(),
+            panel.data_ptr(), U.data_ptr(), n, d, nv, rows, *more, mid, wid,
+            p0, p1)
     focus_fused_cuda.launches += 1
     focus_fused_cuda.grid_launches += fused_grids(n, metric, rows, items)
     return U
@@ -275,7 +277,8 @@ def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
     if X.device.type == "cpu":
         return cohesion_fused_torch(X, W, metric=metric, n_valid=n_valid,
                                     ties=ties)
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
+    wid, p0, p1 = spec
     mid = metric_id(metric)
     n = X.shape[-2]
     lead, n, d, nv, items, norms = _cuda_operands(
@@ -286,9 +289,9 @@ def cohesion_fused_cuda(X, W, *, metric: str = "euclidean", n_valid=None,
     rows = _panel(n, _panel_rows, _grid_items(items))
     panel = _panel_buffer(n, rows, items, X.device)
     name, more = _build.entry("pald_cohesion_fused", items)
-    _launch(name, X, C, X.data_ptr(), norms.data_ptr(), panel.data_ptr(),
-            W.data_ptr(), C.data_ptr(), n, d, nv, rows, *more, mid, wid, p0,
-            p1, add_form(wid, W))
+    _launch(name, spec.functor, X, C, X.data_ptr(), norms.data_ptr(),
+            panel.data_ptr(), W.data_ptr(), C.data_ptr(), n, d, nv, rows,
+            *more, mid, wid, p0, p1, add_form(wid, W))
     cohesion_fused_cuda.launches += 1
     cohesion_fused_cuda.grid_launches += fused_grids(n, metric, rows, items)
     return C
@@ -307,7 +310,7 @@ def dist_fused_cuda(X, *, metric: str = "euclidean",
     D = torch.empty((n, n), dtype=torch.float32, device=X.device)
     if n == 0:
         return D
-    return _launch("pald_dist_fused_f32", X, D, X.data_ptr(),
+    return _launch("pald_dist_fused_f32", None, X, D, X.data_ptr(),
                    norms.data_ptr(), D.data_ptr(), n, d, nv, mid)
 
 

@@ -168,8 +168,8 @@ def knn_values_from_distances_torch(D: torch.Tensor, dn: torch.Tensor,
     return out
 
 
-def _launch(name, fn_args, out, counter, items=1):
-    fn = _build.load(name)
+def _launch(name, functor, fn_args, out, counter, items=1):
+    fn = _build.load(name, functor)
     dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -213,7 +213,8 @@ def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
     """Launch the features entry: X (m, d), or with ``nbr`` the (n, k, d)
     neighbor-row block."""
     mid = metric_id(metric)
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
+    wid, p0, p1 = spec
     dev = dn.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: unsupported device {dev}")
@@ -229,7 +230,7 @@ def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
     if out.numel() == 0:
         return out
     items = lead[0] if lead else 1
-    return _launch("pald_knn_values_features_f32",
+    return _launch("pald_knn_values_features_f32", spec.functor,
                    (dn.data_ptr(), X.data_ptr(), shape[-1], idx.data_ptr(),
                     out.data_ptr(), n, k, mid, row_off, int(nbr), items,
                     X[0].numel() if lead else 0, wid, p0, p1), out, counter,
@@ -249,7 +250,7 @@ def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
 
     CUDA operands must be contiguous (X, dn float32; idx int32) on one
     device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
-    weight functional without a kernel id.  Allocates the output only.
+    weight functional that does not compile.  Allocates the output only.
     Every index must lie in [0, n_X): the kernel reads X's rows at them
     unchecked (:func:`check_indices`).  Each launch adds one to
     ``.launches``, and its grids (one per ``MAX_ITEMS`` items) to
@@ -296,7 +297,8 @@ def knn_values_from_distances_cuda(D: torch.Tensor, dn: torch.Tensor,
     if dn.device.type == "cpu":
         return knn_values_from_distances_torch(D, dn, idx, ties=ties)
     who = "knn_values_from_distances_cuda"
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
+    wid, p0, p1 = spec
     dev = dn.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: unsupported device {dev}")
@@ -310,7 +312,7 @@ def knn_values_from_distances_cuda(D: torch.Tensor, dn: torch.Tensor,
     if out.numel() == 0:
         return out
     items = lead[0] if lead else 1
-    return _launch("pald_knn_values_distances_f32",
+    return _launch("pald_knn_values_distances_f32", spec.functor,
                    (dn.data_ptr(), D.data_ptr(), m, idx.data_ptr(),
                     out.data_ptr(), n, k, items, m * m, wid, p0, p1), out,
                    knn_values_from_distances_cuda, items)
@@ -323,12 +325,13 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
 
     CUDA operands must be contiguous (dn, g float32; idx int32) on one
     device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
-    weight functional without a kernel id.  Each launch adds one to
+    weight functional that does not compile.  Each launch adds one to
     ``knn_values_cuda.launches`` (and to ``.grid_launches``: one grid).
     """
     if dn.device.type == "cpu":
         return knn_values_torch(dn, g, idx, ties=ties)
-    wid, p0, p1 = kernel_spec(ties)
+    spec = kernel_spec(ties)
+    wid, p0, p1 = spec
     dev = dn.device
     if dev.type != "cuda":
         raise ValueError(f"knn_values_cuda: unsupported device {dev}")
@@ -341,7 +344,7 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((n, k + 1), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    return _launch("pald_knn_values_f32",
+    return _launch("pald_knn_values_f32", spec.functor,
                    (dn.data_ptr(), g.data_ptr(), idx.data_ptr(),
                     out.data_ptr(), n, k, wid, p0, p1), out, knn_values_cuda)
 

@@ -139,8 +139,10 @@ def test_cuda_wrappers_reject_bad_operands(cuda_device):
         pald_focus.focus_general_cuda(a.double(), a, a)
     with pytest.raises(ValueError, match="contiguous"):
         pald_focus.focus_general_cuda(a[:, ::2], a[:, ::2], a)
-    user = tw.WeightFunctional("_user_cuda", tw.DROP.focus, tw.DROP.support)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    # a user functional compiles unless an op is outside the table
+    user = tw.WeightFunctional("_user_cuda", tw.DROP.focus,
+                               lambda o, t, p, w=None: torch.cos(o))
+    with pytest.raises(NotImplementedError, match="aten.cos"):
         pald_cohesion.cohesion_general_cuda(a, a, a, a, ties=user)
 
 
@@ -667,10 +669,10 @@ def test_cuda_tri_wrappers_reject_bad_operands(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         pald_focus_tri.focus_tri_cuda(a.T[:4, :4])
     user = tw.WeightFunctional("_user_cuda_tri", tw.DROP.focus,
-                               tw.DROP.support)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+                               lambda o, t, p, w=None: torch.cos(o))
+    with pytest.raises(NotImplementedError, match="aten.cos"):
         pald_focus_tri.focus_tri_cuda(a, ties=user)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    with pytest.raises(NotImplementedError, match="aten.cos"):
         pald_cohesion_tri.cohesion_tri_cuda(a, a, ties=user)
 
 
@@ -1600,3 +1602,235 @@ def test_cuda_dryrun_decode_peak_within_twice_the_estimate(cuda_device):
     est = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
     assert m["peak_estimate_bytes"] == est
     assert 0.5 <= m["peak_bytes"] / est <= 2.0, (m["peak_bytes"], est)
+
+
+# ---------------------------------------------------------------------------
+# user-registered weight functionals: their generated functors in every
+# kernel entry (kernels/_functor.py, the user libraries of kernels/_build.py)
+# ---------------------------------------------------------------------------
+def _clone(name, new):
+    """A user functional with a built-in's callables and no kernel id."""
+    w = tw.resolve_weight(name)
+    return tw.WeightFunctional(new, w.focus, w.support, share=w.share,
+                               needs_index_tiebreak=w.needs_index_tiebreak,
+                               conserves_mass=w.conserves_mass,
+                               is_strict=w.is_strict)
+
+
+def _smooth_exp():
+    """A smooth functional with exp and a share, exact zeros on +inf."""
+    def focus(dxz, dyz, dxy):
+        d = dxy - torch.minimum(dxz, dyz)
+        f = 1.0 - torch.exp(-torch.maximum(d, torch.zeros_like(d)) * 3.0)
+        return torch.where(torch.isnan(d), 0.0, f)
+
+    def share(own, other):
+        return torch.clamp(0.5 + (other - own) * 2.0, 0.0, 1.0)
+
+    def support(own, other, pair, own_wins=None):
+        res = share(own, other) * focus(own, other, pair)
+        return torch.where(torch.isnan(res), 0.0, res)
+
+    return tw.WeightFunctional("_smooth_exp", focus, support, share=share)
+
+
+CLONES = {"drop": _clone("drop", "_harsh"),
+          "ignore": _clone("ignore", "_ignore_clone"),
+          "soft": _clone("soft", "_soft_clone")}
+SMOOTH = _smooth_exp()
+
+
+@pytest.fixture(scope="module")
+def user_libraries():
+    """Every user functor's libraries, built at once (the wrappers would
+    build each source at its first call, one after another)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run on the card: see README.md)")
+    from repro_torch.kernels import _build
+
+    funcs = [tw.kernel_spec(w).functor for w in (*CLONES.values(), SMOOTH)]
+    _build.build_user(*funcs)
+    return {f.name: f for f in funcs}
+
+
+def _pair(kernel, name, *args, **kw):
+    """(the clone's result, the built-in's) of one wrapper call, the
+    wrapper's launch count up by one for the clone."""
+    before = kernel.launches
+    got = kernel(*args, ties=CLONES[name], **kw)
+    assert kernel.launches == before + 1
+    return got, kernel(*args, ties=name, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLONES))
+def test_cuda_user_clone_dense_and_tri_bitwise(cuda_device, user_libraries,
+                                               name):
+    """A clone's generated functor, in the multiply form, bitwise the
+    built-in's hand-written one on the rectangular focus and cohesion
+    entries (both tiebreak routes), the square focus entry, the tri
+    cohesion entry and a (b, n, n) chunk of each."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import weights_ref
+
+    DXZ, DYZ, DXY, W, XW = [torch.as_tensor(a, device=cuda_device)
+                            for a in _operands(130, 70, 257, seed=21)]
+    U, Ub = _pair(pald_focus.focus_general_cuda, name, DXZ, DYZ, DXY)
+    _assert_bitwise("focus rect", U, Ub)
+    routes = ([{"xw_offsets": (3, 8)}, {"xwins": XW}]
+              if CLONES[name].needs_index_tiebreak else [{}])
+    for r in routes:
+        C, Cb = _pair(pald_cohesion.cohesion_general_cuda, name, DXZ, DYZ,
+                      DXY, W, **r)
+        _assert_bitwise(f"cohesion rect {sorted(r)}", C, Cb)
+    for D in (torch.as_tensor(_tri_D(257, seed=22), device=cuda_device),
+              torch.as_tensor(np.stack([_tri_D(65, seed=s)
+                                        for s in range(3)]),
+                              device=cuda_device)):
+        U, Ub = _pair(pald_focus_tri.focus_tri_cuda, name, D)
+        _assert_bitwise(f"focus square {tuple(D.shape)}", U, Ub)
+        Wd = weights_ref(Ub)
+        C, Cb = _pair(pald_cohesion_tri.cohesion_tri_cuda, name, D, Wd)
+        _assert_bitwise(f"cohesion tri {tuple(D.shape)}", C, Cb)
+        off = {"xw_offsets": (0, 0)} if name == "ignore" else {}
+        C, Cb = _pair(pald_cohesion.cohesion_general_cuda, name, D, D, D, Wd,
+                      **off)
+        _assert_bitwise(f"cohesion dense {tuple(D.shape)}", C, Cb)
+    key = tw.kernel_spec(CLONES[name]).key
+    assert set(_build.user_status(key)) == set(_build.WEIGHT_SOURCES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("name", list(CLONES))
+def test_cuda_user_clone_fused_bitwise(cuda_device, user_libraries, name,
+                                       metric):
+    """The fused pair with a clone: one item and a (3, n, d) chunk, U and
+    C bitwise the built-in's."""
+    from repro_torch.kernels import pald_fused
+    from repro_torch.kernels.ref import weights_ref
+
+    for X in (torch.as_tensor(_features(200, 5, seed=23), device=cuda_device),
+              _chunk_features(3, 130, 5, seed=24).to(cuda_device)):
+        U, Ub = _pair(pald_fused.focus_fused_cuda, name, X, metric=metric)
+        _assert_bitwise(f"fused U {tuple(X.shape)}", U, Ub)
+        C, Cb = _pair(pald_fused.cohesion_fused_cuda, name, X,
+                      weights_ref(Ub), metric=metric)
+        _assert_bitwise(f"fused C {tuple(X.shape)}", C, Cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 32, 100])
+@pytest.mark.parametrize("name", list(CLONES))
+def test_cuda_user_clone_knn_bitwise(cuda_device, user_libraries, name, k):
+    """The k-NN values kernel with a clone, its three sources and a chunk
+    of the features and D sources, bitwise the built-in's (the soft clone
+    through the generic share trait)."""
+    from repro_torch.core import knn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_knn, pald_topk
+
+    Xg = torch.as_tensor(_knn_features(301, 5, seed=k), device=cuda_device)
+    graph = pald_topk.topk_select_cuda(Xg, k)
+    idx, dn = graph.indices, graph.distances
+    D = cdist_reference(Xg)
+    g = ops._gather_tiles(Xg, idx, "features", "euclidean")
+    v, vb = _pair(pald_knn.knn_values_cuda, name, dn, g, idx)
+    _assert_bitwise("cube", v, vb)
+    v, vb = _pair(pald_knn.knn_values_from_features_cuda, name, Xg, dn, idx)
+    _assert_bitwise("features", v, vb)
+    v, vb = _pair(pald_knn.knn_values_from_distances_cuda, name, D, dn, idx)
+    _assert_bitwise("distances", v, vb)
+    Xb = torch.as_tensor(np.stack([_knn_features(201, 5, seed=60 + i)
+                                   for i in range(3)]), device=cuda_device)
+    Db = torch.stack([cdist_reference(x) for x in Xb])
+    gb = knn.knn_from_distances(Db, k)
+    v, vb = _pair(pald_knn.knn_values_from_features_cuda, name, Xb,
+                  gb.distances, gb.indices)
+    _assert_bitwise("features chunk", v, vb)
+    v, vb = _pair(pald_knn.knn_values_from_distances_cuda, name, Db,
+                  gb.distances, gb.indices)
+    _assert_bitwise("distances chunk", v, vb)
+
+
+@pytest.mark.cuda
+def test_cuda_smooth_user_functional_vs_plain(cuda_device, user_libraries):
+    """The smooth exp functional (its own functor) on every entry (the
+    fused pair on one item and a chunk, the three k-NN sources) against its
+    plain version within rtol 1e-5, atol 1e-6, with +inf entries in the
+    rectangular operands; then through the user's entry points."""
+    from repro_torch.core import knn, pald
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_fused, pald_knn
+    from repro_torch.kernels.ref import weights_ref
+
+    def close(what, got, want):
+        assert bool(torch.isfinite(got).all()), what
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=what)
+
+    DXZ, DYZ, DXY, W, _ = [torch.as_tensor(a, device=cuda_device)
+                           for a in _operands(130, 70, 257, seed=25)]
+    close("focus rect", ops.focus_general(DXZ, DYZ, DXY, impl="cuda",
+                                          ties=SMOOTH),
+          ops.focus_general(DXZ, DYZ, DXY, impl="torch", ties=SMOOTH))
+    close("cohesion rect",
+          ops.cohesion_general(DXZ, DYZ, DXY, W, impl="cuda", ties=SMOOTH),
+          ops.cohesion_general(DXZ, DYZ, DXY, W, impl="torch", ties=SMOOTH))
+    D = torch.as_tensor(_tri_D(257, seed=26), device=cuda_device)
+    U = pald_focus_tri.focus_tri_cuda(D, ties=SMOOTH)
+    close("focus square", U, ops.focus(D, impl="torch", ties=SMOOTH))
+    Wd = weights_ref(U)
+    close("cohesion tri", pald_cohesion_tri.cohesion_tri_cuda(
+        D, Wd, ties=SMOOTH), ops.cohesion_from_weights(D, Wd, impl="torch",
+                                                        ties=SMOOTH))
+    X = torch.as_tensor(_features(200, 5, seed=27), device=cuda_device)
+    Uf = pald_fused.focus_fused_cuda(X, ties=SMOOTH)
+    close("fused U", Uf, pald_fused.focus_fused_torch(X, ties=SMOOTH))
+    Wf = weights_ref(Uf)
+    close("fused C", pald_fused.cohesion_fused_cuda(X, Wf, ties=SMOOTH),
+          pald_fused.cohesion_fused_torch(X, Wf, ties=SMOOTH))
+    Xb = _chunk_features(3, 130, 5, seed=30).to(cuda_device)
+    Ub = pald_fused.focus_fused_cuda(Xb, ties=SMOOTH)
+    Cb = pald_fused.cohesion_fused_cuda(Xb, weights_ref(Ub), ties=SMOOTH)
+    for i in range(3):
+        close(f"fused chunk U {i}", Ub[i],
+              pald_fused.focus_fused_torch(Xb[i], ties=SMOOTH))
+        close(f"fused chunk C {i}", Cb[i], pald_fused.cohesion_fused_torch(
+            Xb[i], weights_ref(Ub[i]), ties=SMOOTH))
+    Xg = torch.as_tensor(_knn_features(301, 5, seed=28), device=cuda_device)
+    Dg = cdist_reference(Xg)
+    graph = knn.knn_from_distances(Dg, 32)
+    dn, idx = graph.distances, graph.indices
+    close("knn features", pald_knn.knn_values_from_features_cuda(
+        Xg, dn, idx, ties=SMOOTH),
+        pald_knn.knn_values_from_features_torch(Xg, dn, idx, ties=SMOOTH))
+    close("knn distances", pald_knn.knn_values_from_distances_cuda(
+        Dg, dn, idx, ties=SMOOTH),
+        pald_knn.knn_values_from_distances_torch(Dg, dn, idx, ties=SMOOTH))
+    g = knn.gather_tile_from_distances(Dg, idx)
+    close("knn cube", pald_knn.knn_values_cuda(dn, g, idx, ties=SMOOTH),
+          pald_knn.knn_values_torch(dn, g, idx, ties=SMOOTH))
+    for run in (lambda **kw: pald.cohesion(D, method="kernel", **kw),
+                lambda **kw: pald.from_features(X, **kw),
+                lambda **kw: pald.from_features(Xg, k=32, **kw)):
+        close("entry point", run(weight=SMOOTH),
+              run(weight=SMOOTH, impl="torch"))
+
+
+@pytest.mark.cuda
+def test_cuda_untraceable_functional_raises_on_the_card(cuda_device):
+    """An op outside the compiler's table raises NotImplementedError on
+    the card, naming the op; under the guard the walk ends in
+    FallbackExhausted (a plan on the card keeps its kernels)."""
+    from repro_torch.core import pald, resilience
+
+    bad = tw.WeightFunctional("_cosine", lambda a, b, c: torch.cos(a - c),
+                              tw.DROP.support)
+    D = torch.as_tensor(_tri_D(64, seed=29), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="aten.cos"):
+        pald.cohesion(D, method="kernel", weight=bad)
+    with pytest.raises(resilience.FallbackExhausted) as ei:
+        pald.cohesion(D, method="kernel", weight=bad, on_error="fallback")
+    assert "aten.cos" in repr(ei.value.__cause__) or "aten.cos" in str(
+        ei.value)

@@ -202,7 +202,7 @@ def test_factories_memoized():
 
 
 # ---------------------------------------------------------------------------
-# the kernel seam: ids and parameters, and the gap for user functionals
+# the kernel seam: ids and parameters, and user functionals' specs
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name,wid", [("drop", 0), ("split", 1),
                                       ("ignore", 2), ("soft", 3),
@@ -223,23 +223,36 @@ def _user_functional():
                                lambda o, t, p, w=None: 0.5 * (o < p))
 
 
+def _untraceable_functional():
+    return tw.WeightFunctional("_user_cos", lambda a, b, c: torch.cos(a - c),
+                               lambda o, t, p, w=None: 0.5 * (o < p))
+
+
 def test_kernel_spec_user_functional_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tw.kernel_spec(_user_functional())
+    """A traceable user functional gets the user id and its compiled key
+    (the kernels run its generated functor); one with an op outside the
+    compiler's table raises, naming the op."""
+    spec = tw.kernel_spec(_user_functional())
+    assert tuple(spec) == (tw.KERNEL_USER, 0.0, 0.0)
+    assert spec.key is not None and len(spec.key) == 16
+    with pytest.raises(NotImplementedError, match=r"_user_cos.*aten\.cos"):
+        tw.kernel_spec(_untraceable_functional())
 
 
 class _OnCuda:
     """Stands in for a CUDA tensor: the wrappers read only its device
-    before they reject a functional without a kernel id."""
+    before they compile the functional."""
 
     device = torch.device("cuda", 0)
 
 
 def test_user_functional_raises_on_cuda_wrappers():
-    user = _user_functional()
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    """On the card the wrappers compile the functional before anything
+    else: an untraceable one raises there, naming its op."""
+    user = _untraceable_functional()
+    with pytest.raises(NotImplementedError, match="aten.cos"):
         focus_general_cuda(_OnCuda(), None, None, ties=user)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    with pytest.raises(NotImplementedError, match="aten.cos"):
         cohesion_general_cuda(_OnCuda(), None, None, None, ties=user)
 
 
