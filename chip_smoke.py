@@ -4523,13 +4523,11 @@ def phase_user_functionals(dev, card, clock_mhz, build, kernels):
     res = build.join()
     users = user_functionals()
     fun = build.functors
-    for part, secs in (("harsh's six sources", res["one"]),
-                       ("the other three functionals' sources at once",
-                        res["rest"])):
-        for (key, src), t in sorted(secs.items(), key=lambda kv: kv[1]):
-            print(f"phase 29: nvcc {src}.cu for {key} {t:.1f} s")
-        wall = res["one_s"] if secs is res["one"] else res["rest_s"]
-        print(f"phase 29: {part}: {len(secs)} built in {wall:.1f} s wall "
+    for part, built, wall in (
+            ("harsh's six sources", res["one"], res["one_s"]),
+            ("the other three functionals' sources at once", res["rest"],
+             res["rest_s"])):
+        print(f"phase 29: {part}: {len(built)} built in {wall:.1f} s wall "
               "(beside phases 2-28 on the card)")
     for k, f in fun.items():
         print(f"phase 29: {users[k].name}: functor {f.struct}, libraries "
@@ -4574,6 +4572,9 @@ def phase_user_functionals(dev, card, clock_mhz, build, kernels):
                 err_u, err_c = user_slab(f"{w.name} dense", C, D, w, SLAB,
                                          RTOL_MAIN, ATOL,
                                          U=ops.focus(D, impl="cuda", ties=w))
+            elif base == "ignore":  # the tri kernel's own C, no U exposed
+                _, err_t = user_slab(f"{w.name} tri", C, D, w, SLAB,
+                                     RTOL_MAIN, ATOL)
             del C
     times = {}
     for base in ("drop", "ignore", "soft"):
@@ -4609,7 +4610,7 @@ def phase_user_functionals(dev, card, clock_mhz, build, kernels):
         bound_ms("cohesion", n, clock_mhz))
     row("cohesion_tri", "ignore", "src/repro_torch/csrc/pald_cohesion_tri.cu",
         "src/repro/kernels/pald_cohesion_tri.py:121",
-        dense_launches[("ignore", "tri")]["cohesion_tri_cuda"], err_c,
+        dense_launches[("ignore", "tri")]["cohesion_tri_cuda"], err_t,
         *t_ms, plain["cohesion_tri"],
         "phase 14: ignore's callables on the same D",
         bound_ms("cohesion", n, clock_mhz))

@@ -61,10 +61,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.tuning import autotune as _tuner
 
 from . import resilience as _res
-from . import weights as _weights
 from .weights import (DEFAULT_TIES, WeightFunctional, registered_weights,
                       resolve_weight, validate_ties)
 
@@ -417,7 +417,7 @@ class PaldPlan:
                                   if self.weight else None),
             # the functor the CUDA kernels run: a built-in's id, or a user
             # functional's compiled key and its libraries built / reused
-            "weight_kernel": (_weights.kernel_info(self.weight)
+            "weight_kernel": (_build.kernel_info(self.weight)
                               if self.weight else None),
             "metric": self.metric,
             "normalize": self.normalize,

@@ -47,7 +47,7 @@ __all__ = [
     "TIE_MODES", "DEFAULT_TIES", "WeightFunctional", "register_weight",
     "registered_weights", "resolve_weight", "validate_ties",
     "focus_weight", "support_weight", "index_xwins", "kernel_spec",
-    "KernelSpec", "KERNEL_USER", "kernel_info",
+    "KernelSpec", "KERNEL_USER",
     "soft_threshold", "kernelized", "DROP", "SPLIT", "IGNORE",
 ]
 
@@ -168,28 +168,6 @@ def kernel_spec(weight) -> KernelSpec:
         return KernelSpec(KERNEL_USER, 0.0, 0.0, compile_functional(w))
     p = tuple(float(v) for v in w.kernel_params) + (0.0, 0.0)
     return KernelSpec(w.kernel_id, p[0], p[1])
-
-
-def kernel_info(weight) -> dict:
-    """What the CUDA kernels run for a functional (``plan.explain()``): a
-    built-in's id; or a user functional's ``KERNEL_USER``, compiled key and
-    whether this process built its libraries or found them built
-    (``library``: "built", "reused" or "not built yet", ``sources`` each
-    source's); or, for one that does not compile, why (``error``)."""
-    w = resolve_weight(weight)
-    if w.kernel_id is not None:
-        return {"functor": "builtin", "id": w.kernel_id}
-    try:
-        spec = kernel_spec(w)
-    except NotImplementedError as e:
-        return {"functor": None, "error": str(e)}
-    from repro_torch.kernels import _build
-
-    status = _build.user_status(spec.key)
-    library = ("built" if "built" in status.values()
-               else "reused" if status else "not built yet")
-    return {"functor": "compiled", "id": KERNEL_USER, "key": spec.key,
-            "library": library, "sources": status}
 
 
 # ---------------------------------------------------------------------------

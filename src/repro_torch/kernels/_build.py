@@ -17,7 +17,8 @@ instantiates the kernels for that functor alone
 built lazily: only the source whose entry is called (:func:`build_user`
 builds several at once).  An unchanged functional's libraries are reused
 across processes; :func:`user_status` says which were built and which
-reused.  A failed build raises with nvcc's log.
+reused, and :func:`kernel_info` what a functional runs on the card.  A
+failed build raises with nvcc's log.
 
 No ``--use_fast_math``: it would change division and flush denormals, and
 the kernels are held to the plain torch versions.  ``-Xptxas -v``: each
@@ -35,11 +36,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 __all__ = ["load", "check", "entry", "ptxas_report", "build_user",
-           "user_status", "user_dir", "CSRC", "BUILD_ROOT",
+           "user_status", "kernel_info", "user_dir", "CSRC", "BUILD_ROOT",
            "WEIGHT_SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -131,55 +131,37 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _start(lib: Path, name: str, extra=()):
-    """Start nvcc on ``csrc/<name>.cu`` for ``lib``: into a private name
-    first (a concurrent process sees either no library or a complete
-    one), its log into a file.  Returns the job."""
+def _compile(jobs) -> None:
+    """Run nvcc for each (library, source, extra flags), all at once.  Each
+    writes to a private name first (a concurrent process sees either no
+    library or a complete one) and keeps its log beside the library
+    (``lib<name>.log``); raises with the failed ones' logs."""
     nvcc = _nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    log = open(f"{tmp}.log", "w+")
-    cmd = [nvcc, *FLAGS, *extra, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                            text=True)
-    return lib, tmp, log, proc, time.perf_counter()
-
-
-def _finish(jobs) -> dict:
-    """Wait for the jobs; move each library into place and keep its log
-    (``lib<name>.log``).  Returns {library: seconds}; raises with the
-    failed jobs' logs."""
-    secs, errors = {}, []
-    pending = list(jobs)
-    while pending:
-        for job in list(pending):
-            lib, tmp, log, proc, t0 = job
-            if proc.poll() is None:
-                continue
-            pending.remove(job)
-            secs[lib] = time.perf_counter() - t0
-            log.seek(0)
-            text = log.read()
-            log.close()
-            os.unlink(log.name)
-            if proc.returncode == 0:
-                lib.with_suffix(".log").write_text(text)
-                os.replace(tmp, lib)
-            else:
-                os.unlink(tmp)
-                errors.append(f"{lib}:\n{text}")
-        if pending:
-            time.sleep(0.05)
+    procs = []
+    for lib, name, extra in jobs:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+        os.close(fd)
+        cmd = [nvcc, *FLAGS, *extra, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs.append((lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            lib.with_suffix(".log").write_text(log)
+            os.replace(tmp, lib)
+        else:
+            os.unlink(tmp)
+            errors.append(f"{lib}:\n{log}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return secs
 
 
 def _build_all(out: Path) -> None:
     """Compile every source that has no library yet, all nvcc at once."""
     out.mkdir(parents=True, exist_ok=True)
-    _finish([_start(out / f"lib{name}.so", name) for name in SOURCES
-             if not (out / f"lib{name}.so").exists()])
+    _compile([(out / f"lib{name}.so", name, ()) for name in SOURCES
+              if not (out / f"lib{name}.so").exists()])
 
 
 def user_dir(key: str) -> Path:
@@ -187,12 +169,12 @@ def user_dir(key: str) -> Path:
     return BUILD_ROOT / _digest() / f"w_{key}"
 
 
-def build_user(*functors, sources=WEIGHT_SOURCES) -> dict:
+def build_user(*functors, sources=WEIGHT_SOURCES) -> list:
     """Compile ``sources`` for each compiled functor
     (``_functor.CompiledFunctor``) that has no library of them yet, all
-    nvcc at once; returns {(key, source): nvcc seconds} of those built.
-    Holds no lock while nvcc runs."""
-    jobs, names = [], {}
+    nvcc at once; returns the (key, source) pairs built.  Holds no lock
+    while nvcc runs."""
+    jobs, built = [], []
     for f in functors:
         out = user_dir(f.key)
         out.mkdir(parents=True, exist_ok=True)
@@ -210,20 +192,41 @@ def build_user(*functors, sources=WEIGHT_SOURCES) -> dict:
             if lib.exists():
                 status.setdefault(name, "reused")
                 continue
-            extra = ("-I", str(CSRC), "-include", str(hdr),
-                     f"-DPALD_USER_WEIGHT={f.struct}")
-            jobs.append(_start(lib, name, extra))
-            names[lib] = (f.key, name)
-    secs = _finish(jobs)
-    for lib, (key, name) in names.items():
+            jobs.append((lib, name, ("-I", str(CSRC), "-include", str(hdr),
+                                     f"-DPALD_USER_WEIGHT={f.struct}")))
+            built.append((f.key, name))
+    _compile(jobs)
+    for key, name in built:
         _user_status[key][name] = "built"
-    return {names[lib]: t for lib, t in secs.items()}
+    return built
 
 
 def user_status(key: str) -> dict:
     """{source: "built" | "reused"} of the functor ``key``'s libraries
     that this process built or found built."""
     return dict(_user_status.get(key, {}))
+
+
+def kernel_info(weight) -> dict:
+    """What the CUDA kernels run for a functional (``plan.explain()``): a
+    built-in's id; or a user functional's ``KERNEL_USER``, compiled key and
+    whether this process built its libraries or found them built
+    (``library``: "built", "reused" or "not built yet", ``sources`` each
+    source's); or, for one that does not compile, why (``error``)."""
+    from repro_torch.core import weights as _weights
+
+    w = _weights.resolve_weight(weight)
+    if w.kernel_id is not None:
+        return {"functor": "builtin", "id": w.kernel_id}
+    try:
+        key = _weights.kernel_spec(w).key
+    except NotImplementedError as e:
+        return {"functor": None, "error": str(e)}
+    status = user_status(key)
+    library = ("built" if "built" in status.values()
+               else "reused" if status else "not built yet")
+    return {"functor": "compiled", "id": _weights.KERNEL_USER, "key": key,
+            "library": library, "sources": status}
 
 
 def load(symbol: str, functor=None):
@@ -273,14 +276,12 @@ def entry(stem: str, items: int) -> tuple[str, tuple]:
             else (f"{stem}_f32", ()))
 
 
-def ptxas_report(source: str,
-                 key: str | None = None) -> list[tuple[str, str]]:
+def ptxas_report(source: str) -> list[tuple[str, str]]:
     """(function, resources) for each kernel of ``csrc/<source>.cu`` and
     each device function compiled out of line, from the build log of the
-    loaded libraries (``key``: of that user functor's library): ptxas's
-    registers, spill stores and loads, and shared memory of each."""
-    out_dir = BUILD_ROOT / _digest() if key is None else user_dir(key)
-    log = (out_dir / f"lib{source}.log").read_text()
+    loaded libraries: ptxas's registers, spill stores and loads, and shared
+    memory of each."""
+    log = (BUILD_ROOT / _digest() / f"lib{source}.log").read_text()
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:

@@ -375,14 +375,13 @@ def emit_functor(progs: dict, tiebreak: bool, name: str) -> str:
 class CompiledFunctor:
     """A functional compiled to C++: ``key`` (16 hex digits of the emitted
     functor's hash), ``struct`` (its C++ name), ``functor`` (the struct's
-    source), ``programs`` (the IR of each callable) and ``tiebreak``."""
+    source) and ``programs`` (the IR of each callable)."""
 
     name: str
     key: str
     struct: str
     functor: str
     programs: dict
-    tiebreak: bool
 
     def header(self) -> str:
         """The header that the kernels' sources are built with
@@ -421,7 +420,7 @@ def compile_functional(w) -> CompiledFunctor:
     key = hashlib.sha256(src.encode()).hexdigest()[:16]
     struct = f"UserWeight_{key}"
     out = CompiledFunctor(w.name, key, struct,
-                          src.replace(_PLACEHOLDER, struct), progs, tb)
+                          src.replace(_PLACEHOLDER, struct), progs)
     with _lock:
         _compiled[id(w)] = (w, out)
     return out

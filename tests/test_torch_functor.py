@@ -330,8 +330,8 @@ def test_user_libraries_layout_reuse_and_failure(tmp_path, monkeypatch):
 
     monkeypatch.setattr(_build, "_nvcc",
                         lambda: _fake_nvcc(tmp_path / "nvcc"))
-    secs = _build.build_user(cf, sources=("pald_focus", "pald_knn"))
-    assert set(secs) == {(cf.key, "pald_focus"), (cf.key, "pald_knn")}
+    built = _build.build_user(cf, sources=("pald_focus", "pald_knn"))
+    assert built == [(cf.key, "pald_focus"), (cf.key, "pald_knn")]
     log = (out / "libpald_focus.log").read_text()
     assert f"-DPALD_USER_WEIGHT={cf.struct}" in log
     assert str(out / "user_weight.cuh") in log and "sm_90a" in log
@@ -340,7 +340,7 @@ def test_user_libraries_layout_reuse_and_failure(tmp_path, monkeypatch):
     assert _build.user_status(cf.key) == {"pald_focus": "built",
                                           "pald_knn": "built"}
     monkeypatch.setattr(_build, "_user_status", {})
-    assert _build.build_user(cf, sources=("pald_focus",)) == {}
+    assert _build.build_user(cf, sources=("pald_focus",)) == []
     assert _build.user_status(cf.key) == {"pald_focus": "reused"}
     with pytest.raises(ValueError, match="no weight"):
         _build.build_user(cf, sources=("pald_topk",))
