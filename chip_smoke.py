@@ -19,11 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block counters as proof that it ran the nb(nb+1)/2 upper tile pairs of
    the symmetric D, none of them twice; mass conservation, a 64-row slab
    recomputed by the plain versions, community recovery;
-4. each kernel and its plain version timed at n = 8192 (CUDA events,
-   median after a warm-up), beside the kernel's bound and its floor at
-   the compare rate; then ``ops.focus`` on phase 3's D with one 64 x 64
-   tile perturbed (asymmetric): timed, one tile pair run twice, and U
-   bitwise the plain version's;
+4. each kernel and its plain version timed at n = 8192 (CUDA events, the
+   kernel's median after a warm-up, the plain version's one call: 8-10 s
+   a call, its ops run since phase 2), beside the kernel's bound and its
+   floor at the compare rate; then ``ops.focus`` on phase 3's D with one
+   64 x 64 tile perturbed (asymmetric): timed, one tile pair run twice,
+   and U bitwise the plain version's;
 5. the kernels of every built-in weight family timed at n = 8192;
 6. the fused features kernels (``pald_fused.cu``) against their plain
    versions on the card: four metrics x five families at a ragged n = 257
@@ -45,14 +46,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a sweep of the panel rows (256 to 4096), each family's fused kernels
    beside phase 5's dense ones, and ``from_features`` end to end, fused
    against materialize-then-kernel, for all four metrics (CUDA events,
-   median after a warm-up);
+   median after a warm-up; a plain version's one call);
 9. the plain distance steps on the host CPU bitwise numpy float32's; the
    sparse k-NN kernels (``pald_topk.cu``, ``pald_knn.cu``) against their
    plain versions on the card: the selection bitwise (indices and
    distances) for n in {1, 2, 33, 257, 1000}, d in {1, 5, 8, 300}, k in
    {1, 7, 32, n-1}, four metrics, on quantized features with duplicated
    rows; both kernels' shared memory as their C entries report it against
-   the Python copies (``smem_per_cta``) at every k and width; the values
+   the Python copies (``smem_per_cta``) at every k and width (past 1024
+   the large-k variants', k up to 16384); the values
    kernel's cube source for five families x both gather kinds x k in {1,
    4, 32, 33, 100, n-1} at n = 257 (rtol 1e-5, atol 1e-6), its features
    and D sources bitwise the cube source (and the features source at
@@ -75,6 +77,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to end; then ``select_cohere`` at n = 1,000,000 (or the largest n the
    50,000 times, scaled by n^2, put under 60 s) with its peak memory and
    a 64-row slab check; ptxas's registers and spills of both sources;
+   then past k = 1024, the kernels' large-k variants (the lists in the
+   outputs; a block a row, its state out of shared memory):
+   ``select_cohere(X, k)`` at n = 50,000 for k in {1025, 2048, 4096}
+   with the wrappers' counts set to 0 and every plain version failing if
+   called (one launch of each large-k variant), the graph bitwise and the
+   values within rtol 1e-5, atol 1e-6 of the plain versions on a 16-row
+   slab, each kernel timed (the selection the median of 3 after
+   select_cohere's call, one call at k = 4096; the values kernel its call
+   inside the select_cohere run, CUDA events around the wrapper);
+   both variants beside the shared-memory layouts at k = 1024 (for the
+   record, bitwise); ``cohesion(D, method="knn", k=2048)`` on phase 3's
+   n = 8192 D (the D source's variant once, C bitwise its scatter, a
+   16-row slab); a chunk of 2 at n = 2100, k = 2048 (the selection and
+   both values sources one launch each, each item bitwise alone) and the
+   block entry on two candidate blocks, merged, bitwise the full call,
+   and timed over all n candidates; the ``*_large[k=...]`` rows of the
+   kernels' JSON;
 12. the tri kernels (the square entry of ``pald_focus.cu``,
    ``pald_cohesion_tri.cu``) against their plain versions on the card, for
    every built-in weight functional at ragged n in {1, 2, 63, 64, 65, 257}
@@ -96,8 +115,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``pald.cohesion(D, ties="ignore")`` with default knobs resolves
    to ``method="triplet"``, runs the two tri kernels once each and gives
    the same C bitwise;
-14. the tri kernels and their plain versions timed at n = 8192 beside the
-   dense kernels and their bounds, the tri and dense pipelines end to end,
+14. the tri kernels and their plain versions (one call each) timed at n =
+   8192 beside the dense kernels and their bounds, the tri and dense
+   pipelines end to end,
    and each family's tri kernels;
 15. a ``torch.profiler`` window over one dense and one tri call at
    n = 8192: the device's busy share and the kernel time by name; then
@@ -113,9 +133,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    items' bytes above the reserved memory) that a chunk of 8 exceeds and
    one of 2 does not, rescued by halving ``batch``,
    bitwise the per-item C; the ``select="chunked"`` rung's graph bitwise
-   the CUDA selection's at n = 50,000, k = 32, with both times; k = 2048
-   (past the k-NN kernels' 1024) raising under "raise" and rescued by the
-   torch rung under "fallback", bitwise an ``impl="torch"`` call;
+   the CUDA selection's at n = 50,000, k = 32, with both times;
+   ``from_features(X, k=2048)`` at n = 2100 on the k-NN kernels' large-k
+   variants under "raise" and "fallback" (one launch of each, no
+   degradation, the plain versions failing if called), C bitwise between
+   the two and the values within rtol 1e-5, atol 1e-6 of the plain
+   versions on a 16-row slab;
 17. batched chunks: B = 64 items at n = 256 and B = 16 at n = 1024, dense
    and tri, one chunk (one grid a pass, b x the upper tile pairs of focus
    blocks counted on the card) against one item a launch (``batch=1``):
@@ -234,16 +257,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    leaf's largest of the 2-microbatch step (each data rank's rows are one
    microbatch's), and against the 1-microbatch step the loss within rtol
    1e-5, the grad norm within rtol 1e-2, the gradients within 2^-5, the
-   weights within 4 lr; 3 more steps on the repeated batch, losses finite
+   weights within 4 lr; 2 more steps on the repeated batch, losses finite
    and falling; per rank the step ms (median), the bytes staged through
    the host a step and the peak device memory against state + gathered
-   bfloat16 + the largest float32 leaf; a sharded save at step 3 and the
-   uninterrupted step 4; (c) zero3 on (2, 2, 2) in a world of 8 on reduced
+   bfloat16 + the largest float32 leaf; a sharded save at step 2 and the
+   uninterrupted step 3; (c) zero3 on (2, 2, 2) in a world of 8 on reduced
    gemma2-2b: every initial block bitwise the single-device weights' at
    the rank's position, one step held by (b)'s gates (against 4
    microbatches); (d) the checkpoint of (b) resumed in a world of 2 on
    ``choose_mesh(2, target_model=2)``: every restored block bitwise the
-   saved leaf's slice, step 4 finite and within rtol 1e-3 of (b)'s; (e)
+   saved leaf's slice, step 3 finite and within rtol 1e-3 of (b)'s; (e)
    ``python -m repro_torch.launch.train --arch llama3.2-3b --smoke --mesh
    2x2 --steps 6`` in a fresh ``--ckpt-dir``, exit 0, and a restart to 8
    steps continuing from step 5; (f) one NCCL rank on a (1, 1) mesh: (a)'s
@@ -288,7 +311,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the k-NN sources at their main-path sizes) beside the card's name and
    power limit; the smooth functional within rtol 1e-5, atol 1e-6 of its
    plain versions on a 16-row slab at n = 8192 and whole at n = 1024
-   (dense, tri, fused, both k-NN paths); a functional with an op outside
+   (dense, tri, fused, both k-NN paths); the values kernel's large-k
+   variant (n = 2100, k = 2048, features and D sources) with the ignore
+   and soft clones bitwise their built-ins and the smooth functional on a
+   16-row slab against its plain version; a functional with an op outside
    the compiler's table raising ``NotImplementedError`` on the card,
    naming the op, and ``FallbackExhausted`` under ``on_error="fallback"``;
    ``explain()`` naming harsh's compiled key and its libraries.
@@ -304,6 +330,8 @@ those calls issued; ``blocks``, for the focus kernels: the thread blocks
 of those grids, counted by the kernel on the card; ``bound_ms``: the function's least work, shared by the
 dense, tri and fused kernels of one pass, see :func:`pass_ops`;
 ``dryrun_launches``, on the rectangular rows: phase 28's launches; the
+rows named ``<kernel>_large[k=...]``: phase 11's large-k variants, their
+plain versions timed on a 16-row slab (``plain_on``); the
 rows named ``<kernel>[<functional>]``: phase 29's user functors, each with
 its compiled ``key``, the built-in's time in the same turns
 (``builtin_ms``) and where its plain time was measured (``plain_from``:
@@ -642,21 +670,23 @@ def cohesion_slab_f64(rows, D, W_slab, r0, chunk=64, ties="ignore"):
     return C
 
 
-def time_ms(fn, reps):
-    """Median of ``reps`` CUDA-event timings after one warm-up call."""
+def time_ms(fn, reps, warm=True):
+    """Median of ``reps`` CUDA-event timings after one warm-up call
+    (``warm=False``: none, the caller has run ``fn`` already; the output
+    is then the last timed call's)."""
     import torch
 
-    out = fn()
+    out = fn() if warm else None
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        last = fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times), out
+    return statistics.median(times), out if warm else last
 
 
 def pass_ops(pass_, n):
@@ -721,7 +751,8 @@ def phase_timing(D, launches, U_slab, r0, clock_mhz, reps=5):
 
     def timed(name, kernel, plain):
         ms_k, out_k = time_ms(kernel, reps)
-        ms_p, out_p = time_ms(plain, reps)
+        # the plain version once (8-10 s a call; phase 2 ran its ops)
+        ms_p, out_p = time_ms(plain, 1, warm=False)
         b_ms, b_by = bound_ms(name, n, clock_mhz)
         cmp = (f", floor at the compare rate "
                f"{compare_bound_ms(name, n, clock_mhz)!r} ms")
@@ -1028,7 +1059,7 @@ def phase_fused_timing(Xg, D, launches, clock_mhz, dense_families, reps=5):
 
     def timed(name, kernel, plain):
         ms_k, out_k = time_ms(kernel, reps)
-        ms_p, out_p = time_ms(plain, 1)
+        ms_p, out_p = time_ms(plain, 1, warm=False)  # phase 6 ran its ops
         b_ms, b_by = fused_bound_ms(name, n, d, clock_mhz)
         print(f"phase 8: {name}_fused n={n} d={d}: kernel {ms_k!r} ms, plain "
               f"{ms_p!r} ms, bound {b_ms!r} ms ({b_by}), kernel/bound "
@@ -1204,8 +1235,7 @@ def phase_knn_vs_plain(dev) -> None:
     for n in (1, 2, 33, 257, 1000):
         for d in (1, 5, 8, 300):
             X = knn_features(rng, n, d, dev)
-            ks = sorted({k for k in (1, 7, 32, n - 1)
-                         if 0 <= k <= min(n - 1, pald_topk.MAX_K)})
+            ks = sorted({k for k in (1, 7, 32, n - 1) if 0 <= k <= n - 1})
             for metric in METRICS:
                 for k in ks:
                     gk = pald_topk.topk_select_cuda(X, k, metric=metric)
@@ -1218,7 +1248,8 @@ def phase_knn_vs_plain(dev) -> None:
     smem_checks = 0
     topk_c = _build.load("pald_topk_smem_bytes")
     knn_c = _build.load("pald_knn_smem_bytes")
-    for k in (1, 31, 32, 33, 128, 129, 256, 257, pald_topk.MAX_K):
+    for k in (1, 31, 32, 33, 128, 129, 256, 257, pald_topk.LARGE_K,
+              pald_topk.LARGE_K + 1, 2048, 4096, 16384):
         if knn_c(k, -1) != pald_knn.smem_per_cta(k):
             fail(f"pald_knn shared memory at k={k}: the kernel's "
                  f"{knn_c(k, -1)} B, smem_per_cta {pald_knn.smem_per_cta(k)}")
@@ -1372,17 +1403,6 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
     n = X.shape[0]
     Xg = torch.as_tensor(X, device=dev)
 
-    def plain_called(*a, **kw):
-        fail("a plain torch version ran on the k-NN main path")
-
-    patched = [(ops, "topk_select_torch"), (ops, "knn_values_torch"),
-               (ops, "_gather_tiles"), (pald_topk, "topk_select_torch"),
-               (pald_knn, "knn_values_torch"),
-               (pald_knn, "knn_values_from_features_torch"),
-               (pald_knn, "knn_values_from_distances_torch"),
-               (ops, "focus_fused_torch"), (ops, "cohesion_fused_torch"),
-               (ops, "focus_general_torch"), (ops, "cohesion_general_torch")]
-    saved = [getattr(m, a) for m, a in patched]
     counted = {"topk_select": pald_topk.topk_select_cuda,
                "knn_values_features": pald_knn.knn_values_from_features_cuda,
                "knn_values_distances":
@@ -1392,9 +1412,7 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
                "cohesion_general": pald_cohesion.cohesion_general_cuda,
                "focus_fused": pald_fused.focus_fused_cuda,
                "cohesion_fused": pald_fused.cohesion_fused_cuda}
-    for m, a in patched:
-        setattr(m, a, plain_called)
-    try:
+    with plain_forbidden("phase 10"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1410,9 +1428,6 @@ def phase_knn_main_path(dev, n=N_KNN, k=K_KNN, d=D_KNN, comm=COMM_KNN):
                      for name in ("topk_select", "knn_values_features",
                                   "knn_values"))
         peak = torch.cuda.max_memory_allocated() - base
-    finally:
-        for (m, a), f in zip(patched, saved):
-            setattr(m, a, f)
     print(f"phase 10: select_cohere(X, k={k}) n={n} d={d} (euclidean, drop):"
           f" {secs:.3f} s wall (first call), launches {launches}, selection "
           f"grids {GRIDS['topk_select']} (row norms, selection)")
@@ -1565,7 +1580,7 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
         launches["topk_select"], GRIDS["topk_select"])
     del gp
     # the list layouts: registers up to k = 32, shared memory past it
-    for kk in (1, 32, 256, pald_topk.MAX_K):
+    for kk in (1, 32, 256, pald_topk.LARGE_K):
         ms_kk, _ = time_ms(lambda: pald_topk.topk_select_cuda(Xg, kk), 3)
         print(f"phase 11: topk_select n={n} k={kk}: kernel {ms_kk!r} ms "
               f"(median of 3)")
@@ -1649,6 +1664,279 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
     for source in ("pald_topk", "pald_knn"):
         for kernel, resources in _build.ptxas_report(source):
             print(f"phase 11: ptxas {source}: {kernel}: {resources}")
+    return rows
+
+
+# phase 11 past k = LARGE_K (1024): the k-NN kernels' large-k variants.
+# select_cohere at the example's n = 50,000 for each of LARGE_KS; the D
+# source through cohesion(D, method="knn") at phase 3's n = 8192; a chunk
+# of two items and the block entry at n = 2100; both variants beside the
+# shared-memory layouts at k = 1024, where they are never routed.  The
+# plain versions run on a LARGE_SLAB-row slab (a (16, k, k) tile: 1 GB at
+# k = 4096).
+LARGE_KS = (1025, 2048, 4096)
+LARGE_SLAB = 16
+K_LARGE_D = 2048
+N_LARGE_CHUNK, K_LARGE_CHUNK = 2100, 2048
+
+
+@contextlib.contextmanager
+def plain_forbidden(tag):
+    """Every plain selection, gather and values version (and the dense and
+    fused plain passes) fails while the block runs: the k-NN main path
+    must stay on the kernels."""
+    from repro_torch.kernels import ops, pald_knn, pald_topk
+
+    def plain_called(*a, **kw):
+        fail(f"{tag}: a plain torch version ran on the k-NN main path")
+
+    patched = [(ops, "topk_select_torch"), (ops, "knn_values_torch"),
+               (ops, "_gather_tiles"), (pald_topk, "topk_select_torch"),
+               (pald_knn, "knn_values_torch"),
+               (pald_knn, "knn_values_from_features_torch"),
+               (pald_knn, "knn_values_from_distances_torch"),
+               (ops, "focus_fused_torch"), (ops, "cohesion_fused_torch"),
+               (ops, "focus_general_torch"), (ops, "cohesion_general_torch")]
+    saved = [getattr(m, a) for m, a in patched]
+    for m, a in patched:
+        setattr(m, a, plain_called)
+    try:
+        yield
+    finally:
+        for (m, a), f in zip(patched, saved):
+            setattr(m, a, f)
+
+
+@contextlib.contextmanager
+def large_variants_everywhere():
+    """Route every k to the k-NN kernels' large-k variants (for the record
+    at k = 1024 only; the wrappers never take them there)."""
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    saved = pald_topk.LARGE_K, pald_knn.LARGE_K
+    pald_topk.LARGE_K = pald_knn.LARGE_K = 0
+    try:
+        yield
+    finally:
+        pald_topk.LARGE_K, pald_knn.LARGE_K = saved
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, times):
+    """Time each call of ``module.name`` in the block with CUDA events
+    around it (appended to ``times``, ms): a kernel's time inside the
+    main path's own run."""
+    import torch
+
+    f = getattr(module, name)
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = f(*a, **kw)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, f)
+
+
+def reset_counts(*wrappers):
+    for f in wrappers:
+        f.launches = f.large_launches = f.grid_launches = 0
+
+
+def large_k_slab(tag, X, graph, vals, r0, k):
+    """Rows r0:r0+LARGE_SLAB of a select_cohere result (un-normalized)
+    against the plain versions: the graph bitwise, the values within rtol
+    1e-5, atol 1e-6.  Returns (values error, the plain selection's and
+    values' ms on the slab)."""
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    rows = (r0, r0 + LARGE_SLAB)
+    sl = slice(*rows)
+    ms_tp, gp = time_ms(lambda: pald_topk.topk_select_torch(X, k, rows=rows),
+                        1)
+    compare(f"{tag} graph indices rows {r0}:{rows[1]}", graph.indices[sl],
+            gp.indices, True)
+    compare(f"{tag} graph distances rows {r0}:{rows[1]}",
+            graph.distances[sl], gp.distances, True)
+    ms_vp, vp = time_ms(lambda: pald_knn.knn_values_from_features_torch(
+        X, gp.distances, gp.indices, block=LARGE_SLAB, row_off=r0), 1)
+    err = compare(f"{tag} values rows {r0}:{rows[1]}", vals[sl], vp, False)
+    return err, ms_tp, ms_vp
+
+
+def phase_knn_large_k(Xg, clock_mhz, card):
+    """Phase 11, past k = 1024 (module docstring): the main path through
+    the large-k variants (their launch counts, the plain versions
+    forbidden), slab checks, times and the kernels' rows."""
+    import torch
+    from repro_torch.core import knn, pald
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import ops, pald_knn, pald_topk
+
+    n, d = Xg.shape
+    sel = pald_topk.topk_select_cuda
+    val = pald_knn.knn_values_from_features_cuda
+    dsrc = pald_knn.knn_values_from_distances_cuda
+    rows = []
+
+    def row(name, src, k, ms, plain_ms, err, launched, nn=n, **extra):
+        kind = "topk_select" if name == "topk_block" else name
+        b_ms, b_by = knn_bound_ms(kind, nn, k, d, clock_mhz)
+        print(f"phase 11: {name} large-k variant n={nn} k={k} d={d}: kernel "
+              f"{ms!r} ms, plain {plain_ms!r} ms on a {LARGE_SLAB}-row slab, "
+              f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms / b_ms:.3f}, "
+              f"library: none; {card}")
+        rows.append({"name": f"{name}_large[k={k}]", "route": "cuda",
+                     "source": src, "replaces": "src/repro/kernels/"
+                     + ("pald_topk.py:181" if kind == "topk_select"
+                        else "pald_knn.py:74"),
+                     "launches": launched, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms,
+                     "plain_on": f"a {LARGE_SLAB}-row slab", "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "n": nn, "k": k,
+                     **extra})
+
+    for k in LARGE_KS:
+        reset_counts(sel, val, dsrc, pald_knn.knn_values_cuda)
+        val_ms = []  # the values kernel timed inside the main path's run
+        t0 = time.perf_counter()
+        with plain_forbidden(f"select_cohere k={k}"), \
+                timed_calls(ops, "knn_values_from_features_cuda", val_ms):
+            graph, vals = ops.select_cohere(Xg, k=k)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = [(f.launches, f.large_launches) for f in (sel, val)]
+        others = dsrc.launches + pald_knn.knn_values_cuda.launches
+        print(f"phase 11: select_cohere(X, k={k}) n={n} d={d}: {secs:.3f} s "
+              f"wall (first call at this k), launches (all, large-k "
+              f"variant): selection {launched[0]}, values {launched[1]}")
+        if launched != [(1, 1), (1, 1)] or others:
+            fail(f"select_cohere k={k} did not run the large-k variants "
+                 f"once each: {launched}, other sources {others}")
+        if (tuple(vals.shape) != (n, k + 1)
+                or not bool(torch.isfinite(vals).all())):
+            fail(f"select_cohere k={k}: values {tuple(vals.shape)}, "
+                 "non-finite entries")
+        err, ms_tp, ms_vp = large_k_slab(f"phase 11 k={k}", Xg, graph, vals,
+                                         min(30001, n - LARGE_SLAB), k)
+        # select_cohere ran the selection at this k: it is the warm-up
+        reps = 3 if k < 4096 else 1
+        ms_t, _ = time_ms(lambda: sel(Xg, k), reps, warm=False)
+        row("topk_select", "src/repro_torch/csrc/pald_topk.cuh", k, ms_t,
+            ms_tp, 0.0, 1, reps=reps)
+        row("knn_values_features", "src/repro_torch/csrc/pald_knn.cu", k,
+            val_ms[0], ms_vp, err, 1, reps=1,
+            timed="its call inside the select_cohere run")
+        del graph, vals
+
+    # the record at k = 1024: each shared-memory layout against the
+    # large-k variant on the same operands (bitwise)
+    k = pald_topk.LARGE_K
+    ms_s, gs = time_ms(lambda: sel(Xg, k), 1)
+    ms_vs, vs = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)
+    with large_variants_everywhere():
+        ms_l, gl = time_ms(lambda: sel(Xg, k), 1)
+        ms_vl, vl = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)
+    compare("phase 11 k=1024 large-k selection", gl.indices, gs.indices,
+            True)
+    compare("phase 11 k=1024 large-k values", vl, vs, True)
+    print(f"phase 11: k={k} n={n} (for the record; never routed there): "
+          f"selection shared-memory lists {ms_s!r} ms, large-k variant "
+          f"{ms_l!r} ms; values four rows a block {ms_vs!r} ms, large-k "
+          f"variant {ms_vl!r} ms; both bitwise; {card}")
+    del gs, gl, vs, vl
+
+    # the D source: cohesion(D, method="knn") on phase 3's D
+    Xd, _ = clustered_points(N_MAIN, D_MAIN, SEED)
+    D = distances_on_device(torch.as_tensor(Xd, device=Xg.device))
+    k = K_LARGE_D
+    reset_counts(dsrc, val, sel, pald_knn.knn_values_cuda)
+    t0 = time.perf_counter()
+    C = pald.cohesion(D, method="knn", k=k, normalize=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = (dsrc.launches, dsrc.large_launches)
+    if launched != (1, 1) or val.launches or sel.launches:
+        fail(f"cohesion(D, method='knn', k={k}) did not run the D source's "
+             f"large-k variant alone, once: {launched}")
+    g = knn.knn_from_distances(D, k)
+    ms_d, vd = time_ms(lambda: dsrc(D, g.distances, g.indices), 1,
+                       warm=False)
+    compare(f"phase 11 cohesion(D, method='knn', k={k}) C", C,
+            knn.scatter_dense(g, vd), True)
+    r0 = 1000
+    sl = slice(r0, r0 + LARGE_SLAB)
+    ms_dp, vp = time_ms(lambda: pald_knn.knn_values_torch(
+        g.distances[sl], knn.gather_tile_from_distances(D, g.indices[sl]),
+        g.indices[sl], row_off=r0), 1)
+    err = compare(f"phase 11 D source k={k} rows {r0}:{r0 + LARGE_SLAB}",
+                  vd[sl], vp, False)
+    print(f"phase 11: cohesion(D, method='knn', k={k}) n={N_MAIN}: "
+          f"{secs:.3f} s wall (first call), the D source's large-k variant "
+          f"once; C bitwise its scatter")
+    row("knn_values_distances", "src/repro_torch/csrc/pald_knn.cu", k, ms_d,
+        ms_dp, err, 1, nn=N_MAIN, reps=1)
+    del C, D, g, vd
+
+    # a chunk of two items and the block entry at n = 2100, k = 2048
+    n2, k = N_LARGE_CHUNK, K_LARGE_CHUNK
+    Xb = torch.stack([torch.as_tensor(make_mixture(n2, COMM_KNN, D_KNN,
+                                                   SEED + 3 + i)[0],
+                                      device=Xg.device) for i in range(2)])
+    Db = torch.stack([cdist_reference(x) for x in Xb])
+    reset_counts(sel, val, dsrc)
+    gb = sel(Xb, k)
+    vb = val(Xb, gb.distances, gb.indices, ties="ignore")
+    vdb = dsrc(Db, gb.distances, gb.indices, ties="ignore")
+    counts = [(f.launches, f.large_launches) for f in (sel, val, dsrc)]
+    if counts != [(1, 1)] * 3:
+        fail(f"chunk of 2 at k={k}: launches {counts}")
+    compare(f"chunk k={k} features vs D source", vb, vdb, True)
+    for i in range(2):
+        gi = sel(Xb[i], k)
+        compare(f"chunk k={k} item {i} graph", gb.indices[i], gi.indices,
+                True)
+        compare(f"chunk k={k} item {i} values", vb[i],
+                val(Xb[i], gi.distances, gi.indices, ties="ignore"), True)
+        compare(f"chunk k={k} item {i} D values", vdb[i],
+                dsrc(Db[i], gi.distances, gi.indices, ties="ignore"), True)
+    X0, blk = Xb[0], pald_topk.topk_block_cuda
+    reset_counts(blk)
+    parts = [blk(X0, X0[a:e], k, col_off=a)
+             for a, e in ((0, 1000), (1000, n2))]
+    launched = (blk.launches, blk.large_launches)
+    if launched != (2, 2):
+        fail(f"block entry k={k}: launches {launched}")
+    mv, mi = pald_topk.merge_pairs(
+        torch.cat([p.distances for p in parts], 1),
+        torch.cat([p.indices for p in parts], 1), k)
+    compare(f"block entry k={k} merged indices", mi, gb.indices[0], True)
+    compare(f"block entry k={k} merged distances", mv, gb.distances[0], True)
+    # the block entry over all n2 candidates (the full call's work)
+    ms_b, gbl = time_ms(lambda: blk(X0, X0, k), 3)
+    compare(f"block entry k={k} whole", gbl.indices, gb.indices[0], True)
+    ms_bp, bp = time_ms(lambda: pald_topk.topk_block_torch(
+        X0[:LARGE_SLAB], X0, k), 1)
+    compare(f"block entry k={k} rows 0:{LARGE_SLAB} vs plain", bp.indices,
+            gb.indices[0, :LARGE_SLAB], True)
+    row("topk_block", "src/repro_torch/csrc/pald_topk.cu", k, ms_b, ms_bp,
+        0.0, launched[1], nn=n2, reps=3,
+        entry="pald_topk_block_f32, all n candidates in one block; "
+              "launches: the merge check's two blocks")
+    print(f"phase 11: a chunk of 2 at n={n2}, k={k} (ignore): the selection "
+          f"and the features and D sources one launch each, each item "
+          f"bitwise alone, the sources bitwise each other; the block entry "
+          f"on candidate blocks [0, 1000) and [1000, {n2}) (fewer than k "
+          f"each), merged, bitwise the full call")
     return rows
 
 
@@ -1841,7 +2129,7 @@ def phase_tri_timing(D, launches, clock_mhz, reps=5):
     def timed(name, kernel, plain, dense):
         ms_k, out_k = time_ms(kernel, reps)
         ms_d, _ = time_ms(dense, reps)
-        ms_p, out_p = time_ms(plain, 1)
+        ms_p, out_p = time_ms(plain, 1, warm=False)  # phase 12 ran its ops
         b_ms, b_by = bound_ms(name, n, clock_mhz)
         cmp = (f", floor at the compare rate "
                f"{compare_bound_ms(name, n, clock_mhz)!r} ms")
@@ -2047,8 +2335,8 @@ def phase_guard(dev, n=1024):
     import warnings
 
     import torch
-    from repro_torch.core import pald, resilience
-    from repro_torch.kernels import ops, pald_topk
+    from repro_torch.core import knn, pald, resilience
+    from repro_torch.kernels import ops, pald_knn, pald_topk
     from repro_torch.testing import faults
 
     X, _ = clustered_points(n, D_MAIN, SEED + 16)
@@ -2141,32 +2429,34 @@ def phase_guard(dev, n=1024):
           f"{ms_k!r} ms")
     del Xg, g, gc
 
-    # k past the k-NN kernels' limit
+    # k past 1024: the k-NN kernels' large-k variants, under either setting
     Xs, _ = make_mixture(2100, COMM_KNN, D_KNN, SEED + 1)
     Xs = torch.as_tensor(Xs, device=dev)
-    kw = dict(k=2 * pald_topk.MAX_K, block=32)
-    try:
-        pald.from_features(Xs, **kw)
-    except ValueError as exc:
-        raised = str(exc)
-    else:
-        fail("phase 16: k=2048 under on_error='raise' did not raise")
-    p = pald.plan(Xs, kind="features", on_error="fallback", **kw)
-    try:
-        p.execute(Xs)
-    except resilience.FallbackExhausted as exc:
-        exhausted = str(exc)
-        if not isinstance(exc.__cause__, ValueError):
-            fail(f"phase 16: k=2048: exhausted from {exc.__cause__!r}")
-    else:
-        fail("phase 16: k=2048 under on_error='fallback' answered off the "
-             "kernels")
-    if p.explain()["degradations"] or "select:chunked: FallbackUnavailable" \
-            not in exhausted:
-        fail(f"phase 16: k=2048: {exhausted}")
-    print(f"phase 16: from_features(X, k={kw['k']}) n={Xs.shape[0]}: "
-          f"'raise' raised ValueError ({raised[:60]}...); 'fallback' ended "
-          f"in FallbackExhausted, no plain rung on the card")
+    k = 2 * pald_topk.LARGE_K
+    wrappers = (pald_topk.topk_select_cuda,
+                pald_knn.knn_values_from_features_cuda)
+    Cs = {}
+    for on_error in ("raise", "fallback"):
+        reset_counts(*wrappers)
+        p = pald.plan(Xs, kind="features", k=k, block=32, on_error=on_error,
+                      normalize=False)
+        with plain_forbidden(f"phase 16 k={k} {on_error}"):
+            Cs[on_error] = p.execute(Xs)
+        got = [(f.launches, f.large_launches) for f in wrappers]
+        if got != [(1, 1), (1, 1)] or p.explain()["degradations"]:
+            fail(f"phase 16: k={k} under on_error={on_error!r}: launches "
+                 f"{got}, degradations {p.explain()['degradations']}")
+    compare(f"phase 16 k={k} fallback plan vs raise plan", Cs["fallback"],
+            Cs["raise"], True)
+    graph, vals = ops.select_cohere(Xs, k=k)
+    compare(f"phase 16 k={k} C", Cs["raise"], knn.scatter_dense(graph, vals),
+            True)
+    err, _, _ = large_k_slab(f"phase 16 k={k}", Xs, graph, vals, 1000, k)
+    print(f"phase 16: from_features(X, k={k}) n={Xs.shape[0]}: 'raise' and "
+          f"'fallback' answer on the large-k variants (one launch of each, "
+          f"no degradation), C bitwise each other and select_cohere's "
+          f"scatter; rows 1000:{1000 + LARGE_SLAB}: graph bitwise, values "
+          f"max |err| {err!r} against the plain versions")
     torch.cuda.empty_cache()
 
 
@@ -3697,14 +3987,14 @@ def phase_train_full(dev, card):
 SHARD_ARCH, SHARD_LAYERS = "gemma2-2b", 4
 SHARD_MESH = ((2, 2), ("data", "model"))
 ZERO3_MESH = ((2, 2, 2), ("pod", "data", "model"))
-SHARD_MORE_STEPS = 3        # on the repeated batch, after the gated step
+SHARD_MORE_STEPS = 2        # on the repeated batch, after the gated step
 # against the single-device step in as many microbatches as data ranks
 # (the same rows per matmul): the loss within rtol 1e-6, each gradient
 # block within one bfloat16 rounding of its leaf's largest; against one
 # microbatch, phase 26's gates (MICRO_*)
 SHARD_LOSS_RTOL = 1e-6
 SHARD_GRAD_TOL = 2.0 ** -8
-# step 4 resumed on (1, 2) against the uninterrupted (2, 2) world's: one
+# step 3 resumed on (1, 2) against the uninterrupted (2, 2) world's: one
 # data rank runs the rows of two
 RESUME_LOSS_RTOL = 1e-3
 SHARD_DRIVER_TIMEOUT_S = 300.0
@@ -4030,7 +4320,7 @@ def phase_sharded_train(dev, card):
               f"written for the ranks; {time.perf_counter() - t0:.1f} s; "
               f"device memory held after: {torch.cuda.memory_allocated()} B")
 
-        # (b) the (2, 2) world: the gated step, 3 more, a save, step 4
+        # (b) the (2, 2) world: the gated step, 2 more, a save, step 3
         t0 = time.perf_counter()
         w = World(p, device="cuda", timeout=WORLD_DEADLINE)
         with w:
@@ -4067,7 +4357,7 @@ def phase_sharded_train(dev, card):
                   f"({o['peak'] / terms:.4f}x); sharded save "
                   f"{o['save_s']:.1f} s; {card}")
         loss4 = outs[0]["next"]["loss"]
-        _finite_metrics("(b) step 4", outs[0]["next"])
+        _finite_metrics(f"(b) step {SHARD_MORE_STEPS + 1}", outs[0]["next"])
 
         # (f) one NCCL rank on (1, 1): (a)'s step bitwise
         nmesh = MeshSpec((1, 1), ("data", "model"))
@@ -4119,7 +4409,8 @@ def phase_sharded_train(dev, card):
             routs = w.run(rank_resume, rmesh, cfg, B, S, ckpt)
         _closed(w, 27)
         for o in routs:
-            _finite_metrics("(d) resumed step 4", o["next"])
+            _finite_metrics(f"(d) resumed step {SHARD_MORE_STEPS + 1}",
+                            o["next"])
             if o["restored"] != SHARD_MORE_STEPS or o["bad"]:
                 fail(f"(d): rank {o['rank']} restored step {o['restored']}, "
                      f"blocks not bitwise: {o['bad']}")
@@ -4128,12 +4419,13 @@ def phase_sharded_train(dev, card):
               f"choose_mesh(2, target_model=2) = {rmesh.shape} over "
               f"{rmesh.axes}: {routs[0]['leaves']} leaves, every block "
               f"bitwise its slice of the saved leaf (restore "
-              f"{max(o['load_s'] for o in routs):.1f} s); step 4 loss "
+              f"{max(o['load_s'] for o in routs):.1f} s); step "
+              f"{SHARD_MORE_STEPS + 1} loss "
               f"{routs[0]['next']['loss']!r} against the uninterrupted "
               f"world's {loss4!r} (rel {rel!r}, tolerance "
               f"{RESUME_LOSS_RTOL}); {time.perf_counter() - t0:.1f} s")
         if rel > RESUME_LOSS_RTOL:
-            fail(f"(d): resumed step 4 loss rel {rel!r}")
+            fail(f"(d): resumed step {SHARD_MORE_STEPS + 1} loss rel {rel!r}")
         shutil.rmtree(ckpt, ignore_errors=True)
 
         # (e) the driver in a fresh --ckpt-dir, then a restart
@@ -4517,7 +4809,8 @@ def phase_user_functionals(dev, card, clock_mhz, build, kernels):
     from repro_torch.core import pald, resilience
     from repro_torch.core import weights as tw
     from repro_torch.core.features import cdist_reference
-    from repro_torch.kernels import _build, ops, pald_fused, pald_knn
+    from repro_torch.kernels import (_build, ops, pald_fused, pald_knn,
+                                     pald_topk)
     from repro_torch.kernels.ref import weights_ref
 
     res = build.join()
@@ -4754,6 +5047,43 @@ def phase_user_functionals(dev, card, clock_mhz, build, kernels):
         knn_bound_ms("knn_values_distances", n, K_KNN, D_KNN, clock_mhz))
     del D, g, vk, vp
 
+    # the values kernel's large-k variant with compiled functors: n = 2100,
+    # k = 2048, the features and D sources; the ignore and soft clones
+    # bitwise their built-ins, the smooth one on a slab against its plain
+    # version
+    nl, kl = N_LARGE_CHUNK, K_LARGE_CHUNK
+    Xl = torch.as_tensor(make_mixture(nl, COMM_KNN, D_KNN, SEED + 29)[0],
+                         device=dev)
+    Dl = cdist_reference(Xl)
+    gl = pald_topk.topk_select_cuda(Xl, kl)
+    dn, idx = gl.distances, gl.indices
+    sources = ((pald_knn.knn_values_from_features_cuda, Xl),
+               (pald_knn.knn_values_from_distances_cuda, Dl))
+    for base in ("ignore", "soft", "smooth"):
+        u = users[base]
+        for src, x in sources:
+            before = src.large_launches
+            v = src(x, dn, idx, ties=u)
+            if src.large_launches != before + 1:
+                fail(f"phase 29: {src.__name__} {u.name} k={kl} did not run "
+                     "the large-k variant")
+            if base != "smooth":
+                compare(f"phase 29 {src.__name__} {u.name} k={kl}", v,
+                        src(x, dn, idx, ties=base), True)
+        if base == "smooth":
+            r0 = 1000
+            sl = slice(r0, r0 + LARGE_SLAB)
+            err = compare(
+                f"phase 29 {u.name} k={kl} rows {r0}:{r0 + LARGE_SLAB}",
+                v[sl], pald_knn.knn_values_torch(
+                    dn[sl], tknn.gather_tile_from_distances(Dl, idx[sl]),
+                    idx[sl], ties=u, row_off=r0), False)
+    print(f"phase 29: the values kernel's large-k variant at n={nl}, k={kl}:"
+          f" the ignore and soft clones bitwise their built-ins (features "
+          f"and D sources); {u.name} max |err| {err!r} on a {LARGE_SLAB}-row "
+          f"slab against its plain version")
+    del Xl, Dl, gl, dn, idx, v
+
     # phase 17's chunk cells with harsh: one launch of each kernel a chunk
     items, nc = CHUNK_CELLS[0]
     Db = _stack_distances(items, nc, dev, SEED + 290)
@@ -4892,6 +5222,7 @@ def run_phases() -> int:
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += phase_knn_timing(Xk, graph, launches, clock_mhz)
+    kernels += phase_knn_large_k(Xk, clock_mhz, card)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     del Xk, graph
     t0 = time.perf_counter()

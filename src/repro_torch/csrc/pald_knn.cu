@@ -66,6 +66,30 @@
 // version, so the smooth families' U (and every value) agree to rounding,
 // and the exact families' U bitwise.  64-bit offsets (n k^2 passes 2^31 at
 // k = 32 past n = 2.1e6).
+//
+// Past k = kLargeK = 1024, the large-k variant (every source, one item or
+// a chunk; values_passes_big and the *_big_kernel entries, beside the
+// kernels of k <= 1024, which it leaves as they are).  A row's dn, W and
+// idx (12 B k) no longer fit four rows to a block in shared memory for
+// every k, so the row's state leaves it: dn and idx are read where they
+// lie (read-only, through L1/L2), and W (and the features source's k
+// norms) go to a global scratch of 2 k float32 a block that the wrapper
+// allocates.  A grid has at most kBigGrid row blocks (each takes rows
+// blockIdx.x, + gridDim.x, ...), so the scratch is 8 KB k an item at most
+// (32 MB at k = 4096): that bounds the variant's peak above its outputs.
+// All kBigWarps warps of a block work on its one row: pass 1 deals the
+// pairs j to the warps in turn (each U[j] still one warp's sum), warp 0
+// sums the self column, and pass 2 deals the column groups m0 to the
+// warps; a block barrier parts the passes.  Each value is the same
+// expression in the same order as in the one-warp rows, so the variant
+// gives their bits at every k.  One row a block also keeps the row's
+// working set (its neighbor rows, dn, idx, W) in one SM's L1.  The
+// features source stages the row's k neighbor feature rows in shared
+// memory while they fit in kBigStageBytes (192 KB: k <= 5461 at d = 8),
+// conflict-free at an odd pitch, and reads them from X otherwise; the
+// cube and D sources use no shared memory.  What bounds it: operations,
+// above all the features source's pairs, each tile entry recomputed where
+// a pass reads it (2 k^2 (2d + 4) a row against the passes' 7 k (k+1)).
 #include <cstdint>
 
 #include "pald_dist.cuh"
@@ -78,10 +102,14 @@ using pald::Params;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxK = 1024;
+constexpr int kLargeK = 1024;          // past it the large-k variant
 constexpr int kTileMaxK = 64;          // the k x k tile in shared memory
 constexpr int kStageBytes = 16 << 10;  // neighbor rows staged per warp
 constexpr int64_t kMaxItems = 65535;   // items of one grid (gridDim.y)
+constexpr int kBigWarps = 32;          // large-k: the warps on one row
+constexpr int kBigThreads = 32 * kBigWarps;
+constexpr int kBigGrid = 1024;         // large-k: row blocks of a grid
+constexpr int kBigStageBytes = 192 << 10;  // large-k: staged neighbor rows
 
 // the support of z for the pair (x, y): the functional's own, or for a
 // functional with a share (F::kHasShare: soft, a user functional that
@@ -338,6 +366,198 @@ knn_feat_kernel(const float* __restrict__ dn, const float* __restrict__ X,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the large-k variant (k > kLargeK): every warp of a block on one row
+// ---------------------------------------------------------------------------
+// Row x's state where it lies: dn and idx in place, W in the block's
+// scratch
+struct BigRow {
+  const float* sd;
+  float* sw;
+  const int* si;
+};
+
+// this block's 2 k floats of the scratch: W, then the features source's
+// norms
+__device__ __forceinline__ float* block_scratch(float* scratch, int k) {
+  return scratch +
+         (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 2 * k;
+}
+
+// The block's rows blockIdx.x, blockIdx.x + gridDim.x, ..., each run by
+// body(x) with every warp, a barrier after each (its scratch and staging
+// are then free for the next).
+template <class Body>
+__device__ __forceinline__ void each_big_row(int64_t n, Body&& body) {
+  for (int64_t x = blockIdx.x; x < n; x += gridDim.x) {
+    body(x);
+    __syncthreads();
+  }
+}
+
+// values_passes by the kBigWarps warps of a block on row x: pass 1 deals
+// the pairs j to the warps in turn (each U[j] still one warp's sum over m
+// = lane, lane + 32, ..., then warp_sum), warp 0 sums the self column,
+// and pass 2 deals the column groups m0 to the warps (each column's
+// two-level sum over j in order).  Every value is values_passes's
+// expression in its order, so the two give the same bits.
+template <class F, class Get>
+__device__ __forceinline__ void values_passes_big(const Get& get,
+                                                  const BigRow& r,
+                                                  int64_t x, int64_t gx,
+                                                  int k, int lane, int warp,
+                                                  const Params& p,
+                                                  float* out) {
+  const float* sd = r.sd;
+  float* sw = r.sw;
+  const int* si = r.si;
+  // pass 1: U[j] and W[j] for every pair (x, nbr_j)
+  for (int j = warp; j < k; j += kBigWarps) {
+    const float dxy = sd[j];
+    float part = 0.f;
+    for (int m = lane; m < k; m += 32)
+      part = __fadd_rn(part, F::focus(sd[m], get(j, m), dxy, p));
+    const float u = __fadd_rn(F::focus(0.f, dxy, dxy, p), warp_sum(part));
+    if (lane == 0) sw[j] = u > 0.f ? __fdiv_rn(1.f, u) : 0.f;
+  }
+  __syncthreads();
+
+  float* ox = out + x * static_cast<int64_t>(k + 1);
+  if (warp == 0) {  // the self column: z = x, one term per pair
+    float part = 0.f;
+    for (int j = lane; j < k; j += 32) {
+      const float dxy = sd[j];
+      const bool ow = gx > si[j];
+      part = __fadd_rn(
+          part, __fmul_rn(KnnSupport<F>::eval(0.f, dxy, dxy, ow, p), sw[j]));
+    }
+    const float self = warp_sum(part);
+    if (lane == 0) ox[0] = self;
+  }
+
+  // pass 2: the neighbor columns z = nbr_m, lane l taking m = m0 + l
+  for (int m0 = 32 * warp; m0 < k; m0 += 32 * kBigWarps) {
+    const int m = m0 + lane;
+    if (m >= k) break;
+    const float dxz = sd[m];
+    float total = 0.f, acc = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const float t =
+          KnnSupport<F>::eval(dxz, get(j, m), sd[j], gx > si[j], p);
+      acc = __fadd_rn(acc, __fmul_rn(t, sw[j]));
+      if ((j & 31) == 31) {
+        total = __fadd_rn(total, acc);
+        acc = 0.f;
+      }
+    }
+    ox[1 + m] = __fadd_rn(total, acc);
+  }
+}
+
+// source 1, large k: the gathered cube g (n, k, k)
+template <class F>
+__global__ void __launch_bounds__(kBigThreads)
+knn_cube_big_kernel(const float* __restrict__ dn,
+                    const float* __restrict__ g,
+                    const int* __restrict__ idx, float* __restrict__ out,
+                    int64_t n, int k, float* scratch, Params p) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float* sw = block_scratch(scratch, k);
+  each_big_row(n, [&](int64_t x) {
+    const float* gx = g + x * static_cast<int64_t>(k) * k;
+    values_passes_big<F>(
+        [&](int j, int m) { return gx[static_cast<int64_t>(j) * k + m]; },
+        BigRow{dn + x * k, sw, idx + x * k}, x, x, k, lane, warp, p, out);
+  });
+}
+
+// source 2, large k: D (ldd columns), D[idx_j, idx_m]; item y's D
+// dstride elements past the previous item's
+template <class F, bool kChunk>
+__global__ void __launch_bounds__(kBigThreads)
+knn_dist_big_kernel(const float* __restrict__ dn,
+                    const float* __restrict__ D, int64_t ldd,
+                    int64_t dstride, const int* __restrict__ idx,
+                    float* __restrict__ out, int64_t n, int k,
+                    float* scratch, Params p) {
+  if constexpr (kChunk) {  // this block's item of the chunk
+    const int64_t item = blockIdx.y;
+    dn += item * n * k;
+    idx += item * n * k;
+    out += item * n * (k + 1);
+    D += item * dstride;
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float* sw = block_scratch(scratch, k);
+  each_big_row(n, [&](int64_t x) {
+    const int* si = idx + x * k;
+    values_passes_big<F>(
+        [&](int j, int m) {
+          return __ldg(D + static_cast<int64_t>(si[j]) * ldd + si[m]);
+        },
+        BigRow{dn + x * k, sw, si}, x, x, k, lane, warp, p, out);
+  });
+}
+
+// source 3, large k: the neighbors' feature rows (nbr: the (n, k, d)
+// block), as knn_feat_kernel without the tile: the row's k neighbor rows
+// staged in shared memory (fpitch > 0: k * fpitch floats a block) or read
+// from X, their norms beside W in the block's scratch.
+template <class F, bool kChunk>
+__global__ void __launch_bounds__(kBigThreads)
+knn_feat_big_kernel(const float* __restrict__ dn,
+                    const float* __restrict__ X, int64_t d, int64_t xstride,
+                    const int* __restrict__ idx, float* __restrict__ out,
+                    int64_t n, int k, int metric, int fpitch,
+                    int64_t row_off, bool nbr, float* scratch, Params p) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kChunk) {  // this block's item of the chunk
+    const int64_t item = blockIdx.y;
+    dn += item * n * k;
+    idx += item * n * k;
+    out += item * n * (k + 1);
+    X += item * xstride;
+  }
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* sw = block_scratch(scratch, k);
+  float* snrm = sw + k;
+  float* sf = smem;
+  each_big_row(n, [&](int64_t x) {
+    const int* si = idx + x * k;
+    auto src = [&](int j) -> const float* {
+      return X + (nbr ? x * k + j : static_cast<int64_t>(si[j])) * d;
+    };
+    if (fpitch > 0) {
+      const int dd = static_cast<int>(d);  // k d <= kBigStageBytes / 4
+      for (int e = tid; e < k * dd; e += kBigThreads) {
+        const int j = e / dd, f = e - j * dd;
+        sf[j * fpitch + f] = src(j)[f];
+      }
+      __syncthreads();
+    }
+    auto feats = [&](int j) -> const float* {
+      return fpitch > 0 ? sf + j * fpitch : src(j);
+    };
+    // the neighbors' norms, as knn_feat_kernel's
+    for (int j = tid; j < k; j += kBigThreads) {
+      const float* fj = feats(j);
+      float s = 0.f;
+      if (metric != pald::kManhattan)
+        for (int64_t f = 0; f < d; ++f)
+          s = Dist<pald::kSqEuclidean>::step(s, fj[f], fj[f]);
+      snrm[j] = metric == pald::kCosine ? Dist<pald::kCosine>::norm(s) : s;
+    }
+    __syncthreads();
+    values_passes_big<F>(
+        [&](int a, int c) {  // d(nbr_a, nbr_c): exactly 0 for one index
+          if (si[a] == si[c]) return 0.f;
+          return metric_dist(metric, feats(a), feats(c), d, snrm[a],
+                             snrm[c]);
+        },
+        BigRow{dn + x * k, sw, si}, x, row_off + x, k, lane, warp, p, out);
+  });
+}
+
 template <class Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -349,6 +569,19 @@ unsigned row_blocks(int64_t n) {
   return static_cast<unsigned>((n + kWarps - 1) / kWarps);
 }
 
+// the row blocks of a grid: four rows a block, or (big) one row a block
+// in turn, at most kBigGrid blocks
+unsigned grid_rows(int64_t n, bool big) {
+  return big ? static_cast<unsigned>(n < kBigGrid ? n : kBigGrid)
+             : row_blocks(n);
+}
+
+// the shared memory of a block of the cube and D sources: four rows' dn,
+// W and idx (none in the large-k variant)
+size_t state_bytes(int k, bool big) {
+  return big ? 0 : size_t(kWarps) * 3 * k * sizeof(float);
+}
+
 struct CubeLaunch {
   const float* dn;
   const float* g;
@@ -356,12 +589,18 @@ struct CubeLaunch {
   float* out;
   int64_t n;
   int k;
+  float* scratch;
   Params p;
   cudaStream_t stream;
 
   template <class F>
   int operator()() const {
-    const size_t smem = size_t(kWarps) * 3 * k * sizeof(float);
+    if (scratch != nullptr) {  // the large-k variant
+      knn_cube_big_kernel<F><<<grid_rows(n, true), kBigThreads, 0,
+                               stream>>>(dn, g, idx, out, n, k, scratch, p);
+      return static_cast<int>(cudaGetLastError());
+    }
+    const size_t smem = state_bytes(k, false);
     const int st = set_smem(knn_cube_kernel<F>, smem);
     if (st != 0) return st;
     knn_cube_kernel<F><<<row_blocks(n), kThreads, smem, stream>>>(
@@ -371,12 +610,13 @@ struct CubeLaunch {
 };
 
 // launch(grid, i0) for each group of up to kMaxItems items of a chunk,
-// starting at item i0: grid (row_blocks(n), the group's items)
+// starting at item i0: grid (grid_rows(n, big), the group's items).  The
+// groups run in turn on one stream, so a large-k scratch serves them all.
 template <class Launch>
-int item_grids(int64_t n, int64_t items, Launch&& launch) {
+int item_grids(int64_t n, int64_t items, bool big, Launch&& launch) {
   for (int64_t i0 = 0; i0 < items; i0 += kMaxItems) {
     const int64_t b = items - i0 < kMaxItems ? items - i0 : kMaxItems;
-    launch(dim3(row_blocks(n), static_cast<unsigned>(b)), i0);
+    launch(dim3(grid_rows(n, big), static_cast<unsigned>(b)), i0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -392,17 +632,28 @@ struct DistLaunch {
   int64_t n;
   int k;
   int64_t items;
+  float* scratch;
   Params p;
   cudaStream_t stream;
 
   template <class F>
   int operator()() const {
-    const size_t smem = size_t(kWarps) * 3 * k * sizeof(float);
+    if (scratch != nullptr) {  // the large-k variant
+      const auto kern = items > 1 ? knn_dist_big_kernel<F, true>
+                                  : knn_dist_big_kernel<F, false>;
+      return item_grids(n, items, true, [&](dim3 grid, int64_t i0) {
+        const int64_t e = i0 * n * k;
+        kern<<<grid, kBigThreads, 0, stream>>>(
+            dn + e, D + i0 * dstride, ldd, dstride, idx + e,
+            out + i0 * n * (k + 1), n, k, scratch, p);
+      });
+    }
+    const size_t smem = state_bytes(k, false);
     const auto kern =
         items > 1 ? knn_dist_kernel<F, true> : knn_dist_kernel<F, false>;
     const int st = set_smem(kern, smem);
     if (st != 0) return st;
-    return item_grids(n, items, [&](dim3 grid, int64_t i0) {
+    return item_grids(n, items, false, [&](dim3 grid, int64_t i0) {
       const int64_t e = i0 * n * k;
       kern<<<grid, kThreads, smem, stream>>>(
           dn + e, D + i0 * dstride, ldd, dstride, idx + e,
@@ -414,10 +665,14 @@ struct DistLaunch {
 // The features source's floats per warp at (k, d): dn, W, idx, norms,
 // the tile for k <= kTileMaxK, and the k staged rows when they fit in
 // kStageBytes (*fpitch their pitch, odd so that a column of staged rows
-// hits 32 banks; 0: the rows are read from X).
-int feat_layout(int k, int64_t d, int* fpitch) {
+// hits 32 banks; 0: the rows are read from X).  big: the large-k
+// variant's floats per block, the staged rows alone, while they fit in
+// kBigStageBytes.
+int feat_layout(int k, int64_t d, int* fpitch, bool big = false) {
   const int64_t fp = d | 1;
-  *fpitch = d > 0 && k * fp * 4 <= kStageBytes ? static_cast<int>(fp) : 0;
+  const int64_t room = big ? kBigStageBytes : kStageBytes;
+  *fpitch = d > 0 && k * fp * 4 <= room ? static_cast<int>(fp) : 0;
+  if (big) return k * *fpitch;
   return 4 * k + (k <= kTileMaxK ? k * tile_pitch(k) : 0) + k * *fpitch;
 }
 
@@ -433,23 +688,38 @@ struct FeatLaunch {
   int64_t row_off;
   bool nbr;
   int64_t items;
+  float* scratch;
   Params p;
   cudaStream_t stream;
 
   template <class F>
   int operator()() const {
-    const bool tile = k <= kTileMaxK;
+    const bool chunk = items > 1;
     int fpitch;
+    if (scratch != nullptr) {  // the large-k variant
+      const size_t smem = feat_layout(k, d, &fpitch, true) * sizeof(float);
+      const auto kern = chunk ? knn_feat_big_kernel<F, true>
+                              : knn_feat_big_kernel<F, false>;
+      const int st = set_smem(kern, smem);
+      if (st != 0) return st;
+      return item_grids(n, items, true, [&](dim3 grid, int64_t i0) {
+        const int64_t e = i0 * n * k;
+        kern<<<grid, kBigThreads, smem, stream>>>(
+            dn + e, X + i0 * xstride, d, xstride, idx + e,
+            out + i0 * n * (k + 1), n, k, metric, fpitch, row_off, nbr,
+            scratch, p);
+      });
+    }
+    const bool tile = k <= kTileMaxK;
     const int wstride = feat_layout(k, d, &fpitch);
     const size_t smem = size_t(kWarps) * wstride * sizeof(float);
-    const bool chunk = items > 1;
     const auto kern = tile ? (chunk ? knn_feat_kernel<true, F, true>
                                     : knn_feat_kernel<true, F, false>)
                            : (chunk ? knn_feat_kernel<false, F, true>
                                     : knn_feat_kernel<false, F, false>);
     const int st = set_smem(kern, smem);
     if (st != 0) return st;
-    return item_grids(n, items, [&](dim3 grid, int64_t i0) {
+    return item_grids(n, items, false, [&](dim3 grid, int64_t i0) {
       const int64_t e = i0 * n * k;
       kern<<<grid, kThreads, smem, stream>>>(
           dn + e, X + i0 * xstride, d, xstride, idx + e,
@@ -459,8 +729,9 @@ struct FeatLaunch {
   }
 };
 
-bool bad_shape(int64_t n, int k) {
-  return n < 1 || k < 1 || k > kMaxK ||
+// n, k in range; past kLargeK only with a scratch (the large-k variant)
+bool bad_shape(int64_t n, int k, const float* scratch) {
+  return n < 1 || k < 1 || (k > kLargeK && scratch == nullptr) ||
          (n + kWarps - 1) / kWarps > static_cast<int64_t>(0x7fffffff);
 }
 
@@ -469,16 +740,20 @@ bool bad_shape(int64_t n, int k) {
 // The sparse cohesion values out (n, k+1) float32 of the graph (dn (n, k)
 // float32, idx (n, k) int32, all row-major contiguous) for weight family
 // `wid` with parameters p0, p1, the neighbor-to-neighbor distances taken
-// from g (n, k, k) float32.  Needs n >= 1 and 1 <= k <= 1024.  Launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
-// unknown family or a shape out of range).
+// from g (n, k, k) float32.  Needs n >= 1 and k >= 1.  `scratch` non-null
+// runs the large-k variant (required past k = 1024): 2 k float32 for each
+// block of its grids, min(n, 1024) blocks times the items of a grid
+// (min(items, 65535)); null runs four rows a block.  Launches on `stream`
+// and returns cudaGetLastError() (cudaErrorInvalidValue for an unknown
+// family or a shape out of range).
 extern "C" int pald_knn_values_f32(const float* dn, const float* g,
                                    const int* idx, float* out, int64_t n,
-                                   int k, int wid, float p0, float p1,
-                                   void* stream) {
-  if (bad_shape(n, k)) return static_cast<int>(cudaErrorInvalidValue);
+                                   int k, float* scratch, int wid, float p0,
+                                   float p1, void* stream) {
+  if (bad_shape(n, k, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
-      wid, CubeLaunch{dn, g, idx, out, n, k, {p0, p1},
+      wid, CubeLaunch{dn, g, idx, out, n, k, scratch, {p0, p1},
                       static_cast<cudaStream_t>(stream)});
 }
 
@@ -488,47 +763,52 @@ extern "C" int pald_knn_values_f32(const float* dn, const float* g,
 // the (n, k, d) block of each row's neighbor rows instead.  Row x of the
 // graph has global index row_off + x (>= 0).  A chunk of `items` graphs
 // (dn, idx (items, n, k), out (items, n, k+1)) reads item i's X at X + i
-// xstride, its indices within it; one grid per 65535 items.
+// xstride, its indices within it; one grid per 65535 items.  `scratch` as
+// pald_knn_values_f32's.
 extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             int64_t d, const int* idx,
                                             float* out, int64_t n, int k,
                                             int metric, int64_t row_off,
                                             int nbr, int64_t items,
-                                            int64_t xstride, int wid,
-                                            float p0, float p1,
+                                            int64_t xstride, float* scratch,
+                                            int wid, float p0, float p1,
                                             void* stream) {
-  if (bad_shape(n, k) || d < 0 || row_off < 0 || items < 1 ||
+  if (bad_shape(n, k, scratch) || d < 0 || row_off < 0 || items < 1 ||
       xstride < 0 || metric < pald::kSqEuclidean ||
       metric > pald::kManhattan)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
       wid, FeatLaunch{dn, X, d, xstride, idx, out, n, k, metric, row_off,
-                      nbr != 0, items, {p0, p1},
+                      nbr != 0, items, scratch, {p0, p1},
                       static_cast<cudaStream_t>(stream)});
 }
 
 // The same with the distances read from D (rows of ldd float32),
 // D[idx_j, idx_m] as gather_tile_from_distances gathers them; a chunk of
-// `items` graphs reads item i's D at D + i dstride.
+// `items` graphs reads item i's D at D + i dstride.  `scratch` as
+// pald_knn_values_f32's.
 extern "C" int pald_knn_values_distances_f32(const float* dn, const float* D,
                                              int64_t ldd, const int* idx,
                                              float* out, int64_t n, int k,
                                              int64_t items, int64_t dstride,
-                                             int wid, float p0, float p1,
+                                             float* scratch, int wid,
+                                             float p0, float p1,
                                              void* stream) {
-  if (bad_shape(n, k) || ldd < 1 || items < 1 || dstride < 0)
+  if (bad_shape(n, k, scratch) || ldd < 1 || items < 1 || dstride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
-      wid, DistLaunch{dn, D, ldd, dstride, idx, out, n, k, items, {p0, p1},
-                      static_cast<cudaStream_t>(stream)});
+      wid, DistLaunch{dn, D, ldd, dstride, idx, out, n, k, items, scratch,
+                      {p0, p1}, static_cast<cudaStream_t>(stream)});
 }
 
 // The dynamic shared memory of a values block at k, in bytes, as the
-// launches set it: the features source's at width d, the cube and D
-// sources' for d < 0; -1 for a k outside 1..kMaxK.
+// launches set it (past kLargeK the large-k variant's): the features
+// source's at width d, the cube and D sources' for d < 0; -1 for k < 1.
 extern "C" int pald_knn_smem_bytes(int k, int64_t d) {
-  if (k < 1 || k > kMaxK) return -1;
+  if (k < 1) return -1;
+  const bool big = k > kLargeK;
   int fpitch;
-  const int floats = d < 0 ? 3 * k : feat_layout(k, d, &fpitch);
-  return static_cast<int>(kWarps * floats * sizeof(float));
+  if (d < 0) return static_cast<int>(state_bytes(k, big));
+  const int floats = feat_layout(k, d, &fpitch, big);
+  return static_cast<int>((big ? 1 : kWarps) * floats * sizeof(float));
 }

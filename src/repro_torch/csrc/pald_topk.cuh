@@ -14,7 +14,7 @@
 // ~3 MB of memory traffic.
 //
 // Design.  A block of 8 warps owns R = 8 TR rows (TR = 4 for k <= 32, 8
-// for k <= 128, 4 for k <= 256, 2 for k <= 1024), warp w the TR rows
+// for k <= 128, 4 for k <= 256, 2 past 256), warp w the TR rows
 // w TR.., and streams all n candidates through shared memory in chunks
 // of 128:
 //   - grid ceil(n / R): at n = 50,000 and k <= 32, 1563 blocks for 528
@@ -47,6 +47,19 @@
 //     passing candidates of the chunk (up to 128) are gathered, sorted by
 //     rank and merged into the list in one pass (merge_batch: every
 //     entry's new place by a binary search in the other sequence).
+// Past k = kLargeK = 1024 (kGlobal, the large-k variant) no layout of
+// lists fits the 227 KB of shared memory (8 B k a row: 16 rows a block
+// pass it from k = 1067 past 64 features), so each row's list lives in its
+// own (k) slice of the output arrays in device memory, written there as
+// (+inf, kSentinel) sentinels first and merged in place by the same
+// merge_batch (binary searches in the list, the tail moved down from the
+// end, the entries pushed past k dropped): the list is read and written
+// through L1/L2, the ring, the sums, the ballots and the sorted batch stay
+// as they are, and the k-th best key stays in shared memory beside the
+// row's norm.  Until k candidates have passed, the k-th entry is a
+// sentinel and every candidate passes.  Shared memory holds no list, so
+// the block is the same at every k (smem_per_cta); the merges' list
+// traffic, up to k entries moved a merge, bounds it at large k.
 // Rows, their thresholds, lists and batches belong to one warp, so the
 // insertions need no block barrier.  Insertions are rare after the first
 // chunks (about k ln(n/k) a row on random order), so at small k the sums
@@ -89,9 +102,11 @@
 //   - self is never a candidate and indices >= n are never read, so they
 //     lose to every real candidate (the lists start as (+inf, INT32_MAX)
 //     sentinels, which any real candidate beats);
-//   - k <= kMaxK = 1024; the wrapper raises beyond it.
+//   - 1 <= k <= n - 1 (the block entry: any k >= 1, sentinels past the w
+//     real candidates); the lists in shared memory up to k = kLargeK, in
+//     the outputs past it.
 // Distances are assumed not nan (finite features give none).  64-bit
-// offsets throughout; no atomics.
+// offsets throughout (n k passes 2^31 at n = 10^6, k = 2148); no atomics.
 #pragma once
 
 #include <cstdint>
@@ -112,7 +127,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kCand = 128;     // candidates per chunk, 4 a lane
 constexpr int kStages = 2;     // slots in the staging ring
 constexpr int kMaxFeat = 64;   // features per slot
-constexpr int kMaxK = 1024;
+constexpr int kLargeK = 1024;  // past it the lists live in the outputs
 constexpr int kSentinel = 0x7fffffff;
 constexpr int64_t kMaxItems = 65535;  // items of one grid (gridDim.y)
 
@@ -131,7 +146,8 @@ __host__ __device__ constexpr int stage_pitch(int f) {
 // the rows staged once (d <= kMaxFeat), the ring, the rows' thresholds and
 // norms, and their lists: for k <= 32 where each lane keeps its entry
 // between chunks (32 a row), past 32 the lists and each warp's batch (two
-// of kCand entries: as found, and sorted).
+// of kCand entries: as found, and sorted); with the lists in the outputs
+// (global, the large-k variant) the batches alone.
 struct Layout {
   int kd;         // features per slot
   int parts;      // slots per chunk of candidates
@@ -145,16 +161,19 @@ struct Layout {
     rows = parts == 1 ? R * pitch : 0;
     slot = kCand * pitch + kCand + (parts == 1 ? 0 : R * pitch);
   }
-  __host__ __device__ size_t bytes(int R, int k) const {
+  __host__ __device__ size_t bytes(int R, int k, bool global = false) const {
+    const size_t batches = size_t(kWarps) * kCand * 16;
     return sizeof(float) * (size_t(rows) + size_t(kStages) * slot + 4 * R) +
-           (k <= 32 ? size_t(R) * 32 * 8
-                    : size_t(R) * k * 8 + size_t(kWarps) * kCand * 16);
+           (global    ? batches
+            : k <= 32 ? size_t(R) * 32 * 8
+                      : size_t(R) * k * 8 + batches);
   }
 };
 
 // TR, the rows of each warp at k (a block holds kWarps * TR rows): four
 // with the lists in registers (k <= 32) at four blocks an SM, past that
-// as many as two blocks an SM hold in shared memory
+// as many as two blocks an SM hold in shared memory; past kLargeK two, the
+// merges' list traffic spread over as many warps as k <= 1024's
 constexpr int warp_rows(int k) {
   return k <= 32 ? 4 : k <= 128 ? 8 : k <= 256 ? 4 : 2;
 }
@@ -297,11 +316,13 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* x,
   }
 }
 
-// kRegs: k <= 32, each warp keeps its rows' lists in registers
+// kRegs: k <= 32, each warp keeps its rows' lists in registers; kGlobal:
+// the large-k variant, each row's list in its slice of out_v / out_i (its
+// code only in the kGlobal branches: the other layouts compile as before)
 // Rows [0, m) of xr (global index rg0 + row) against the w candidates of
 // xc (global index cg0 + col); nr, nc their norm terms.  The full call
 // passes X as both, n as m and w, and 0 as both offsets.
-template <int M, int TR, bool kRegs, bool kChunk>
+template <int M, int TR, bool kRegs, bool kChunk, bool kGlobal = false>
 __global__ void __launch_bounds__(kThreads, kRegs ? 4 : 2)
 topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
             const float* __restrict__ nr, const float* __restrict__ nc,
@@ -339,6 +360,7 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   float* bv = reinterpret_cast<float*>(li_all + R * (kRegs ? 32 : k)) +
               warp * kCand * 4;                  // !kRegs: the batch
+  if constexpr (kGlobal) bv = lv_all + warp * kCand * 4;  // no lists here
   int* bi = reinterpret_cast<int*>(bv + kCand);
   float* sv = bv + 2 * kCand;                    // and sorted
   int* sidx = reinterpret_cast<int*>(bv + 3 * kCand);
@@ -358,9 +380,20 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   // in registers while the warp works on its row, in shared memory
   // between chunks)
   const int lk = kRegs ? 32 : k;
-  for (int e = lane; e < TR * lk; e += 32) {
-    lv_all[warp * TR * lk + e] = inf;
-    li_all[warp * TR * lk + e] = kSentinel;
+  if constexpr (kGlobal) {  // the rows' slices of the outputs
+    for (int a = 0; a < TR; ++a) {
+      const int64_t row = r0 + warp * TR + a;
+      if (row >= m) break;
+      for (int e = lane; e < k; e += 32) {
+        out_v[row * k + e] = inf;
+        out_i[row * k + e] = kSentinel;
+      }
+    }
+  } else {
+    for (int e = lane; e < TR * lk; e += 32) {
+      lv_all[warp * TR * lk + e] = inf;
+      li_all[warp * TR * lk + e] = kSentinel;
+    }
   }
   if (lane < TR) {  // a row past m: a bound no pair meets
     const int64_t row = r0 + warp * TR + lane;
@@ -542,9 +575,15 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
           li_all[lr * 32 + lane] = ri;
         } else {
           __syncwarp();
-          if (cnt)
-            merge_batch(lv_all + lr * k, li_all + lr * k, k, bv, bi, sv,
-                        sidx, cnt, lane, tva, tia);
+          if constexpr (kGlobal) {
+            if (cnt)
+              merge_batch(out_v + row * k, out_i + row * k, k, bv, bi, sv,
+                          sidx, cnt, lane, tva, tia);
+          } else {
+            if (cnt)
+              merge_batch(lv_all + lr * k, li_all + lr * k, k, bv, bi, sv,
+                          sidx, cnt, lane, tva, tia);
+          }
         }
         __syncwarp();
         if (lane == 0) {
@@ -562,6 +601,7 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   }
   cp_async_wait<0>();
 
+  if constexpr (kGlobal) return;  // the lists are the outputs already
   __syncwarp();
   for (int a = 0; a < TR; ++a) {
     const int lr = warp * TR + a;
@@ -588,13 +628,14 @@ struct Operands {
   int k;
   bool vec;
   int64_t items;
+  bool large;  // the large-k variant (lists in the outputs)
 };
 
-template <int M, int TR, bool kRegs, bool kChunk>
+template <int M, int TR, bool kRegs, bool kChunk, bool kGlobal = false>
 int launch_rows(const Operands& o, cudaStream_t stream) {
   constexpr int R = kWarps * TR;
-  const size_t smem = Layout(o.d, R).bytes(R, o.k);
-  const auto kernel = topk_kernel<M, TR, kRegs, kChunk>;
+  const size_t smem = Layout(o.d, R).bytes(R, o.k, kGlobal);
+  const auto kernel = topk_kernel<M, TR, kRegs, kChunk, kGlobal>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -628,13 +669,16 @@ struct TopkPerMetric {
       status = pald::launch_row_norms<M>(o.xr, o.nr, o.items * o.m, o.d,
                                          stream);
     if (status != 0) return status;
+    if (o.large)
+      return launch_rows<M, warp_rows(kLargeK), false, kChunk, true>(o,
+                                                                     stream);
     if (o.k <= 32)
       return launch_rows<M, warp_rows(32), true, kChunk>(o, stream);
     if (o.k <= 128)
       return launch_rows<M, warp_rows(128), false, kChunk>(o, stream);
     if (o.k <= 256)
       return launch_rows<M, warp_rows(256), false, kChunk>(o, stream);
-    return launch_rows<M, warp_rows(kMaxK), false, kChunk>(o, stream);
+    return launch_rows<M, warp_rows(kLargeK), false, kChunk>(o, stream);
   }
 };
 
@@ -649,19 +693,21 @@ inline bool aligned16(const float* p) {
 // (n, k) int32, each row ascending by (distance, index); for `items` such
 // X (items, n, d), one after another, the (items, n, k) outputs of each
 // item on its own, in one grid per 65535 items.  `norms` is an (items, n)
-// float32 scratch buffer.  Needs 1 <= k <= min(n - 1, 1024), n < 2^31 and
-// items >= 1.  Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unknown metric or a shape out of range).
+// float32 scratch buffer.  Needs 1 <= k <= n - 1, n < 2^31 and items >= 1;
+// `large` (required past kLargeK) runs the large-k variant.  Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unknown metric or a shape out of range).
 // kChunk: the kernel's chunk variant, the item on blockIdx.y.
 template <bool kChunk>
 int topk(const float* x, float* norms, float* out_v, int* out_i, int64_t n,
-         int64_t d, int k, int64_t items, int metric, void* stream) {
-  if (n < 2 || d < 0 || k < 1 || k > kMaxK || k > n - 1 ||
+         int64_t d, int k, int64_t items, int large, int metric,
+         void* stream) {
+  if (n < 2 || d < 0 || k < 1 || k > n - 1 || (k > kLargeK && !large) ||
       n > static_cast<int64_t>(kSentinel) || items < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = d % 4 == 0 && aligned16(x);
   const Operands o{x, x, norms, norms, out_v, out_i, n, n, 0, 0, d, k, vec,
-                   items};
+                   items, large != 0};
   return pald::dispatch_metric(
       metric, TopkPerMetric<kChunk>{o, static_cast<cudaStream_t>(stream)});
 }

@@ -82,23 +82,24 @@ SIGNATURES = {
     "pald_dist_fused_f32": ("pald_fused",
                             (_P, _P, _P, _I64, _I64, _I64, _I32, _P)),
     "pald_topk_f32": ("pald_topk",
-                      (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)),
+                      (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P)),
     "pald_topk_chunk_f32": ("pald_topk_chunk",
                             (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32,
-                             _P)),
+                             _I32, _P)),
     "pald_topk_block_f32": ("pald_topk",
                             (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                             _I64, _I32, _I32, _P)),
+                             _I64, _I32, _I32, _I32, _P)),
     "pald_knn_values_f32": ("pald_knn",
-                            (_P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
-                             _P)),
+                            (_P, _P, _P, _P, _I64, _I32, _P, _I32, _F32,
+                             _F32, _P)),
     "pald_knn_values_features_f32": ("pald_knn",
                                      (_P, _P, _I64, _P, _P, _I64, _I32, _I32,
-                                      _I64, _I32, _I64, _I64, _I32, _F32,
+                                      _I64, _I32, _I64, _I64, _P, _I32, _F32,
                                       _F32, _P)),
     "pald_knn_values_distances_f32": ("pald_knn",
                                       (_P, _P, _I64, _P, _P, _I64, _I32,
-                                       _I64, _I64, _I32, _F32, _F32, _P)),
+                                       _I64, _I64, _P, _I32, _F32, _F32,
+                                       _P)),
     "pald_topk_smem_bytes": ("pald_topk", (_I32, _I64)),
     "pald_knn_smem_bytes": ("pald_knn", (_I32, _I64)),
     "pald_cohesion_tri_f32": ("pald_cohesion_tri",

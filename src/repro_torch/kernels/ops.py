@@ -532,12 +532,12 @@ def topk_select(X, k: int, *, metric: str = "euclidean",
     rows ascending by (distance, index), the lower index first on ties,
     self excluded; D never materialized.
 
-    impl: "cuda" (the kernel, k <= ``pald_topk.MAX_K``), "torch" (the
-    plain version, ``block`` rows per slab, and with ``tile`` < n the
-    tile-min prefilter, bitwise the direct sort), "chunked" (the guard's
-    terminal rung: ``block`` rows per slab, each synced before the next,
-    self excluded by the reference rung's rule), or None for the device's
-    default.  ``block`` / ``tile`` "auto" resolve under the
+    impl: "cuda" (the kernel at any k, past ``pald_topk.LARGE_K`` its
+    large-k variant), "torch" (the plain version, ``block`` rows per
+    slab, and with ``tile`` < n the tile-min prefilter, bitwise the
+    direct sort), "chunked" (the guard's terminal rung: ``block`` rows
+    per slab, each synced before the next, self excluded by the reference
+    rung's rule), or None for the device's default.  ``block`` / ``tile`` "auto" resolve under the
     ``pald_topk:k<k>:d<d>`` cache pass (cold: 1024 rows, tile n, direct);
     the kernel reads neither.  On the card ``impl="cuda"`` also takes a
     (b, n, d) chunk: a (b, n, k) graph from one launch.

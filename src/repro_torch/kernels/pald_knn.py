@@ -22,6 +22,13 @@ On the same g the three give bitwise the same values (one kernel body, the
 same sums in the same order).  The last two write no (n, k, k) array.  The
 source note in the ``.cu`` file has the details.
 
+Every k >= 1 runs on the card.  Up to :data:`LARGE_K` four rows share a
+block, each row's dn, W and idx in shared memory; past it the kernel's
+large-k variant runs every warp of a block on one row, dn and idx read
+where they lie and W (with the features source's norms) in a scratch of
+2 k float32 a block that the wrapper allocates (:func:`large_scratch`),
+with the same sums in the same order, so the same bits.
+
 For a shard of a distributed run (``core/distributed_knn.py``) the features
 source takes ``row_off``, the global index of its first row (the index
 tiebreak of ``needs_index_tiebreak`` functionals compares global indices),
@@ -52,9 +59,8 @@ from repro_torch.core.knn import (gather_tile_from_distances,
 from repro_torch.core.weights import DEFAULT_TIES, kernel_spec, resolve_weight
 
 from . import _build
-from .pald_focus import check_operands, item_grids
+from .pald_focus import MAX_ITEMS, check_operands, item_grids
 from .pald_fused import metric_id
-from .pald_topk import MAX_K
 
 __all__ = ["knn_values_cuda", "knn_values_torch",
            "knn_values_from_features_cuda", "knn_values_from_features_torch",
@@ -62,12 +68,17 @@ __all__ = ["knn_values_cuda", "knn_values_torch",
            "knn_values_from_neighbors_torch",
            "knn_values_from_distances_cuda",
            "knn_values_from_distances_torch", "check_indices", "tile_layout",
-           "smem_per_cta"]
+           "smem_per_cta", "large_scratch", "LARGE_K"]
 
 TILE_MAX_K = 64  # csrc/pald_knn.cu kTileMaxK: the k x k tile in shared memory
 _STAGE_BYTES = 16 << 10  # csrc/pald_knn.cu kStageBytes
 
 _WARPS = 4  # rows per thread block (csrc/pald_knn.cu: one warp per row)
+# past it the large-k variant, a block a row, its state out of shared
+# memory (csrc/pald_knn.cu kLargeK)
+LARGE_K = 1024
+_BIG_GRID = 1024  # the large-k variant's row blocks a grid (kBigGrid)
+_BIG_STAGE_BYTES = 192 << 10  # its staged neighbor rows (kBigStageBytes)
 
 
 def tile_layout(k: int, d: int) -> tuple[bool, bool]:
@@ -83,9 +94,15 @@ def smem_per_cta(k: int, d: int | None = None) -> int:
     """Shared memory of one thread block of the kernel at ``k``, in bytes:
     each of its four rows' dn, W and idx (the cube and D sources,
     ``d=None``), and for the features source at width ``d`` the norms,
-    the tile and the staged rows (csrc/pald_knn.cu ``feat_layout``).  A
-    card test holds it to the kernel's own report, the C entry
-    ``pald_knn_smem_bytes``."""
+    the tile and the staged rows (csrc/pald_knn.cu ``feat_layout``).  Past
+    :data:`LARGE_K` the large-k variant's block: the features source's k
+    staged neighbor rows while they fit in 192 KB, else nothing (the cube
+    and D sources hold nothing there either).  A card test holds it to
+    the kernel's own report, the C entry ``pald_knn_smem_bytes``."""
+    if k > LARGE_K:
+        staged = d is not None and d > 0 and k * (d | 1) * 4 <= \
+            _BIG_STAGE_BYTES
+        return 4 * k * (d | 1) if staged else 0
     if d is None:
         return _WARPS * 3 * 4 * k
     tile, staged = tile_layout(k, d)
@@ -168,14 +185,32 @@ def knn_values_from_distances_torch(D: torch.Tensor, dn: torch.Tensor,
     return out
 
 
+def large_scratch(n: int, k: int, items: int = 1) -> int:
+    """Floats of the large-k variant's scratch for a grid of ``n`` rows
+    and ``items`` items: 2 k (W and the norms) for each of its
+    min(n, 1024) row blocks an item, the items of one grid (65535 at
+    most; the grids run in turn and share it)."""
+    return 2 * k * min(n, _BIG_GRID) * min(items, MAX_ITEMS)
+
+
 def _launch(name, functor, fn_args, out, counter, items=1):
+    """Launch ``name`` with ``fn_args``, where the scratch pointer is
+    None: a scratch for the large-k variant past :data:`LARGE_K`
+    (:func:`large_scratch`), else null (four rows a block)."""
     fn = _build.load(name, functor)
     dev = out.device
+    n, k = out.shape[-2], out.shape[-1] - 1
+    large = k > LARGE_K
+    scratch = (torch.empty(large_scratch(n, k, items), dtype=torch.float32,
+                           device=dev) if large else None)
+    ptr = 0 if scratch is None else scratch.data_ptr()
+    fn_args = tuple(ptr if a is None else a for a in fn_args)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*fn_args, stream)
     _build.check(status, name)
     counter.launches += 1
+    counter.large_launches += large
     counter.grid_launches += item_grids(items)
     return out
 
@@ -204,9 +239,8 @@ def check_indices(who: str, idx: torch.Tensor, m: int) -> None:
 
 
 def _check_k(who: str, k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{who}: k={k} outside the kernel's "
-                         f"range 1..{MAX_K} (ROADMAP.md queue 3)")
+    if k < 1:
+        raise ValueError(f"{who}: k={k} < 1")
 
 
 def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
@@ -233,8 +267,8 @@ def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
     return _launch("pald_knn_values_features_f32", spec.functor,
                    (dn.data_ptr(), X.data_ptr(), shape[-1], idx.data_ptr(),
                     out.data_ptr(), n, k, mid, row_off, int(nbr), items,
-                    X[0].numel() if lead else 0, wid, p0, p1), out, counter,
-                   items)
+                    X[0].numel() if lead else 0, None, wid, p0, p1), out,
+                   counter, items)
 
 
 def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
@@ -249,12 +283,13 @@ def knn_values_from_features_cuda(X: torch.Tensor, dn: torch.Tensor,
     values from one launch.
 
     CUDA operands must be contiguous (X, dn float32; idx int32) on one
-    device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
-    weight functional that does not compile.  Allocates the output only.
+    device, with k >= 1; anything else raises, as does a weight functional
+    that does not compile.  Allocates the output (and past
+    :data:`LARGE_K` the large-k variant's scratch, :func:`large_scratch`).
     Every index must lie in [0, n_X): the kernel reads X's rows at them
     unchecked (:func:`check_indices`).  Each launch adds one to
-    ``.launches``, and its grids (one per ``MAX_ITEMS`` items) to
-    ``.grid_launches``.
+    ``.launches`` (and past :data:`LARGE_K` to ``.large_launches``), and
+    its grids (one per ``MAX_ITEMS`` items) to ``.grid_launches``.
     """
     if dn.device.type == "cpu":
         return knn_values_from_features_torch(X, dn, idx, metric=metric,
@@ -314,8 +349,8 @@ def knn_values_from_distances_cuda(D: torch.Tensor, dn: torch.Tensor,
     items = lead[0] if lead else 1
     return _launch("pald_knn_values_distances_f32", spec.functor,
                    (dn.data_ptr(), D.data_ptr(), m, idx.data_ptr(),
-                    out.data_ptr(), n, k, items, m * m, wid, p0, p1), out,
-                   knn_values_from_distances_cuda, items)
+                    out.data_ptr(), n, k, items, m * m, None, wid, p0, p1),
+                   out, knn_values_from_distances_cuda, items)
 
 
 def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
@@ -324,9 +359,10 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     :func:`knn_values_torch` for CPU tensors.
 
     CUDA operands must be contiguous (dn, g float32; idx int32) on one
-    device, with 1 <= k <= :data:`MAX_K`; anything else raises, as does a
-    weight functional that does not compile.  Each launch adds one to
-    ``knn_values_cuda.launches`` (and to ``.grid_launches``: one grid).
+    device, with k >= 1; anything else raises, as does a weight functional
+    that does not compile.  Each launch adds one to
+    ``knn_values_cuda.launches`` (past :data:`LARGE_K` also to
+    ``.large_launches``; to ``.grid_launches``: one grid).
     """
     if dn.device.type == "cpu":
         return knn_values_torch(dn, g, idx, ties=ties)
@@ -346,10 +382,10 @@ def knn_values_cuda(dn: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
         return out
     return _launch("pald_knn_values_f32", spec.functor,
                    (dn.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                    out.data_ptr(), n, k, wid, p0, p1), out, knn_values_cuda)
+                    out.data_ptr(), n, k, None, wid, p0, p1), out,
+                   knn_values_cuda)
 
 
 for _f in (knn_values_cuda, knn_values_from_features_cuda,
            knn_values_from_distances_cuda, knn_values_from_neighbors_cuda):
-    _f.launches = 0
-    _f.grid_launches = 0
+    _f.launches = _f.large_launches = _f.grid_launches = 0

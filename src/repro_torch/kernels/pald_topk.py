@@ -32,6 +32,11 @@ distributed run (``core/distributed_knn.py``) scores its rows against each
 candidate block it holds and merges the partial lists exactly on the
 (value, index) key (:func:`merge_pairs`), so its graph is bitwise the
 full call's.  Its plain version is :func:`topk_block_torch`.
+
+Every k with 1 <= k <= n - 1 runs on the card (the block entry: any
+k >= 1).  Up to :data:`LARGE_K` the lists live in shared memory; past it
+the kernel's large-k variant keeps each row's list in its slice of the
+outputs and merges into it there (``csrc/pald_topk.cuh``).
 """
 from __future__ import annotations
 
@@ -45,17 +50,19 @@ from .pald_focus import check_operands, item_grids
 from .pald_fused import metric_id, norm_grids
 
 __all__ = ["topk_select_cuda", "topk_select_torch", "topk_block_cuda",
-           "topk_block_torch", "merge_pairs", "MAX_K", "SENTINEL",
+           "topk_block_torch", "merge_pairs", "LARGE_K", "SENTINEL",
            "smem_per_cta"]
 
-MAX_K = 1024  # the largest k the kernel takes (csrc/pald_topk.cuh: kMaxK)
+# past it the large-k variant, the lists in the outputs
+# (csrc/pald_topk.cuh: kLargeK)
+LARGE_K = 1024
 SENTINEL = 2 ** 31 - 1  # the index of an empty list entry (+inf, SENTINEL)
 _CAND, _STAGES, _MAX_FEAT = 128, 2, 64  # csrc/pald_topk.cuh
 
 
 def rows_per_block(k: int) -> int:
     """R, the rows of one thread block at ``k`` (8 warps of
-    ``warp_rows(k)`` rows)."""
+    ``warp_rows(k)`` rows; 16 past 256, the large-k variant too)."""
     return 32 if k <= 32 else 64 if k <= 128 else 32 if k <= 256 else 16
 
 
@@ -69,17 +76,20 @@ def smem_per_cta(k: int, d: int | None = None) -> int:
     in bytes (csrc/pald_topk.cuh ``Layout``: the rows staged once, a ring
     of two slots of 128 candidates' features and norms, the rows'
     thresholds and norms, and R best-lists of max(k, 32) (float, int)
-    entries, past k = 32 with each warp's two batches of 128);
-    ``d=None``: the largest over every d (past 64 features, when the rows
-    ride in each slot).  A card test holds it to the kernel's own report,
-    the C entry ``pald_topk_smem_bytes``."""
+    entries, past k = 32 with each warp's two batches of 128; past
+    :data:`LARGE_K` the batches alone, the lists in the outputs: the same
+    bytes at every k); ``d=None``: the largest over every d (past 64
+    features, when the rows ride in each slot).  A card test holds it to
+    the kernel's own report, the C entry ``pald_topk_smem_bytes``."""
     r = rows_per_block(k)
     kd = _MAX_FEAT if d is None else min(d, _MAX_FEAT)
     parts_once = d is not None and d <= _MAX_FEAT
     pitch = _stage_pitch(kd)
     rows = r * pitch if parts_once else 0
     slot = _CAND * pitch + _CAND + (0 if parts_once else r * pitch)
-    lists = 8 * r * 32 if k <= 32 else 8 * r * k + 8 * _CAND * 16
+    batches = 8 * _CAND * 16
+    lists = (batches if k > LARGE_K else 8 * r * 32 if k <= 32
+             else 8 * r * k + batches)
     return 4 * (rows + _STAGES * slot + 4 * r) + lists
 
 
@@ -158,11 +168,12 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
     for a CUDA X, through :func:`topk_select_torch` for a CPU X.  On the
     card a (b, n, d) chunk gives a (b, n, k) graph from one launch.
 
-    A CUDA X must be contiguous float32 (``ops`` prepares it), and k at
-    most :data:`MAX_K`; anything else raises.  Each call that launches
-    the kernel adds one to ``topk_select_cuda.launches``, and the grids it
-    issues (the row-norm pre-pass's, then the selection's, one per
-    ``MAX_ITEMS`` items) to ``.grid_launches``.
+    A CUDA X must be contiguous float32 (``ops`` prepares it); anything
+    else raises, as does k > n - 1.  Past :data:`LARGE_K` the kernel's
+    large-k variant runs (``.large_launches`` counts it too).  Each call
+    that launches the kernel adds one to ``topk_select_cuda.launches``,
+    and the grids it issues (the row-norm pre-pass's, then the
+    selection's, one per ``MAX_ITEMS`` items) to ``.grid_launches``.
     """
     if X.device.type == "cpu":
         return topk_select_torch(X, k, metric=metric)
@@ -178,9 +189,6 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
     check_operands("topk_select_cuda", dev,
                    X=(X, lead + (n, d), torch.float32))
     check_k(k, n)
-    if k > MAX_K:
-        raise ValueError(f"topk_select_cuda: k={k} exceeds the kernel's "
-                         f"limit of {MAX_K} neighbors (ROADMAP.md queue 3)")
     if k <= 0:
         return empty_graph(n, dev, lead)
     items = lead[0] if lead else 1
@@ -194,15 +202,18 @@ def topk_select_cuda(X: torch.Tensor, k: int, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _build.load(name)(X.data_ptr(), norms.data_ptr(),
                                    dist.data_ptr(), idx.data_ptr(), n, d, k,
-                                   *more, mid, stream)
+                                   *more, int(k > LARGE_K), mid, stream)
     _build.check(status, name)
-    topk_select_cuda.launches += 1
-    topk_select_cuda.grid_launches += norm_grids(metric) + item_grids(items)
+    _count(topk_select_cuda, k, norm_grids(metric) + item_grids(items))
     return NeighborGraph(idx, dist)
 
 
-topk_select_cuda.launches = 0
-topk_select_cuda.grid_launches = 0
+def _count(wrapper, k: int, grids: int) -> None:
+    """One launch (and ``grids`` grids) of ``wrapper``'s kernel, and of
+    its large-k variant past :data:`LARGE_K`."""
+    wrapper.launches += 1
+    wrapper.large_launches += k > LARGE_K
+    wrapper.grid_launches += grids
 
 
 def merge_pairs(v: torch.Tensor, i: torch.Tensor,
@@ -266,12 +277,13 @@ def topk_block_cuda(Xr: torch.Tensor, Xc: torch.Tensor, k: int, *,
     global index ``row_off + row``, against the rows of ``Xc`` (w, d),
     global index ``col_off + col``; (m, k) lists as the plain version's.
 
-    CUDA operands must be contiguous float32 on one device, k in
-    1..:data:`MAX_K`, every global index below :data:`SENTINEL`; anything
-    else raises.  With no candidate (w = 0) the lists are all empty
-    entries and nothing is launched.  Each launch adds one to
-    ``topk_block_cuda.launches`` and its grids (the row norms of Xr and of
-    Xc, then the selection) to ``.grid_launches``.
+    CUDA operands must be contiguous float32 on one device, k >= 1 (past
+    :data:`LARGE_K` the large-k variant), every global index below
+    :data:`SENTINEL`; anything else raises.  With no candidate (w = 0) the
+    lists are all empty entries and nothing is launched.  Each launch adds
+    one to ``topk_block_cuda.launches`` (and ``.large_launches`` past
+    :data:`LARGE_K`) and its grids (the row norms of Xr and of Xc, then
+    the selection) to ``.grid_launches``.
     """
     if Xr.device.type == "cpu":
         return topk_block_torch(Xr, Xc, k, metric=metric, row_off=row_off,
@@ -283,9 +295,8 @@ def topk_block_cuda(Xr: torch.Tensor, Xc: torch.Tensor, k: int, *,
     (m, d), w = Xr.shape, Xc.shape[0]
     check_operands("topk_block_cuda", dev, Xr=(Xr, (m, d), torch.float32),
                    Xc=(Xc, (w, d), torch.float32))
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"topk_block_cuda: k={k} outside the kernel's "
-                         f"range 1..{MAX_K} (ROADMAP.md queue 3)")
+    if k < 1:
+        raise ValueError(f"topk_block_cuda: k={k} < 1")
     if (row_off < 0 or col_off < 0 or row_off + m > SENTINEL
             or col_off + w > SENTINEL):
         raise ValueError(f"topk_block_cuda: global indices [{row_off}, "
@@ -302,12 +313,11 @@ def topk_block_cuda(Xr: torch.Tensor, Xc: torch.Tensor, k: int, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(Xr.data_ptr(), Xc.data_ptr(), norms_r.data_ptr(),
                     norms_c.data_ptr(), dist.data_ptr(), idx.data_ptr(), m,
-                    w, row_off, col_off, d, k, mid, stream)
+                    w, row_off, col_off, d, k, int(k > LARGE_K), mid, stream)
     _build.check(status, "pald_topk_block_f32")
-    topk_block_cuda.launches += 1
-    topk_block_cuda.grid_launches += 2 * norm_grids(metric) + 1
+    _count(topk_block_cuda, k, 2 * norm_grids(metric) + 1)
     return NeighborGraph(idx, dist)
 
 
-topk_block_cuda.launches = 0
-topk_block_cuda.grid_launches = 0
+for _f in (topk_select_cuda, topk_block_cuda):
+    _f.launches = _f.large_launches = _f.grid_launches = 0

@@ -304,4 +304,4 @@ def test_wrappers_count_grids_of_items():
 
     assert item_grids(1) == 1 and item_grids(MAX_ITEMS) == 1
     assert item_grids(MAX_ITEMS + 2) == 2
-    assert pald_knn.MAX_K == pald_topk.MAX_K == 1024
+    assert pald_knn.LARGE_K == pald_topk.LARGE_K == 1024

@@ -29,9 +29,11 @@ gradients within 2^-8 of each leaf's largest of the single-device step in
 weights after the step within 4 lr.
 Guarded execution on the card (``on_error="fallback"``): a plan on the
 card keeps its kernels, so a dead CUDA impl ends in ``FallbackExhausted``
-on every kernel cell (each plain rung unavailable), as does k above the
-k-NN kernels' limit, where ``"raise"`` raises the wrapper's ValueError; a
-fault-free fallback plan launches the kernels and records nothing.  A
+on every kernel cell (each plain rung unavailable); a fault-free fallback
+plan launches the kernels and records nothing, past k = 1024 too (the
+k-NN kernels' large-k variants: the graph bitwise, the values within the
+tolerance of the plain versions on a slab; the D source and a chunk
+likewise).  A
 (b, n, n) chunk runs the dense and tri kernels in one grid per pass,
 bitwise its items one at a time, and a batched call's peak memory is its
 chunk's; so do a (b, n, d) chunk through the fused kernels, the
@@ -395,12 +397,13 @@ def test_cuda_topk_limits(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 128, 129, 256, 257,
-                               1024])
+                               1024, 1025, 2048, 4096, 16384])
 def test_cuda_knn_smem_estimates_are_the_kernels(cuda_device, k):
     """``pald_topk.smem_per_cta`` and ``pald_knn.smem_per_cta`` give the
     bytes that the C launches set (``pald_topk_smem_bytes``,
-    ``pald_knn_smem_bytes``) at every width: the Python copies of the
-    layouts cannot drift from the kernels unnoticed."""
+    ``pald_knn_smem_bytes``) at every width, past k = 1024 the large-k
+    variants': the Python copies of the layouts cannot drift from the
+    kernels unnoticed."""
     from repro_torch.kernels import _build, pald_knn, pald_topk
 
     topk_c = _build.load("pald_topk_smem_bytes")
@@ -411,7 +414,7 @@ def test_cuda_knn_smem_estimates_are_the_kernels(cuda_device, k):
         assert knn_c(k, d) == pald_knn.smem_per_cta(k, d), (k, d)
     assert max(topk_c(k, d) for d in range(0, 260)) == \
         pald_topk.smem_per_cta(k)
-    assert topk_c(1025, 8) == knn_c(1025, 8) == -1
+    assert topk_c(0, 8) == knn_c(0, 8) == -1
 
 
 @pytest.mark.cuda
@@ -1062,23 +1065,102 @@ def test_cuda_chunk_nonfinite_item_keeps_finite_bits(cuda_device, name, tri):
 
 @pytest.mark.cuda
 def test_cuda_knn_beyond_the_kernel_limit(cuda_device):
-    """k = 2048 > ``pald_topk.MAX_K`` on the features k-NN cell: "raise"
-    raises the wrapper's ValueError; "fallback" does not leave the
-    kernels for the plain rungs on the card and ends in
-    ``FallbackExhausted`` chained from that ValueError."""
-    from repro_torch.core import pald, resilience
+    """k = 2048 (past ``LARGE_K`` = 1024) on the features k-NN cell runs on
+    the kernels' large-k variants under "raise" and under "fallback",
+    which records no degradation: the graph bitwise the plain selection's,
+    the values within rtol 1e-5, atol 1e-6 of the plain version's on a
+    16-row slab."""
+    from repro_torch.core import pald
+    from repro_torch.core import knn as tknn
+    from repro_torch.kernels import pald_knn, pald_topk
 
     X = torch.as_tensor(_features(2060, 2, seed=9), device=cuda_device)
-    kw = dict(k=2048, block=32)
-    with pytest.raises(ValueError, match="exceeds the kernel's limit"):
-        pald.from_features(X, **kw)
-    p = pald.plan(X, kind="features", on_error="fallback", **kw)
-    with pytest.raises(resilience.FallbackExhausted,
-                       match="impl:torch: FallbackUnavailable") as ei:
-        p.execute(X)
-    assert isinstance(ei.value.__cause__, ValueError)
-    assert "select:chunked: FallbackUnavailable" in str(ei.value)
-    assert p.explain()["degradations"] == []
+    k, r0 = 2048, 1000
+    wrappers = (pald_topk.topk_select_cuda,
+                pald_knn.knn_values_from_features_cuda)
+    for on_error in ("raise", "fallback"):
+        before = [f.large_launches for f in wrappers]
+        p = pald.plan(X, kind="features", k=k, block=32, on_error=on_error,
+                      normalize=False)
+        C = p.execute(X)
+        assert [f.large_launches for f in wrappers] == [b + 1 for b in before]
+        assert p.explain()["degradations"] == []
+    graph, vals = ops.select_cohere(X, k=k)
+    gp = pald_topk.topk_select_torch(X.cpu(), k)
+    _assert_bitwise("graph indices", graph.indices.cpu(), gp.indices)
+    _assert_bitwise("graph distances", graph.distances.cpu(), gp.distances)
+    sl = slice(r0, r0 + 16)
+    vp = pald_knn.knn_values_from_features_torch(
+        X.cpu(), gp.distances[sl], gp.indices[sl], row_off=r0)
+    torch.testing.assert_close(vals[sl].cpu(), vp, rtol=RTOL, atol=ATOL)
+    _assert_bitwise("C", C.cpu(), tknn.scatter_dense(graph, vals).cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_knn_large_k_distance_source(cuda_device):
+    """``cohesion(D, method="knn", k=2048)``: the D source's large-k
+    variant once, C within rtol 1e-5, atol 1e-6 of the plain values on a
+    16-row slab, and bitwise the features source on the X D came from."""
+    from repro_torch.core import pald
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn
+
+    X = torch.as_tensor(_features(2100, 3, seed=13), device=cuda_device)
+    D = cdist_reference(X)
+    k, r0 = 2048, 700
+    src = pald_knn.knn_values_from_distances_cuda
+    before = src.large_launches
+    C = pald.cohesion(D, method="knn", k=k, normalize=False)
+    assert src.large_launches == before + 1
+    g = tknn.knn_from_distances(D, k)
+    vd = src(D, g.distances, g.indices)
+    _assert_bitwise("C", C, tknn.scatter_dense(g, vd))
+    _assert_bitwise("D source vs features source", vd,
+                    pald_knn.knn_values_from_features_cuda(X, g.distances,
+                                                           g.indices))
+    sl = slice(r0, r0 + 16)
+    gs = tknn.gather_tile_from_distances(D.cpu(), g.indices[sl].cpu())
+    vp = pald_knn.knn_values_torch(g.distances[sl].cpu(), gs,
+                                   g.indices[sl].cpu(), row_off=r0)
+    torch.testing.assert_close(vd[sl].cpu(), vp, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ignore", "soft"])
+def test_cuda_knn_large_k_chunk_bitwise_items(cuda_device, name):
+    """A chunk of b = 2 items at n = 2100, k = 2048: the selection and the
+    values' features and D sources one launch each, each item bitwise
+    the item alone; the block entry on two candidate blocks, merged,
+    bitwise the full call."""
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    b, n, k = 2, 2100, 2048
+    Xb = torch.as_tensor(np.stack([_features(n, 4, seed=60 + i)
+                                   for i in range(b)]), device=cuda_device)
+    Db = torch.stack([cdist_reference(x) for x in Xb])
+    sel = pald_topk.topk_select_cuda
+    before = sel.large_launches
+    gb = sel(Xb, k)
+    assert sel.large_launches == before + 1
+    for src, x in ((pald_knn.knn_values_from_features_cuda, Xb),
+                   (pald_knn.knn_values_from_distances_cuda, Db)):
+        before = src.large_launches
+        vb = src(x, gb.distances, gb.indices, ties=name)
+        assert src.large_launches == before + 1
+        for i in range(b):
+            gi = sel(Xb[i], k)
+            _assert_bitwise(f"graph item {i}", gb.indices[i], gi.indices)
+            _assert_bitwise(f"{src.__name__} item {i}", vb[i],
+                            src(x[i], gi.distances, gi.indices, ties=name))
+    X, full = Xb[0], gb
+    parts = [pald_topk.topk_block_cuda(X, X[a:e], k, col_off=a)
+             for a, e in ((0, 1000), (1000, n))]
+    v, i = pald_topk.merge_pairs(torch.cat([p.distances for p in parts], 1),
+                                 torch.cat([p.indices for p in parts], 1), k)
+    _assert_bitwise("merged block entries", i, full.indices[0])
+    _assert_bitwise("merged block distances", v, full.distances[0])
 
 
 @pytest.mark.cuda

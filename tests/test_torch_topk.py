@@ -194,16 +194,21 @@ def test_knn_from_features_facade():
     assert torch.equal(g.distances, ref.distances)
 
 
-@pytest.mark.parametrize("k", [1, 32, 128, 129, 512, 513, 1024])
+@pytest.mark.parametrize("k", [1, 32, 128, 129, 512, 513, 1024, 1025, 2048,
+                               4096, 16384])
 def test_topk_smem_estimate_fits_the_card(k):
     """The kernel's per-block shared memory stays within the H100's 227 KB
-    at every k the kernel takes."""
+    at every k; past ``LARGE_K`` (the large-k variant, the lists in the
+    outputs) it no longer grows with k."""
     assert 0 < pald_topk.smem_per_cta(k) <= 232448
-    assert k <= pald_topk.MAX_K
+    if k > pald_topk.LARGE_K:
+        assert pald_topk.smem_per_cta(k) == pald_topk.smem_per_cta(
+            pald_topk.LARGE_K + 1) < pald_topk.smem_per_cta(pald_topk.LARGE_K)
 
 
 @pytest.mark.parametrize("d", [1, 8, 64, 65, 300])
-@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 512, 513, 1024])
+@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 512, 513, 1024, 1025,
+                               2048, 4096, 16384])
 def test_topk_smem_estimate_fits_the_card_at_every_width(k, d):
     """The per-block shared memory at each feature width stays within the
     H100's 227 KB and under the estimate over every width."""
