@@ -77,8 +77,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to end; then ``select_cohere`` at n = 1,000,000 (or the largest n the
    50,000 times, scaled by n^2, put under 60 s) with its peak memory and
    a 64-row slab check; ptxas's registers and spills of both sources;
-   then past k = 1024, the kernels' large-k variants (the lists in the
-   outputs; a block a row, its state out of shared memory):
+   then past k = 1024, the kernels' large-k variants (the selection by
+   threshold: histogram sweeps, a collect, a sort; the values a block a
+   row, its state out of shared memory, in register tiles up to 16
+   features, ``pald_knn_large.cu``):
    ``select_cohere(X, k)`` at n = 50,000 for k in {1025, 2048, 4096}
    with the wrappers' counts set to 0 and every plain version failing if
    called (one launch of each large-k variant), the graph bitwise and the
@@ -86,8 +88,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    slab, each kernel timed (the selection the median of 3 after
    select_cohere's call, one call at k = 4096; the values kernel its call
    inside the select_cohere run, CUDA events around the wrapper);
-   both variants beside the shared-memory layouts at k = 1024 (for the
-   record, bitwise); ``cohesion(D, method="knn", k=2048)`` on phase 3's
+   the features source's padded width at d = 8; both variants beside
+   the shared-memory layouts at k = 256, 512 (times only) and 1024 (for
+   the record: the selection bitwise, the values bitwise for the default
+   family, an exact count); ``cohesion(D, method="knn", k=2048)`` on phase 3's
    n = 8192 D (the D source's variant once, C bitwise its scatter, a
    16-row slab); a chunk of 2 at n = 2100, k = 2048 (the selection and
    both values sources one launch each, each item bitwise alone) and the
@@ -1675,7 +1679,11 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
 # plain versions run on a LARGE_SLAB-row slab (a (16, k, k) tile: 1 GB at
 # k = 4096).
 LARGE_KS = (1025, 2048, 4096)
+RECORD_KS = (256, 512, 1024)
 LARGE_SLAB = 16
+# the families whose focus is an exact count: their k-NN values are bitwise
+# across the values kernels' layouts, the others' within rounding
+EXACT_FAMILIES = ("drop", "split", "ignore")
 K_LARGE_D = 2048
 N_LARGE_CHUNK, K_LARGE_CHUNK = 2100, 2048
 
@@ -1780,7 +1788,8 @@ def phase_knn_large_k(Xg, clock_mhz, card):
     import torch
     from repro_torch.core import knn, pald
     from repro_torch.core.features import cdist_reference
-    from repro_torch.kernels import ops, pald_knn, pald_topk
+    from repro_torch.core.weights import DEFAULT_TIES
+    from repro_torch.kernels import _build, ops, pald_knn, pald_topk
 
     n, d = Xg.shape
     sel = pald_topk.topk_select_cuda
@@ -1833,27 +1842,50 @@ def phase_knn_large_k(Xg, clock_mhz, card):
         ms_t, _ = time_ms(lambda: sel(Xg, k), reps, warm=False)
         row("topk_select", "src/repro_torch/csrc/pald_topk.cuh", k, ms_t,
             ms_tp, 0.0, 1, reps=reps)
-        row("knn_values_features", "src/repro_torch/csrc/pald_knn.cu", k,
-            val_ms[0], ms_vp, err, 1, reps=1,
-            timed="its call inside the select_cohere run")
+        row("knn_values_features", "src/repro_torch/csrc/pald_knn_large.cu"
+            if pald_knn.feature_width(d) else
+            "src/repro_torch/csrc/pald_knn.cu", k, val_ms[0], ms_vp, err, 1,
+            reps=1, timed="its call inside the select_cohere run")
         del graph, vals
 
-    # the record at k = 1024: each shared-memory layout against the
-    # large-k variant on the same operands (bitwise)
-    k = pald_topk.LARGE_K
-    ms_s, gs = time_ms(lambda: sel(Xg, k), 1)
-    ms_vs, vs = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)
-    with large_variants_everywhere():
-        ms_l, gl = time_ms(lambda: sel(Xg, k), 1)
-        ms_vl, vl = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)
-    compare("phase 11 k=1024 large-k selection", gl.indices, gs.indices,
-            True)
-    compare("phase 11 k=1024 large-k values", vl, vs, True)
-    print(f"phase 11: k={k} n={n} (for the record; never routed there): "
-          f"selection shared-memory lists {ms_s!r} ms, large-k variant "
-          f"{ms_l!r} ms; values four rows a block {ms_vs!r} ms, large-k "
-          f"variant {ms_vl!r} ms; both bitwise; {card}")
-    del gs, gl, vs, vl
+    # the record at k = 256, 512 and 1024 (data for where LARGE_K should
+    # sit): each shared-memory layout against the large-k variant on the
+    # same operands, at 1024 also compared (the selection bitwise, the
+    # values bitwise for the default family, an exact count)
+    width = pald_knn.feature_width(d)
+    print(f"phase 11: the large-k values' features source at d={d}: "
+          + (f"register tiles at width {width} (pald_knn_large.cu)"
+             if width else "the block of 32 warps (pald_knn.cu)")
+          + f"; d <= {pald_knn.REG_MAX_D} takes the register tiles")
+    bad = torch.zeros(1, dtype=torch.int64, device=Xg.device)
+    _build.check(_build.load("pald_knn_root_mismatches")(
+        bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "pald_knn_root_mismatches")
+    if int(bad.item()):
+        fail(f"the register tiles' root differs from __fsqrt_rn on "
+             f"{int(bad.item())} floats")
+    print("phase 11: the register tiles' branch-free root is bitwise "
+          "__fsqrt_rn on all 2^31 + 1 non-negative floats")
+    for k in RECORD_KS:
+        ms_s, gs = time_ms(lambda: sel(Xg, k), 1)
+        ms_vs, vs = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)
+        with large_variants_everywhere():
+            ms_l, gl = time_ms(lambda: sel(Xg, k), 1)
+            ms_vl, vl = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)
+        checked = "times only"
+        if k == pald_topk.LARGE_K:
+            compare("phase 11 k=1024 large-k selection", gl.indices,
+                    gs.indices, True)
+            compare("phase 11 k=1024 large-k values", vl, vs,
+                    DEFAULT_TIES in EXACT_FAMILIES)
+            checked = (f"selection bitwise, values ({DEFAULT_TIES}) "
+                       + ("bitwise" if DEFAULT_TIES in EXACT_FAMILIES
+                          else "within rtol 1e-5, atol 1e-6"))
+        print(f"phase 11: k={k} n={n} (for the record; never routed "
+              f"there): selection shared-memory lists {ms_s!r} ms, large-k "
+              f"variant {ms_l!r} ms; values four rows a block {ms_vs!r} "
+              f"ms, large-k variant {ms_vl!r} ms; {checked}; {card}")
+        del gs, gl, vs, vl
 
     # the D source: cohesion(D, method="knn") on phase 3's D
     Xd, _ = clustered_points(N_MAIN, D_MAIN, SEED)

@@ -69,7 +69,9 @@
 //
 // Past k = kLargeK = 1024, the large-k variant (every source, one item or
 // a chunk; values_passes_big and the *_big_kernel entries, beside the
-// kernels of k <= 1024, which it leaves as they are).  A row's dn, W and
+// kernels of k <= 1024, which it leaves as they are; the features source
+// at d <= 16 is pald_knn_large.cu's, in registers, and this file's only
+// past 16 features).  A row's dn, W and
 // idx (12 B k) no longer fit four rows to a block in shared memory for
 // every k, so the row's state leaves it: dn and idx are read where they
 // lie (read-only, through L1/L2), and W (and the features source's k
@@ -85,7 +87,7 @@
 // gives their bits at every k.  One row a block also keeps the row's
 // working set (its neighbor rows, dn, idx, W) in one SM's L1.  The
 // features source stages the row's k neighbor feature rows in shared
-// memory while they fit in kBigStageBytes (192 KB: k <= 5461 at d = 8),
+// memory while they fit in kBigStageBytes (192 KB: k <= 2891 at d = 17),
 // conflict-free at an odd pitch, and reads them from X otherwise; the
 // cube and D sources use no shared memory.  What bounds it: operations,
 // above all the features source's pairs, each tile entry recomputed where
@@ -93,47 +95,27 @@
 #include <cstdint>
 
 #include "pald_dist.cuh"
+#include "pald_knn.cuh"
 #include "pald_weights.cuh"
 
 namespace {
 
 using pald::Dist;
 using pald::Params;
+using pald::knn::kBigGrid;
+using pald::knn::KnnSupport;
+using pald::knn::kLargeK;
+using pald::knn::kMaxItems;
+using pald::knn::kRegMaxD;
+using pald::knn::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kLargeK = 1024;          // past it the large-k variant
 constexpr int kTileMaxK = 64;          // the k x k tile in shared memory
 constexpr int kStageBytes = 16 << 10;  // neighbor rows staged per warp
-constexpr int64_t kMaxItems = 65535;   // items of one grid (gridDim.y)
 constexpr int kBigWarps = 32;          // large-k: the warps on one row
 constexpr int kBigThreads = 32 * kBigWarps;
-constexpr int kBigGrid = 1024;         // large-k: row blocks of a grid
 constexpr int kBigStageBytes = 192 << 10;  // large-k: staged neighbor rows
-
-// the support of z for the pair (x, y): the functional's own, or for a
-// functional with a share (F::kHasShare: soft, a user functional that
-// declares one) share * focus on the same triple, the plain version's
-// reuse of its focus cube
-template <class F>
-struct KnnSupport {
-  __device__ __forceinline__ static float eval(float own, float other,
-                                               float pair, bool own_wins,
-                                               const Params& p) {
-    if constexpr (F::kHasShare)
-      return __fmul_rn(F::share(own, other, p),
-                       F::focus(own, other, pair, p));
-    else
-      return F::support(own, other, pair, own_wins, p);
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s >= 1; s /= 2)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, s));
-  return v;
-}
 
 // the row's shared memory: dn, W, idx (and the features source's norms,
 // tile and staged rows after them)
@@ -764,7 +746,8 @@ extern "C" int pald_knn_values_f32(const float* dn, const float* g,
 // graph has global index row_off + x (>= 0).  A chunk of `items` graphs
 // (dn, idx (items, n, k), out (items, n, k+1)) reads item i's X at X + i
 // xstride, its indices within it; one grid per 65535 items.  `scratch` as
-// pald_knn_values_f32's.
+// pald_knn_values_f32's, for d > 16 only: the large-k variant at d <= 16
+// is pald_knn_large.cu's entry.
 extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             int64_t d, const int* idx,
                                             float* out, int64_t n, int k,
@@ -775,7 +758,7 @@ extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             void* stream) {
   if (bad_shape(n, k, scratch) || d < 0 || row_off < 0 || items < 1 ||
       xstride < 0 || metric < pald::kSqEuclidean ||
-      metric > pald::kManhattan)
+      metric > pald::kManhattan || (scratch != nullptr && d <= kRegMaxD))
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
       wid, FeatLaunch{dn, X, d, xstride, idx, out, n, k, metric, row_off,
@@ -802,13 +785,15 @@ extern "C" int pald_knn_values_distances_f32(const float* dn, const float* D,
 }
 
 // The dynamic shared memory of a values block at k, in bytes, as the
-// launches set it (past kLargeK the large-k variant's): the features
-// source's at width d, the cube and D sources' for d < 0; -1 for k < 1.
+// launches set it (past kLargeK the large-k variant's, at d <= 16
+// pald_knn_large.cu's): the features source's at width d, the cube and D
+// sources' for d < 0; -1 for k < 1.
 extern "C" int pald_knn_smem_bytes(int k, int64_t d) {
   if (k < 1) return -1;
   const bool big = k > kLargeK;
   int fpitch;
   if (d < 0) return static_cast<int>(state_bytes(k, big));
+  if (big && d <= kRegMaxD) return pald::knn::reg_smem_bytes(d);
   const int floats = feat_layout(k, d, &fpitch, big);
   return static_cast<int>((big ? 1 : kWarps) * floats * sizeof(float));
 }

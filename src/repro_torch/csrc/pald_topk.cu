@@ -48,7 +48,7 @@ extern "C" int pald_topk_block_f32(const float* xr, const float* xc,
 extern "C" int pald_topk_smem_bytes(int k, int64_t d) {
   using namespace pald::topk;
   if (k < 1 || d < 0) return -1;
-  const bool large = k > kLargeK;
-  const int R = kWarps * warp_rows(large ? kLargeK : k);
-  return static_cast<int>(Layout(d, R).bytes(R, k, large));
+  if (k > kLargeK) return static_cast<int>(large_bytes(d));
+  const int R = kWarps * warp_rows(k);
+  return static_cast<int>(Layout(d, R).bytes(R, k));
 }

@@ -47,19 +47,43 @@
 //     passing candidates of the chunk (up to 128) are gathered, sorted by
 //     rank and merged into the list in one pass (merge_batch: every
 //     entry's new place by a binary search in the other sequence).
-// Past k = kLargeK = 1024 (kGlobal, the large-k variant) no layout of
-// lists fits the 227 KB of shared memory (8 B k a row: 16 rows a block
-// pass it from k = 1067 past 64 features), so each row's list lives in its
-// own (k) slice of the output arrays in device memory, written there as
-// (+inf, kSentinel) sentinels first and merged in place by the same
-// merge_batch (binary searches in the list, the tail moved down from the
-// end, the entries pushed past k dropped): the list is read and written
-// through L1/L2, the ring, the sums, the ballots and the sorted batch stay
-// as they are, and the k-th best key stays in shared memory beside the
-// row's norm.  Until k candidates have passed, the k-th entry is a
-// sentinel and every candidate passes.  Shared memory holds no list, so
-// the block is the same at every k (smem_per_cta); the merges' list
-// traffic, up to k entries moved a merge, bounds it at large k.
+// Past k = kLargeK = 1024 (topk_large_kernel, the large-k variant;
+// replaces topk_pallas at those k as well) no layout of lists fits the
+// 227 KB of shared memory (8 B k a row: 16 rows a block pass it from k =
+// 1067 past 64 features), and a list merged where it lies in device memory
+// moves up to k entries a merge, ~n/128 merges a row.  So the variant
+// selects by threshold, with traffic that does not grow with the number of
+// chunks:
+//   - each row's candidates are keyed by the finished distance's float
+//     bits (order_key: -0 as +0, a total order on the values), and up to
+//     three sweeps over the candidates build per-row histograms of the
+//     key's digits (bits 31-21, 20-10, 9-0; 2048 bins a row in shared
+//     memory, integer counts, exact in any order), each narrowing the
+//     range that holds the k-th value; a row whose chosen bin holds just
+//     the candidates it still needs is done, and a sweep that no row of
+//     the block needs is skipped.  In the first sweep the warp lowers a
+//     cut past the bins that already lie above k counted candidates, so
+//     only candidates at or below the running k-th bin are counted;
+//   - for euclidean the sweeps bin the correctly rounded root (two squares
+//     can round to one root), taken only for pairs whose square is at or
+//     below root_bound of the range's top; every other pair is skipped on
+//     its square, so roots stay about as rare as in the k <= 1024 lists;
+//   - a last sweep in ascending candidate order writes every candidate
+//     below the k-th value T into the row's output slice (in arrival
+//     order), and the ties at T in ascending index order, the first
+//     `need` of them only, after them: ties are bounded by the count the
+//     histograms left, however many duplicates share T, and the lowest
+//     indices win, as the stable order wants;
+//   - one bitonic sort (the all-ascending network with a mirrored first
+//     step, so a count that is not a power of two needs no padding: the
+//     reference's sort_pairs / merge_pairs,
+//     src/repro/kernels/pald_topk.py:107-135) orders the entries below T
+//     by (value, index), in shared memory up to kSortCap entries and in
+//     the output slice itself past that.
+// Every sweep reuses the staged distance loop of k <= 1024 (the same ring,
+// sums and finish), so the variant costs about four of its sweeps and a
+// sort; shared memory holds the ring and the histograms and does not grow
+// with k.  What bounds it: operations, the n^2 pair sums of each sweep.
 // Rows, their thresholds, lists and batches belong to one warp, so the
 // insertions need no block barrier.  Insertions are rare after the first
 // chunks (about k ln(n/k) a row on random order), so at small k the sums
@@ -103,8 +127,8 @@
 //     lose to every real candidate (the lists start as (+inf, INT32_MAX)
 //     sentinels, which any real candidate beats);
 //   - 1 <= k <= n - 1 (the block entry: any k >= 1, sentinels past the w
-//     real candidates); the lists in shared memory up to k = kLargeK, in
-//     the outputs past it.
+//     real candidates); the lists in shared memory up to k = kLargeK,
+//     selected by threshold past it.
 // Distances are assumed not nan (finite features give none).  64-bit
 // offsets throughout (n k passes 2^31 at n = 10^6, k = 2148); no atomics.
 #pragma once
@@ -146,8 +170,8 @@ __host__ __device__ constexpr int stage_pitch(int f) {
 // the rows staged once (d <= kMaxFeat), the ring, the rows' thresholds and
 // norms, and their lists: for k <= 32 where each lane keeps its entry
 // between chunks (32 a row), past 32 the lists and each warp's batch (two
-// of kCand entries: as found, and sorted); with the lists in the outputs
-// (global, the large-k variant) the batches alone.
+// of kCand entries: as found, and sorted).  The large-k variant's:
+// large_bytes.
 struct Layout {
   int kd;         // features per slot
   int parts;      // slots per chunk of candidates
@@ -161,21 +185,35 @@ struct Layout {
     rows = parts == 1 ? R * pitch : 0;
     slot = kCand * pitch + kCand + (parts == 1 ? 0 : R * pitch);
   }
-  __host__ __device__ size_t bytes(int R, int k, bool global = false) const {
+  __host__ __device__ size_t bytes(int R, int k) const {
     const size_t batches = size_t(kWarps) * kCand * 16;
     return sizeof(float) * (size_t(rows) + size_t(kStages) * slot + 4 * R) +
-           (global    ? batches
-            : k <= 32 ? size_t(R) * 32 * 8
-                      : size_t(R) * k * 8 + batches);
+           (k <= 32 ? size_t(R) * 32 * 8 : size_t(R) * k * 8 + batches);
   }
 };
 
 // TR, the rows of each warp at k (a block holds kWarps * TR rows): four
 // with the lists in registers (k <= 32) at four blocks an SM, past that
-// as many as two blocks an SM hold in shared memory; past kLargeK two, the
-// merges' list traffic spread over as many warps as k <= 1024's
+// as many as two blocks an SM hold in shared memory
 constexpr int warp_rows(int k) {
   return k <= 32 ? 4 : k <= 128 ? 8 : k <= 256 ? 4 : 2;
+}
+
+// the large-k variant: rows a warp, bins of a row's histogram (a digit of
+// 11 bits), and the entries a block sorts in shared memory (the
+// histograms' bytes, free by then)
+constexpr int kLargeRows = 2;
+constexpr int kLargeR = kWarps * kLargeRows;
+constexpr int kBins = 2048;
+constexpr int kSortCap = kLargeR * kBins / 2;
+
+// its shared memory at width d, in bytes: the rows staged once, the ring,
+// the rows' norms and sorted counts, then the R histograms
+__host__ __device__ inline size_t large_bytes(int64_t d) {
+  const Layout L(d, kLargeR);
+  return sizeof(float) * (size_t(L.rows) + size_t(kStages) * L.slot +
+                          2 * kLargeR) +
+         sizeof(unsigned) * size_t(kLargeR) * kBins;
 }
 
 // The largest squared distance whose correctly rounded root can still be
@@ -316,13 +354,11 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* x,
   }
 }
 
-// kRegs: k <= 32, each warp keeps its rows' lists in registers; kGlobal:
-// the large-k variant, each row's list in its slice of out_v / out_i (its
-// code only in the kGlobal branches: the other layouts compile as before)
+// kRegs: k <= 32, each warp keeps its rows' lists in registers.
 // Rows [0, m) of xr (global index rg0 + row) against the w candidates of
 // xc (global index cg0 + col); nr, nc their norm terms.  The full call
 // passes X as both, n as m and w, and 0 as both offsets.
-template <int M, int TR, bool kRegs, bool kChunk, bool kGlobal = false>
+template <int M, int TR, bool kRegs, bool kChunk>
 __global__ void __launch_bounds__(kThreads, kRegs ? 4 : 2)
 topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
             const float* __restrict__ nr, const float* __restrict__ nc,
@@ -360,7 +396,6 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   float* bv = reinterpret_cast<float*>(li_all + R * (kRegs ? 32 : k)) +
               warp * kCand * 4;                  // !kRegs: the batch
-  if constexpr (kGlobal) bv = lv_all + warp * kCand * 4;  // no lists here
   int* bi = reinterpret_cast<int*>(bv + kCand);
   float* sv = bv + 2 * kCand;                    // and sorted
   int* sidx = reinterpret_cast<int*>(bv + 3 * kCand);
@@ -380,20 +415,9 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   // in registers while the warp works on its row, in shared memory
   // between chunks)
   const int lk = kRegs ? 32 : k;
-  if constexpr (kGlobal) {  // the rows' slices of the outputs
-    for (int a = 0; a < TR; ++a) {
-      const int64_t row = r0 + warp * TR + a;
-      if (row >= m) break;
-      for (int e = lane; e < k; e += 32) {
-        out_v[row * k + e] = inf;
-        out_i[row * k + e] = kSentinel;
-      }
-    }
-  } else {
-    for (int e = lane; e < TR * lk; e += 32) {
-      lv_all[warp * TR * lk + e] = inf;
-      li_all[warp * TR * lk + e] = kSentinel;
-    }
+  for (int e = lane; e < TR * lk; e += 32) {
+    lv_all[warp * TR * lk + e] = inf;
+    li_all[warp * TR * lk + e] = kSentinel;
   }
   if (lane < TR) {  // a row past m: a bound no pair meets
     const int64_t row = r0 + warp * TR + lane;
@@ -575,15 +599,9 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
           li_all[lr * 32 + lane] = ri;
         } else {
           __syncwarp();
-          if constexpr (kGlobal) {
-            if (cnt)
-              merge_batch(out_v + row * k, out_i + row * k, k, bv, bi, sv,
-                          sidx, cnt, lane, tva, tia);
-          } else {
-            if (cnt)
-              merge_batch(lv_all + lr * k, li_all + lr * k, k, bv, bi, sv,
-                          sidx, cnt, lane, tva, tia);
-          }
+          if (cnt)
+            merge_batch(lv_all + lr * k, li_all + lr * k, k, bv, bi, sv,
+                        sidx, cnt, lane, tva, tia);
         }
         __syncwarp();
         if (lane == 0) {
@@ -601,7 +619,6 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   }
   cp_async_wait<0>();
 
-  if constexpr (kGlobal) return;  // the lists are the outputs already
   __syncwarp();
   for (int a = 0; a < TR; ++a) {
     const int lr = warp * TR + a;
@@ -610,6 +627,445 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
     for (int e = lane; e < k; e += 32) {
       out_v[row * k + e] = lv_all[lr * lk + e];
       out_i[row * k + e] = li_all[lr * lk + e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the large-k variant (k > kLargeK): selection by threshold
+// ---------------------------------------------------------------------------
+// A finished distance as an unsigned key in the order of its value: -0 as
+// +0 (they compare equal), the negative ones (cosine's rounding) below
+// every non-negative one.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = v == 0.f ? 0u : __float_as_uint(v);
+  return b & 0x80000000u ? ~b : b | 0x80000000u;
+}
+
+// The largest finished pair whose key can lie at or below key u, as
+// topk_large_kernel finishes pairs: the value of u, for euclidean the
+// largest square whose root can (root_bound); +inf for the key of +inf and
+// past it.
+template <int M>
+__device__ __forceinline__ float pair_bound(unsigned u) {
+  const float v = __uint_as_float(u & 0x80000000u ? u & 0x7fffffffu : ~u);
+  const float inf = __int_as_float(0x7f800000);
+  if (!(v < inf)) return inf;
+  return M == pald::kEuclidean ? root_bound(v) : v;
+}
+
+// Sort the cnt pairs (v, i) ascending by (value, index) with every thread
+// of the block: the bitonic network whose merges all run ascending (the
+// first step of each compares an entry with its mirror), so the cnt
+// entries sort as if padded to a power of two with entries above every
+// real one, which never move and are never read.  v and i lie in shared
+// or device memory.
+__device__ __forceinline__ void sort_pairs(float* v, int* i, int cnt) {
+  int p = 1;
+  while (p < cnt) p *= 2;
+  for (int size = 2; size <= p; size *= 2) {
+    for (int stride = size / 2; stride > 0; stride /= 2) {
+      for (int e = threadIdx.x; e < p / 2; e += kThreads) {
+        const int grp = e / stride, off = e - grp * stride;
+        const int a = grp * 2 * stride + off;
+        const int b = stride == size / 2
+                          ? grp * 2 * stride + 2 * stride - 1 - off
+                          : a + stride;
+        if (b < cnt && key_less(v[b], i[b], v[a], i[a])) {
+          const float tv = v[a];
+          const int ti = i[a];
+          v[a] = v[b];
+          i[a] = i[b];
+          v[b] = tv;
+          i[b] = ti;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Rows [0, m) of xr against the w candidates of xc, as topk_kernel's (the
+// same staging, sums and finish); kLargeR rows a block, kLargeRows a
+// warp.  A row's state lives in its warp's registers (warp-uniform), its
+// histogram in shared memory.
+template <int M, bool kChunk>
+__global__ void __launch_bounds__(kThreads, 1)
+topk_large_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
+                  const float* __restrict__ nr, const float* __restrict__ nc,
+                  float* __restrict__ out_v, int* __restrict__ out_i,
+                  int64_t m, int64_t w, int64_t rg0, int64_t cg0, int64_t d,
+                  int k, bool vec) {
+  constexpr int TR = kLargeRows, R = kLargeR;
+  constexpr bool kLazyRoot = M == pald::kEuclidean;
+  constexpr bool kSquares = M == pald::kSqEuclidean || kLazyRoot;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(d, R);
+  float* srows = smem;                  // [R][pitch], d <= kMaxFeat
+  float* ring = smem + L.rows;          // kStages slots
+  float* tn = ring + kStages * L.slot;  // the rows' norms
+  int* scnt = reinterpret_cast<int*>(tn + R);  // a row's entries to sort
+  unsigned* hist = reinterpret_cast<unsigned*>(scnt + R);  // [R][kBins]
+
+  if constexpr (kChunk) {  // this block's item of the chunk
+    const int64_t item = blockIdx.y;
+    xr += item * m * d;
+    xc += item * w * d;
+    nr += item * m;
+    nc += item * w;
+    out_v += item * m * k;
+    out_i += item * m * k;
+  }
+  const bool nvec = !kChunk || reinterpret_cast<uintptr_t>(nc) % 16 == 0;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int chunks = static_cast<int>((w + kCand - 1) / kCand);
+  const int slots = chunks * L.parts;
+  const int64_t own = rg0 + r0 - cg0;
+  const int home = own >= 0 && own < w ? static_cast<int>(own / kCand) : 0;
+  const float inf = __int_as_float(0x7f800000);
+
+  for (int e = tid; e < R * kBins; e += kThreads) hist[e] = 0;
+  if (lane < TR) {
+    const int64_t row = r0 + warp * TR + lane;
+    tn[warp * TR + lane] = (Dist<M>::kNorms && row < m) ? nr[row] : 0.f;
+  }
+  // each row of the warp: K = min(k, its candidates); open while its K-th
+  // key is not pinned: the keys [lo, hi] hold it, as the need-th of them
+  int K[TR], need[TR];
+  unsigned lo[TR], hi[TR];
+  bool open[TR];
+#pragma unroll
+  for (int a = 0; a < TR; ++a) {
+    const int64_t row = r0 + warp * TR + a, grow = rg0 + row;
+    const int64_t avail =
+        row < m ? w - (grow >= cg0 && grow < cg0 + w ? 1 : 0) : 0;
+    K[a] = static_cast<int>(avail < k ? avail : k);
+    open[a] = avail > k;
+    need[a] = K[a];
+    lo[a] = 0;
+    hi[a] = kAll;
+  }
+
+  // One sweep over the candidates, chunk by chunk from chunk `start` on
+  // (wrapping): body(c0, v), v[a][j] the finished pair of row a and
+  // candidate c0 + lane + 32 j (sqeuclidean and euclidean: the square, not
+  // yet clamped)
+  auto sweep = [&](int start, auto&& body) {
+    auto locate = [&](int t, int& fp, int64_t& c0) {
+      int ci = t;
+      fp = 0;
+      if (L.parts > 1) {
+        ci = t / L.parts;
+        fp = t - ci * L.parts;
+      }
+      ci += start;
+      if (ci >= chunks) ci -= chunks;
+      c0 = static_cast<int64_t>(ci) * kCand;
+    };
+    const int last_nf = static_cast<int>(d - int64_t(L.parts - 1) * kMaxFeat);
+    const Pieces full(L.kd, vec, tid), tail(last_nf, vec, tid);
+    auto issue = [&](int t) {
+      if (t < slots) {
+        float* s = ring + (t % kStages) * L.slot;
+        int fp;
+        int64_t c0;
+        locate(t, fp, c0);
+        const int f0 = fp * kMaxFeat;
+        const Pieces& P = fp == L.parts - 1 ? tail : full;
+        stage_rows(s, xc, c0, kCand, w, d, f0, L.pitch, vec, P);
+        if (L.parts > 1)
+          stage_rows(s + kCand * L.pitch + kCand, xr, r0, R, m, d, f0,
+                     L.pitch, vec, P);
+        if (Dist<M>::kNorms && fp == L.parts - 1) {
+          float* sn = s + kCand * L.pitch;
+          for (int p = tid; p < kCand / 4; p += kThreads) {
+            const int64_t col = c0 + 4 * p;
+            if (nvec && col + 4 <= w) {
+              cp_async16(sn + 4 * p, nc + col);
+            } else {
+              for (int q = 0; q < 4; ++q)
+                if (col + q < w) cp_async4(sn + 4 * p + q, nc + col + q);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    for (int t = 0; t < kStages - 1; ++t) issue(t);
+    float acc[TR][4] = {};
+    for (int t = 0; t < slots; ++t) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      issue(t + kStages - 1);
+      const float* s = ring + (t % kStages) * L.slot;
+      int fp;
+      int64_t c0;
+      locate(t, fp, c0);
+      const int nf = fp == L.parts - 1 ? last_nf : L.kd;
+      const float* rf = L.parts == 1 ? srows : s + kCand * L.pitch + kCand;
+      const float* rw = rf + warp * TR * L.pitch;
+      const float* cf = s + lane * L.pitch;
+      const int n4 = nf / 4;
+      for (int q = 0; q < n4; ++q) {
+        float4 b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = *reinterpret_cast<const float4*>(cf + 32 * j * L.pitch +
+                                                  4 * q);
+#pragma unroll
+        for (int a = 0; a < TR; ++a) {
+          const float4 av =
+              *reinterpret_cast<const float4*>(rw + a * L.pitch + 4 * q);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[a][j] = Dist<M>::step(acc[a][j], av.x, b[j].x);
+            acc[a][j] = Dist<M>::step(acc[a][j], av.y, b[j].y);
+            acc[a][j] = Dist<M>::step(acc[a][j], av.z, b[j].z);
+            acc[a][j] = Dist<M>::step(acc[a][j], av.w, b[j].w);
+          }
+        }
+      }
+      for (int f = 4 * n4; f < nf; ++f) {
+        float b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = cf[32 * j * L.pitch + f];
+#pragma unroll
+        for (int a = 0; a < TR; ++a) {
+          const float av = rw[a * L.pitch + f];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[a][j] = Dist<M>::step(acc[a][j], av, b[j]);
+        }
+      }
+      if (fp != L.parts - 1) continue;
+      float ncj[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ncj[j] = Dist<M>::kNorms ? s[kCand * L.pitch + lane + 32 * j] : 0.f;
+#pragma unroll
+      for (int a = 0; a < TR; ++a) {
+        const float nra = tn[warp * TR + a];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (kSquares)
+            acc[a][j] = __fsub_rn(__fadd_rn(nra, ncj[j]),
+                                  __fmul_rn(2.f, acc[a][j]));
+          else
+            acc[a][j] = Dist<M>::finish(acc[a][j], nra, ncj[j]);
+        }
+      }
+      body(c0, acc);
+#pragma unroll
+      for (int a = 0; a < TR; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next sweep
+  };
+
+  // pair (a, j) of the chunk at c0 from its finished `raw`: whether it is a
+  // real candidate (for euclidean: with a square at or below top), and its
+  // value v (the root taken only then)
+  auto pair_value = [&](int a, int j, int64_t c0, float raw, float top,
+                        float& v) {
+    const int64_t col = c0 + lane + 32 * j;
+    const int64_t grow = rg0 + r0 + warp * TR + a;
+    bool keep = col < w && cg0 + col != grow;
+    v = raw;
+    if constexpr (kSquares) v = v < 0.f ? 0.f : v;  // nan passes
+    if constexpr (kLazyRoot) {
+      keep = keep && v <= top;
+      if (keep) v = __fsqrt_rn(v);
+    }
+    return keep;
+  };
+  // does some lane hold a pair of row a at or below top (the raw pairs: a
+  // square below 0 is at or below every bound, its clamp comes later)?
+  auto any_below = [&](const float (&v)[4], float top) {
+    const float least = fminf(fminf(v[0], v[1]), fminf(v[2], v[3]));
+    return __any_sync(0xffffffffu, least <= top);
+  };
+
+  if (L.parts == 1)
+    stage_rows(srows, xr, r0, R, m, d, 0, L.pitch, vec,
+               Pieces(L.kd, vec, tid));
+  __syncthreads();  // the histograms zero, the norms in place
+
+  // the histogram sweeps: digit s of the keys in [lo, hi] of each open row
+  for (int s = 0; s < 3; ++s) {
+    bool any = false;
+#pragma unroll
+    for (int a = 0; a < TR; ++a) any |= open[a];
+    if (!__syncthreads_or(any)) break;  // every row of the block pinned
+    const int shift = s == 0 ? 21 : s == 1 ? 10 : 0;
+    const unsigned mask = s == 2 ? 0x3ffu : 0x7ffu;
+    // sweep 0: cut, the highest bin still counted, and cnt, the candidates
+    // at or below it; a bin goes once the bins below it hold the row's need.
+    // top: the largest raw pair whose key can lie at or below hi
+    int cut[TR], cnt[TR];
+    float top[TR];
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      cut[a] = kBins - 1;
+      cnt[a] = 0;
+      top[a] = pair_bound<M>(hi[a]);
+    }
+    sweep(home, [&](int64_t c0, const float(&v)[TR][4]) {
+#pragma unroll
+      for (int a = 0; a < TR; ++a) {
+        if (!open[a] || !any_below(v[a], top[a])) continue;
+        unsigned* h = hist + (warp * TR + a) * kBins;
+        int passed = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x;
+          bool keep = pair_value(a, j, c0, v[a][j], top[a], x);
+          const unsigned u = order_key(x);
+          keep = keep && u >= lo[a] && u <= hi[a];
+          if (keep) atomicAdd(h + ((u >> shift) & mask), 1u);
+          if (s == 0) passed += __popc(__ballot_sync(kAll, keep));
+        }
+        if (s == 0) {
+          __syncwarp();
+          int c = cut[a], n = cnt[a] + passed;
+          if (lane == 0) {
+            while (n - static_cast<int>(h[c]) >= need[a]) {
+              n -= static_cast<int>(h[c]);
+              --c;
+            }
+          }
+          cut[a] = __shfl_sync(kAll, c, 0);
+          cnt[a] = __shfl_sync(kAll, n, 0);
+          hi[a] = (static_cast<unsigned>(cut[a]) << 21) | 0x1fffffu;
+          top[a] = pair_bound<M>(hi[a]);
+        }
+      }
+    });
+    // each open row: the bin of its need-th key (lane l sums bins 64 l..
+    // in a rotated order, so the 32 lanes read 32 banks)
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      if (!open[a]) continue;
+      unsigned* h = hist + (warp * TR + a) * kBins;
+      int sum = 0;
+      for (int i = 0; i < 64; ++i) sum += h[64 * lane + ((i + lane) & 63)];
+      int pre = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const int y = __shfl_up_sync(kAll, pre, o);
+        if (lane >= o) pre += y;
+      }
+      pre -= sum;  // the bins of the lanes below
+      const unsigned hit =
+          __ballot_sync(kAll, pre < need[a] && need[a] <= pre + sum);
+      const int src = __ffs(hit) - 1;
+      int bin = 0, below = 0, in_bin = 0;
+      if (lane == src) {
+        below = pre;
+        for (bin = 64 * lane; below + static_cast<int>(h[bin]) < need[a];
+             ++bin)
+          below += h[bin];
+        in_bin = h[bin];
+      }
+      bin = __shfl_sync(kAll, bin, src);
+      below = __shfl_sync(kAll, below, src);
+      in_bin = __shfl_sync(kAll, in_bin, src);
+      __syncwarp();
+      for (int i = 0; i < 64; ++i) h[64 * lane + ((i + lane) & 63)] = 0;
+      need[a] -= below;
+      lo[a] += static_cast<unsigned>(bin) << shift;
+      hi[a] = lo[a] + ((1u << shift) - 1u);
+      open[a] = in_bin != need[a] && s < 2;  // else pinned
+    }
+  }
+
+  // the collect: every key at or below `upto` (in arrival order), then
+  // the first `ties` keys equal to T = lo (in ascending index, each key
+  // alike): a row pinned to one key takes its need-th ties, a row pinned
+  // to a bin the whole bin, a row with at most k candidates all of them
+  unsigned upto[TR];
+  int ties[TR], nin[TR], ntie[TR];
+  float top[TR];
+#pragma unroll
+  for (int a = 0; a < TR; ++a) {
+    ties[a] = lo[a] == hi[a] ? need[a] : 0;
+    upto[a] = ties[a] ? lo[a] - 1u : hi[a];
+    nin[a] = ntie[a] = 0;
+    top[a] = pair_bound<M>(hi[a]);
+    const int64_t row = r0 + warp * TR + a;
+    if (row < m)
+      for (int e = K[a] + lane; e < k; e += 32) {  // past the candidates
+        out_v[row * k + e] = inf;
+        out_i[row * k + e] = kSentinel;
+      }
+  }
+  sweep(0, [&](int64_t c0, const float(&v)[TR][4]) {
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      if (K[a] == 0 || !any_below(v[a], top[a])) continue;
+      const int64_t row = r0 + warp * TR + a;
+      float* ov = out_v + row * k;
+      int* oi = out_i + row * k;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x;
+        const bool keep = pair_value(a, j, c0, v[a][j], top[a], x);
+        const unsigned u = order_key(x);
+        const int gcol = static_cast<int>(cg0 + c0 + lane + 32 * j);
+        const bool in = keep && u <= upto[a];
+        const bool tie = keep && ties[a] > 0 && u == lo[a];
+        const unsigned mi = __ballot_sync(kAll, in);
+        if (in) {
+          const int at = nin[a] + __popc(mi & below);
+          ov[at] = x;
+          oi[at] = gcol;
+        }
+        nin[a] += __popc(mi);
+        const unsigned mt = __ballot_sync(kAll, tie);
+        if (tie) {
+          const int t = ntie[a] + __popc(mt & below);
+          if (t < ties[a]) {
+            ov[K[a] - ties[a] + t] = x;
+            oi[K[a] - ties[a] + t] = gcol;
+          }
+        }
+        ntie[a] += __popc(mt);
+      }
+    }
+  });
+#pragma unroll
+  for (int a = 0; a < TR; ++a)
+    if (lane == 0) scnt[warp * TR + a] = K[a] - ties[a];
+  __syncthreads();
+
+  // sort each row's keys below T by (value, index): in shared memory (the
+  // histograms' bytes) up to kSortCap entries, in the outputs past it
+  float* sv = reinterpret_cast<float*>(hist);
+  int* si = reinterpret_cast<int*>(hist) + kSortCap;
+  for (int lr = 0; lr < R; ++lr) {
+    const int cnt = scnt[lr];
+    if (cnt < 2) continue;
+    const int64_t row = r0 + lr;
+    float* ov = out_v + row * k;
+    int* oi = out_i + row * k;
+    if (cnt <= kSortCap) {
+      for (int e = tid; e < cnt; e += kThreads) {
+        sv[e] = ov[e];
+        si[e] = oi[e];
+      }
+      __syncthreads();
+      sort_pairs(sv, si, cnt);
+      for (int e = tid; e < cnt; e += kThreads) {
+        ov[e] = sv[e];
+        oi[e] = si[e];
+      }
+      __syncthreads();
+    } else {
+      sort_pairs(ov, oi, cnt);
     }
   }
 }
@@ -628,14 +1084,14 @@ struct Operands {
   int k;
   bool vec;
   int64_t items;
-  bool large;  // the large-k variant (lists in the outputs)
+  bool large;  // the large-k variant (selection by threshold)
 };
 
-template <int M, int TR, bool kRegs, bool kChunk, bool kGlobal = false>
+template <int M, int TR, bool kRegs, bool kChunk>
 int launch_rows(const Operands& o, cudaStream_t stream) {
   constexpr int R = kWarps * TR;
-  const size_t smem = Layout(o.d, R).bytes(R, o.k, kGlobal);
-  const auto kernel = topk_kernel<M, TR, kRegs, kChunk, kGlobal>;
+  const size_t smem = Layout(o.d, R).bytes(R, o.k);
+  const auto kernel = topk_kernel<M, TR, kRegs, kChunk>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -648,6 +1104,29 @@ int launch_rows(const Operands& o, cudaStream_t stream) {
             o.xr + i0 * o.m * o.d, o.xc + i0 * o.w * o.d, o.nr + i0 * o.m,
             o.nc + i0 * o.w, o.out_v + ok, o.out_i + ok, o.m, o.w, o.rg0,
             o.cg0, o.d, o.k, o.vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// the large-k variant: kLargeR rows a block, at every k the same block
+template <int M, bool kChunk>
+int launch_large(const Operands& o, cudaStream_t stream) {
+  const size_t smem = large_bytes(o.d);
+  const auto kernel = topk_large_kernel<M, kChunk>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>((o.m + kLargeR - 1) / kLargeR);
+  for (int64_t i0 = 0; i0 < o.items; i0 += kMaxItems) {
+    const int64_t b = o.items - i0 < kMaxItems ? o.items - i0 : kMaxItems;
+    const int64_t ok = i0 * o.m * o.k;
+    kernel<<<dim3(grid, static_cast<unsigned>(b)), kThreads, smem, stream>>>(
+        o.xr + i0 * o.m * o.d, o.xc + i0 * o.w * o.d, o.nr + i0 * o.m,
+        o.nc + i0 * o.w, o.out_v + ok, o.out_i + ok, o.m, o.w, o.rg0, o.cg0,
+        o.d, o.k, o.vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -669,9 +1148,7 @@ struct TopkPerMetric {
       status = pald::launch_row_norms<M>(o.xr, o.nr, o.items * o.m, o.d,
                                          stream);
     if (status != 0) return status;
-    if (o.large)
-      return launch_rows<M, warp_rows(kLargeK), false, kChunk, true>(o,
-                                                                     stream);
+    if (o.large) return launch_large<M, kChunk>(o, stream);
     if (o.k <= 32)
       return launch_rows<M, warp_rows(32), true, kChunk>(o, stream);
     if (o.k <= 128)

@@ -10,7 +10,7 @@
 
 // pald_topk.cuh's topk for `items` X (n, d), one after another: out_v,
 // out_i (items, n, k), `norms` (items, n); `large`: the large-k variant
-// (required past k = 1024), each item's lists in its own outputs.
+// (required past k = 1024).
 extern "C" int pald_topk_chunk_f32(const float* x, float* norms,
                                    float* out_v, int* out_i, int64_t n,
                                    int64_t d, int k, int64_t items,

@@ -24,10 +24,15 @@ source note in the ``.cu`` file has the details.
 
 Every k >= 1 runs on the card.  Up to :data:`LARGE_K` four rows share a
 block, each row's dn, W and idx in shared memory; past it the kernel's
-large-k variant runs every warp of a block on one row, dn and idx read
-where they lie and W (with the features source's norms) in a scratch of
-2 k float32 a block that the wrapper allocates (:func:`large_scratch`),
-with the same sums in the same order, so the same bits.
+large-k variant runs a block on one row, dn and idx read where they lie
+and W (with the features source's norms) in a scratch of 2 k float32 a
+block that the wrapper allocates (:func:`large_scratch`).  The cube and D
+sources, and the features source past 16 features, run every warp of the
+block with the same sums in the same order, so the same bits; the
+features source up to 16 features (``csrc/pald_knn_large.cu``) holds
+rows in registers at a compile-time width (:func:`feature_width`), so its
+values are bitwise the others' for a functional whose focus is an exact
+count and within rounding for a smooth one.
 
 For a shard of a distributed run (``core/distributed_knn.py``) the features
 source takes ``row_off``, the global index of its first row (the index
@@ -68,7 +73,8 @@ __all__ = ["knn_values_cuda", "knn_values_torch",
            "knn_values_from_neighbors_torch",
            "knn_values_from_distances_cuda",
            "knn_values_from_distances_torch", "check_indices", "tile_layout",
-           "smem_per_cta", "large_scratch", "LARGE_K"]
+           "smem_per_cta", "large_scratch", "feature_width", "LARGE_K",
+           "REG_MAX_D"]
 
 TILE_MAX_K = 64  # csrc/pald_knn.cu kTileMaxK: the k x k tile in shared memory
 _STAGE_BYTES = 16 << 10  # csrc/pald_knn.cu kStageBytes
@@ -79,6 +85,17 @@ _WARPS = 4  # rows per thread block (csrc/pald_knn.cu: one warp per row)
 LARGE_K = 1024
 _BIG_GRID = 1024  # the large-k variant's row blocks a grid (kBigGrid)
 _BIG_STAGE_BYTES = 192 << 10  # its staged neighbor rows (kBigStageBytes)
+# the large-k features source in registers (csrc/pald_knn.cuh): the widest
+# d it takes, and the rows of its staged tile
+REG_MAX_D, _REG_TILE = 16, 256
+
+
+def feature_width(d: int) -> int | None:
+    """The compile-time width the large-k features source pads ``d``
+    features to (``csrc/pald_knn.cuh`` ``reg_width``): 8 up to 8, 16 up
+    to :data:`REG_MAX_D`; None past it, where the block of 32 warps
+    (``pald_knn.cu``) takes the row."""
+    return 8 if d <= 8 else 16 if d <= REG_MAX_D else None
 
 
 def tile_layout(k: int, d: int) -> tuple[bool, bool]:
@@ -95,10 +112,14 @@ def smem_per_cta(k: int, d: int | None = None) -> int:
     each of its four rows' dn, W and idx (the cube and D sources,
     ``d=None``), and for the features source at width ``d`` the norms,
     the tile and the staged rows (csrc/pald_knn.cu ``feat_layout``).  Past
-    :data:`LARGE_K` the large-k variant's block: the features source's k
-    staged neighbor rows while they fit in 192 KB, else nothing (the cube
-    and D sources hold nothing there either).  A card test holds it to
-    the kernel's own report, the C entry ``pald_knn_smem_bytes``."""
+    :data:`LARGE_K` the large-k variant's block: up to :data:`REG_MAX_D`
+    features a tile of 256 rows, each its :func:`feature_width` features,
+    norm, dn, index and W; past it the k staged neighbor rows while they
+    fit in 192 KB, else nothing (the cube and D sources hold nothing there
+    either).  A card test holds it to the kernel's own report, the C entry
+    ``pald_knn_smem_bytes``."""
+    if k > LARGE_K and d is not None and 0 <= d <= REG_MAX_D:
+        return 4 * _REG_TILE * (feature_width(d) + 4)
     if k > LARGE_K:
         staged = d is not None and d > 0 and k * (d | 1) * 4 <= \
             _BIG_STAGE_BYTES
@@ -264,7 +285,10 @@ def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
     if out.numel() == 0:
         return out
     items = lead[0] if lead else 1
-    return _launch("pald_knn_values_features_f32", spec.functor,
+    name = ("pald_knn_values_features_large_f32"
+            if k > LARGE_K and shape[-1] <= REG_MAX_D
+            else "pald_knn_values_features_f32")
+    return _launch(name, spec.functor,
                    (dn.data_ptr(), X.data_ptr(), shape[-1], idx.data_ptr(),
                     out.data_ptr(), n, k, mid, row_off, int(nbr), items,
                     X[0].numel() if lead else 0, None, wid, p0, p1), out,

@@ -35,8 +35,10 @@ full call's.  Its plain version is :func:`topk_block_torch`.
 
 Every k with 1 <= k <= n - 1 runs on the card (the block entry: any
 k >= 1).  Up to :data:`LARGE_K` the lists live in shared memory; past it
-the kernel's large-k variant keeps each row's list in its slice of the
-outputs and merges into it there (``csrc/pald_topk.cuh``).
+the kernel's large-k variant selects by threshold: histogram sweeps over
+the candidates pin each row's k-th value, a last sweep writes the
+candidates below it and the lowest-index ties at it, and a bitonic sort
+orders them (``csrc/pald_topk.cuh``).
 """
 from __future__ import annotations
 
@@ -53,11 +55,15 @@ __all__ = ["topk_select_cuda", "topk_select_torch", "topk_block_cuda",
            "topk_block_torch", "merge_pairs", "LARGE_K", "SENTINEL",
            "smem_per_cta"]
 
-# past it the large-k variant, the lists in the outputs
+# past it the large-k variant, selection by threshold
 # (csrc/pald_topk.cuh: kLargeK)
 LARGE_K = 1024
 SENTINEL = 2 ** 31 - 1  # the index of an empty list entry (+inf, SENTINEL)
 _CAND, _STAGES, _MAX_FEAT = 128, 2, 64  # csrc/pald_topk.cuh
+# the large-k variant's histogram bins a row (kBins) and the entries it
+# sorts in shared memory (kSortCap)
+BINS = 2048
+SORT_CAP = 16 * BINS // 2
 
 
 def rows_per_block(k: int) -> int:
@@ -77,19 +83,21 @@ def smem_per_cta(k: int, d: int | None = None) -> int:
     of two slots of 128 candidates' features and norms, the rows'
     thresholds and norms, and R best-lists of max(k, 32) (float, int)
     entries, past k = 32 with each warp's two batches of 128; past
-    :data:`LARGE_K` the batches alone, the lists in the outputs: the same
-    bytes at every k); ``d=None``: the largest over every d (past 64
-    features, when the rows ride in each slot).  A card test holds it to
-    the kernel's own report, the C entry ``pald_topk_smem_bytes``."""
+    :data:`LARGE_K` the rows' norms and sorted counts and their
+    :data:`BINS`-bin histograms instead: the same bytes at every k);
+    ``d=None``: the largest over every d (past 64 features, when the rows
+    ride in each slot).  A card test holds it to the kernel's own report,
+    the C entry ``pald_topk_smem_bytes``."""
     r = rows_per_block(k)
     kd = _MAX_FEAT if d is None else min(d, _MAX_FEAT)
     parts_once = d is not None and d <= _MAX_FEAT
     pitch = _stage_pitch(kd)
     rows = r * pitch if parts_once else 0
     slot = _CAND * pitch + _CAND + (0 if parts_once else r * pitch)
+    if k > LARGE_K:
+        return 4 * (rows + _STAGES * slot + 2 * r) + 4 * r * BINS
     batches = 8 * _CAND * 16
-    lists = (batches if k > LARGE_K else 8 * r * 32 if k <= 32
-             else 8 * r * k + batches)
+    lists = 8 * r * 32 if k <= 32 else 8 * r * k + batches
     return 4 * (rows + _STAGES * slot + 4 * r) + lists
 
 

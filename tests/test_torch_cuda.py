@@ -15,7 +15,11 @@ to the dense kernels' on those distances (the same loops on the same
 numbers).  The k-NN selection kernel is held bitwise to its plain version
 (indices and distances, and across two calls), the k-NN
 values kernel's cube source to rtol 1e-5, its features and D sources
-bitwise to the cube source.  The tri
+bitwise to the cube source.  Past k = 1024 the selection by threshold is
+bitwise its plain version on tie-heavy rows (every metric, the block
+entry merged, a sort past shared memory), and the values' register tiles
+(d <= 16) are within rtol 1e-5 of their plain version and bitwise the
+other layouts for a functional whose focus is an exact count.  The tri
 kernels are held to their plain versions the same way, their U bitwise to
 the dense kernel's, and their C bitwise to itself across two calls and to
 the dense kernel's C on a symmetric D and W.  A W with a non-finite entry
@@ -387,8 +391,8 @@ def test_cuda_topk_limits(cuda_device):
     from repro_torch.kernels import pald_topk
 
     X = torch.zeros((1100, 2), device=cuda_device)
-    with pytest.raises(ValueError, match="limit of 1024"):
-        pald_topk.topk_select_cuda(X, 1025)
+    g = pald_topk.topk_select_cuda(X, 1025)  # the large-k variant
+    assert g.indices.shape == (1100, 1025)
     with pytest.raises(ValueError, match="exceeds the n-1"):
         pald_topk.topk_select_cuda(X[:5], 5)
     g = pald_topk.topk_select_cuda(X[:1], 0)
@@ -1161,6 +1165,181 @@ def test_cuda_knn_large_k_chunk_bitwise_items(cuda_device, name):
                                  torch.cat([p.indices for p in parts], 1), k)
     _assert_bitwise("merged block entries", i, full.indices[0])
     _assert_bitwise("merged block distances", v, full.distances[0])
+
+
+# the redesigned large-k kernels: the selection by threshold on every
+# metric and entry, the values' register tiles at every width
+N_LARGE = 2100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1025, 1040, 2048, N_LARGE - 1])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_topk_large_k_vs_plain(cuda_device, metric, k):
+    """Past 1024 the selection by threshold, bitwise its plain version
+    (indices and distances) on tie-heavy quantized rows with duplicated
+    points (many ties at the k-th value), at d = 5 and 300 (the rows
+    staged once, and riding in each slot)."""
+    from repro_torch.kernels import pald_topk
+
+    sel = pald_topk.topk_select_cuda
+    for d in (5, 300):
+        Xg = torch.as_tensor(_knn_features(N_LARGE, d, seed=k + d),
+                             device=cuda_device)
+        before = sel.large_launches
+        gk = sel(Xg, k, metric=metric)
+        assert sel.large_launches == before + 1
+        gp = pald_topk.topk_select_torch(Xg, k, metric=metric)
+        _assert_bitwise(f"indices d={d}", gk.indices, gp.indices)
+        _assert_bitwise(f"distances d={d}", gk.distances, gp.distances)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_topk_large_k_block_entry_merges_to_the_full_call(cuda_device,
+                                                               metric):
+    """The block entry past 1024 on three candidate blocks (one with
+    fewer candidates than k, one holding the rows themselves): each
+    bitwise its plain version, (+inf, INT32_MAX) past the real candidates
+    included, and merged on the (value, index) key bitwise the full
+    call's rows."""
+    from repro_torch.kernels import pald_topk
+
+    k, r0, m = 1500, 700, 40
+    Xg = torch.as_tensor(_knn_features(N_LARGE, 6, seed=11),
+                         device=cuda_device)
+    full = pald_topk.topk_select_cuda(Xg, k, metric=metric)
+    rows = Xg[r0:r0 + m]
+    bv = bi = None
+    for c0, c1 in ((0, 600), (600, 1800), (1800, N_LARGE)):
+        blk = Xg[c0:c1].contiguous()
+        gk = pald_topk.topk_block_cuda(rows, blk, k, metric=metric,
+                                       row_off=r0, col_off=c0)
+        gp = pald_topk.topk_block_torch(rows, blk, k, metric=metric,
+                                        row_off=r0, col_off=c0)
+        _assert_bitwise(f"block {c0} indices", gk.indices, gp.indices)
+        _assert_bitwise(f"block {c0} distances", gk.distances, gp.distances)
+        if bv is None:
+            bv, bi = gk.distances, gk.indices
+        else:
+            bv, bi = pald_topk.merge_pairs(torch.cat([bv, gk.distances], 1),
+                                           torch.cat([bi, gk.indices], 1), k)
+    _assert_bitwise("merged indices", bi, full.indices[r0:r0 + m])
+    _assert_bitwise("merged distances", bv, full.distances[r0:r0 + m])
+
+
+@pytest.mark.cuda
+def test_cuda_topk_large_k_sorts_past_shared_memory(cuda_device):
+    """Past ``SORT_CAP`` entries below the k-th value the selection sorts
+    a row in its outputs: the block entry's 16 rows against 20,000
+    candidates at k = 17,000, bitwise the plain version."""
+    from repro_torch.kernels import pald_topk
+
+    Xg = torch.as_tensor(_knn_features(20_000, 3, seed=2),
+                         device=cuda_device)
+    k = 17_000
+    assert k > pald_topk.SORT_CAP
+    gk = pald_topk.topk_block_cuda(Xg[:16], Xg, k)
+    gp = pald_topk.topk_block_torch(Xg[:16], Xg, k)
+    _assert_bitwise("indices", gk.indices, gp.indices)
+    _assert_bitwise("distances", gk.distances, gp.distances)
+
+
+@pytest.mark.cuda
+def test_cuda_knn_large_k_root_is_sqrt_rn(cuda_device):
+    """The register tiles' branch-free euclidean root gives __fsqrt_rn's
+    bits on every non-negative float and -0 (2^31 + 1 inputs on the
+    card)."""
+    from repro_torch.kernels import _build
+
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    with torch.cuda.device(cuda_device):
+        status = _build.load("pald_knn_root_mismatches")(
+            bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "pald_knn_root_mismatches")
+    assert int(bad.item()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 8, 16, 17])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_knn_large_k_values_vs_plain(cuda_device, name, d):
+    """The values past 1024 at widths 3, 8, 16 (register tiles,
+    ``pald_knn_large.cu``) and 17 (the block of 32 warps): within rtol
+    1e-5, atol 1e-6 of the plain version on a 16-row slab, and for an
+    exact family bitwise the D source (the block of 32 warps' sums)."""
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    Xg = torch.as_tensor(_knn_features(N_LARGE, d, seed=d),
+                         device=cuda_device)
+    g = pald_topk.topk_select_cuda(Xg, 2048)
+    src = pald_knn.knn_values_from_features_cuda
+    before = src.large_launches
+    vk = src(Xg, g.distances, g.indices, ties=name)
+    assert src.large_launches == before + 1
+    sl = slice(900, 916)
+    vp = pald_knn.knn_values_from_features_torch(
+        Xg, g.distances[sl], g.indices[sl], ties=name, row_off=900)
+    torch.testing.assert_close(vk[sl], vp, rtol=RTOL, atol=ATOL)
+    if name in ("drop", "split", "ignore"):
+        vd = pald_knn.knn_values_from_distances_cuda(
+            cdist_reference(Xg), g.distances, g.indices, ties=name)
+        _assert_bitwise("features vs D source", vk, vd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ignore", "soft"])
+def test_cuda_knn_large_k_values_row_offset_and_neighbor_rows(cuda_device,
+                                                              name):
+    """The register tiles on a slice of the graph's rows with their global
+    offset (the index tiebreak's), and fed the rows' own (m, k, d)
+    neighbor features: bitwise the full call's rows."""
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    Xg = torch.as_tensor(_knn_features(N_LARGE, 5, seed=21),
+                         device=cuda_device)
+    g = pald_topk.topk_select_cuda(Xg, 1500)
+    full = pald_knn.knn_values_from_features_cuda(Xg, g.distances,
+                                                  g.indices, ties=name)
+    r0, m = 300, 64
+    dn = g.distances[r0:r0 + m].contiguous()
+    idx = g.indices[r0:r0 + m].contiguous()
+    part = pald_knn.knn_values_from_features_cuda(Xg, dn, idx, ties=name,
+                                                  row_off=r0)
+    _assert_bitwise("row offset", part, full[r0:r0 + m])
+    nbr = pald_knn.knn_values_from_neighbors_cuda(
+        Xg[idx.long()].contiguous(), dn, idx, ties=name, row_off=r0)
+    _assert_bitwise("neighbor rows", nbr, part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FUNCTIONALS + ["smooth"])
+def test_cuda_knn_large_k_values_at_1024_vs_the_layout(cuda_device,
+                                                       user_libraries, name):
+    """At k = 1024, routed to the large-k variant (``LARGE_K`` = 0 for the
+    call), the register-tile values bitwise the four-rows-a-block layout
+    for a family whose focus is an exact count, within rtol 1e-5, atol
+    1e-6 for soft, kernelized and a smooth user functional with a share."""
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    ties = SMOOTH if name == "smooth" else name
+    Xg = torch.as_tensor(_knn_features(1100, 8, seed=4), device=cuda_device)
+    g = pald_topk.topk_select_cuda(Xg, 1024)
+    src = pald_knn.knn_values_from_features_cuda
+    vs = src(Xg, g.distances, g.indices, ties=ties)
+    saved = pald_knn.LARGE_K
+    pald_knn.LARGE_K = 0
+    try:
+        before = src.large_launches
+        vl = src(Xg, g.distances, g.indices, ties=ties)
+        assert src.large_launches == before + 1
+    finally:
+        pald_knn.LARGE_K = saved
+    if name in ("drop", "split", "ignore"):
+        _assert_bitwise("register tiles vs layout", vl, vs)
+    else:
+        torch.testing.assert_close(vl, vs, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda

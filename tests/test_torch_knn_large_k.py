@@ -19,7 +19,11 @@ card runs the large-k variants and ``tests/test_torch_cuda.py`` and
   ``cdist_reference(X)``, and ``row_off`` against the reference's tile
   body with the slab's global row indices; tie-heavy features, so the
   ``ignore`` tiebreak acts.  The (n, k, k) cube of a
-  whole graph would be 4.7 GB here, so the tests run slabs.
+  whole graph would be 4.7 GB here, so the tests run slabs;
+- the redesigned kernels' host-side sizing at every k up to n - 1 (shared
+  memory within the card's 227 KB, the values' scratch), the width the
+  features source pads d to, and that zero-padding leaves every metric's
+  distances bitwise.
 """
 import numpy as np
 import pytest
@@ -39,6 +43,7 @@ N = 1100
 K_VALUES = 1040
 SLAB = 16
 RTOL, ATOL = 1e-5, 1e-6
+METRICS = ["sqeuclidean", "euclidean", "cosine", "manhattan"]
 
 
 def _smooth(xp, where, clamp):
@@ -217,10 +222,15 @@ def test_large_k_values_honour_row_off(graph_case, name):
 @pytest.mark.parametrize("k", [1025, 2048, 4096, 16384])
 def test_large_k_values_smem_fits_the_card(k, d):
     """Past ``LARGE_K`` a values block holds one row and keeps its state
-    out of shared memory: the features source stages the row's k neighbor
-    rows while they fit in 192 KB, the cube and D sources hold nothing."""
+    out of shared memory: the features source up to 16 features stages
+    tiles of 256 neighbor rows at its padded width (features, norm, dn,
+    index, W), past 16 the row's k neighbor rows while they fit in 192 KB;
+    the cube and D sources hold nothing."""
     smem = pald_knn.smem_per_cta(k, d)
     assert 0 <= smem <= 232448
+    if d is not None and d <= pald_knn.REG_MAX_D:
+        assert smem == 4 * 256 * (pald_knn.feature_width(d) + 4)
+        return
     staged = d is not None and k * (d | 1) * 4 <= 192 << 10
     assert smem == (4 * k * (d | 1) if staged else 0)
 
@@ -247,3 +257,73 @@ def test_large_k_wrappers_take_the_plain_versions_on_the_cpu():
                                                g.indices[:2])
     assert v.shape == (2, 1027)
     assert [(f.launches, f.large_launches) for f in wrappers] == before
+
+
+# ---------------------------------------------------------------------------
+# the redesigned large-k kernels' host-side sizing and the padded width
+# ---------------------------------------------------------------------------
+N_MAIN = 50_000  # the k-NN example's n: every k past LARGE_K up to n - 1
+WIDTHS = [1, 3, 8, 16, 17, 64, 65]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_large_k_sizing_fits_the_card_at_every_k(d):
+    """For every k from 1025 to n - 1 at n = 50,000: the selection's block
+    (its ring and the rows' 2048-bin histograms, the same at every k) and
+    the values block stay within the H100's 227 KB of shared memory; the
+    values' scratch is 2 k float32 for each of its 1024 row blocks (the
+    selection needs none: it sorts in shared memory or in its outputs)."""
+    ks = np.arange(pald_topk.LARGE_K + 1, N_MAIN)
+    sel = {pald_topk.smem_per_cta(int(k), d) for k in ks}
+    assert len(sel) == 1 and 0 < sel.pop() <= 232448
+    val = {pald_knn.smem_per_cta(int(k), d) for k in ks}
+    if d <= pald_knn.REG_MAX_D:  # one tile of 256 rows at every k
+        assert val == {4 * 256 * (pald_knn.feature_width(d) + 4)}
+    assert max(val) <= 232448
+    scratch = np.array([pald_knn.large_scratch(N_MAIN, int(k)) for k in ks])
+    np.testing.assert_array_equal(scratch, 2 * ks * 1024)
+    assert 4 * scratch.max() <= 8 * N_MAIN * 1024  # 410 MB at k = n - 1
+
+
+@pytest.mark.parametrize("d,width", [(0, 8), (1, 8), (3, 8), (8, 8),
+                                     (9, 16), (16, 16), (17, None),
+                                     (64, None), (65, None)])
+def test_large_k_feature_width(d, width):
+    """Past LARGE_K the features source pads d to 8 or 16 features in
+    registers (``pald_knn_large.cu``); past 16 the block of 32 warps
+    (``pald_knn.cu``) takes the row."""
+    assert pald_knn.feature_width(d) == width
+
+
+def _steps(X, metric):
+    """pald_dist.cuh's steps in numpy float32, one feature at a time in
+    order: the (n, n) pair sums and the rows' norm terms."""
+    n, d = X.shape
+    acc = np.zeros((n, n), np.float32)
+    nrm = np.zeros(n, np.float32)
+    for f in range(d):
+        a, b = X[:, f, None], X[None, :, f]
+        term = np.abs(a - b) if metric == "manhattan" else a * b
+        acc = (acc + term).astype(np.float32)
+        nrm = (nrm + X[:, f] * X[:, f]).astype(np.float32)
+    return acc, nrm
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_zero_padding_keeps_the_distances_bitwise(metric):
+    """Zero features appended to every row add exactly +0 to each pair sum
+    and norm (0 * 0 and |0 - 0| are +0, and a sum that starts at +0 is
+    never -0), so the padded distances of all four metrics are bitwise
+    the plain ones: numpy's float32 steps and ``cdist_reference``, on
+    quantized rows with duplicates and zero rows."""
+    for d in (1, 3, 5, 8, 13):
+        X = _dup_X(60, d, seed=d)
+        X[7] = 0.0
+        width = pald_knn.feature_width(d)
+        Xp = np.concatenate([X, np.zeros((60, width - d), np.float32)], 1)
+        for got, want in zip(_steps(Xp, metric), _steps(X, metric)):
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+        ref = cdist_reference(torch.from_numpy(X), metric=metric)
+        pad = cdist_reference(torch.from_numpy(Xp), metric=metric)
+        assert torch.equal(pad.view(torch.int32), ref.view(torch.int32))

@@ -198,12 +198,16 @@ def test_knn_from_features_facade():
                                4096, 16384])
 def test_topk_smem_estimate_fits_the_card(k):
     """The kernel's per-block shared memory stays within the H100's 227 KB
-    at every k; past ``LARGE_K`` (the large-k variant, the lists in the
-    outputs) it no longer grows with k."""
+    at every k; past ``LARGE_K`` (the large-k variant, selection by
+    threshold) it no longer grows with k: the ring of two 128-candidate
+    slots with the rows riding in each (past 64 features), the 16 rows'
+    norms and sorted counts, and their 2048-bin histograms."""
     assert 0 < pald_topk.smem_per_cta(k) <= 232448
     if k > pald_topk.LARGE_K:
-        assert pald_topk.smem_per_cta(k) == pald_topk.smem_per_cta(
-            pald_topk.LARGE_K + 1) < pald_topk.smem_per_cta(pald_topk.LARGE_K)
+        slot = 128 * 68 + 128 + 16 * 68
+        assert pald_topk.smem_per_cta(k) == \
+            4 * (2 * slot + 2 * 16) + 4 * 16 * pald_topk.BINS
+        assert pald_topk.SORT_CAP * 8 == 4 * 16 * pald_topk.BINS
 
 
 @pytest.mark.parametrize("d", [1, 8, 64, 65, 300])

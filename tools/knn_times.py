@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the k-NN path of whichever ``repro_torch`` is on the path.
 
-    PYTHONPATH=src python3 tools/knn_times.py [--big]
+    PYTHONPATH=src python3 tools/knn_times.py [--big] [--large]
 
 On the k-NN example's mixture (n = 50,000 points in communities of 25,
 d = 8, seed 0; ``examples/pald_knn_clusters.py``): ``ops.topk_select(X,
@@ -19,9 +19,15 @@ whose selection splits its candidates into segments, also the selection
 at S in {1, 2, 4, 8} and ``select_cohere`` with the split turned off
 (``pald_topk.default_segments`` pinned to 1; ``"S"`` is the default's
 choice).  ``--big`` adds ``select_cohere`` at n = 10^6 (one timed call
-after a warm-up).  Prints the card's name and power limit, then one JSON
-line ``{"n": ..., "topk": {k: ms}, "values": ms, "select_cohere": ms,
-"shuffled": {...}, "small": {n: {...}}, ...}``.
+after a warm-up).  ``--large`` times past k = 1024 instead, on the same
+mixture: the selection (median of 3 after a warm-up), the values
+(``ops.knn_values(X, graph, kind="features")``, one call) and
+``ops.select_cohere(X, k)`` (one call) at k in {1025, 2048, 4096}, after
+one values call on 64 rows has loaded the kernel.  Prints the card's name
+and power limit, then one JSON line ``{"n": ..., "topk": {k: ms},
+"values": ms, "select_cohere": ms, "shuffled": {...}, "small": {n:
+{...}}, ...}`` (``--large``: ``{"n": ..., "large": {k: {"topk": ms,
+"values": ms, "select_cohere": ms}}}``).
 
 It uses only entry points that every slice of the port has, so it times
 two trees in one call on one card: run it with ``PYTHONPATH`` set to each
@@ -40,6 +46,7 @@ import torch
 N, K, D, COMM, SEED, REPS = 50_000, 32, 8, 25, 0, 3
 N_BIG = 1_000_000
 N_SMALL, REPS_SMALL = (8192, 10_000), 11
+LARGE_KS = (1025, 2048, 4096)
 
 
 def mixture(n: int, comm: int, d: int, seed: int) -> torch.Tensor:
@@ -52,8 +59,9 @@ def mixture(n: int, comm: int, d: int, seed: int) -> torch.Tensor:
     return torch.as_tensor(X.astype(np.float32), device="cuda")
 
 
-def median_ms(fn, reps: int = REPS) -> float:
-    fn()
+def median_ms(fn, reps: int = REPS, warm: bool = True) -> float:
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -90,6 +98,27 @@ def small_times(ops, n: int) -> dict:
     return out
 
 
+def large_times(ops, X) -> dict:
+    """The selection, the values and select_cohere past k = 1024."""
+    from repro_torch.core.knn import NeighborGraph
+
+    g = ops.topk_select(X, LARGE_KS[0])
+    ops.knn_values(X, NeighborGraph(g.indices[:64], g.distances[:64]),
+                   kind="features")
+    out = {}
+    for k in LARGE_KS:
+        t = {"topk": median_ms(lambda: ops.topk_select(X, k))}
+        g = ops.topk_select(X, k)
+        t["values"] = median_ms(lambda: ops.knn_values(X, g, kind="features"),
+                                1, warm=False)
+        del g
+        t["select_cohere"] = median_ms(lambda: ops.select_cohere(X, k=k), 1,
+                                       warm=False)
+        out[k] = t
+        print(f"k={k}: {t}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("knn_times: needs a CUDA GPU")
@@ -99,6 +128,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     X = mixture(N, COMM, D, SEED)
+    if "--large" in sys.argv[1:]:
+        print(json.dumps({"n": N, "d": D, "large": large_times(ops, X)}))
+        return 0
     out = {"n": N, "d": D, "topk": {}}
     for k in (1, K, 256, 1024):
         out["topk"][k] = median_ms(lambda: ops.topk_select(X, k))
