@@ -334,7 +334,8 @@ those calls issued; ``blocks``, for the focus kernels: the thread blocks
 of those grids, counted by the kernel on the card; ``bound_ms``: the function's least work, shared by the
 dense, tri and fused kernels of one pass, see :func:`pass_ops`;
 ``dryrun_launches``, on the rectangular rows: phase 28's launches; the
-rows named ``<kernel>_large[k=...]``: phase 11's large-k variants, their
+rows named ``<kernel>_large[k=...]``: phase 11's large-k variants (``,d=``
+in the name: the values' features source past 16 features), their
 plain versions timed on a 16-row slab (``plain_on``); the
 rows named ``<kernel>[<functional>]``: phase 29's user functors, each with
 its compiled ``key``, the built-in's time in the same turns
@@ -1672,7 +1673,8 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
 
 
 # phase 11 past k = LARGE_K (1024): the k-NN kernels' large-k variants.
-# select_cohere at the example's n = 50,000 for each of LARGE_KS; the D
+# select_cohere at the example's n = 50,000 for each of LARGE_KS, and at
+# n = 2100 for each of D_WIDE (the values' block of 32 warps); the D
 # source through cohesion(D, method="knn") at phase 3's n = 8192; a chunk
 # of two items and the block entry at n = 2100; both variants beside the
 # shared-memory layouts at k = 1024, where they are never routed.  The
@@ -1686,6 +1688,7 @@ LARGE_SLAB = 16
 EXACT_FAMILIES = ("drop", "split", "ignore")
 K_LARGE_D = 2048
 N_LARGE_CHUNK, K_LARGE_CHUNK = 2100, 2048
+D_WIDE = (17, 64)  # feature widths past the register tiles' widest (16)
 
 
 @contextlib.contextmanager
@@ -1789,7 +1792,7 @@ def phase_knn_large_k(Xg, clock_mhz, card):
     from repro_torch.core import knn, pald
     from repro_torch.core.features import cdist_reference
     from repro_torch.core.weights import DEFAULT_TIES
-    from repro_torch.kernels import _build, ops, pald_knn, pald_topk
+    from repro_torch.kernels import ops, pald_knn, pald_topk
 
     n, d = Xg.shape
     sel = pald_topk.topk_select_cuda
@@ -1797,14 +1800,15 @@ def phase_knn_large_k(Xg, clock_mhz, card):
     dsrc = pald_knn.knn_values_from_distances_cuda
     rows = []
 
-    def row(name, src, k, ms, plain_ms, err, launched, nn=n, **extra):
+    def row(name, src, k, ms, plain_ms, err, launched, nn=n, dd=d, tag="",
+            **extra):
         kind = "topk_select" if name == "topk_block" else name
-        b_ms, b_by = knn_bound_ms(kind, nn, k, d, clock_mhz)
-        print(f"phase 11: {name} large-k variant n={nn} k={k} d={d}: kernel "
-              f"{ms!r} ms, plain {plain_ms!r} ms on a {LARGE_SLAB}-row slab, "
-              f"bound {b_ms!r} ms ({b_by}), kernel/bound {ms / b_ms:.3f}, "
+        b_ms, b_by = knn_bound_ms(kind, nn, k, dd, clock_mhz)
+        print(f"phase 11: {name} large-k variant n={nn} k={k} d={dd}: "
+              f"kernel {ms!r} ms, plain {plain_ms!r} ms on a {LARGE_SLAB}-row "
+              f"slab, bound {b_ms!r} ms ({b_by}), kernel/bound {ms / b_ms:.3f}, "
               f"library: none; {card}")
-        rows.append({"name": f"{name}_large[k={k}]", "route": "cuda",
+        rows.append({"name": f"{name}_large[k={k}{tag}]", "route": "cuda",
                      "source": src, "replaces": "src/repro/kernels/"
                      + ("pald_topk.py:181" if kind == "topk_select"
                         else "pald_knn.py:74"),
@@ -1814,27 +1818,35 @@ def phase_knn_large_k(Xg, clock_mhz, card):
                      "bound_by": b_by, "library_ms": None, "n": nn, "k": k,
                      **extra})
 
-    for k in LARGE_KS:
+    def run_large(X, k):
+        """select_cohere(X, k) with every count at 0 and the plain versions
+        forbidden: each large-k variant once; (graph, values, the values
+        kernel's ms inside the run)."""
+        nx, dx = X.shape
         reset_counts(sel, val, dsrc, pald_knn.knn_values_cuda)
         val_ms = []  # the values kernel timed inside the main path's run
         t0 = time.perf_counter()
-        with plain_forbidden(f"select_cohere k={k}"), \
+        with plain_forbidden(f"select_cohere k={k} d={dx}"), \
                 timed_calls(ops, "knn_values_from_features_cuda", val_ms):
-            graph, vals = ops.select_cohere(Xg, k=k)
+            graph, vals = ops.select_cohere(X, k=k)
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launched = [(f.launches, f.large_launches) for f in (sel, val)]
         others = dsrc.launches + pald_knn.knn_values_cuda.launches
-        print(f"phase 11: select_cohere(X, k={k}) n={n} d={d}: {secs:.3f} s "
-              f"wall (first call at this k), launches (all, large-k "
+        print(f"phase 11: select_cohere(X, k={k}) n={nx} d={dx}: {secs:.3f} "
+              f"s wall (first call at this k), launches (all, large-k "
               f"variant): selection {launched[0]}, values {launched[1]}")
         if launched != [(1, 1), (1, 1)] or others:
-            fail(f"select_cohere k={k} did not run the large-k variants "
-                 f"once each: {launched}, other sources {others}")
-        if (tuple(vals.shape) != (n, k + 1)
+            fail(f"select_cohere k={k} d={dx} did not run the large-k "
+                 f"variants once each: {launched}, other sources {others}")
+        if (tuple(vals.shape) != (nx, k + 1)
                 or not bool(torch.isfinite(vals).all())):
-            fail(f"select_cohere k={k}: values {tuple(vals.shape)}, "
+            fail(f"select_cohere k={k} d={dx}: values {tuple(vals.shape)}, "
                  "non-finite entries")
+        return graph, vals, val_ms[0]
+
+    for k in LARGE_KS:
+        graph, vals, ms_v = run_large(Xg, k)
         err, ms_tp, ms_vp = large_k_slab(f"phase 11 k={k}", Xg, graph, vals,
                                          min(30001, n - LARGE_SLAB), k)
         # select_cohere ran the selection at this k: it is the warm-up
@@ -1844,28 +1856,38 @@ def phase_knn_large_k(Xg, clock_mhz, card):
             ms_tp, 0.0, 1, reps=reps)
         row("knn_values_features", "src/repro_torch/csrc/pald_knn_large.cu"
             if pald_knn.feature_width(d) else
-            "src/repro_torch/csrc/pald_knn.cu", k, val_ms[0], ms_vp, err, 1,
+            "src/repro_torch/csrc/pald_knn.cu", k, ms_v, ms_vp, err, 1,
             reps=1, timed="its call inside the select_cohere run")
         del graph, vals
+
+    # past REG_MAX_D features the values' features source is pald_knn.cu's
+    # block of 32 warps: select_cohere on the mixture at n = 2100, k = 2048
+    # and each of D_WIDE, held to the plain versions on a slab
+    n2, k = N_LARGE_CHUNK, K_LARGE_CHUNK
+    for dw in D_WIDE:
+        if pald_knn.feature_width(dw) is not None:
+            fail(f"d={dw} would take the register tiles, not pald_knn.cu")
+        Xw = torch.as_tensor(make_mixture(n2, COMM_KNN, dw, SEED + 5)[0],
+                             device=Xg.device)
+        graph, vals, ms_v = run_large(Xw, k)
+        err, _, ms_vp = large_k_slab(f"phase 11 d={dw} k={k}", Xw, graph,
+                                     vals, 1000, k)
+        row("knn_values_features", "src/repro_torch/csrc/pald_knn.cu", k,
+            ms_v, ms_vp, err, 1, nn=n2, dd=dw, tag=f",d={dw}", reps=1,
+            timed="its call inside the select_cohere run")
+        del Xw, graph, vals
+
+    for dd in (d, *D_WIDE):
+        width = pald_knn.feature_width(dd)
+        print(f"phase 11: the large-k values' features source at d={dd}: "
+              + (f"register tiles at width {width} (pald_knn_large.cu)"
+                 if width else "the block of 32 warps (pald_knn.cu)")
+              + f"; d <= {pald_knn.REG_MAX_D} takes the register tiles")
 
     # the record at k = 256, 512 and 1024 (data for where LARGE_K should
     # sit): each shared-memory layout against the large-k variant on the
     # same operands, at 1024 also compared (the selection bitwise, the
     # values bitwise for the default family, an exact count)
-    width = pald_knn.feature_width(d)
-    print(f"phase 11: the large-k values' features source at d={d}: "
-          + (f"register tiles at width {width} (pald_knn_large.cu)"
-             if width else "the block of 32 warps (pald_knn.cu)")
-          + f"; d <= {pald_knn.REG_MAX_D} takes the register tiles")
-    bad = torch.zeros(1, dtype=torch.int64, device=Xg.device)
-    _build.check(_build.load("pald_knn_root_mismatches")(
-        bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
-        "pald_knn_root_mismatches")
-    if int(bad.item()):
-        fail(f"the register tiles' root differs from __fsqrt_rn on "
-             f"{int(bad.item())} floats")
-    print("phase 11: the register tiles' branch-free root is bitwise "
-          "__fsqrt_rn on all 2^31 + 1 non-negative floats")
     for k in RECORD_KS:
         ms_s, gs = time_ms(lambda: sel(Xg, k), 1)
         ms_vs, vs = time_ms(lambda: val(Xg, gs.distances, gs.indices), 1)

@@ -80,8 +80,9 @@
 //     src/repro/kernels/pald_topk.py:107-135) orders the entries below T
 //     by (value, index), in shared memory up to kSortCap entries and in
 //     the output slice itself past that.
-// Every sweep reuses the staged distance loop of k <= 1024 (the same ring,
-// sums and finish), so the variant costs about four of its sweeps and a
+// Every sweep runs a copy of the staged distance loop of k <= 1024 (the
+// same ring, sums and finish; the note above its `sweep` says why a
+// copy), so the variant costs about four of its sweeps and a
 // sort; shared memory holds the ring and the histograms and does not grow
 // with k.  What bounds it: operations, the n^2 pair sums of each sweep.
 // Rows, their thresholds, lists and batches belong to one warp, so the
@@ -429,6 +430,8 @@ topk_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   }
   __syncwarp();
 
+  // (topk_large_kernel's `sweep` holds a copy of what follows, through the
+  // finish of a chunk's pairs: the two stay in step)
   // slot t: chunk t / parts (counted from the block's own chunk), features
   // (t % parts) * kMaxFeat..; the last part of a chunk also brings the
   // candidates' norms
@@ -751,7 +754,13 @@ topk_large_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   // One sweep over the candidates, chunk by chunk from chunk `start` on
   // (wrapping): body(c0, v), v[a][j] the finished pair of row a and
   // candidate c0 + lane + 32 j (sqeuclidean and euclidean: the square, not
-  // yet clamped)
+  // yet clamped).  A deliberate copy of topk_kernel's loop (lines 435-551,
+  // from "slot t" through the finish of a chunk's pairs; here 764-876):
+  // one device helper shared by both, in two forms, changed the SASS of
+  // every k <= 1024 kernel (tools/sass_diff.py), which must keep it.  A
+  // change to the ring, the norms' pieces, the sums or the finish is made
+  // in both: each graph is bitwise the plain selection's only while both
+  // kernels compute the same distance bits.
   auto sweep = [&](int start, auto&& body) {
     auto locate = [&](int t, int& fp, int64_t& c0) {
       int ci = t;

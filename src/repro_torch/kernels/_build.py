@@ -102,7 +102,6 @@ SIGNATURES = {
                                            (_P, _P, _I64, _P, _P, _I64, _I32,
                                             _I32, _I64, _I32, _I64, _I64, _P,
                                             _I32, _F32, _F32, _P)),
-    "pald_knn_root_mismatches": ("pald_knn_large", (_P, _P)),
     "pald_knn_values_distances_f32": ("pald_knn",
                                       (_P, _P, _I64, _P, _P, _I64, _I32,
                                        _I64, _I64, _P, _I32, _F32, _F32,

@@ -1246,21 +1246,6 @@ def test_cuda_topk_large_k_sorts_past_shared_memory(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_knn_large_k_root_is_sqrt_rn(cuda_device):
-    """The register tiles' branch-free euclidean root gives __fsqrt_rn's
-    bits on every non-negative float and -0 (2^31 + 1 inputs on the
-    card)."""
-    from repro_torch.kernels import _build
-
-    bad = torch.zeros(1, dtype=torch.int64, device=cuda_device)
-    with torch.cuda.device(cuda_device):
-        status = _build.load("pald_knn_root_mismatches")(
-            bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(status, "pald_knn_root_mismatches")
-    assert int(bad.item()) == 0
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("d", [3, 8, 16, 17])
 @pytest.mark.parametrize("name", FUNCTIONALS)
 def test_cuda_knn_large_k_values_vs_plain(cuda_device, name, d):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the k-NN path of whichever ``repro_torch`` is on the path.
 
-    PYTHONPATH=src python3 tools/knn_times.py [--big] [--large]
+    PYTHONPATH=src python3 tools/knn_times.py [--big] [--large [--split]]
 
 On the k-NN example's mixture (n = 50,000 points in communities of 25,
 d = 8, seed 0; ``examples/pald_knn_clusters.py``): ``ops.topk_select(X,
@@ -23,11 +23,15 @@ after a warm-up).  ``--large`` times past k = 1024 instead, on the same
 mixture: the selection (median of 3 after a warm-up), the values
 (``ops.knn_values(X, graph, kind="features")``, one call) and
 ``ops.select_cohere(X, k)`` (one call) at k in {1025, 2048, 4096}, after
-one values call on 64 rows has loaded the kernel.  Prints the card's name
+one values call on 64 rows has loaded the kernel; ``--split`` adds, at k =
+2048, the selection (median of 3) and the values (one call) for each
+metric, the values for each built-in family (euclidean), and the values
+at d = 16 (the points with 8 zero features: the features source's width
+16), under ``"split"``.  Prints the card's name
 and power limit, then one JSON line ``{"n": ..., "topk": {k: ms},
 "values": ms, "select_cohere": ms, "shuffled": {...}, "small": {n:
 {...}}, ...}`` (``--large``: ``{"n": ..., "large": {k: {"topk": ms,
-"values": ms, "select_cohere": ms}}}``).
+"values": ms, "select_cohere": ms}}, "split": {...}}``).
 
 It uses only entry points that every slice of the port has, so it times
 two trees in one call on one card: run it with ``PYTHONPATH`` set to each
@@ -119,6 +123,28 @@ def large_times(ops, X) -> dict:
     return out
 
 
+def large_split(ops, X, k: int = 2048) -> dict:
+    """The selection and the values at k by metric, the values by family
+    (euclidean) and at d = 16 (X with zero features appended)."""
+    out = {}
+    for metric in ("euclidean", "sqeuclidean", "cosine", "manhattan"):
+        t = {"topk": median_ms(lambda: ops.topk_select(X, k, metric=metric))}
+        g = ops.topk_select(X, k, metric=metric)
+        t["values"] = median_ms(lambda: ops.knn_values(
+            X, g, kind="features", metric=metric), 1)
+        out[metric] = t
+        print(f"k={k} {metric}: {t}", flush=True)
+    g = ops.topk_select(X, k)
+    for ties in ("split", "ignore", "soft", "kernelized"):
+        out[f"values_{ties}"] = median_ms(lambda: ops.knn_values(
+            X, g, kind="features", ties=ties), 1)
+    X16 = torch.cat([X, torch.zeros_like(X)], 1).contiguous()
+    out["values_d16"] = median_ms(lambda: ops.knn_values(
+        X16, g, kind="features"), 1)
+    print(f"k={k}: {out}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("knn_times: needs a CUDA GPU")
@@ -129,7 +155,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     X = mixture(N, COMM, D, SEED)
     if "--large" in sys.argv[1:]:
-        print(json.dumps({"n": N, "d": D, "large": large_times(ops, X)}))
+        out = {"n": N, "d": D, "large": large_times(ops, X)}
+        if "--split" in sys.argv[1:]:
+            out["split"] = large_split(ops, X)
+        print(json.dumps(out))
         return 0
     out = {"n": N, "d": D, "topk": {}}
     for k in (1, K, 256, 1024):
