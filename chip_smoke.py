@@ -79,8 +79,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a 64-row slab check; ptxas's registers and spills of both sources;
    then past k = 1024, the kernels' large-k variants (the selection by
    threshold: histogram sweeps, a collect, a sort; the values a block a
-   row, its state out of shared memory, in register tiles up to 16
-   features, ``pald_knn_large.cu``):
+   row, its state out of shared memory, the features source in register
+   tiles, ``pald_knn_large.cu`` up to 16 features, ``pald_knn_wide.cu`` up
+   to 64 and ``pald_knn_piece.cu`` past, the D source in one sweep of each
+   row's tile):
    ``select_cohere(X, k)`` at n = 50,000 for k in {1025, 2048, 4096}
    with the wrappers' counts set to 0 and every plain version failing if
    called (one launch of each large-k variant), the graph bitwise and the
@@ -88,12 +90,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    slab, each kernel timed (the selection the median of 3 after
    select_cohere's call, one call at k = 4096; the values kernel its call
    inside the select_cohere run, CUDA events around the wrapper);
-   the features source's padded width at d = 8; both variants beside
+   the same at n = 2100, k = 2048 for d in ``D_WIDE`` (17, 64, 100:
+   widths 32 and 64 and pieces of 32); the features source's entry and
+   padded width at each d; both variants beside
    the shared-memory layouts at k = 256, 512 (times only) and 1024 (for
    the record: the selection bitwise, the values bitwise for the default
    family, an exact count); ``cohesion(D, method="knn", k=2048)`` on phase 3's
    n = 8192 D (the D source's variant once, C bitwise its scatter, a
-   16-row slab); a chunk of 2 at n = 2100, k = 2048 (the selection and
+   16-row slab; the sweep's gather traffic, entries and 32-byte sectors a
+   row modeled from the graph's indices (printed, not measured), beside
+   two passes in the graph's order); a chunk of 2 at n =
+   2100, k = 2048 (the selection and
    both values sources one launch each, each item bitwise alone) and the
    block entry on two candidate blocks, merged, bitwise the full call,
    and timed over all n candidates; the ``*_large[k=...]`` rows of the
@@ -1674,7 +1681,8 @@ def phase_knn_timing(Xg, graph, launches, clock_mhz, reps=5):
 
 # phase 11 past k = LARGE_K (1024): the k-NN kernels' large-k variants.
 # select_cohere at the example's n = 50,000 for each of LARGE_KS, and at
-# n = 2100 for each of D_WIDE (the values' block of 32 warps); the D
+# n = 2100 for each of D_WIDE (pald_knn_wide.cu's and pald_knn_piece.cu's
+# register tiles); the D
 # source through cohesion(D, method="knn") at phase 3's n = 8192; a chunk
 # of two items and the block entry at n = 2100; both variants beside the
 # shared-memory layouts at k = 1024, where they are never routed.  The
@@ -1688,7 +1696,9 @@ LARGE_SLAB = 16
 EXACT_FAMILIES = ("drop", "split", "ignore")
 K_LARGE_D = 2048
 N_LARGE_CHUNK, K_LARGE_CHUNK = 2100, 2048
-D_WIDE = (17, 64)  # feature widths past the register tiles' widest (16)
+# feature widths past pald_knn_large.cu's widest (16): pald_knn_wide.cu's
+# widths 32 and 64, and pald_knn_piece.cu's pieces of 32 features
+D_WIDE = (17, 64, 100)
 
 
 @contextlib.contextmanager
@@ -1784,6 +1794,40 @@ def large_k_slab(tag, X, graph, vals, r0, k):
     return err, ms_tp, ms_vp
 
 
+def features_source(k, d):
+    """The CUDA source whose entry the features source launches at (k,
+    d)."""
+    from repro_torch.kernels import _build, pald_knn
+
+    stem = _build.SIGNATURES[pald_knn.features_entry(k, d)][0]
+    return f"src/repro_torch/csrc/{stem}.cu"
+
+
+def gather_traffic(idx, k):
+    """A model of the D source's reads of D a row at k, worked out from
+    the graph's indices (n, k), not counted on the card: the sweep reads each entry of the row's tile once, a warp
+    taking 32 consecutive columns of the row's neighbors sorted by index;
+    for comparison, a read of each entry in each pass, a warp taking 32
+    consecutive neighbors in the graph's order (the one-warp rows' reads
+    at k <= 1024).  The 32-byte sectors of a
+    warp's read are its distinct column // 8 (D's rows start on a sector
+    when its row length is a multiple of 8) and no read hits a cache; the
+    mean over the rows."""
+    import torch
+
+    def sectors(cols):
+        c = (cols // 8).reshape(cols.shape[0], -1, 32)
+        c, _ = torch.sort(c, dim=-1)
+        distinct = 1 + (c[..., 1:] != c[..., :-1]).sum(-1)
+        return float(distinct.sum(-1).double().mean()) * k
+
+    full = idx[:, :k // 32 * 32].long()
+    return {"sweep_entries": k * k,
+            "sweep_sectors": sectors(torch.sort(full, dim=1)[0]),
+            "two_pass_entries": 2 * k * k,
+            "two_pass_sectors": 2 * sectors(full)}
+
+
 def phase_knn_large_k(Xg, clock_mhz, card):
     """Phase 11, past k = 1024 (module docstring): the main path through
     the large-k variants (their launch counts, the plain versions
@@ -1808,6 +1852,7 @@ def phase_knn_large_k(Xg, clock_mhz, card):
               f"kernel {ms!r} ms, plain {plain_ms!r} ms on a {LARGE_SLAB}-row "
               f"slab, bound {b_ms!r} ms ({b_by}), kernel/bound {ms / b_ms:.3f}, "
               f"library: none; {card}")
+        extra.setdefault("x_bound", ms / b_ms)
         rows.append({"name": f"{name}_large[k={k}{tag}]", "route": "cuda",
                      "source": src, "replaces": "src/repro/kernels/"
                      + ("pald_topk.py:181" if kind == "topk_select"
@@ -1854,35 +1899,37 @@ def phase_knn_large_k(Xg, clock_mhz, card):
         ms_t, _ = time_ms(lambda: sel(Xg, k), reps, warm=False)
         row("topk_select", "src/repro_torch/csrc/pald_topk.cuh", k, ms_t,
             ms_tp, 0.0, 1, reps=reps)
-        row("knn_values_features", "src/repro_torch/csrc/pald_knn_large.cu"
-            if pald_knn.feature_width(d) else
-            "src/repro_torch/csrc/pald_knn.cu", k, ms_v, ms_vp, err, 1,
-            reps=1, timed="its call inside the select_cohere run")
+        row("knn_values_features", features_source(k, d), k, ms_v, ms_vp,
+            err, 1, reps=1, timed="its call inside the select_cohere run")
         del graph, vals
 
-    # past REG_MAX_D features the values' features source is pald_knn.cu's
-    # block of 32 warps: select_cohere on the mixture at n = 2100, k = 2048
-    # and each of D_WIDE, held to the plain versions on a slab
+    # past REG_MAX_D features the values' features source is
+    # pald_knn_wide.cu's and pald_knn_piece.cu's register tiles:
+    # select_cohere on the mixture at n = 2100, k = 2048 and each of
+    # D_WIDE, held to the plain versions on a slab
     n2, k = N_LARGE_CHUNK, K_LARGE_CHUNK
     for dw in D_WIDE:
-        if pald_knn.feature_width(dw) is not None:
-            fail(f"d={dw} would take the register tiles, not pald_knn.cu")
+        if not features_source(k, dw).endswith(("pald_knn_wide.cu",
+                                                 "pald_knn_piece.cu")):
+            fail(f"d={dw} would not take the register tiles past 16 "
+                 "features")
         Xw = torch.as_tensor(make_mixture(n2, COMM_KNN, dw, SEED + 5)[0],
                              device=Xg.device)
         graph, vals, ms_v = run_large(Xw, k)
         err, _, ms_vp = large_k_slab(f"phase 11 d={dw} k={k}", Xw, graph,
                                      vals, 1000, k)
-        row("knn_values_features", "src/repro_torch/csrc/pald_knn.cu", k,
-            ms_v, ms_vp, err, 1, nn=n2, dd=dw, tag=f",d={dw}", reps=1,
+        row("knn_values_features", features_source(k, dw), k, ms_v, ms_vp,
+            err, 1, nn=n2, dd=dw, tag=f",d={dw}", reps=1,
             timed="its call inside the select_cohere run")
         del Xw, graph, vals
 
     for dd in (d, *D_WIDE):
         width = pald_knn.feature_width(dd)
         print(f"phase 11: the large-k values' features source at d={dd}: "
-              + (f"register tiles at width {width} (pald_knn_large.cu)"
-                 if width else "the block of 32 warps (pald_knn.cu)")
-              + f"; d <= {pald_knn.REG_MAX_D} takes the register tiles")
+              f"{pald_knn.features_entry(K_LARGE_CHUNK, dd)} "
+              f"({features_source(K_LARGE_CHUNK, dd)}), register tiles at "
+              f"width {width}"
+              + (" in pieces of 32" if dd > 64 else ""))
 
     # the record at k = 256, 512 and 1024 (data for where LARGE_K should
     # sit): each shared-memory layout against the large-k variant on the
@@ -1937,8 +1984,15 @@ def phase_knn_large_k(Xg, clock_mhz, card):
     print(f"phase 11: cohesion(D, method='knn', k={k}) n={N_MAIN}: "
           f"{secs:.3f} s wall (first call), the D source's large-k variant "
           f"once; C bitwise its scatter")
+    traffic = gather_traffic(g.indices, k)
+    print(f"phase 11: the D source's gather at n={N_MAIN} k={k}, a row, "
+          f"modeled from the graph's indices (aligned rows, no cache reuse; "
+          f"not a device count): the sweep {traffic['sweep_entries']} "
+          f"entries in {traffic['sweep_sectors']!r} 32-byte sectors (mean); "
+          f"two passes in the graph's order {traffic['two_pass_entries']} "
+          f"in {traffic['two_pass_sectors']!r}")
     row("knn_values_distances", "src/repro_torch/csrc/pald_knn.cu", k, ms_d,
-        ms_dp, err, 1, nn=N_MAIN, reps=1)
+        ms_dp, err, 1, nn=N_MAIN, reps=1, kernel="knn_dist_sweep_kernel")
     del C, D, g, vd
 
     # a chunk of two items and the block entry at n = 2100, k = 2048

@@ -67,31 +67,31 @@
 // and the exact families' U bitwise.  64-bit offsets (n k^2 passes 2^31 at
 // k = 32 past n = 2.1e6).
 //
-// Past k = kLargeK = 1024, the large-k variant (every source, one item or
-// a chunk; values_passes_big and the *_big_kernel entries, beside the
-// kernels of k <= 1024, which it leaves as they are; the features source
-// at d <= 16 is pald_knn_large.cu's, in registers, and this file's only
-// past 16 features).  A row's dn, W and
-// idx (12 B k) no longer fit four rows to a block in shared memory for
-// every k, so the row's state leaves it: dn and idx are read where they
-// lie (read-only, through L1/L2), and W (and the features source's k
-// norms) go to a global scratch of 2 k float32 a block that the wrapper
-// allocates.  A grid has at most kBigGrid row blocks (each takes rows
-// blockIdx.x, + gridDim.x, ...), so the scratch is 8 KB k an item at most
-// (32 MB at k = 4096): that bounds the variant's peak above its outputs.
-// All kBigWarps warps of a block work on its one row: pass 1 deals the
-// pairs j to the warps in turn (each U[j] still one warp's sum), warp 0
-// sums the self column, and pass 2 deals the column groups m0 to the
-// warps; a block barrier parts the passes.  Each value is the same
-// expression in the same order as in the one-warp rows, so the variant
-// gives their bits at every k.  One row a block also keeps the row's
-// working set (its neighbor rows, dn, idx, W) in one SM's L1.  The
-// features source stages the row's k neighbor feature rows in shared
-// memory while they fit in kBigStageBytes (192 KB: k <= 2891 at d = 17),
-// conflict-free at an odd pitch, and reads them from X otherwise; the
-// cube and D sources use no shared memory.  What bounds it: operations,
-// above all the features source's pairs, each tile entry recomputed where
-// a pass reads it (2 k^2 (2d + 4) a row against the passes' 7 k (k+1)).
+// Past k = kLargeK = 1024, the large-k variant (one item or a chunk;
+// beside the kernels of k <= 1024, which it leaves as they are).  A row's
+// dn, W and idx (12 B k) no longer fit four rows to a block in shared
+// memory for every k, so the row's state leaves it: dn and idx are read
+// where they lie (read-only, through L1/L2), and W (and the D source's
+// sorted positions past 64 KB of them) go to a global scratch of 2 k
+// float32 a block that the wrapper allocates.  A grid has at most
+// kBigGrid row blocks (each takes rows blockIdx.x, + gridDim.x, ...), so
+// the scratch is 8 KB k an item at most (32 MB at k = 4096): that bounds
+// the variant's peak above its outputs.
+//   - The cube source runs all kBigWarps warps of a block on its one row:
+//     pass 1 deals the pairs j to the warps in turn (each U[j] still one
+//     warp's sum), warp 0 sums the self column, and pass 2 deals the
+//     column groups m0 to the warps; a block barrier parts the passes.
+//     Each value is the same expression in the same order as in the
+//     one-warp rows, so it gives their bits at every k.
+//   - The D source sweeps the row's tile once (knn_dist_sweep_kernel's
+//     note): each entry of D it needs read once, in ascending column
+//     order, where the one-warp rows read each twice in the neighbors'
+//     order.  Its pass 1 sums over the sorted columns, so its values are
+//     bitwise the others' for a functional whose focus is an exact count
+//     and within rounding for a smooth one; pass 2 keeps their order.
+//   - The features source is the register tiles' (pald_knn_reg.cuh),
+//     entries of their own in pald_knn_large.cu, pald_knn_wide.cu and
+//     pald_knn_piece.cu.
 #include <cstdint>
 
 #include "pald_dist.cuh"
@@ -106,7 +106,7 @@ using pald::knn::kBigGrid;
 using pald::knn::KnnSupport;
 using pald::knn::kLargeK;
 using pald::knn::kMaxItems;
-using pald::knn::kRegMaxD;
+using pald::knn::self_column;
 using pald::knn::warp_sum;
 
 constexpr int kWarps = 4;
@@ -115,7 +115,6 @@ constexpr int kTileMaxK = 64;          // the k x k tile in shared memory
 constexpr int kStageBytes = 16 << 10;  // neighbor rows staged per warp
 constexpr int kBigWarps = 32;          // large-k: the warps on one row
 constexpr int kBigThreads = 32 * kBigWarps;
-constexpr int kBigStageBytes = 192 << 10;  // large-k: staged neighbor rows
 
 // the row's shared memory: dn, W, idx (and the features source's norms,
 // tile and staged rows after them)
@@ -359,8 +358,8 @@ struct BigRow {
   const int* si;
 };
 
-// this block's 2 k floats of the scratch: W, then the features source's
-// norms
+// this block's 2 k floats of the scratch: W, then the D source's sorted
+// positions past kSweepPermBytes of them
 __device__ __forceinline__ float* block_scratch(float* scratch, int k) {
   return scratch +
          (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 2 * k;
@@ -405,17 +404,7 @@ __device__ __forceinline__ void values_passes_big(const Get& get,
   __syncthreads();
 
   float* ox = out + x * static_cast<int64_t>(k + 1);
-  if (warp == 0) {  // the self column: z = x, one term per pair
-    float part = 0.f;
-    for (int j = lane; j < k; j += 32) {
-      const float dxy = sd[j];
-      const bool ow = gx > si[j];
-      part = __fadd_rn(
-          part, __fmul_rn(KnnSupport<F>::eval(0.f, dxy, dxy, ow, p), sw[j]));
-    }
-    const float self = warp_sum(part);
-    if (lane == 0) ox[0] = self;
-  }
+  if (warp == 0) self_column<F>(sd, si, sw, k, gx, ox, p);
 
   // pass 2: the neighbor columns z = nbr_m, lane l taking m = m0 + l
   for (int m0 = 32 * warp; m0 < k; m0 += 32 * kBigWarps) {
@@ -453,15 +442,89 @@ knn_cube_big_kernel(const float* __restrict__ dn,
   });
 }
 
-// source 2, large k: D (ldd columns), D[idx_j, idx_m]; item y's D
-// dstride elements past the previous item's
+// source 2, large k: D (ldd columns), in one sweep of the row's tile.  A
+// block of sweep_threads(k) threads on row x (rows blockIdx.x, +
+// gridDim.x, ...): the row's k neighbor positions sorted by their index
+// (sort_by_index: perm, in shared memory up to kSweepPermBytes, else in
+// the scratch beside W), each thread holding kSweepCols sorted columns c
+// = i * threads + tid.  Then tiles of kSweepRows rows j in order: each
+// thread gathers g(j, c) = D[idx_j, idx_perm[c]] of its columns (a warp
+// reads 32 neighbors in ascending column order), sums pass 1's focus
+// terms over them, the warps' sums meet in shared memory (in warp order)
+// to give U[j] and W[j], and each thread adds pass 2's terms of the
+// tile's rows to its columns' two-level sums.  So each entry of the tile
+// is read once.  Past threads * kSweepCols columns (k > 4096) pass 1 runs
+// first over every piece of columns, then pass 2 a piece at a time (each
+// entry read twice).  Item y's D dstride elements past the previous
+// item's.
+constexpr int kSweepCols = 8;
+constexpr int kSweepRows = 4;
+constexpr int kSweepThreads = 512;
+constexpr int kSweepPermBytes = 64 << 10;
+constexpr int kSweepRedBytes = 2 * kSweepRows * (kSweepThreads / 32) * 4;
+
+// the threads of a D-source block at k: whole warps, kSweepCols columns
+// each, at most kSweepThreads
+__host__ __device__ int sweep_threads(int k) {
+  const int t = (k + kSweepCols - 1) / kSweepCols;
+  const int w = (t + 31) / 32 * 32;
+  return w < kSweepThreads ? w : kSweepThreads;
+}
+
+// its dynamic shared memory: the sorted positions while they fit
+__host__ __device__ int sweep_smem_bytes(int k) {
+  return 4 * k <= kSweepPermBytes ? 4 * k : 0;
+}
+
+// perm[0..k) = the positions 0..k-1 sorted by (ix[m], m), by the block: a
+// bitonic sort of the next power of two, every compare-exchange putting
+// the smaller at the lower position, so the positions past k (+inf) never
+// move and are never stored.  Ends with a barrier.
+__device__ __forceinline__ void sort_by_index(int* perm,
+                                              const int* __restrict__ ix,
+                                              int k) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int c = tid; c < k; c += nt) perm[c] = c;
+  __syncthreads();
+  int k2 = 1;
+  while (k2 < k) k2 <<= 1;
+  auto exchange = [&](int a, int b) {  // a < b
+    if (b >= k) return;
+    const int pa = perm[a], pb = perm[b];
+    const int ia = __ldg(ix + pa), ib = __ldg(ix + pb);
+    if (ib < ia || (ib == ia && pb < pa)) {
+      perm[a] = pb;
+      perm[b] = pa;
+    }
+  };
+  for (int size = 2; size <= k2; size <<= 1) {
+    const int half = size >> 1;
+    // each block of `size`: its first half against its second reversed
+    for (int t = tid; t < k2 / 2; t += nt) {
+      const int base = (t & ~(half - 1)) << 1, o = t & (half - 1);
+      exchange(base + o, base + size - 1 - o);
+    }
+    __syncthreads();
+    for (int h = half >> 1; h > 0; h >>= 1) {
+      for (int t = tid; t < k2 / 2; t += nt) {
+        const int a = ((t & ~(h - 1)) << 1) | (t & (h - 1));
+        exchange(a, a + h);
+      }
+      __syncthreads();
+    }
+  }
+}
+
 template <class F, bool kChunk>
-__global__ void __launch_bounds__(kBigThreads)
-knn_dist_big_kernel(const float* __restrict__ dn,
-                    const float* __restrict__ D, int64_t ldd,
-                    int64_t dstride, const int* __restrict__ idx,
-                    float* __restrict__ out, int64_t n, int k,
-                    float* scratch, Params p) {
+__global__ void __launch_bounds__(kSweepThreads)
+knn_dist_sweep_kernel(const float* __restrict__ dn,
+                      const float* __restrict__ D, int64_t ldd,
+                      int64_t dstride, const int* __restrict__ idx,
+                      float* __restrict__ out, int64_t n, int k,
+                      float* scratch, Params p) {
+  constexpr int C = kSweepCols, TJ = kSweepRows;
+  extern __shared__ int sperm[];
+  __shared__ float red[2][TJ][kSweepThreads / 32];
   if constexpr (kChunk) {  // this block's item of the chunk
     const int64_t item = blockIdx.y;
     dn += item * n * k;
@@ -469,74 +532,164 @@ knn_dist_big_kernel(const float* __restrict__ dn,
     out += item * n * (k + 1);
     D += item * dstride;
   }
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float* sw = block_scratch(scratch, k);
-  each_big_row(n, [&](int64_t x) {
-    const int* si = idx + x * k;
-    values_passes_big<F>(
-        [&](int j, int m) {
-          return __ldg(D + static_cast<int64_t>(si[j]) * ldd + si[m]);
-        },
-        BigRow{dn + x * k, sw, si}, x, x, k, lane, warp, p, out);
-  });
-}
-
-// source 3, large k: the neighbors' feature rows (nbr: the (n, k, d)
-// block), as knn_feat_kernel without the tile: the row's k neighbor rows
-// staged in shared memory (fpitch > 0: k * fpitch floats a block) or read
-// from X, their norms beside W in the block's scratch.
-template <class F, bool kChunk>
-__global__ void __launch_bounds__(kBigThreads)
-knn_feat_big_kernel(const float* __restrict__ dn,
-                    const float* __restrict__ X, int64_t d, int64_t xstride,
-                    const int* __restrict__ idx, float* __restrict__ out,
-                    int64_t n, int k, int metric, int fpitch,
-                    int64_t row_off, bool nbr, float* scratch, Params p) {
-  extern __shared__ __align__(16) float smem[];
-  if constexpr (kChunk) {  // this block's item of the chunk
-    const int64_t item = blockIdx.y;
-    dn += item * n * k;
-    idx += item * n * k;
-    out += item * n * (k + 1);
-    X += item * xstride;
-  }
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nt = blockDim.x, nw = nt / 32;
   float* sw = block_scratch(scratch, k);
-  float* snrm = sw + k;
-  float* sf = smem;
+  int* perm = sweep_smem_bytes(k) > 0 ? sperm
+                                      : reinterpret_cast<int*>(sw + k);
+  const int span = nt * C;  // the columns of a piece
+  const int pieces = (k + span - 1) / span;
+  int buf = 0;  // red's half for the next tile
+
   each_big_row(n, [&](int64_t x) {
-    const int* si = idx + x * k;
-    auto src = [&](int j) -> const float* {
-      return X + (nbr ? x * k + j : static_cast<int64_t>(si[j])) * d;
+    const float* dx = dn + x * k;
+    const int* ix = idx + x * k;
+    sort_by_index(perm, ix, k);
+    // this thread's columns of piece pc: their position m (-1: none),
+    // column index and dn
+    int mz[C], col[C];
+    float dz[C];
+    auto columns = [&](int pc) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        const int c = pc * span + i * nt + tid;
+        mz[i] = c < k ? perm[c] : -1;
+        col[i] = mz[i] >= 0 ? __ldg(ix + mz[i]) : 0;
+        dz[i] = mz[i] >= 0 ? __ldg(dx + mz[i]) : 0.f;
+      }
     };
-    if (fpitch > 0) {
-      const int dd = static_cast<int>(d);  // k d <= kBigStageBytes / 4
-      for (int e = tid; e < k * dd; e += kBigThreads) {
-        const int j = e / dd, f = e - j * dd;
-        sf[j * fpitch + f] = src(j)[f];
+    // g(j0 + r, c) of the thread's columns for the tile's rows
+    float g[TJ][C];
+    auto gather = [&](int j0) {
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int j = j0 + r;
+        const float* row =
+            D + static_cast<int64_t>(j < k ? __ldg(ix + j) : 0) * ldd;
+#pragma unroll
+        for (int i = 0; i < C; ++i)
+          g[r][i] = j < k && mz[i] >= 0 ? __ldg(row + col[i]) : 0.f;
+      }
+    };
+    // pass 1's terms of the tile's rows over the thread's columns
+    float part[TJ];
+    auto partials = [&](int j0) {
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int j = j0 + r;
+        if (j >= k) break;
+        const float dxy = __ldg(dx + j);
+#pragma unroll
+        for (int i = 0; i < C; ++i)
+          if (mz[i] >= 0)
+            part[r] = __fadd_rn(part[r], F::focus(dz[i], g[r][i], dxy, p));
+      }
+    };
+    // W of the tile's rows from the partials: each warp's sum to red, then
+    // in every warp lane r adds the warps' sums in warp order; wr[r] the
+    // tile's W (warp 0 also writes it to the scratch)
+    float wr[TJ];
+    auto weights = [&](int j0) {
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const float s = warp_sum(part[r]);
+        if (lane == 0) red[buf][r][warp] = s;
       }
       __syncthreads();
-    }
-    auto feats = [&](int j) -> const float* {
-      return fpitch > 0 ? sf + j * fpitch : src(j);
+      float wv = 0.f;
+      const int j = j0 + lane;
+      if (lane < TJ && j < k) {
+        const float dxy = __ldg(dx + j);
+        float s = 0.f;
+        for (int w = 0; w < nw; ++w) s = __fadd_rn(s, red[buf][lane][w]);
+        const float u = __fadd_rn(F::focus(0.f, dxy, dxy, p), s);
+        wv = u > 0.f ? __fdiv_rn(1.f, u) : 0.f;
+        if (warp == 0) sw[j] = wv;
+      }
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) wr[r] = __shfl_sync(0xffffffffu, wv, r);
+      buf ^= 1;
     };
-    // the neighbors' norms, as knn_feat_kernel's
-    for (int j = tid; j < k; j += kBigThreads) {
-      const float* fj = feats(j);
-      float s = 0.f;
-      if (metric != pald::kManhattan)
-        for (int64_t f = 0; f < d; ++f)
-          s = Dist<pald::kSqEuclidean>::step(s, fj[f], fj[f]);
-      snrm[j] = metric == pald::kCosine ? Dist<pald::kCosine>::norm(s) : s;
+    // pass 2's terms of the tile's rows, in order, into the columns' sums
+    float total[C], acc[C];
+    auto accumulate = [&](int j0) {
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int j = j0 + r;
+        if (j >= k) break;
+        const float dxy = __ldg(dx + j);
+        const bool ow = x > __ldg(ix + j);
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (mz[i] >= 0) {
+            const float t =
+                KnnSupport<F>::eval(dz[i], g[r][i], dxy, ow, p);
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(t, wr[r]));
+          }
+        }
+        if ((j & 31) == 31) {
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            total[i] = __fadd_rn(total[i], acc[i]);
+            acc[i] = 0.f;
+          }
+        }
+      }
+    };
+    float* ox = out + x * static_cast<int64_t>(k + 1);
+    auto write = [&]() {
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        if (mz[i] >= 0) ox[1 + mz[i]] = __fadd_rn(total[i], acc[i]);
+    };
+    auto zero = [&](float (&v)[C]) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) v[i] = 0.f;
+    };
+    auto zero_parts = [&]() {
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) part[r] = 0.f;
+    };
+
+    if (pieces == 1) {  // one sweep: each entry read once
+      columns(0);
+      zero(total);
+      zero(acc);
+      for (int j0 = 0; j0 < k; j0 += TJ) {
+        gather(j0);
+        zero_parts();
+        partials(j0);
+        weights(j0);
+        accumulate(j0);
+      }
+      write();
+    } else {  // pass 1 over every piece, then pass 2 a piece at a time
+      for (int j0 = 0; j0 < k; j0 += TJ) {
+        zero_parts();
+        for (int pc = 0; pc < pieces; ++pc) {
+          columns(pc);
+          gather(j0);
+          partials(j0);
+        }
+        weights(j0);
+      }
+      __syncthreads();  // every W in the scratch
+      for (int pc = 0; pc < pieces; ++pc) {
+        columns(pc);
+        zero(total);
+        zero(acc);
+        for (int j0 = 0; j0 < k; j0 += TJ) {
+          gather(j0);
+#pragma unroll
+          for (int r = 0; r < TJ; ++r)
+            wr[r] = j0 + r < k ? sw[j0 + r] : 0.f;
+          accumulate(j0);
+        }
+        write();
+      }
     }
-    __syncthreads();
-    values_passes_big<F>(
-        [&](int a, int c) {  // d(nbr_a, nbr_c): exactly 0 for one index
-          if (si[a] == si[c]) return 0.f;
-          return metric_dist(metric, feats(a), feats(c), d, snrm[a],
-                             snrm[c]);
-        },
-        BigRow{dn + x * k, sw, si}, x, row_off + x, k, lane, warp, p, out);
+    __syncthreads();  // every W in the scratch
+    if (warp == 0) self_column<F>(dx, ix, sw, k, x, ox, p);
   });
 }
 
@@ -559,10 +712,8 @@ unsigned grid_rows(int64_t n, bool big) {
 }
 
 // the shared memory of a block of the cube and D sources: four rows' dn,
-// W and idx (none in the large-k variant)
-size_t state_bytes(int k, bool big) {
-  return big ? 0 : size_t(kWarps) * 3 * k * sizeof(float);
-}
+// W and idx (none in the cube source's large-k variant)
+size_t state_bytes(int k) { return size_t(kWarps) * 3 * k * sizeof(float); }
 
 struct CubeLaunch {
   const float* dn;
@@ -582,7 +733,7 @@ struct CubeLaunch {
                                stream>>>(dn, g, idx, out, n, k, scratch, p);
       return static_cast<int>(cudaGetLastError());
     }
-    const size_t smem = state_bytes(k, false);
+    const size_t smem = state_bytes(k);
     const int st = set_smem(knn_cube_kernel<F>, smem);
     if (st != 0) return st;
     knn_cube_kernel<F><<<row_blocks(n), kThreads, smem, stream>>>(
@@ -620,17 +771,22 @@ struct DistLaunch {
 
   template <class F>
   int operator()() const {
-    if (scratch != nullptr) {  // the large-k variant
-      const auto kern = items > 1 ? knn_dist_big_kernel<F, true>
-                                  : knn_dist_big_kernel<F, false>;
+    if (scratch != nullptr) {  // the large-k variant: one sweep
+      const auto kern = items > 1 ? knn_dist_sweep_kernel<F, true>
+                                  : knn_dist_sweep_kernel<F, false>;
+      const int smem = sweep_smem_bytes(k);
+      if (smem > (48 << 10)) {
+        const int st = set_smem(kern, smem);
+        if (st != 0) return st;
+      }
       return item_grids(n, items, true, [&](dim3 grid, int64_t i0) {
         const int64_t e = i0 * n * k;
-        kern<<<grid, kBigThreads, 0, stream>>>(
+        kern<<<grid, sweep_threads(k), smem, stream>>>(
             dn + e, D + i0 * dstride, ldd, dstride, idx + e,
             out + i0 * n * (k + 1), n, k, scratch, p);
       });
     }
-    const size_t smem = state_bytes(k, false);
+    const size_t smem = state_bytes(k);
     const auto kern =
         items > 1 ? knn_dist_kernel<F, true> : knn_dist_kernel<F, false>;
     const int st = set_smem(kern, smem);
@@ -647,14 +803,10 @@ struct DistLaunch {
 // The features source's floats per warp at (k, d): dn, W, idx, norms,
 // the tile for k <= kTileMaxK, and the k staged rows when they fit in
 // kStageBytes (*fpitch their pitch, odd so that a column of staged rows
-// hits 32 banks; 0: the rows are read from X).  big: the large-k
-// variant's floats per block, the staged rows alone, while they fit in
-// kBigStageBytes.
-int feat_layout(int k, int64_t d, int* fpitch, bool big = false) {
+// hits 32 banks; 0: the rows are read from X).
+int feat_layout(int k, int64_t d, int* fpitch) {
   const int64_t fp = d | 1;
-  const int64_t room = big ? kBigStageBytes : kStageBytes;
-  *fpitch = d > 0 && k * fp * 4 <= room ? static_cast<int>(fp) : 0;
-  if (big) return k * *fpitch;
+  *fpitch = d > 0 && k * fp * 4 <= kStageBytes ? static_cast<int>(fp) : 0;
   return 4 * k + (k <= kTileMaxK ? k * tile_pitch(k) : 0) + k * *fpitch;
 }
 
@@ -670,7 +822,6 @@ struct FeatLaunch {
   int64_t row_off;
   bool nbr;
   int64_t items;
-  float* scratch;
   Params p;
   cudaStream_t stream;
 
@@ -678,20 +829,6 @@ struct FeatLaunch {
   int operator()() const {
     const bool chunk = items > 1;
     int fpitch;
-    if (scratch != nullptr) {  // the large-k variant
-      const size_t smem = feat_layout(k, d, &fpitch, true) * sizeof(float);
-      const auto kern = chunk ? knn_feat_big_kernel<F, true>
-                              : knn_feat_big_kernel<F, false>;
-      const int st = set_smem(kern, smem);
-      if (st != 0) return st;
-      return item_grids(n, items, true, [&](dim3 grid, int64_t i0) {
-        const int64_t e = i0 * n * k;
-        kern<<<grid, kBigThreads, smem, stream>>>(
-            dn + e, X + i0 * xstride, d, xstride, idx + e,
-            out + i0 * n * (k + 1), n, k, metric, fpitch, row_off, nbr,
-            scratch, p);
-      });
-    }
     const bool tile = k <= kTileMaxK;
     const int wstride = feat_layout(k, d, &fpitch);
     const size_t smem = size_t(kWarps) * wstride * sizeof(float);
@@ -745,9 +882,10 @@ extern "C" int pald_knn_values_f32(const float* dn, const float* g,
 // the (n, k, d) block of each row's neighbor rows instead.  Row x of the
 // graph has global index row_off + x (>= 0).  A chunk of `items` graphs
 // (dn, idx (items, n, k), out (items, n, k+1)) reads item i's X at X + i
-// xstride, its indices within it; one grid per 65535 items.  `scratch` as
-// pald_knn_values_f32's, for d > 16 only: the large-k variant at d <= 16
-// is pald_knn_large.cu's entry.
+// xstride, its indices within it; one grid per 65535 items.  `scratch`
+// must be null: past k = 1024 the features source is the register tiles'
+// entry (pald_knn_large.cu up to 16 features, pald_knn_wide.cu up to 64,
+// pald_knn_piece.cu past).
 extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             int64_t d, const int* idx,
                                             float* out, int64_t n, int k,
@@ -758,18 +896,19 @@ extern "C" int pald_knn_values_features_f32(const float* dn, const float* X,
                                             void* stream) {
   if (bad_shape(n, k, scratch) || d < 0 || row_off < 0 || items < 1 ||
       xstride < 0 || metric < pald::kSqEuclidean ||
-      metric > pald::kManhattan || (scratch != nullptr && d <= kRegMaxD))
+      metric > pald::kManhattan || scratch != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return pald::dispatch_weight(
       wid, FeatLaunch{dn, X, d, xstride, idx, out, n, k, metric, row_off,
-                      nbr != 0, items, scratch, {p0, p1},
+                      nbr != 0, items, {p0, p1},
                       static_cast<cudaStream_t>(stream)});
 }
 
 // The same with the distances read from D (rows of ldd float32),
 // D[idx_j, idx_m] as gather_tile_from_distances gathers them; a chunk of
 // `items` graphs reads item i's D at D + i dstride.  `scratch` as
-// pald_knn_values_f32's.
+// pald_knn_values_f32's (past k = 1024 the one sweep, a block of
+// sweep_threads(k) threads).
 extern "C" int pald_knn_values_distances_f32(const float* dn, const float* D,
                                              int64_t ldd, const int* idx,
                                              float* out, int64_t n, int k,
@@ -784,16 +923,20 @@ extern "C" int pald_knn_values_distances_f32(const float* dn, const float* D,
                       {p0, p1}, static_cast<cudaStream_t>(stream)});
 }
 
-// The dynamic shared memory of a values block at k, in bytes, as the
-// launches set it (past kLargeK the large-k variant's, at d <= 16
-// pald_knn_large.cu's): the features source's at width d, the cube and D
-// sources' for d < 0; -1 for k < 1.
+// The shared memory of a values block at k, in bytes, as the launches set
+// it: the features source's at width d (past kLargeK the register tiles',
+// pald_knn_reg.cuh), for d < 0 the cube and D sources' (past kLargeK the D
+// source's one sweep: its reduction buffer and, while they fit, the
+// sorted positions; the cube source's large-k variant holds none); -1 for
+// k < 1.
 extern "C" int pald_knn_smem_bytes(int k, int64_t d) {
   if (k < 1) return -1;
   const bool big = k > kLargeK;
+  if (d < 0)
+    return big ? kSweepRedBytes + sweep_smem_bytes(k)
+               : static_cast<int>(state_bytes(k));
+  if (big) return pald::knn::reg_smem_bytes(d);
   int fpitch;
-  if (d < 0) return static_cast<int>(state_bytes(k, big));
-  if (big && d <= kRegMaxD) return pald::knn::reg_smem_bytes(d);
-  const int floats = feat_layout(k, d, &fpitch, big);
-  return static_cast<int>((big ? 1 : kWarps) * floats * sizeof(float));
+  return static_cast<int>(kWarps * feat_layout(k, d, &fpitch) *
+                          sizeof(float));
 }

@@ -46,12 +46,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pald_focus", "pald_cohesion", "pald_fused", "pald_fused_chunk",
            "pald_topk", "pald_topk_chunk", "pald_knn", "pald_knn_large",
-           "pald_cohesion_tri")
+           "pald_knn_wide", "pald_knn_piece", "pald_cohesion_tri")
 # the sources whose entries take a weight functional: a user functional's
 # libraries are these, built with its functor
 WEIGHT_SOURCES = ("pald_focus", "pald_cohesion", "pald_fused",
                   "pald_fused_chunk", "pald_knn", "pald_knn_large",
-                  "pald_cohesion_tri")
+                  "pald_knn_wide", "pald_knn_piece", "pald_cohesion_tri")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,6 +99,14 @@ SIGNATURES = {
                                       _I64, _I32, _I64, _I64, _P, _I32, _F32,
                                       _F32, _P)),
     "pald_knn_values_features_large_f32": ("pald_knn_large",
+                                           (_P, _P, _I64, _P, _P, _I64, _I32,
+                                            _I32, _I64, _I32, _I64, _I64, _P,
+                                            _I32, _F32, _F32, _P)),
+    "pald_knn_values_features_wide_f32": ("pald_knn_wide",
+                                          (_P, _P, _I64, _P, _P, _I64, _I32,
+                                           _I32, _I64, _I32, _I64, _I64, _P,
+                                           _I32, _F32, _F32, _P)),
+    "pald_knn_values_features_piece_f32": ("pald_knn_piece",
                                            (_P, _P, _I64, _P, _P, _I64, _I32,
                                             _I32, _I64, _I32, _I64, _I64, _P,
                                             _I32, _F32, _F32, _P)),

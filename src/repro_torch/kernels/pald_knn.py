@@ -25,14 +25,18 @@ source note in the ``.cu`` file has the details.
 Every k >= 1 runs on the card.  Up to :data:`LARGE_K` four rows share a
 block, each row's dn, W and idx in shared memory; past it the kernel's
 large-k variant runs a block on one row, dn and idx read where they lie
-and W (with the features source's norms) in a scratch of 2 k float32 a
-block that the wrapper allocates (:func:`large_scratch`).  The cube and D
-sources, and the features source past 16 features, run every warp of the
-block with the same sums in the same order, so the same bits; the
-features source up to 16 features (``csrc/pald_knn_large.cu``) holds
-rows in registers at a compile-time width (:func:`feature_width`), so its
-values are bitwise the others' for a functional whose focus is an exact
-count and within rounding for a smooth one.
+and W (with the features source's norms or the D source's sorted
+positions) in a scratch of 2 k float32 a block that the wrapper allocates
+(:func:`large_scratch`).  The cube source runs every warp of the block
+with the same sums in the same order, so the same bits; the features
+source (``csrc/pald_knn_reg.cuh``: ``pald_knn_large.cu`` up to
+:data:`REG_MAX_D` features, ``pald_knn_wide.cu`` up to 64 and
+``pald_knn_piece.cu`` past, :func:`features_entry`) holds rows in
+registers at a compile-time width (:func:`feature_width`), and the D
+source sweeps each row's tile once in ascending column order
+(:func:`sweep_layout`), so their values are bitwise the others' for a
+functional whose focus is an exact count and within rounding for a
+smooth one.
 
 For a shard of a distributed run (``core/distributed_knn.py``) the features
 source takes ``row_off``, the global index of its first row (the index
@@ -73,8 +77,8 @@ __all__ = ["knn_values_cuda", "knn_values_torch",
            "knn_values_from_neighbors_torch",
            "knn_values_from_distances_cuda",
            "knn_values_from_distances_torch", "check_indices", "tile_layout",
-           "smem_per_cta", "large_scratch", "feature_width", "LARGE_K",
-           "REG_MAX_D"]
+           "smem_per_cta", "large_scratch", "feature_width", "features_entry",
+           "sweep_layout", "LARGE_K", "REG_MAX_D"]
 
 TILE_MAX_K = 64  # csrc/pald_knn.cu kTileMaxK: the k x k tile in shared memory
 _STAGE_BYTES = 16 << 10  # csrc/pald_knn.cu kStageBytes
@@ -84,18 +88,56 @@ _WARPS = 4  # rows per thread block (csrc/pald_knn.cu: one warp per row)
 # memory (csrc/pald_knn.cu kLargeK)
 LARGE_K = 1024
 _BIG_GRID = 1024  # the large-k variant's row blocks a grid (kBigGrid)
-_BIG_STAGE_BYTES = 192 << 10  # its staged neighbor rows (kBigStageBytes)
-# the large-k features source in registers (csrc/pald_knn.cuh): the widest
-# d it takes, and the rows of its staged tile
-REG_MAX_D, _REG_TILE = 16, 256
+# the large-k features source in register tiles (csrc/pald_knn.cuh): the
+# widest d of pald_knn_large.cu's entry, the rows of a staged tile, the
+# widest width held in registers, past it the features a piece and the
+# staged rows a tile
+REG_MAX_D, _REG_TILE, _REG_MAX_WIDTH = 16, 256, 64
+_PIECE_WIDTH, _PIECE_ROWS = 32, 32
+# the large-k D source's sweep (csrc/pald_knn.cu): columns a thread, the
+# most threads a block, the sorted positions in shared memory up to these
+# bytes, and its reduction buffer (two halves of 4 rows x 16 warps)
+_SWEEP_COLS, _SWEEP_THREADS = 8, 512
+_SWEEP_PERM_BYTES, _SWEEP_RED_BYTES = 64 << 10, 2 * 4 * 16 * 4
 
 
-def feature_width(d: int) -> int | None:
+def feature_width(d: int) -> int:
     """The compile-time width the large-k features source pads ``d``
-    features to (``csrc/pald_knn.cuh`` ``reg_width``): 8 up to 8, 16 up
-    to :data:`REG_MAX_D`; None past it, where the block of 32 warps
-    (``pald_knn.cu``) takes the row."""
-    return 8 if d <= 8 else 16 if d <= REG_MAX_D else None
+    features to (``csrc/pald_knn.cuh`` ``reg_width``): 8, 16, 32 or 64,
+    held in registers; past 64 d rounded up to whole pieces of 32
+    features, which stream through the pair sums in turn."""
+    for w in (8, 16, 32, _REG_MAX_WIDTH):
+        if d <= w:
+            return w
+    return -(-d // _PIECE_WIDTH) * _PIECE_WIDTH
+
+
+def features_entry(k: int, d: int) -> str:
+    """The C entry the features source launches at (k, d): the four-rows
+    layouts up to :data:`LARGE_K` (``pald_knn.cu``), past it the register
+    tiles, built as ``pald_knn_large.cu`` up to :data:`REG_MAX_D` features,
+    ``pald_knn_wide.cu`` up to 64 and ``pald_knn_piece.cu`` past (three
+    sources, so that they build in parallel)."""
+    if k <= LARGE_K:
+        return "pald_knn_values_features_f32"
+    if d <= REG_MAX_D:
+        return "pald_knn_values_features_large_f32"
+    return ("pald_knn_values_features_wide_f32" if d <= _REG_MAX_WIDTH
+            else "pald_knn_values_features_piece_f32")
+
+
+def sweep_layout(k: int) -> tuple[int, int, bool]:
+    """How the D source's large-k variant holds row x at k
+    (``knn_dist_sweep_kernel``): (its block's threads, whole warps of 8
+    columns each up to 512; the pieces of threads x 8 sorted columns, one
+    (a single sweep, each entry of the row's tile read once) up to k =
+    4096, else pass 1 over every piece and then pass 2 a piece at a time;
+    the sorted positions in shared memory, up to 64 KB of them, else in
+    the scratch beside W).  The rows of a tile (4) ride in registers."""
+    warps = -(-k // (32 * _SWEEP_COLS))
+    threads = min(32 * warps, _SWEEP_THREADS)
+    pieces = -(-k // (threads * _SWEEP_COLS))
+    return threads, pieces, 4 * k <= _SWEEP_PERM_BYTES
 
 
 def tile_layout(k: int, d: int) -> tuple[bool, bool]:
@@ -112,18 +154,21 @@ def smem_per_cta(k: int, d: int | None = None) -> int:
     each of its four rows' dn, W and idx (the cube and D sources,
     ``d=None``), and for the features source at width ``d`` the norms,
     the tile and the staged rows (csrc/pald_knn.cu ``feat_layout``).  Past
-    :data:`LARGE_K` the large-k variant's block: up to :data:`REG_MAX_D`
-    features a tile of 256 rows, each its :func:`feature_width` features,
-    norm, dn, index and W; past it the k staged neighbor rows while they
-    fit in 192 KB, else nothing (the cube and D sources hold nothing there
-    either).  A card test holds it to the kernel's own report, the C entry
-    ``pald_knn_smem_bytes``."""
-    if k > LARGE_K and d is not None and 0 <= d <= REG_MAX_D:
-        return 4 * _REG_TILE * (feature_width(d) + 4)
+    :data:`LARGE_K` the large-k variant's block: the features source's
+    register tiles, up to 64 features a tile of 256 rows, each its
+    :func:`feature_width` features, norm, dn, index and W, past 64 a tile
+    of 32 rows, each a piece of 32 features and the same four, and each of
+    the block's 256 threads its owned row's piece; the D source's sweep
+    (``d=None``), its reduction buffer and the sorted positions while
+    they fit (:func:`sweep_layout`; the cube source's large-k variant
+    holds nothing).  A card test holds it to the kernel's
+    own report, the C entry ``pald_knn_smem_bytes``."""
+    if k > LARGE_K and d is None:
+        return _SWEEP_RED_BYTES + (4 * k if sweep_layout(k)[2] else 0)
     if k > LARGE_K:
-        staged = d is not None and d > 0 and k * (d | 1) * 4 <= \
-            _BIG_STAGE_BYTES
-        return 4 * k * (d | 1) if staged else 0
+        rows, width = ((_REG_TILE, feature_width(d)) if d <= _REG_MAX_WIDTH
+                       else (_PIECE_ROWS + _REG_TILE, _PIECE_WIDTH))
+        return 4 * rows * (width + 4)
     if d is None:
         return _WARPS * 3 * 4 * k
     tile, staged = tile_layout(k, d)
@@ -285,10 +330,7 @@ def _features_source(who, X, dn, idx, metric, ties, row_off, nbr, counter):
     if out.numel() == 0:
         return out
     items = lead[0] if lead else 1
-    name = ("pald_knn_values_features_large_f32"
-            if k > LARGE_K and shape[-1] <= REG_MAX_D
-            else "pald_knn_values_features_f32")
-    return _launch(name, spec.functor,
+    return _launch(features_entry(k, shape[-1]), spec.functor,
                    (dn.data_ptr(), X.data_ptr(), shape[-1], idx.data_ptr(),
                     out.data_ptr(), n, k, mid, row_off, int(nbr), items,
                     X[0].numel() if lead else 0, None, wid, p0, p1), out,

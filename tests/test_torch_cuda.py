@@ -18,8 +18,9 @@ values kernel's cube source to rtol 1e-5, its features and D sources
 bitwise to the cube source.  Past k = 1024 the selection by threshold is
 bitwise its plain version on tie-heavy rows (every metric, the block
 entry merged, a sort past shared memory), and the values' register tiles
-(d <= 16) are within rtol 1e-5 of their plain version and bitwise the
-other layouts for a functional whose focus is an exact count.  The tri
+(every d: widths 8 to 64, then pieces) and the D source's sweep are
+within rtol 1e-5 of their plain versions and bitwise the other layouts
+for a functional whose focus is an exact count.  The tri
 kernels are held to their plain versions the same way, their U bitwise to
 the dense kernel's, and their C bitwise to itself across two calls and to
 the dense kernel's C on a symmetric D and W.  A W with a non-finite entry
@@ -1131,17 +1132,18 @@ def test_cuda_knn_large_k_distance_source(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 64])
 @pytest.mark.parametrize("name", ["ignore", "soft"])
-def test_cuda_knn_large_k_chunk_bitwise_items(cuda_device, name):
-    """A chunk of b = 2 items at n = 2100, k = 2048: the selection and the
-    values' features and D sources one launch each, each item bitwise
-    the item alone; the block entry on two candidate blocks, merged,
-    bitwise the full call."""
+def test_cuda_knn_large_k_chunk_bitwise_items(cuda_device, name, d):
+    """A chunk of b = 2 items at n = 2100, k = 2048 (d = 4 and 64): the
+    selection and the values' features and D sources one launch each,
+    each item bitwise the item alone; the block entry on two candidate
+    blocks, merged, bitwise the full call."""
     from repro_torch.core.features import cdist_reference
     from repro_torch.kernels import pald_knn, pald_topk
 
     b, n, k = 2, 2100, 2048
-    Xb = torch.as_tensor(np.stack([_features(n, 4, seed=60 + i)
+    Xb = torch.as_tensor(np.stack([_features(n, d, seed=60 + i)
                                    for i in range(b)]), device=cuda_device)
     Db = torch.stack([cdist_reference(x) for x in Xb])
     sel = pald_topk.topk_select_cuda
@@ -1246,13 +1248,15 @@ def test_cuda_topk_large_k_sorts_past_shared_memory(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [3, 8, 16, 17])
+@pytest.mark.parametrize("d", [3, 8, 16, 17, 24, 33, 64, 65, 300])
 @pytest.mark.parametrize("name", FUNCTIONALS)
 def test_cuda_knn_large_k_values_vs_plain(cuda_device, name, d):
-    """The values past 1024 at widths 3, 8, 16 (register tiles,
-    ``pald_knn_large.cu``) and 17 (the block of 32 warps): within rtol
-    1e-5, atol 1e-6 of the plain version on a 16-row slab, and for an
-    exact family bitwise the D source (the block of 32 warps' sums)."""
+    """The values past 1024 in register tiles at d = 3, 8, 16
+    (``pald_knn_large.cu``), 17, 24, 33, 64 (``pald_knn_wide.cu``, widths
+    32 and 64) and 65, 300 (``pald_knn_piece.cu``, pieces of 32
+    features): within rtol 1e-5,
+    atol 1e-6 of the plain version on a 16-row slab, and for an exact
+    family bitwise the D source (its sweep)."""
     from repro_torch.core.features import cdist_reference
     from repro_torch.kernels import pald_knn, pald_topk
 
@@ -1274,15 +1278,16 @@ def test_cuda_knn_large_k_values_vs_plain(cuda_device, name, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 64])
 @pytest.mark.parametrize("name", ["ignore", "soft"])
 def test_cuda_knn_large_k_values_row_offset_and_neighbor_rows(cuda_device,
-                                                              name):
+                                                              name, d):
     """The register tiles on a slice of the graph's rows with their global
     offset (the index tiebreak's), and fed the rows' own (m, k, d)
-    neighbor features: bitwise the full call's rows."""
+    neighbor features: bitwise the full call's rows, at widths 8 and 64."""
     from repro_torch.kernels import pald_knn, pald_topk
 
-    Xg = torch.as_tensor(_knn_features(N_LARGE, 5, seed=21),
+    Xg = torch.as_tensor(_knn_features(N_LARGE, d, seed=21),
                          device=cuda_device)
     g = pald_topk.topk_select_cuda(Xg, 1500)
     full = pald_knn.knn_values_from_features_cuda(Xg, g.distances,
@@ -1325,6 +1330,68 @@ def test_cuda_knn_large_k_values_at_1024_vs_the_layout(cuda_device,
         _assert_bitwise("register tiles vs layout", vl, vs)
     else:
         torch.testing.assert_close(vl, vs, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1025, 2048, N_LARGE - 1])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_cuda_knn_large_k_distance_source_vs_plain(cuda_device, name, k):
+    """The D source past 1024 (one sweep of each row's tile in ascending
+    column order) on tie-heavy rows with duplicated points: within rtol
+    1e-5, atol 1e-6 of the plain version on a 16-row slab, and for an
+    exact family bitwise the features source."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn
+
+    Xg = torch.as_tensor(_knn_features(N_LARGE, 4, seed=k),
+                         device=cuda_device)
+    D = cdist_reference(Xg)
+    g = tknn.knn_from_distances(D, k)
+    src = pald_knn.knn_values_from_distances_cuda
+    before = src.large_launches
+    vd = src(D, g.distances, g.indices, ties=name)
+    assert src.large_launches == before + 1
+    sl = slice(1000, 1016)
+    vp = pald_knn.knn_values_torch(
+        g.distances[sl], tknn.gather_tile_from_distances(D, g.indices[sl]),
+        g.indices[sl], ties=name, row_off=1000)
+    torch.testing.assert_close(vd[sl], vp, rtol=RTOL, atol=ATOL)
+    if name in ("drop", "split", "ignore"):
+        vf = pald_knn.knn_values_from_features_cuda(Xg, g.distances,
+                                                    g.indices, ties=name)
+        _assert_bitwise("D source vs features source", vd, vf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows", [(4100, 4), (16400, 2)])
+@pytest.mark.parametrize("name", ["ignore", "soft"])
+def test_cuda_knn_large_k_distance_source_in_pieces(cuda_device, name, k,
+                                                    rows):
+    """Past 4096 columns the D source runs pass 1 over every piece of 4096
+    sorted columns, then pass 2 a piece at a time; past 16384 its sorted
+    positions sit in the scratch: the first rows of the graph within rtol
+    1e-5, atol 1e-6 of the plain version, and for ``ignore`` bitwise the
+    features source."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    assert pald_knn.sweep_layout(k)[1] > 1
+    Xg = torch.as_tensor(_knn_features(k + 100, 4, seed=k),
+                         device=cuda_device)
+    D = cdist_reference(Xg)
+    g = pald_topk.topk_select_torch(Xg, k, rows=(0, rows))
+    vd = pald_knn.knn_values_from_distances_cuda(D, g.distances, g.indices,
+                                                 ties=name)
+    vp = pald_knn.knn_values_torch(
+        g.distances, tknn.gather_tile_from_distances(D, g.indices),
+        g.indices, ties=name)
+    torch.testing.assert_close(vd, vp, rtol=RTOL, atol=ATOL)
+    if name == "ignore":
+        vf = pald_knn.knn_values_from_features_cuda(Xg, g.distances,
+                                                    g.indices, ties=name)
+        _assert_bitwise("D source vs features source", vd, vf)
 
 
 @pytest.mark.cuda
@@ -1963,6 +2030,42 @@ def test_cuda_user_clone_fused_bitwise(cuda_device, user_libraries, name,
         C, Cb = _pair(pald_fused.cohesion_fused_cuda, name, X,
                       weights_ref(Ub), metric=metric)
         _assert_bitwise(f"fused C {tuple(X.shape)}", C, Cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 65])
+@pytest.mark.parametrize("name", list(CLONES) + ["smooth"])
+def test_cuda_user_knn_large_k(cuda_device, user_libraries, name, d):
+    """Past k = 1024 a user functional's generated functor in the
+    features source at d = 33 (``pald_knn_wide.cu``) and d = 65
+    (``pald_knn_piece.cu``) and in the D source's sweep: a clone bitwise
+    the built-in's, the smooth one within rtol 1e-5, atol 1e-6 of the
+    plain version on a 16-row slab."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.features import cdist_reference
+    from repro_torch.kernels import pald_knn, pald_topk
+
+    k, sl = 1500, slice(700, 716)
+    Xg = torch.as_tensor(_knn_features(N_LARGE, d, seed=31),
+                         device=cuda_device)
+    D = cdist_reference(Xg)
+    g = pald_topk.topk_select_cuda(Xg, k)
+    feats = pald_knn.knn_values_from_features_cuda
+    dsrc = pald_knn.knn_values_from_distances_cuda
+    if name != "smooth":
+        v, vb = _pair(feats, name, Xg, g.distances, g.indices)
+        _assert_bitwise("features", v, vb)
+        v, vb = _pair(dsrc, name, D, g.distances, g.indices)
+        _assert_bitwise("distances", v, vb)
+        return
+    gp = tknn.gather_tile_from_distances(D, g.indices[sl])
+    vp = pald_knn.knn_values_torch(g.distances[sl], gp, g.indices[sl],
+                                   ties=SMOOTH, row_off=700)
+    for f, x in ((feats, Xg), (dsrc, D)):
+        before = f.large_launches
+        v = f(x, g.distances, g.indices, ties=SMOOTH)
+        assert f.large_launches == before + 1
+        torch.testing.assert_close(v[sl], vp, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda

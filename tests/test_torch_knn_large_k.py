@@ -21,9 +21,10 @@ card runs the large-k variants and ``tests/test_torch_cuda.py`` and
   ``ignore`` tiebreak acts.  The (n, k, k) cube of a
   whole graph would be 4.7 GB here, so the tests run slabs;
 - the redesigned kernels' host-side sizing at every k up to n - 1 (shared
-  memory within the card's 227 KB, the values' scratch), the width the
-  features source pads d to, and that zero-padding leaves every metric's
-  distances bitwise.
+  memory within the card's 227 KB, the values' scratch, the D source's
+  sweep), the width the features source pads d to and the C entry it
+  launches, and that zero-padding leaves every metric's distances
+  bitwise.
 """
 import numpy as np
 import pytest
@@ -37,7 +38,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import knn
 from repro_torch.core import weights as tw
 from repro_torch.core.features import cdist_reference
-from repro_torch.kernels import pald_knn, pald_topk
+from repro_torch.kernels import _build, pald_knn, pald_topk
 
 N = 1100
 K_VALUES = 1040
@@ -222,17 +223,20 @@ def test_large_k_values_honour_row_off(graph_case, name):
 @pytest.mark.parametrize("k", [1025, 2048, 4096, 16384])
 def test_large_k_values_smem_fits_the_card(k, d):
     """Past ``LARGE_K`` a values block holds one row and keeps its state
-    out of shared memory: the features source up to 16 features stages
+    out of shared memory: the features source up to 64 features stages
     tiles of 256 neighbor rows at its padded width (features, norm, dn,
-    index, W), past 16 the row's k neighbor rows while they fit in 192 KB;
-    the cube and D sources hold nothing."""
+    index, W), past 64 tiles of 32 rows a piece of 32 features at a time
+    beside the 256 threads' owned pieces;
+    the D source (``d=None``) its reduction buffer (512 B) and the row's
+    sorted positions while they fit in 64 KB."""
     smem = pald_knn.smem_per_cta(k, d)
     assert 0 <= smem <= 232448
-    if d is not None and d <= pald_knn.REG_MAX_D:
+    if d is None:
+        assert smem == 512 + (4 * k if 4 * k <= 64 << 10 else 0)
+    elif d <= 64:
         assert smem == 4 * 256 * (pald_knn.feature_width(d) + 4)
-        return
-    staged = d is not None and k * (d | 1) * 4 <= 192 << 10
-    assert smem == (4 * k * (d | 1) if staged else 0)
+    else:
+        assert smem == 4 * (32 + 256) * (32 + 4)
 
 
 def test_large_k_scratch_bounds_the_rows_in_flight():
@@ -277,8 +281,10 @@ def test_large_k_sizing_fits_the_card_at_every_k(d):
     sel = {pald_topk.smem_per_cta(int(k), d) for k in ks}
     assert len(sel) == 1 and 0 < sel.pop() <= 232448
     val = {pald_knn.smem_per_cta(int(k), d) for k in ks}
-    if d <= pald_knn.REG_MAX_D:  # one tile of 256 rows at every k
-        assert val == {4 * 256 * (pald_knn.feature_width(d) + 4)}
+    # one tile of 256 rows at every k, past 64 features one of 32 rows and
+    # the 256 owned pieces
+    assert val == {4 * 256 * (pald_knn.feature_width(d) + 4) if d <= 64
+                   else 4 * (32 + 256) * (32 + 4)}
     assert max(val) <= 232448
     scratch = np.array([pald_knn.large_scratch(N_MAIN, int(k)) for k in ks])
     np.testing.assert_array_equal(scratch, 2 * ks * 1024)
@@ -286,13 +292,55 @@ def test_large_k_sizing_fits_the_card_at_every_k(d):
 
 
 @pytest.mark.parametrize("d,width", [(0, 8), (1, 8), (3, 8), (8, 8),
-                                     (9, 16), (16, 16), (17, None),
-                                     (64, None), (65, None)])
+                                     (9, 16), (16, 16), (17, 32),
+                                     (24, 32), (32, 32), (33, 64),
+                                     (64, 64), (65, 96), (96, 96),
+                                     (300, 320)])
 def test_large_k_feature_width(d, width):
-    """Past LARGE_K the features source pads d to 8 or 16 features in
-    registers (``pald_knn_large.cu``); past 16 the block of 32 warps
-    (``pald_knn.cu``) takes the row."""
+    """Past LARGE_K the features source pads d to 8, 16, 32 or 64
+    features in registers (``pald_knn_large.cu`` up to 16,
+    ``pald_knn_wide.cu`` past); past 64 to whole pieces of 32 features
+    (``pald_knn_piece.cu``)."""
     assert pald_knn.feature_width(d) == width
+
+
+@pytest.mark.parametrize("k,d,entry", [
+    (1, 8, "pald_knn_values_features_f32"),
+    (1024, 300, "pald_knn_values_features_f32"),
+    (1025, 0, "pald_knn_values_features_large_f32"),
+    (1025, 16, "pald_knn_values_features_large_f32"),
+    (1025, 17, "pald_knn_values_features_wide_f32"),
+    (2048, 64, "pald_knn_values_features_wide_f32"),
+    (4096, 65, "pald_knn_values_features_piece_f32"),
+    (49_999, 300, "pald_knn_values_features_piece_f32")])
+def test_features_source_picks_the_c_entry(k, d, entry):
+    """The features source launches the four-rows layouts up to LARGE_K
+    and the register tiles past it, as three C entries split at 16 and 64
+    features, each a source the build compiles (and compiles again for a
+    user functional)."""
+    assert pald_knn.features_entry(k, d) == entry
+    source = _build.SIGNATURES[entry][0]
+    assert source in _build.SOURCES and source in _build.WEIGHT_SOURCES
+
+
+def test_large_k_distance_source_sizing_at_every_k():
+    """For every k from 1025 to n - 1 at n = 50,000 the D source's sweep
+    block is whole warps of 8 columns each, at most 512 threads; its
+    columns cover the row in one piece up to k = 4096 (each entry of the
+    row's tile read once) and in the fewest pieces past it; its shared
+    memory (the reduction buffer, the sorted positions up to 64 KB of
+    them, else none: they go to the scratch beside W) stays within the
+    H100's 227 KB; the scratch stays 2 k float32 a block."""
+    for k in range(pald_knn.LARGE_K + 1, N_MAIN):
+        threads, pieces, in_smem = pald_knn.sweep_layout(k)
+        assert threads % 32 == 0 and 32 <= threads <= 512
+        assert threads * 8 * pieces >= k > threads * 8 * (pieces - 1)
+        assert (pieces == 1) == (k <= 4096)
+        assert threads == (512 if k > 4096 else -(-k // 256) * 32)
+        assert in_smem == (k <= 16384)
+        smem = pald_knn.smem_per_cta(k)
+        assert smem == 512 + (4 * k if in_smem else 0) <= 232448
+        assert pald_knn.large_scratch(N_MAIN, k) == 2 * k * 1024
 
 
 def _steps(X, metric):
@@ -316,7 +364,7 @@ def test_zero_padding_keeps_the_distances_bitwise(metric):
     never -0), so the padded distances of all four metrics are bitwise
     the plain ones: numpy's float32 steps and ``cdist_reference``, on
     quantized rows with duplicates and zero rows."""
-    for d in (1, 3, 5, 8, 13):
+    for d in (1, 3, 5, 8, 13, 17, 33, 65):
         X = _dup_X(60, d, seed=d)
         X[7] = 0.0
         width = pald_knn.feature_width(d)

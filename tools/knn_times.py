@@ -2,6 +2,7 @@
 """Time the k-NN path of whichever ``repro_torch`` is on the path.
 
     PYTHONPATH=src python3 tools/knn_times.py [--big] [--large [--split]]
+                                              [--wide]
 
 On the k-NN example's mixture (n = 50,000 points in communities of 25,
 d = 8, seed 0; ``examples/pald_knn_clusters.py``): ``ops.topk_select(X,
@@ -27,19 +28,37 @@ one values call on 64 rows has loaded the kernel; ``--split`` adds, at k =
 2048, the selection (median of 3) and the values (one call) for each
 metric, the values for each built-in family (euclidean), and the values
 at d = 16 (the points with 8 zero features: the features source's width
-16), under ``"split"``.  Prints the card's name
+16), under ``"split"``.  ``--wide`` times the values past k = 1024 at
+the widths ``pald_knn_wide.cu`` and ``pald_knn_piece.cu`` take and the D
+source: the features source (``ops.knn_values(X, graph,
+kind="features")``, the median of 3 after a warm-up on 64 rows) at n =
+2100, k = 2048 on a mixture (communities of 25, seed 5) at d = 17, 32, 64
+and 100, and at d = 8 and 16 (``pald_knn_large.cu``'s widths); and at n =
+8192 on four planted clusters (``chip_smoke.py``'s phase 3 points and D:
+its ``clustered_points``, d = 8, seed 0, and ``distances_on_device``) the
+D source (``knn_values_from_distances_cuda`` on ``knn_from_distances(D,
+2048)``, median of 3 after a warm-up) and ``cohesion(D, method="knn",
+k=2048)`` (one call after a warm-up); then both again on the same points
+in a random order (seed 0; ``"_shuffled"``): each cluster is a run of
+consecutive rows, so in their own order a row's neighbors sorted by
+index are nearly contiguous columns of D, and shuffled they are spread
+over the row.  Prints the card's name
 and power limit, then one JSON line ``{"n": ..., "topk": {k: ms},
 "values": ms, "select_cohere": ms, "shuffled": {...}, "small": {n:
 {...}}, ...}`` (``--large``: ``{"n": ..., "large": {k: {"topk": ms,
-"values": ms, "select_cohere": ms}}, "split": {...}}``).
+"values": ms, "select_cohere": ms}}, "split": {...}}``; ``--wide``:
+``{"wide": {"values_d8": ms, ..., "values_D": ms, "cohesion_D": ms,
+"values_D_shuffled": ms, "cohesion_D_shuffled": ms}}``).
 
 It uses only entry points that every slice of the port has, so it times
 two trees in one call on one card: run it with ``PYTHONPATH`` set to each
-tree's ``src`` in turns (base, new, new, base).  Needs a CUDA GPU.
+tree's ``src`` in turns (base, new, new, base); it prints the package it
+timed.  Needs a CUDA GPU.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -47,10 +66,21 @@ import sys
 import numpy as np
 import torch
 
+# chip_smoke.py puts its own tree's src first on the path when imported:
+# the path is put back, so that the tree on PYTHONPATH is the one timed
+_PATH = list(sys.path)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import clustered_points, distances_on_device  # noqa: E402
+
+sys.path[:] = _PATH
+
 N, K, D, COMM, SEED, REPS = 50_000, 32, 8, 25, 0, 3
 N_BIG = 1_000_000
 N_SMALL, REPS_SMALL = (8192, 10_000), 11
 LARGE_KS = (1025, 2048, 4096)
+N_WIDE, K_WIDE, D_WIDE = 2100, 2048, (8, 16, 17, 32, 64, 100)
+N_DSRC = 8192
 
 
 def mixture(n: int, comm: int, d: int, seed: int) -> torch.Tensor:
@@ -145,14 +175,55 @@ def large_split(ops, X, k: int = 2048) -> dict:
     return out
 
 
+def wide_times(ops) -> dict:
+    """The values past k = 1024: the features source at each of D_WIDE,
+    the D source and cohesion(D, method="knn") at N_DSRC, on the planted
+    clusters in their own order and shuffled."""
+    from repro_torch.core import knn, pald
+    from repro_torch.core.knn import NeighborGraph
+    from repro_torch.kernels import pald_knn
+
+    out = {}
+    for d in D_WIDE:
+        X = mixture(N_WIDE, COMM, d, SEED + 5)
+        g = ops.topk_select(X, K_WIDE)
+        ops.knn_values(X, NeighborGraph(g.indices[:64], g.distances[:64]),
+                       kind="features")
+        out[f"values_d{d}"] = median_ms(
+            lambda: ops.knn_values(X, g, kind="features"), warm=False)
+        print(f"n={N_WIDE} k={K_WIDE} d={d}: values {out[f'values_d{d}']} "
+              "ms", flush=True)
+        del X, g
+    dsrc = pald_knn.knn_values_from_distances_cuda
+    X = clustered_points(N_DSRC, 8, SEED)[0]
+    perm = np.random.default_rng(SEED).permutation(N_DSRC)
+    for tag, Xd in (("", X), ("_shuffled", X[perm])):
+        D = distances_on_device(torch.as_tensor(Xd, device="cuda"))
+        g = knn.knn_from_distances(D, K_WIDE)
+        out[f"values_D{tag}"] = median_ms(
+            lambda: dsrc(D, g.distances, g.indices))
+        out[f"cohesion_D{tag}"] = median_ms(lambda: pald.cohesion(
+            D, method="knn", k=K_WIDE, normalize=False), 1)
+        print(f"n={N_DSRC} k={K_WIDE}{tag}: D source "
+              f"{out[f'values_D{tag}']} ms, cohesion(D, method='knn') "
+              f"{out[f'cohesion_D{tag}']} ms", flush=True)
+        del D, g
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("knn_times: needs a CUDA GPU")
+    import repro_torch
     from repro_torch.kernels import ops
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    print(f"timing {os.path.dirname(os.path.abspath(repro_torch.__file__))}")
+    if "--wide" in sys.argv[1:]:
+        print(json.dumps({"wide": wide_times(ops)}))
+        return 0
     X = mixture(N, COMM, D, SEED)
     if "--large" in sys.argv[1:]:
         out = {"n": N, "d": D, "large": large_times(ops, X)}
